@@ -1,0 +1,71 @@
+"""The port stands alone: no module of ``repro_torch``, and not
+``chip_smoke.py``, imports ``jax`` or anything of ``repro``; and the smoke
+script refuses to run without a CUDA card or without the package.
+"""
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parents[1]
+
+BLOCKER = r'''
+import importlib, importlib.util, pkgutil, sys
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, Blocker())
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in mods:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+assert not bad, bad
+print("imported", len(mods), "modules")
+'''
+
+
+def _env():
+    return dict(os.environ, PYTHONPATH=str(REPO / "src"))
+
+
+def test_port_and_smoke_script_import_without_jax_or_repro():
+    proc = subprocess.run([sys.executable, "-c", BLOCKER], cwd=REPO,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    n = int(proc.stdout.split()[1])
+    assert n >= 25          # every subpackage and module was walked
+
+
+def _run_smoke(cwd: Path):
+    env = _env()
+    env["CUDA_VISIBLE_DEVICES"] = ""        # this child sees no card
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_smoke_script_fails_without_a_card():
+    proc = _run_smoke(REPO)
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+
+
+def test_smoke_script_fails_alone(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run_smoke(tmp_path)
+    assert proc.returncode != 0
+    assert proc.stdout == ""
