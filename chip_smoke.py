@@ -6,24 +6,51 @@
 Run from the root of a checkout, on a host with one CUDA card.  Phases, one
 line each on stdout:
 
-1. build   — compile the port's CUDA kernels (K1 ``cache_lookup_agg``, K2
-             ``gather_agg``) from ``src/repro_torch/csrc``;
-2. parity  — at the bucket-128 and bucket-512 serving shapes of preset
-             ``paper_train``, hold each kernel against its plain PyTorch
-             version on the card: ``torch.equal`` on integer-valued f32,
-             allclose (rtol 1e-5, atol 1e-6) on random f32 and on a bf16
-             table;
-3. serve   — ``GNSEngine`` on preset ``paper_train`` with the fused K1 input
-             layer and the K2 aggregation serves 64 requests of 1-16 node ids
-             through ``GNSServer`` in waves that use all three buckets; every
-             request must come back with finite logits, and both kernels'
-             launch counters, zeroed just before, must be above 0.  Then, for
-             one prepared batch per bucket, the card's logits must match the
-             same engine's plain path on the CPU (allclose rtol 1e-4,
-             atol 1e-4: cuBLAS and the CPU sum the f32 matmul in different
-             orders);
-4. times   — each kernel's median time over cold-L2 launches, its bound, the
-             plain version's time and, for K2, ``embedding_bag``'s.
+1. build     — compile the port's CUDA kernels (K1 ``cache_lookup_agg``, K2
+               ``gather_agg``, K3 ``gns_sample_agg``) from
+               ``src/repro_torch/csrc``;
+2. parity    — at the bucket-128 and bucket-512 serving shapes of preset
+               ``paper_train``, hold K1 and K2 against their plain PyTorch
+               versions on the card: ``torch.equal`` on integer-valued f32,
+               allclose (rtol 1e-5, atol 1e-6) on random f32 and on a bf16
+               table;
+3. serve     — ``GNSEngine`` on preset ``paper_train`` with the fused K1
+               input layer and the K2 aggregation serves 64 requests of 1-16
+               node ids through ``GNSServer`` in waves that use all three
+               buckets; every request must come back with finite logits, and
+               both kernels' launch counters, zeroed just before, must be
+               above 0.  Then, for one prepared batch per bucket, the card's
+               logits must match the same engine's plain path on the CPU
+               (allclose rtol 1e-4, atol 1e-4: cuBLAS and the CPU sum the f32
+               matmul in different orders);
+4. k3-parity — K3 against its plain version at the training shape of
+               ``paper_train`` with ``backend="device"`` (B = 176,000 rows,
+               k = 5, D = 100) and at the bucket-128 serving shape: the drawn
+               lanes (rows and weights) and the output bit for bit
+               (``torch.equal``) on integer-valued f32, random f32 and bf16
+               tables;
+5. train     — (A) ``GNSEngine.fit(epochs=2)`` of ``paper_train`` with
+               ``SamplerConfig(backend="device")``: 6 steps through K3 (the
+               generation swaps once), then ``evaluate``; K3's counter,
+               zeroed just before, must equal steps plus eval batches.  (B)
+               the host backend with ``input_impl="fused"``,
+               ``fit(epochs=1, max_batches=2)`` and one eval batch through
+               K1.  Losses must be finite; each prints its losses, its step
+               time (CUDA events; median of the last 3 steps) and the
+               meter's sample / copy / compute split;
+   Then one more step of (A) under ``torch.profiler``: the device's busy
+   time against the step's wall time, and the largest device and host
+   entries (after the counted run, so it adds no launch to the counts);
+6. train-parity — one step of (A) at batch 250 on the card against the same
+               engine on the CPU from the same parameters and seeds: loss
+               (rtol 1e-4) and updated parameters (rtol 1e-4, atol 1e-5)
+               allclose — cuBLAS and the CPU order the f32 sums of the matmuls
+               differently, and the reference aggregation's backward sums by
+               ``index_add_`` in no fixed order on the card;
+7. times     — each kernel's median time over cold-L2 launches at the
+               serving and training shapes, its bound, the plain version's
+               time and, where one PyTorch call computes the same gather,
+               ``embedding_bag``'s.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit as ``nvidia-smi`` reports them, and as the last line
@@ -49,6 +76,8 @@ F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 BUCKETS = (128, 512)           # timed / parity-checked serving shapes
 REPS = 30                      # timed launches per measurement
 SEED = 0
+PARITY_BATCH = 250             # train-parity batch (the CPU runs it too)
+METER_TIMES = ("t_sample", "t_slice", "t_copy", "t_compute", "t_refresh")
 
 
 def log(phase: str, **fields) -> None:
@@ -132,7 +161,38 @@ def lookup_work(cache, streamed, slots, idx, w) -> tuple[int, int, int]:
 # phases
 # ---------------------------------------------------------------------------
 
-def build_engine():
+def sample_work(adj, table, dst, fb_rows, lane_rows, lane_w
+                ) -> tuple[int, int]:
+    """Bytes and flops K3 needs on these inputs: dst_rows once, the
+    fallback lanes of the uncached rows once, the CSR's four arrays once,
+    each distinct table row that a live lane reads once, the output once;
+    two flops per element of a live lane."""
+    import torch
+    live = (lane_rows >= 0) & (lane_w != 0)
+    rows = torch.unique(lane_rows[live]).numel()
+    bsz, k = fb_rows.shape
+    d = table.shape[1]
+    nnz = int(adj.indptr[-1])
+    n_bytes = (bsz * 4 + int((dst < 0).sum()) * k * 8
+               + (adj.indptr.numel() + nnz) * 4 + adj.deg.numel() * 8
+               + rows * d * table.element_size() + bsz * d * 4)
+    return n_bytes, 2 * int(live.sum()) * d
+
+
+def train_config(path: str, batch_size: int = 1000):
+    """Preset ``paper_train`` at full width for one training path:
+    ``"device"`` (A) or ``"fused"`` (B)."""
+    from repro_torch.gns import EngineConfig, ModelConfig
+    cfg = EngineConfig.preset("paper_train", seed=SEED)
+    backend = "device" if path == "device" else "host"
+    return dataclasses.replace(
+        cfg, sampling=dataclasses.replace(cfg.sampling, backend=backend,
+                                          batch_size=batch_size),
+        model=ModelConfig(hidden_dim=256,
+                          input_impl="fused" if path == "fused" else "where"))
+
+
+def build_engine(ds):
     from repro_torch.gns import EngineConfig, GNSEngine, ModelConfig
     cfg = EngineConfig.preset(
         "paper_train", seed=SEED,
@@ -142,7 +202,7 @@ def build_engine():
     # in one micro-batch; the buckets stay the default (32, 128, 512)
     cfg = dataclasses.replace(
         cfg, serve=dataclasses.replace(cfg.serve, max_wait_ms=20.0))
-    return GNSEngine(cfg)             # on the GPU: no device= given
+    return GNSEngine(cfg, dataset=ds)  # on the GPU: no device= given
 
 
 def serving_shapes(engine, rng):
@@ -296,6 +356,291 @@ def phase_engine_parity(engine, rng) -> None:
             raise AssertionError(f"card vs CPU logits differ at b={b}: {err}")
 
 
+def device_shapes(engine, rng) -> dict:
+    """One device-backend batch at the training shape and one at the
+    bucket-128 serving shape, with K3's operands on the card: (adj, table,
+    dst_rows, fb_rows, fb_w, key).  Sampled with the store's accounting
+    off, so the training meter starts clean."""
+    engine.ensure_cache(np.random.default_rng(SEED))
+    engine.store.record = False
+    try:
+        targets = rng.choice(engine.ds.train_idx, engine.scfg.batch_size,
+                             replace=False)
+        batches = {"train": engine.sampler.sample(targets, rng)}
+        ids = rng.choice(engine.ds.graph.num_nodes, 128, replace=False)
+        batches["b=128"] = engine.infer_prepare(ids, bucket=128, rng=rng)
+    finally:
+        engine.store.record = True
+    out = {}
+    for name, mb in batches.items():
+        db = mb.device.to(engine.device)
+        out[name] = (mb.cache_gen.device_adj, mb.cache_gen.table,
+                     db.input_cache_slots, db.input_fb_rows, db.input_fb_w,
+                     db.sample_key)
+        log("batch", shape=name, B=db.input_fb_rows.shape[0],
+            k=db.input_fb_rows.shape[1],
+            cached_dst=int((db.input_cache_slots >= 0).sum()),
+            fallback_dst=int(((db.input_cache_slots < 0)
+                              & (db.input_mask > 0)).sum()))
+    return out
+
+
+def phase_k3_parity(shapes, rng) -> dict:
+    """K3 vs its plain version: lanes and output bit for bit.  Returns the
+    largest |kernel - plain| on random f32 per shape."""
+    import torch
+    from repro_torch.sampling.kernels import (gns_sample_agg_cuda,
+                                              gns_sample_agg_plain,
+                                              sample_lanes_plain)
+    errs = {}
+    for name, (adj, table, dst, fb_rows, fb_w, key) in shapes.items():
+        dev = table.device
+        want_rows, want_w = sample_lanes_plain(adj, dst, fb_rows, fb_w, key)
+        for kind, dtype in (("int", torch.float32), ("rand", torch.float32),
+                            ("rand", torch.bfloat16)):
+            if kind == "int":
+                a = rng.integers(-128, 129, tuple(table.shape))
+            else:
+                a = rng.normal(size=tuple(table.shape))
+            tbl = torch.from_numpy(a.astype(np.float32)).to(dev, dtype=dtype)
+            lane_rows = torch.empty_like(fb_rows)
+            lane_w = torch.empty_like(fb_w)
+            got = gns_sample_agg_cuda(adj, tbl, dst, fb_rows, fb_w, key,
+                                      lane_rows, lane_w)
+            want = gns_sample_agg_plain(adj, tbl, dst, fb_rows, fb_w, key)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            ok = (torch.equal(got, want) and torch.equal(lane_rows, want_rows)
+                  and torch.equal(lane_w, want_w))
+            log("k3-parity", shape=name, data=kind,
+                table=str(dtype).removeprefix("torch."), B=dst.shape[0],
+                k=fb_rows.shape[1], D=got.shape[1], max_abs_err=err,
+                lanes_equal=torch.equal(lane_rows, want_rows)
+                and torch.equal(lane_w, want_w), ok=ok)
+            if not ok:
+                raise AssertionError(f"K3 {name} {kind} {dtype}: max err "
+                                     f"{err}")
+            if kind == "rand" and dtype == torch.float32:
+                errs[name] = err
+    return errs
+
+
+def phase_train(engine, name: str, epochs: int, max_batches, eval_batches: int,
+                expect: str) -> dict:
+    """Drive ``fit`` then ``evaluate`` with every kernel counter zeroed just
+    before and read just after.  ``expect`` names the kernel whose launches
+    must equal steps + eval batches.  Returns the counts and the numbers
+    printed."""
+    import torch
+    from repro_torch.kernels import cache_lookup, gather_agg
+    from repro_torch.sampling import kernels as k3
+    counters = {"cache_lookup_agg": cache_lookup.launches,
+                "gather_agg": gather_agg.launches,
+                "gns_sample_agg": k3.launches}
+    meter = engine.meter
+    before = {f: getattr(meter, f) for f in METER_TIMES}
+    swaps0 = engine.store.swaps
+    step_ms, losses = [], []
+    run_batch = engine.run_batch
+
+    def timed_step(mb):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, acc = run_batch(mb)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(loss)
+        return loss, acc
+
+    engine.run_batch = timed_step
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    try:
+        rep = engine.fit(epochs=epochs, max_batches=max_batches)
+        acc = engine.evaluate(num_batches=eval_batches)
+    finally:
+        del engine.run_batch
+    wall = time.perf_counter() - t0
+    counts = {k: c.value for k, c in counters.items()}
+    split = {f: getattr(meter, f) - before[f] for f in METER_TIMES}
+    steps = len(step_ms)
+    log("train", path=name, steps=steps, losses=losses,
+        epoch_losses=rep.losses, val_acc=acc,
+        step_ms_median_last3=float(np.median(step_ms[-3:])),
+        step_ms=step_ms, swaps=engine.store.swaps - swaps0,
+        launches=counts, wall_s=round(wall, 3),
+        **{f + "_s": v for f, v in split.items()},
+        input_nodes_per_batch=rep.input_nodes_per_batch,
+        cached_nodes_per_batch=rep.cached_nodes_per_batch)
+    if not steps or not np.isfinite(losses).all() \
+            or not np.isfinite(rep.losses).all():
+        raise AssertionError(f"{name}: non-finite losses {losses}")
+    if not 0.0 <= acc <= 1.0:
+        raise AssertionError(f"{name}: accuracy {acc}")
+    if counts[expect] != steps + eval_batches:
+        raise AssertionError(f"{name}: {expect} launched {counts[expect]} "
+                             f"times for {steps} steps + {eval_batches} "
+                             f"eval batches")
+    return {"counts": counts, "steps": steps, "step_ms": step_ms,
+            "losses": losses, "split": split}
+
+
+def phase_profile(engine, rng) -> None:
+    """One more step of (A), after its counted run, under
+    ``torch.profiler``: the device's busy time (kernels and copies) against
+    the step's time by CUDA events (the profiler's start-up left out, its
+    per-op recording left in), and the largest device and host entries."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    engine.store.record = False
+    try:
+        targets = rng.choice(engine.ds.train_idx, engine.scfg.batch_size,
+                             replace=False)
+        mb = engine.sampler.sample(targets, rng)
+    finally:
+        engine.store.record = True
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()       # inside: the profiler's own start-up is out
+        engine.run_batch(mb)
+        end.record()
+        end.synchronize()
+    wall_ms = start.elapsed_time(end)
+    events = prof.key_averages()
+    on_card = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    top = sorted(on_card, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    host = sorted(events, key=lambda e: e.self_cpu_time_total,
+                  reverse=True)[:8]
+    log("profile", path="device", step_wall_ms=round(wall_ms, 3),
+        device_busy_ms=round(busy_ms, 3),
+        idle_share=round(1.0 - busy_ms / wall_ms, 4),
+        top_device=[(e.key[:60], round(e.self_device_time_total / 1e3, 3),
+                     e.count) for e in top],
+        top_host=[(e.key[:60], round(e.self_cpu_time_total / 1e3, 3),
+                   e.count) for e in host])
+
+
+def phase_train_parity(ds) -> None:
+    """One step of (A) on the card against the same engine on the CPU."""
+    from repro_torch.gns import GNSEngine
+    from repro_torch.models.graphsage import params_from_numpy
+    cfg = train_config("device", batch_size=PARITY_BATCH)
+    card = GNSEngine(cfg, dataset=ds)
+    cpu = GNSEngine(cfg, device="cpu", dataset=ds)
+    cpu.params = params_from_numpy(
+        {"layers": [{k: v.cpu().numpy() for k, v in layer.items()}
+                    for layer in card.params["layers"]]}, device="cpu")
+    rep_card = card.fit(epochs=1, max_batches=1)
+    rep_cpu = cpu.fit(epochs=1, max_batches=1)
+    loss_ok = np.allclose(rep_card.losses, rep_cpu.losses, rtol=1e-4)
+    err, ok = 0.0, loss_ok
+    for lc, lp in zip(card.params["layers"], cpu.params["layers"]):
+        for k in ("w", "b"):
+            a, b = lc[k].cpu().numpy(), lp[k].numpy()
+            err = max(err, float(np.abs(a - b).max()))
+            ok = ok and np.allclose(a, b, rtol=1e-4, atol=1e-5)
+    log("train-parity", batch=PARITY_BATCH, loss_card=rep_card.losses,
+        loss_cpu=rep_cpu.losses, param_max_abs_err=err, ok=ok)
+    if not ok:
+        raise AssertionError(f"card vs CPU train step differ: losses "
+                             f"{rep_card.losses} {rep_cpu.losses}, params "
+                             f"max err {err}")
+
+
+def launch_fields(counts: dict, kernel: str) -> dict:
+    """``launches``: the kernel's launches summed over the main paths that
+    ran it (each path counted from zero just before it), and the count of
+    each path beside it."""
+    by_path = {path: c[kernel] for path, c in counts.items()
+               if c.get(kernel)}
+    return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+
+def phase_train_times(k3_shapes, k3_errs, k1_args, counts) -> list:
+    """K3 at the training and bucket-128 shapes, K1 at the training shape
+    of the host-fused path: times, bounds, plain versions and the
+    ``embedding_bag`` yardstick of the gather."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.cache_lookup import (cache_lookup_agg_cuda,
+                                                  cache_lookup_agg_plain)
+    from repro_torch.sampling.kernels import (gns_sample_agg_cuda,
+                                              gns_sample_agg_plain,
+                                              sample_lanes_plain)
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
+    rows = []
+    for name, args in k3_shapes.items():
+        adj, table, dst, fb_rows, fb_w, key = args
+        lane_rows, lane_w = sample_lanes_plain(adj, dst, fb_rows, fb_w, key)
+        n_bytes, n_flops = sample_work(adj, table, dst, fb_rows, lane_rows,
+                                       lane_w)
+        t_bound, by = bound_ms(n_bytes, n_flops)
+        lib_idx = lane_rows.clamp(min=0).long()
+        lib_w = torch.where(lane_rows >= 0, lane_w, 0.0)
+        rows.append({
+            "name": f"gns_sample_agg[{name}]", "route": "cuda",
+            "source": "src/repro_torch/csrc/gns_sample_agg.cu",
+            "replaces": "src/repro/sampling/kernels.py:138",
+            **launch_fields(counts, "gns_sample_agg"),
+            "max_abs_err": k3_errs[name],
+            "ms": median_ms(lambda: gns_sample_agg_cuda(*args), flush),
+            "plain_ms": median_ms(lambda: gns_sample_agg_plain(*args), flush),
+            "bound_ms": t_bound, "bound_by": by,
+            "library_ms": median_ms(lambda: F.embedding_bag(
+                lib_idx, table, per_sample_weights=lib_w, mode="sum"), flush),
+            "library": "F.embedding_bag over the drawn lanes (gather only)",
+            "bytes": n_bytes, "B": dst.shape[0]})
+    got = cache_lookup_agg_cuda(*k1_args)
+    want = cache_lookup_agg_plain(*k1_args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"K1 at the training shape: max err {err}")
+    n_bytes, lane_bytes, n_flops = lookup_work(*k1_args)
+    t_bound, by = bound_ms(n_bytes, n_flops)
+    rows.append({
+        "name": "cache_lookup_agg[train,layer=0]", "route": "cuda",
+        "source": "src/repro_torch/csrc/cache_lookup.cu",
+        "replaces": "src/repro/kernels/cache_lookup.py:78",
+        **launch_fields(counts, "cache_lookup_agg"),
+        "max_abs_err": err,
+        "ms": median_ms(lambda: cache_lookup_agg_cuda(*k1_args), flush),
+        "plain_ms": median_ms(lambda: cache_lookup_agg_plain(*k1_args),
+                              flush),
+        "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+        "bytes": n_bytes, "lane_bound_ms": lane_bytes / HBM_MS,
+        "B": k1_args[3].shape[0]})
+    for r in rows:
+        log("time", **{k: r[k] for k in ("name", "ms", "bound_ms", "bound_by",
+                                         "plain_ms", "library_ms", "bytes")})
+    return rows
+
+
+def host_train_batch(engine, rng) -> tuple:
+    """K1's operands at the training shape of the host-fused path, on the
+    card (sampled with the store's accounting off)."""
+    engine.store.record = False
+    try:
+        targets = rng.choice(engine.ds.train_idx, engine.scfg.batch_size,
+                             replace=False)
+        mb = engine.sampler.sample(targets, rng)
+    finally:
+        engine.store.record = True
+    db = mb.device.to(engine.device)
+    blk0 = db.blocks[0]
+    return (mb.cache_gen.table, db.input_streamed, db.input_cache_slots,
+            blk0.nbr_idx, blk0.nbr_w)
+
+
 def phase_times(engine, shapes, errs, counts) -> list:
     import torch
     import torch.nn.functional as F
@@ -317,7 +662,7 @@ def phase_times(engine, shapes, errs, counts) -> list:
             "name": f"cache_lookup_agg[b={b},layer=0]", "route": "cuda",
             "source": "src/repro_torch/csrc/cache_lookup.cu",
             "replaces": "src/repro/kernels/cache_lookup.py:78",
-            "launches": counts["cache_lookup_agg"],
+            **launch_fields(counts, "cache_lookup_agg"),
             "max_abs_err": errs[("cache_lookup_agg", b, 0)],
             "ms": median_ms(lambda: cache_lookup_agg_cuda(*args), flush),
             "plain_ms": median_ms(lambda: cache_lookup_agg_plain(*args), flush),
@@ -335,7 +680,7 @@ def phase_times(engine, shapes, errs, counts) -> list:
                 "name": f"gather_agg[b={b},layer={li}]", "route": "cuda",
                 "source": "src/repro_torch/csrc/gather_agg.cu",
                 "replaces": "src/repro/kernels/gather_agg.py:51",
-                "launches": counts["gather_agg"],
+                **launch_fields(counts, "gather_agg"),
                 "max_abs_err": errs[("gather_agg", b, li)],
                 "ms": median_ms(lambda: gather_agg_cuda(feat, idx, w), flush),
                 "plain_ms": median_ms(lambda: gather_agg_plain(feat, idx, w),
@@ -371,18 +716,39 @@ def main() -> int:
     load_kernels()
     log("build", seconds=round(time.perf_counter() - t0, 1))
 
+    from repro_torch.gns import GNSEngine
+    from repro_torch.graph.datasets import get_dataset
+
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
-    engine = build_engine()
+    preset = train_config("device").data
+    ds = get_dataset(preset.name, scale=preset.scale, seed=preset.seed)
+    engine = build_engine(ds)
     engine.ensure_cache(np.random.default_rng(SEED))
     log("engine", nodes=engine.ds.graph.num_nodes,
+        train_nodes=len(engine.ds.train_idx),
         cache_rows=engine.store.generation.table.shape[0],
         seconds=round(time.perf_counter() - t0, 1))
     shapes = serving_shapes(engine, rng)
     errs = phase_parity(engine, shapes, rng)
-    counts = phase_serve(engine, rng)
+    counts = {"serve": phase_serve(engine, rng)}
     phase_engine_parity(engine, rng)
-    rows = phase_times(engine, shapes, errs, counts)
+
+    dev_engine = GNSEngine(train_config("device"), dataset=ds)
+    host_engine = GNSEngine(train_config("fused"), dataset=ds)
+    k3_shapes = device_shapes(dev_engine, rng)
+    k3_errs = phase_k3_parity(k3_shapes, rng)
+    counts["train_device"] = phase_train(
+        dev_engine, "device", epochs=2, max_batches=None, eval_batches=2,
+        expect="gns_sample_agg")["counts"]
+    phase_profile(dev_engine, rng)
+    counts["train_host_fused"] = phase_train(
+        host_engine, "host_fused", epochs=1, max_batches=2, eval_batches=1,
+        expect="cache_lookup_agg")["counts"]
+    phase_train_parity(ds)
+    k1_args = host_train_batch(host_engine, rng)
+    rows = (phase_times(engine, shapes, errs, counts)
+            + phase_train_times(k3_shapes, k3_errs, k1_args, counts))
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -64,25 +64,43 @@ class LayerBlock:
 @dataclasses.dataclass
 class DeviceBatch:
     """The arrays one forward consumes (numpy on the host, tensors after
-    :meth:`to`).  The host GNS sampler leaves the three device-backend
-    fields of ``repro.core.minibatch.DeviceBatch`` out: that backend is not
-    ported yet."""
+    :meth:`to`).
+
+    The last three fields are set only by the device-backend GNS sampler
+    (``repro_torch.sampling.device_sampler``): host-sampled fallback lanes
+    for input rows the cache does not cover, and the batch's key for the
+    layer-0 draw.  Host-backend batches leave them ``None``.  The key stays
+    a host numpy array after :meth:`to`: its two words reach the draw as
+    scalars, so a step never reads it back from the card.
+    """
     blocks: tuple                  # tuple[LayerBlock], input -> output order
     input_cache_slots: np.ndarray  # int32 [S0]  slot in device cache or -1
     input_streamed: np.ndarray     # f32 [S0, F] host-gathered rows (0 for hits)
     input_mask: np.ndarray         # f32 [S0]
     labels: np.ndarray             # int32 [B]
     label_mask: np.ndarray         # f32 [B]
+    input_fb_rows: object = None   # int32 [S0, K0] host-fallback lanes as
+                                   # device-table rows (-1 = dead lane)
+    input_fb_w: object = None      # f32 [S0, K0] fallback lane weights
+    sample_key: object = None      # uint32 [1, 2] per-batch draw key (host)
 
     def to(self, device) -> "DeviceBatch":
         device = torch.device(device)
+
+        def opt(arr):
+            return None if arr is None else _to_device(arr, device)
+
         return DeviceBatch(
             blocks=tuple(b.to(device) for b in self.blocks),
             input_cache_slots=_to_device(self.input_cache_slots, device),
             input_streamed=_to_device(self.input_streamed, device),
             input_mask=_to_device(self.input_mask, device),
             labels=_to_device(self.labels, device),
-            label_mask=_to_device(self.label_mask, device))
+            label_mask=_to_device(self.label_mask, device),
+            input_fb_rows=opt(self.input_fb_rows),
+            input_fb_w=opt(self.input_fb_w),
+            sample_key=(None if self.sample_key is None
+                        else np.array(self.sample_key, dtype=np.uint32)))
 
 
 @dataclasses.dataclass

@@ -13,8 +13,10 @@ Ported so far:
   sampling with importance correction; input layer samples *only* from the
   cache (§4.1 setup).
 
-LADIES, LazyGCN and the device sampling backend are not ported yet;
-:func:`make_sampler` refuses them.
+With ``SamplerConfig(backend="device")``, :func:`make_sampler` builds the
+GNS sampler whose input layer is drawn on the device
+(:class:`repro_torch.sampling.device_sampler.DeviceGNSSampler`).  LADIES
+and LazyGCN are not ported yet; :func:`make_sampler` refuses them.
 
 Weight conventions (all carried in ``nbr_w`` so the forward is identical for
 every sampler):
@@ -47,8 +49,7 @@ class SamplerConfig:
     cache: CacheConfig = dataclasses.field(default_factory=CacheConfig)
     importance_mode: str = "ht"            # "ht" | "paper"  (see importance.py)
     backend: str = "host"                  # "host" | "device" — where the GNS
-                                           # input layer draws (only "host"
-                                           # is ported)
+                                           # input layer draws
     # LADIES (kept so the reference's config JSON loads unchanged)
     layer_size: int = 512                  # nodes sampled per layer
     lane_cap: int = 32                     # max edges kept per dst row (HT-subsampled)
@@ -203,7 +204,9 @@ class GNSSampler:
     def __init__(self, graph: CSRGraph, cfg: SamplerConfig,
                  features: np.ndarray, labels: np.ndarray,
                  train_idx: Optional[np.ndarray] = None,
-                 store: Optional[FeatureStore] = None):
+                 store: Optional[FeatureStore] = None, device=None):
+        """Without ``store`` the sampler builds its own, with its table on
+        ``device`` (``None``: the GPU, raising without one)."""
         self.g, self.cfg = graph, cfg
         self.features, self.labels = features, labels
         self.train_idx = train_idx
@@ -213,7 +216,7 @@ class GNSSampler:
         # rides on each generation (store._solve_lambda); "paper" mode uses
         # the raw eq. (11) approximation.
         self.store = store if store is not None else FeatureStore(
-            features, graph, cfg.cache, train_idx=train_idx,
+            features, graph, cfg.cache, device=device, train_idx=train_idx,
             importance_mode=cfg.importance_mode, build_adjacency=True)
         self.store.build_adjacency = True    # §3.3 induced subgraph per refresh
         self._gen: Optional[Generation] = None
@@ -394,13 +397,18 @@ SAMPLERS = {
 def make_sampler(name: str, graph: CSRGraph, cfg: SamplerConfig,
                  features: np.ndarray, labels: np.ndarray,
                  train_idx: Optional[np.ndarray] = None,
-                 store: Optional[FeatureStore] = None):
-    if getattr(cfg, "backend", "host") != "host":
-        raise NotImplementedError(
-            f"sampler backend {cfg.backend!r} is not ported; use 'host'")
+                 store: Optional[FeatureStore] = None, device=None):
+    """The sampler ``name`` for ``cfg``.  A GNS sampler without ``store``
+    builds its own on ``device`` (``None``: the GPU)."""
     if name == "gns":
+        if getattr(cfg, "backend", "host") == "device":
+            # imported here: the sampling package imports this module
+            from repro_torch.sampling.device_sampler import DeviceGNSSampler
+            return DeviceGNSSampler(graph, cfg, features, labels,
+                                    train_idx=train_idx, store=store,
+                                    device=device)
         return GNSSampler(graph, cfg, features, labels, train_idx=train_idx,
-                          store=store)
+                          store=store, device=device)
     if name not in SAMPLERS:
         raise NotImplementedError(f"sampler {name!r} is not ported")
     return SAMPLERS[name](graph, cfg, features, labels)

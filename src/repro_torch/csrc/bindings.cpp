@@ -37,6 +37,28 @@ void cache_lookup_agg(const torch::Tensor& cache,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void gns_sample_agg(const torch::Tensor& indptr, const torch::Tensor& indices,
+                    const torch::Tensor& deg, const torch::Tensor& hitp,
+                    const torch::Tensor& table, const torch::Tensor& dst_rows,
+                    const torch::Tensor& fb_rows, const torch::Tensor& fb_w,
+                    int64_t key_lo, int64_t key_hi, torch::Tensor out,
+                    torch::Tensor lane_rows, torch::Tensor lane_w,
+                    bool write_lanes) {
+  const c10::cuda::CUDAGuard guard(table.device());
+  repro_torch::launch_gns_sample_agg(
+      indptr.data_ptr<int32_t>(), indices.data_ptr<int32_t>(),
+      indices.size(0), deg.data_ptr<float>(), hitp.data_ptr<float>(),
+      table.data_ptr(), table.scalar_type() == at::kBFloat16,
+      dst_rows.data_ptr<int32_t>(), fb_rows.data_ptr<int32_t>(),
+      fb_w.data_ptr<float>(), static_cast<uint32_t>(key_lo),
+      static_cast<uint32_t>(key_hi), out.data_ptr<float>(),
+      write_lanes ? lane_rows.data_ptr<int32_t>() : nullptr,
+      write_lanes ? lane_w.data_ptr<float>() : nullptr, dst_rows.size(0),
+      static_cast<int>(fb_rows.size(1)), static_cast<int>(table.size(1)),
+      at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -44,4 +66,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K2: out[b] = sum_k w[b,k] * feat[idx[b,k]] (writes out)");
   m.def("cache_lookup_agg", &cache_lookup_agg,
         "K1: fused cache lookup + layer-0 gather-aggregate (writes out)");
+  m.def("gns_sample_agg", &gns_sample_agg,
+        "K3: device GNS draw + importance weight + gather-aggregate "
+        "(writes out, and lane_rows/lane_w when write_lanes)");
 }

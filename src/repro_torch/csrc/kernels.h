@@ -23,4 +23,18 @@ void launch_cache_lookup_agg(const void* cache, int cache_bf16,
                              const int32_t* idx, const float* w, float* out,
                              int64_t B, int K, int D, cudaStream_t stream);
 
+// The device GNS input layer                           (K3, gns_sample_agg.cu)
+// per row b: draw K lanes from the CSR (indptr, indices[cap], deg, hitp)
+// when dst_rows[b] >= 0, else take the fallback lanes fb_rows/fb_w; then
+// out[b, :] = sum_l w_l * table[max(row_l, 0), :].  table [C, D] float32
+// (table_bf16 == 0) or bfloat16.  lane_rows/lane_w [B, K] receive the
+// merged lanes when not null.
+void launch_gns_sample_agg(const int32_t* indptr, const int32_t* indices,
+                           int64_t cap, const float* deg, const float* hitp,
+                           const void* table, int table_bf16,
+                           const int32_t* dst_rows, const int32_t* fb_rows,
+                           const float* fb_w, uint32_t key_lo, uint32_t key_hi,
+                           float* out, int32_t* lane_rows, float* lane_w,
+                           int64_t B, int K, int D, cudaStream_t stream);
+
 }  // namespace repro_torch

@@ -30,7 +30,9 @@ and the table they index can never come from different generations.
 One device: the table is never sharded across cards here.  A
 ``CacheConfig.shards`` above 1 still pads the table and the locality
 placement still permutes rows, exactly as the reference lays them out.
-Streaming ingest and the device sampling backend's adjacency are not ported
+With ``build_device_adj`` each generation also carries its cached-neighbor
+CSR over device-table rows (``Generation.device_adj``), uploaded with the
+table, for the device sampling backend.  Streaming ingest is not ported
 yet.
 """
 from __future__ import annotations
@@ -45,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis import guarded_by
+from repro_torch.device import resolve_device
 from repro_torch.featurestore.meter import TrafficMeter
 from repro_torch.featurestore.placement import (PlacementMap, RoutingTable,
                                                 home_shard,
@@ -218,6 +221,9 @@ class Generation:
     staged_idx: int             # which double-buffer half `staged` is
     lam: Optional[float] = None  # calibrated inclusion λ (importance.py)
     cache_adj: object = None    # induced cached-neighbor CSR (GNS §3.3)
+    device_adj: object = None   # repro_torch.sampling.DeviceCacheAdj — the
+                                # same CSR over device-table rows, on the
+                                # device, published with the table
     graph: object = None        # the CSRGraph this generation was built
                                 # against (samplers adopt structure WITH
                                 # the generation)
@@ -234,7 +240,9 @@ class Generation:
         scale.  The sampler adopts each new generation long before its
         predecessor's staging half is recycled, so nothing reads these
         fields from a retired generation (gather_rows falls back to the
-        host tier)."""
+        host tier).  ``device_adj`` is KEPT: like the table it lives on the
+        device (no O(V) host memory), and a queued batch of this generation
+        still draws from it."""
         self.retired = True
         self.cache_adj = None
         self.graph = None     # samplers adopted long ago; don't pin O(E)
@@ -258,7 +266,7 @@ class FeatureStore:
     """
 
     def __init__(self, features: np.ndarray, graph, cfg: CacheConfig, *,
-                 device="cpu",
+                 device=None,
                  policy: Optional[CachePolicy] = None,
                  train_idx: Optional[np.ndarray] = None,
                  dtype: torch.dtype = torch.float32,
@@ -267,11 +275,12 @@ class FeatureStore:
                  build_adjacency: bool = False,
                  dp_group: int = 0,
                  seed: int = 0):
-        """``device`` is where each generation's table lives; ``dtype``
-        is its element type (float32, or bfloat16 to halve its bytes)."""
+        """``device`` is where each generation's table lives (``None``: the
+        GPU, raising without one); ``dtype`` is its element type (float32,
+        or bfloat16 to halve its bytes)."""
         self.features = features
         self.graph = graph
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         n_shards = max(cfg.shards, 1)
         if n_shards != cfg.shards:
             cfg = dataclasses.replace(cfg, shards=n_shards)
@@ -289,6 +298,8 @@ class FeatureStore:
         self.dtype = dtype
         self.importance_mode = importance_mode
         self.build_adjacency = build_adjacency
+        self.build_device_adj = False   # also build the device-row CSR of
+                                        # each generation (device sampler)
         self.size = cfg.size(graph.num_nodes)
         self.feat_dim = features.shape[1]
         self._row_bytes = self.feat_dim * 4
@@ -578,9 +589,17 @@ class FeatureStore:
         lam = self._solve_lambda(probs)
         adj = (g.induced_cache_adjacency(state.in_cache)
                if self.build_adjacency else None)
+        dev_adj = None
+        if self.build_device_adj and adj is not None:
+            # imported here: sampling.adjacency imports core, whose sampler
+            # imports this module
+            from repro_torch.sampling.adjacency import build_device_cache_adj
+            dev_adj = build_device_cache_adj(state, adj, g.degrees, lam=lam,
+                                             meter=self.meter,
+                                             device=self.device)
         gen = Generation(state=state, table=tbl, staged=buf,
                          staged_idx=staged_idx, lam=lam, cache_adj=adj,
-                         graph=g)
+                         device_adj=dev_adj, graph=g)
         self._staging_owner[staged_idx] = gen
         self.meter.bytes_cache_fill += n * self._row_bytes
         self.meter.t_refresh += time.perf_counter() - t0

@@ -1,9 +1,10 @@
-"""GNS engine: one declarative config, the serving surface.
+"""GNS engine: one declarative config, training and serving.
 
 * :class:`EngineConfig` (+ sub-configs and the ``preset`` registry) — the
   reference's declarative description of a run; its JSON loads unchanged.
-* :class:`GNSEngine` — FeatureStore → sampler → GraphSAGE forward, with
-  ``infer`` / ``infer_prepare`` / ``infer_compute`` / ``serve``.
+* :class:`GNSEngine` — FeatureStore → sampler → GraphSAGE, with ``fit`` /
+  ``evaluate`` / ``infer`` / ``infer_prepare`` / ``infer_compute`` /
+  ``serve``.
 """
 from repro_torch.gns.config import (PRESETS, DataConfig, EngineConfig,
                                     FabricConfig, MeshConfig, ModelConfig,

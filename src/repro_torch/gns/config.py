@@ -7,7 +7,7 @@ cache/placement, mesh, model, optimizer and serving sub-configs — that
 the reference's, so the JSON that ``repro.gns.config.EngineConfig.to_dict``
 writes loads here unchanged through :meth:`EngineConfig.from_dict`, and the
 JSON written here loads there.  Sub-configs of surfaces not ported yet
-(mesh, fabric, streaming, the optimizer) are carried as data.
+(mesh, fabric, streaming) are carried as data.
 
 In ``ModelConfig``, ``aggregate_impl="pallas"`` and ``input_impl="fused"``
 select the port's CUDA kernels (K2 ``gather_agg`` and K1
@@ -58,8 +58,9 @@ class ModelConfig:
                                         # on a CUDA device and its plain
                                         # version on the CPU, whatever this
                                         # names
-    sample_kernel: str = "auto"         # device-sampling gather backend
-                                        # (that backend is not ported)
+    sample_kernel: str = "auto"         # carried as data: the device
+                                        # backend runs K3 on a CUDA device
+                                        # and its plain version on the CPU
 
 
 @dataclasses.dataclass(frozen=True)

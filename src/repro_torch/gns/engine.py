@@ -1,12 +1,16 @@
-"""GNSEngine — the serving half of ``repro.gns.engine.GNSEngine``.
+"""GNSEngine (port of ``repro.gns.engine.GNSEngine``, one device).
 
 One object owns the wiring
 
-    FeatureStore  →  sampler  →  GraphSAGE forward (CUDA kernels)
+    FeatureStore  →  sampler  →  EpochLoader / Prefetcher  →  step
 
 built from one declarative :class:`~repro_torch.gns.config.EngineConfig`
-(the reference's JSON loads unchanged), and exposes the serving verbs:
+(the reference's JSON loads unchanged), and exposes the verbs:
 
+* :meth:`fit`           — the paper's §2.2 training loop (sample → slice →
+  copy → compute) with the Fig. 1/2 time and traffic breakdown on the
+  meter;
+* :meth:`evaluate`      — micro-F1 over held-out targets (meter suspended);
 * :meth:`infer`         — mini-batch inference reusing the LIVE cache
   generation: logits for arbitrary node ids, no refresh beyond the cold
   start, no accounting;
@@ -15,12 +19,17 @@ built from one declarative :class:`~repro_torch.gns.config.EngineConfig`
 * :meth:`serve`         — a :class:`~repro_torch.serve.GNSServer` over
   this engine.
 
-The reference's jit'd logits step is an eager forward under
-``torch.inference_mode()``.  The engine runs on ``cuda`` unless the caller
-passes ``device="cpu"``; without a GPU and without ``device=`` it raises
-rather than run on the CPU.  ``fit``/``evaluate`` (training, with the
-kernels' backward passes), ``describe``, meshes and streaming ingest are
-not ported yet.
+The reference's jit'd train step is eager here: forward, ``loss.backward``
+through ``torch.autograd.grad`` (:func:`graphsage.value_and_grad`) and the
+repo's own AdamW, with TF32 off on the card.  Its logits and eval steps
+are forwards under ``torch.inference_mode()``.  With
+``SamplerConfig(backend="device")`` layer 0 is drawn on the device (kernel
+K3); with ``ModelConfig(input_impl="fused")`` on the host backend it runs
+through kernel K1.
+
+The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
+without a GPU and without ``device=`` it raises rather than run on the
+CPU.  ``describe``, meshes (DP > 1) and streaming ingest are not ported.
 """
 from __future__ import annotations
 
@@ -32,46 +41,60 @@ import numpy as np
 import torch
 
 from repro_torch.core.minibatch import MiniBatch
+from repro_torch.core.pipeline import EpochLoader, Prefetcher
 from repro_torch.core.sampler import GNSSampler, make_sampler
+from repro_torch.device import resolve_device
 from repro_torch.featurestore import FeatureStore, TrafficMeter
 from repro_torch.gns.config import EngineConfig
 from repro_torch.graph.datasets import get_dataset
 from repro_torch.models import graphsage
+from repro_torch.optim.adam import AdamW
 
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the GPU; a CUDA device without a GPU raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch path on the CPU")
-    return dev
+@dataclasses.dataclass
+class TrainReport:
+    epoch_times: list
+    losses: list
+    val_acc: list
+    meter: TrafficMeter
+    input_nodes_per_batch: float = 0.0
+    cached_nodes_per_batch: float = 0.0
+    isolated_per_batch: float = 0.0
 
 
 class GNSEngine:
-    """The wired serving pipeline for one :class:`EngineConfig`."""
+    """The wired pipeline for one :class:`EngineConfig`."""
 
-    def __init__(self, cfg: EngineConfig, *, device=None):
-        """``device`` defaults to ``cuda``."""
+    def __init__(self, cfg: EngineConfig, *, device=None, dataset=None):
+        """``device`` defaults to ``cuda``; ``dataset`` overrides the
+        declarative ``cfg.data`` with a built dataset (as the reference's
+        ``dataset=`` does)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         if cfg.mesh is not None and cfg.mesh.data * cfg.mesh.model > 1:
             raise NotImplementedError(
                 f"mesh {cfg.mesh} needs the multi-device port; this engine "
                 "runs on one device")
-        self.ds = get_dataset(cfg.data.name, scale=cfg.data.scale,
-                              seed=cfg.data.seed)
+        if dataset is None:
+            dataset = get_dataset(cfg.data.name, scale=cfg.data.scale,
+                                  seed=cfg.data.seed)
+        self.ds = dataset
+        self.seed = cfg.seed
         self.scfg = cfg.sampler_config()
+        if self.scfg.backend == "device" and cfg.sampler != "gns":
+            raise ValueError("backend='device' is the GNS device sampler; "
+                             f"sampler={cfg.sampler!r} has none")
         m = cfg.model
         self.mcfg = graphsage.SageConfig(
             feat_dim=self.ds.feat_dim, hidden_dim=m.hidden_dim,
             num_classes=self.ds.num_classes,
             num_layers=len(self.scfg.fanouts),
-            aggregate_impl=m.aggregate_impl, input_impl=m.input_impl)
+            aggregate_impl=m.aggregate_impl, input_impl=m.input_impl,
+            sample_kernel=m.sample_kernel)
         self.meter = TrafficMeter()
-        # one-shot inference books its copy time here, never on the
-        # training meter
+        # eval and one-shot inference book their copy time on side meters,
+        # never on the training breakdown
+        self.meter_eval = TrafficMeter()
         self.meter_infer = TrafficMeter()
         if cfg.sampler == "gns":
             # the facade owns all three feature tiers + the refresh lifecycle
@@ -88,6 +111,8 @@ class GNSEngine:
                                     store=self.store)
         gen = torch.Generator().manual_seed(cfg.seed)
         self.params = graphsage.init_params(self.mcfg, gen, self.device)
+        self.opt = AdamW(cfg.optim)
+        self.opt_state = self.opt.init(self.params)
         self._dummy_cache = graphsage.dummy_cache_table(self.ds.feat_dim,
                                                         self.device)
         # serving-shaped inference: one sampler per padded batch size
@@ -102,6 +127,14 @@ class GNSEngine:
         return mb.cache_gen.table if mb.cache_gen is not None \
             else self._dummy_cache
 
+    @staticmethod
+    def _device_adj(mb: MiniBatch):
+        """The batch's pinned generation's device CSR (None on the host
+        backend), resolved like :meth:`_cache_table`, so a batch draws from
+        the generation it gathers from."""
+        gen = mb.cache_gen
+        return gen.device_adj if gen is not None else None
+
     def _put_batch(self, mb: MiniBatch, meter: TrafficMeter):
         """Host -> device copy of the batch, its wall time booked on
         ``meter`` (the copies are queued, not waited for, on a GPU)."""
@@ -109,6 +142,121 @@ class GNSEngine:
         out = mb.device.to(self.device)
         meter.t_copy += time.perf_counter() - t0
         return out
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def run_batch(self, mb: MiniBatch) -> tuple[float, float]:
+        """One optimizer step: forward, backward, AdamW.  Returns (loss,
+        accuracy).  ``t_compute`` includes the sync that reading the loss
+        forces, so it is the device time of the step plus its launches."""
+        m = self.meter
+        dev_batch = self._put_batch(mb, m)
+        m.add_batch(mb.bytes_streamed)
+        t0 = time.perf_counter()
+        loss, acc, grads = graphsage.value_and_grad(
+            self.params, dev_batch, self._cache_table(mb), self.mcfg,
+            device_adj=self._device_adj(mb))
+        self.params, self.opt_state = self.opt.update(grads, self.opt_state,
+                                                      self.params)
+        loss = loss.item()
+        m.t_compute += time.perf_counter() - t0
+        return loss, acc.item()
+
+    def fit(self, epochs: int, max_batches: Optional[int] = None,
+            prefetch: Optional[bool] = None,
+            eval_every: Optional[int] = None,
+            eval_batches: int = 8) -> TrainReport:
+        """The §2.2 training loop; ``max_batches`` bounds steps per
+        epoch."""
+        if prefetch is None:
+            prefetch = self.cfg.prefetch
+        loader = EpochLoader(self.sampler, self.ds.train_idx, seed=self.seed,
+                             max_batches=max_batches)
+        report = TrainReport([], [], [], self.meter)
+        n_inputs, n_cached, n_iso, n_b = 0, 0, 0, 0
+        for ep in range(epochs):
+            t_ep = time.perf_counter()
+            # epoch start (the cache refresh happens in start_epoch)
+            it = loader.epoch(ep)
+            if prefetch:
+                it = Prefetcher(it, depth=2, meter=self.meter)
+            else:
+                it = self._timed(it)
+            ep_losses = []
+            for mb in it:
+                loss, _ = self.run_batch(mb)
+                ep_losses.append(loss)
+                n_inputs += mb.num_input
+                n_cached += mb.num_cached
+                n_iso += mb.num_isolated
+                n_b += 1
+            report.epoch_times.append(time.perf_counter() - t_ep)
+            report.losses.append(float(np.mean(ep_losses)) if ep_losses
+                                 else float("nan"))
+            if eval_every and (ep + 1) % eval_every == 0:
+                report.val_acc.append(
+                    self.evaluate(self.ds.val_idx, eval_batches))
+        if n_b:
+            report.input_nodes_per_batch = n_inputs / n_b
+            report.cached_nodes_per_batch = n_cached / n_b
+            report.isolated_per_batch = n_iso / n_b
+        return report
+
+    def _timed(self, it):
+        """Wrap a batch iterator, attributing wall time to meter.t_sample.
+
+        The store books the host gather inside ``sample`` to meter.t_slice
+        and (sync-mode) cache builds inside ``start_epoch`` to
+        meter.t_refresh; both deltas are subtracted so each second lands in
+        exactly one bucket (clamped at zero: an async build finishing in a
+        short window could otherwise over-subtract).
+        """
+        it = iter(it)
+        while True:
+            t0 = time.perf_counter()
+            slice0 = self.meter.t_slice
+            refresh0 = self.meter.t_refresh
+            try:
+                mb = next(it)
+            except StopIteration:
+                return
+            elapsed = time.perf_counter() - t0
+            self.meter.t_sample += max(
+                elapsed - (self.meter.t_slice - slice0)
+                - (self.meter.t_refresh - refresh0), 0.0)
+            yield mb
+
+    def evaluate(self, idx: Optional[np.ndarray] = None,
+                 num_batches: int = 8) -> float:
+        """Micro-F1 (= accuracy for single-label tasks, as in the paper)."""
+        if idx is None:
+            idx = self.ds.val_idx
+        b = self.scfg.batch_size
+        idx = np.asarray(idx)
+        if len(idx) < b:  # pad by wrapping; the mask handles the weight
+            idx = np.concatenate([idx, idx[: b - len(idx)]])
+        rng = np.random.default_rng(1234)
+        self.ensure_cache(rng)
+        if self.store is not None:
+            self.store.record = False   # eval must not skew training metrics
+                                        # or the adaptive policy's miss EMA
+        correct, total = 0.0, 0.0
+        try:
+            for i in range(num_batches):
+                lo = (i * b) % (len(idx) - b + 1)
+                mb = self.sampler.sample(idx[lo:lo + b], rng)
+                dev_batch = self._put_batch(mb, self.meter_eval)
+                with torch.inference_mode():
+                    _, acc = graphsage.loss_fn(
+                        self.params, dev_batch, self._cache_table(mb),
+                        self.mcfg, device_adj=self._device_adj(mb))
+                correct += acc.item()
+                total += 1.0
+        finally:
+            if self.store is not None:
+                self.store.record = True
+        return correct / max(total, 1.0)
 
     # ------------------------------------------------------------------
     # serving-shaped inference (the repro_torch.serve engine surface)
@@ -172,7 +320,8 @@ class GNSEngine:
             mb, meter if meter is not None else self.meter_infer)
         with torch.inference_mode():
             logits = graphsage.forward(self.params, dev_batch,
-                                       self._cache_table(mb), self.mcfg)
+                                       self._cache_table(mb), self.mcfg,
+                                       device_adj=self._device_adj(mb))
         return logits.cpu().numpy()
 
     def serve(self, serve_cfg=None):

@@ -5,6 +5,9 @@
 * K2 ``gather_agg`` — weighted gather-aggregate of the upper layers
   (replaces ``repro/kernels/gather_agg.py::gather_agg_pallas``).
 
+K3, the device backend's draw-and-gather, lives with the sampler it
+serves, in :mod:`repro_torch.sampling.kernels`; ``_ext`` builds all three.
+
 ``ops`` dispatches by device; ``ref`` collects the plain versions.
 Importing this package builds nothing: the CUDA sources compile at the
 first launch.

@@ -1,8 +1,9 @@
 """Build, load and count the port's CUDA kernels.
 
-The kernels live in ``repro_torch/csrc``: ``gather_agg.cu`` (K2) and
-``cache_lookup.cu`` (K1) include only CUDA headers, and ``bindings.cpp`` is
-the one small file that includes ``torch/extension.h``.  All three go to
+The kernels live in ``repro_torch/csrc``: ``gather_agg.cu`` (K2),
+``cache_lookup.cu`` (K1) and ``gns_sample_agg.cu`` (K3) include only CUDA
+headers, and ``bindings.cpp`` is the one small file that includes
+``torch/extension.h``.  All four go to
 ``torch.utils.cpp_extension.load`` in one call, for ``sm_90a`` (Hopper),
 into ``build/repro_torch_kernels`` at the root of the checkout.  The build
 happens at the first launch, never at import: a host without ``nvcc`` can
@@ -15,7 +16,8 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("bindings.cpp", "gather_agg.cu", "cache_lookup.cu")
+SOURCES = ("bindings.cpp", "gather_agg.cu", "cache_lookup.cu",
+           "gns_sample_agg.cu")
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 
 _ext = None

@@ -1,5 +1,5 @@
 """GraphSAGE (mean aggregator) on static padded minibatch blocks
-(port of ``repro.models.graphsage``, forward only).
+(port of ``repro.models.graphsage``).
 
 Layer ℓ (paper eq. 1/3 with mean aggregator + concat update):
 
@@ -15,6 +15,18 @@ selects.  ``input_impl="fused"`` runs layer 0 through the K1 kernel
 never materialised; ``"where"`` assembles h0 first:
 
     h0 = where(slot >= 0, cache_table[slot], streamed)
+
+A device-backend batch (``sample_key`` set) with its generation's
+``device_adj`` runs layer 0 through ``sampling.kernels.gns_sample_agg``
+(K3 on the card): draw, weight and gather on the device.  That aggregate
+does not depend on the parameters; its operands are passed detached, the
+counterpart of the reference's ``stop_gradient``.
+
+:func:`loss_fn` is the reference's masked log-softmax NLL plus accuracy;
+:func:`value_and_grad` differentiates it with respect to the parameters
+(``torch.autograd.grad``), the counterpart of ``jax.value_and_grad``.
+K2 has no backward (as in the reference), so training uses
+``aggregate_impl="reference"``.
 
 The concat-matmul is ``torch.matmul``.  On a CUDA device :func:`forward`
 turns TF32 off for matmuls and cuDNN (``torch.backends.cuda.matmul
@@ -35,7 +47,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.minibatch import DeviceBatch
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.sampling.kernels import gns_sample_agg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +60,10 @@ class SageConfig:
     num_layers: int = 3
     aggregate_impl: str = "reference"  # "reference" | "pallas" (K2 kernel)
     input_impl: str = "where"          # "where" | "fused" (K1 kernel)
+    sample_kernel: str = "reference"   # carried as data: the device input
+                                       # layer runs K3 on a CUDA device and
+                                       # its plain version on the CPU,
+                                       # whatever this names
 
 
 def full_fp32_matmul() -> None:
@@ -68,10 +86,12 @@ def _get_aggregate(impl: str) -> Callable:
 
 
 def init_params(cfg: SageConfig, generator: Optional[torch.Generator] = None,
-                device="cpu") -> dict:
+                device=None) -> dict:
     """He-scaled normal weights and zero biases, drawn on the CPU from
-    ``generator`` (the numbers differ from the reference's jax.random draw;
-    carry the reference's parameters over with :func:`params_from_numpy`)."""
+    ``generator`` and moved to ``device`` (``None``: the GPU).  The numbers
+    differ from the reference's jax.random draw; carry the reference's
+    parameters over with :func:`params_from_numpy`."""
+    device = resolve_device(device)
     params = {"layers": []}
     in_dim = cfg.feat_dim
     for i in range(cfg.num_layers):
@@ -85,9 +105,12 @@ def init_params(cfg: SageConfig, generator: Optional[torch.Generator] = None,
     return params
 
 
-def params_from_numpy(tree: dict, device="cpu") -> dict:
+def params_from_numpy(tree: dict, device=None) -> dict:
     """The reference's ``{"layers": [{"w", "b"}]}`` (numpy arrays, e.g.
-    ``jax.device_get`` of its params) -> the port's float32 tensors."""
+    ``jax.device_get`` of its params) -> the port's float32 tensors on
+    ``device`` (``None``: the GPU)."""
+    device = resolve_device(device)
+
     def tensor(a):        # np.array copies, so the result owns its memory
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
@@ -114,16 +137,28 @@ def assemble_input(batch: DeviceBatch, cache_table: torch.Tensor,
 
 
 def forward(params: dict, batch: DeviceBatch, cache_table: torch.Tensor,
-            cfg: SageConfig) -> torch.Tensor:
-    """Returns logits [B_padded, num_classes] on the batch's device."""
+            cfg: SageConfig, device_adj=None) -> torch.Tensor:
+    """Returns logits [B_padded, num_classes] on the batch's device.
+
+    ``device_adj`` (the batch's generation's ``DeviceCacheAdj``, paired with
+    a device-backend batch that carries ``sample_key``) switches layer 0 to
+    the device draw.
+    """
     if cache_table.is_cuda:
         full_fp32_matmul()
     agg = _get_aggregate(cfg.aggregate_impl)
-    fused = cfg.input_impl == "fused"
-    h = None if fused else assemble_input(batch, cache_table)
+    drawn = device_adj is not None and batch.sample_key is not None
+    fused = cfg.input_impl == "fused" and not drawn
+    h = None if (fused or drawn) else assemble_input(batch, cache_table)
     n_layers = len(batch.blocks)
     for i, (blk, layer) in enumerate(zip(batch.blocks, params["layers"])):
-        if i == 0 and fused:
+        if i == 0 and drawn:
+            a = gns_sample_agg(
+                device_adj, cache_table.detach(),
+                batch.input_cache_slots, batch.input_fb_rows,
+                batch.input_fb_w.detach(), batch.sample_key)
+            h_dst = assemble_input(batch, cache_table, prefix=blk.num_dst)
+        elif i == 0 and fused:
             a = ops.cache_lookup_agg(cache_table, batch.input_streamed,
                                      batch.input_cache_slots, blk.nbr_idx,
                                      blk.nbr_w)
@@ -137,6 +172,43 @@ def forward(params: dict, batch: DeviceBatch, cache_table: torch.Tensor,
     return h
 
 
-def dummy_cache_table(feat_dim: int, device="cpu") -> torch.Tensor:
-    """1-row zero cache for samplers without a device cache (NS)."""
-    return torch.zeros((1, feat_dim), dtype=torch.float32, device=device)
+def loss_fn(params: dict, batch: DeviceBatch, cache_table: torch.Tensor,
+            cfg: SageConfig, device_adj=None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Masked mean log-softmax NLL over ``label_mask``, and accuracy.
+    Two f32 scalars on the batch's device."""
+    logits = forward(params, batch, cache_table, cfg, device_adj=device_adj)
+    logp = torch.log_softmax(logits, dim=-1)
+    labels = batch.labels.long()
+    nll = -logp.gather(1, labels[:, None])[:, 0]
+    denom = batch.label_mask.sum().clamp(min=1.0)
+    loss = (nll * batch.label_mask).sum() / denom
+    acc = ((logits.argmax(-1) == labels) * batch.label_mask).sum() / denom
+    return loss, acc
+
+
+def value_and_grad(params: dict, batch: DeviceBatch,
+                   cache_table: torch.Tensor, cfg: SageConfig,
+                   device_adj=None) -> tuple:
+    """``(loss, acc, grads)``: :func:`loss_fn` and its gradient with respect
+    to every parameter, ``grads`` in the params' layout.  The parameters
+    themselves are left as they are (the graph runs over detached leaves
+    that share their storage)."""
+    leaves = {(i, name): t.detach().requires_grad_(True)
+              for i, layer in enumerate(params["layers"])
+              for name, t in layer.items()}
+    tree = {"layers": [{name: leaves[(i, name)] for name in layer}
+                       for i, layer in enumerate(params["layers"])]}
+    loss, acc = loss_fn(tree, batch, cache_table, cfg, device_adj=device_adj)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    by_key = dict(zip(leaves, grads))
+    gtree = {"layers": [{name: by_key[(i, name)] for name in layer}
+                        for i, layer in enumerate(params["layers"])]}
+    return loss.detach(), acc.detach(), gtree
+
+
+def dummy_cache_table(feat_dim: int, device=None) -> torch.Tensor:
+    """1-row zero cache for samplers without a device cache (NS), on
+    ``device`` (``None``: the GPU)."""
+    return torch.zeros((1, feat_dim), dtype=torch.float32,
+                       device=resolve_device(device))

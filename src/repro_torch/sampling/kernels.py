@@ -1,0 +1,194 @@
+"""Device-resident GNS layer 0: draw → fallback merge → gather (port of
+``repro.sampling.kernels``).
+
+* :func:`draw_lanes_plain` — the candidate draw and its importance weights,
+  op for op as the reference's ``draw_lanes``: per destination row, if the
+  row has ``n_c <= k`` cached neighbors it takes all of them (lanes past
+  ``n_c`` are dead), otherwise it makes ``k`` uniform draws with
+  replacement (``bits % n_c``, counter RNG ``rng.mix32``).  Both regimes
+  weight a lane ``w = 1/(max(p^C_u · min(k, n_c)/n_c, 1e-6) · max(deg, 1))``
+  in f32, the host sampler's eq. (10)-(12) formula.
+* :func:`sample_lanes_plain` — the draw merged with the host's fallback
+  lanes: destination rows the cache does not cover (``dst_rows < 0``) take
+  ``fb_rows``/``fb_w`` as they are.
+* :func:`gns_sample_agg_plain` — the merged lanes through
+  :func:`~repro_torch.sampling.ref.slot_gather_agg_plain`.  The CPU path
+  and the tests use it; the card's parity check holds K3 to it.
+* :func:`gns_sample_agg_cuda` — the wrapper of kernel K3
+  (``csrc/gns_sample_agg.cu``): draw, merge and gather in one launch,
+  counted in :data:`launches`.
+* :func:`gns_sample_agg` — the entry the model's layer 0 calls; it
+  dispatches by device alone (the plain version on the CPU, K3 on the
+  card, never a fallback from one to the other).
+
+The op is forward only, as the reference's is: the layer-0 aggregate does
+not depend on the parameters, and the reference wraps every operand in
+``stop_gradient``.  Here the model passes detached tensors, and the op
+raises if an operand requires grad.
+
+Keys: the batch carries its key as a host numpy ``uint32 [1, 2]`` array
+(``DeviceBatch.sample_key``); the two words reach the kernel as scalars,
+so the step never reads the key back from the card.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels._ext import LaunchCounter, load_kernels
+from repro_torch.kernels.gather_agg import TABLE_DTYPES, check_rows
+from repro_torch.sampling.adjacency import DeviceCacheAdj
+from repro_torch.sampling.ref import slot_gather_agg_plain
+from repro_torch.sampling.rng import mix32
+
+launches = LaunchCounter()
+
+MAX_LANES = 32          # K3 draws one lane per thread of a warp
+
+
+def key_words(key) -> tuple[int, int]:
+    """(key_lo, key_hi) of a one-group key: a host ``uint32 [1, 2]`` array
+    or a pair of ints.  A tensor on the card is refused, not read back."""
+    k = np.asarray(key, dtype=np.uint32).reshape(-1, 2)
+    if k.shape[0] != 1:
+        raise ValueError(f"one key per batch expected, got {k.shape[0]} "
+                         "(DP groups > 1 are not ported)")
+    return int(k[0, 0]), int(k[0, 1])
+
+
+def draw_lanes_plain(adj: DeviceCacheAdj, dst_rows: torch.Tensor, key,
+                     k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-destination cached-neighbor draw with importance weights.
+
+    ``dst_rows`` int [B]: the device-table row of each destination (-1 =
+    not cached or padding: those rows draw nothing).  Returns
+    ``(rows, w)`` of shape [B, k]: int32 table rows (-1 = dead lane) and
+    f32 weights (0 on dead lanes).
+    """
+    dev = dst_rows.device
+    key_lo, key_hi = key_words(key)
+    bsz = dst_rows.shape[0]
+    dst = dst_rows.long()
+    rowc = dst.clamp(min=0)
+    indptr = adj.indptr.long()
+    start = indptr[rowc]
+    n_c = indptr[rowc + 1] - start                              # [B]
+
+    local = torch.arange(bsz, dtype=torch.int64, device=dev)
+    lane = torch.arange(k, dtype=torch.int64, device=dev)
+    bits = mix32(key_lo, key_hi, local[:, None], lane[None, :])  # [B, k]
+
+    take_all = (n_c <= k)[:, None]
+    off_draw = bits % n_c.clamp(min=1)[:, None]
+    off_seq = torch.minimum(lane[None, :], (n_c - 1).clamp(min=0)[:, None])
+    off = torch.where(take_all, off_seq, off_draw)
+    flat = (start[:, None] + off).clamp(0, adj.indices.shape[0] - 1)
+    rows = adj.indices.long()[flat]                             # [B, k]
+
+    alive = ((dst >= 0) & (n_c > 0))[:, None]
+    alive = alive & (~take_all | (lane[None, :] < n_c[:, None]))
+
+    ncf = n_c.float().clamp(min=1.0)[:, None]
+    hitp = adj.hitp[rows.clamp(min=0)]
+    coeff = (hitp * (ncf.clamp(max=float(k)) / ncf)).clamp(min=1e-6)
+    deg = adj.deg[rowc].clamp(min=1.0)[:, None]
+    w = torch.where(alive, 1.0 / (coeff * deg), 0.0)
+    rows = torch.where(alive, rows, -1)
+    return rows.to(torch.int32), w
+
+
+def sample_lanes_plain(adj: DeviceCacheAdj, dst_rows: torch.Tensor,
+                       fb_rows: torch.Tensor, fb_w: torch.Tensor,
+                       key) -> tuple[torch.Tensor, torch.Tensor]:
+    """The merged layer-0 lanes ``(lane_rows int32, lane_w f32)`` [B, k]:
+    the draw for cached destinations, the fallback lanes for the rest."""
+    drawn, w = draw_lanes_plain(adj, dst_rows, key, fb_rows.shape[1])
+    uncached = (dst_rows < 0)[:, None]
+    lane_rows = torch.where(uncached, fb_rows.to(torch.int32), drawn)
+    lane_w = torch.where(uncached, fb_w.float(), w)
+    return lane_rows, lane_w
+
+
+def gns_sample_agg_plain(adj: DeviceCacheAdj, cache_table: torch.Tensor,
+                         dst_rows: torch.Tensor, fb_rows: torch.Tensor,
+                         fb_w: torch.Tensor, key) -> torch.Tensor:
+    """Draw, merge and gather in plain PyTorch.  [B, D] f32."""
+    lane_rows, lane_w = sample_lanes_plain(adj, dst_rows, fb_rows, fb_w, key)
+    return slot_gather_agg_plain(cache_table, lane_rows, lane_w)
+
+
+def gns_sample_agg_cuda(adj: DeviceCacheAdj, cache_table: torch.Tensor,
+                        dst_rows: torch.Tensor, fb_rows: torch.Tensor,
+                        fb_w: torch.Tensor, key,
+                        lane_rows: torch.Tensor | None = None,
+                        lane_w: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch K3.  adj on the table's CUDA device (indptr/indices int32,
+    deg/hitp f32), table [C, D] f32/bf16 with C = adj.table_rows, dst_rows
+    [B] int32, fb_rows/fb_w [B, k] int32/f32 with 1 <= k <= 32, all
+    contiguous -> [B, D] f32.  ``lane_rows``/``lane_w`` ([B, k] int32/f32),
+    when given, receive the merged lanes."""
+    if not cache_table.is_cuda:
+        raise ValueError(f"gns_sample_agg_cuda needs CUDA tensors, got "
+                         f"{cache_table.device}")
+    dev = cache_table.device
+    check_rows("cache_table", cache_table, dev, TABLE_DTYPES, 2)
+    check_rows("indptr", adj.indptr, dev, (torch.int32,), 1)
+    check_rows("indices", adj.indices, dev, (torch.int32,), 1)
+    check_rows("deg", adj.deg, dev, (torch.float32,), 1)
+    check_rows("hitp", adj.hitp, dev, (torch.float32,), 1)
+    check_rows("dst_rows", dst_rows, dev, (torch.int32,), 1)
+    check_rows("fb_rows", fb_rows, dev, (torch.int32,), 2)
+    check_rows("fb_w", fb_w, dev, (torch.float32,), 2)
+    bsz, k = fb_rows.shape
+    if not 1 <= k <= MAX_LANES:
+        raise ValueError(f"K3 draws 1..{MAX_LANES} lanes per row, got {k}")
+    rows = adj.table_rows
+    if cache_table.shape[0] != rows or adj.deg.shape[0] != rows \
+            or adj.hitp.shape[0] != rows:
+        raise ValueError(f"table {cache_table.shape[0]} rows, deg "
+                         f"{adj.deg.shape[0]}, hitp {adj.hitp.shape[0]}: "
+                         f"expected the CSR's {rows}")
+    if dst_rows.shape[0] != bsz or fb_w.shape != fb_rows.shape:
+        raise ValueError(f"dst_rows {tuple(dst_rows.shape)}, fb_rows "
+                         f"{tuple(fb_rows.shape)}, fb_w {tuple(fb_w.shape)}")
+    write_lanes = lane_rows is not None or lane_w is not None
+    if write_lanes:
+        check_rows("lane_rows", lane_rows, dev, (torch.int32,), 2)
+        check_rows("lane_w", lane_w, dev, (torch.float32,), 2)
+        if lane_rows.shape != fb_rows.shape or lane_w.shape != fb_rows.shape:
+            raise ValueError("lane_rows/lane_w must have fb_rows' shape")
+    else:
+        lane_rows = torch.empty(0, dtype=torch.int32, device=dev)
+        lane_w = torch.empty(0, dtype=torch.float32, device=dev)
+    key_lo, key_hi = key_words(key)
+    out = torch.empty((bsz, cache_table.shape[1]), dtype=torch.float32,
+                      device=dev)
+    if out.numel():                  # an empty grid is not a valid launch
+        load_kernels().gns_sample_agg(
+            *adj.tensors(), cache_table, dst_rows, fb_rows, fb_w, key_lo,
+            key_hi, out, lane_rows, lane_w, write_lanes)
+        launches.add()
+    return out
+
+
+def gns_sample_agg(adj: DeviceCacheAdj, cache_table: torch.Tensor,
+                   dst_rows: torch.Tensor, fb_rows: torch.Tensor,
+                   fb_w: torch.Tensor, key) -> torch.Tensor:
+    """The device GNS input layer: draw + weight + gather.  [B, D] f32.
+
+    ``dst_rows`` is the batch's ``input_cache_slots`` (device rows of the
+    destinations, -1 for uncached rows and padding); ``fb_rows``/``fb_w``
+    are the host-sampled fallback lanes of uncached real destinations.
+    Forward only: raises ``NotImplementedError`` if an operand requires
+    grad.
+    """
+    operands = (cache_table, dst_rows, fb_rows, fb_w) + adj.tensors()
+    if any(t.requires_grad for t in operands):
+        raise NotImplementedError(
+            "gns_sample_agg is forward only (the reference stops the "
+            "gradient at every operand): pass detached tensors")
+    if not cache_table.is_cuda:
+        return gns_sample_agg_plain(adj, cache_table, dst_rows, fb_rows,
+                                    fb_w, key)
+    return gns_sample_agg_cuda(adj, cache_table, dst_rows, fb_rows, fb_w,
+                               key)

@@ -80,3 +80,39 @@ def gather_case(seed, n, d, b, k, exact):
         w = rng.normal(size=(b, k)).astype(np.float32)
     idx = rng.integers(0, n, (b, k)).astype(np.int32)
     return feat, idx, w
+
+
+def adj_case(seed, rows, max_nc):
+    """numpy arrays of a random device CSR over ``rows`` table rows: up to
+    ``max_nc`` cached neighbors per row, degrees, hit probabilities (one
+    row below the 1e-6 clamp); ``indices`` padded to a power of two of at
+    least 1024, as the store pads it.  Returns (indptr, indices, deg,
+    hitp)."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, max_nc + 1, rows)
+    indptr = np.zeros(rows + 1, np.int32)
+    np.cumsum(counts, out=indptr[1:])
+    indices = np.zeros(1 << (max(1024, int(indptr[-1])) - 1).bit_length(),
+                       np.int32)
+    indices[:indptr[-1]] = rng.integers(0, rows, int(indptr[-1]))
+    deg = rng.integers(0, 40, rows).astype(np.float32)
+    hitp = rng.random(rows).astype(np.float32)
+    hitp[rows // 2] = 1e-9
+    return indptr, indices, deg, hitp
+
+
+def sample_case(seed, rows, b, k, uncached=0.3):
+    """numpy layer-0 operands of K3 over a ``rows``-row table: dst_rows [b]
+    (-1 for about ``uncached`` of them), fallback lanes and weights [b, k]
+    (set only on uncached rows, some lanes dead) and a uint32 [1, 2] key."""
+    rng = np.random.default_rng(seed)
+    dst = rng.integers(0, rows, b).astype(np.int32)
+    dst[rng.random(b) < uncached] = -1
+    fb_rows = np.full((b, k), -1, np.int32)
+    fb_w = np.zeros((b, k), np.float32)
+    miss = dst < 0
+    lanes = rng.integers(-1, rows, (int(miss.sum()), k)).astype(np.int32)
+    fb_rows[miss] = lanes
+    fb_w[miss] = np.where(lanes >= 0, rng.random(lanes.shape), 0.0)
+    key = rng.integers(0, 2 ** 32, size=(1, 2), dtype=np.uint32)
+    return dst, fb_rows, fb_w, key

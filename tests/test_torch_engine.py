@@ -53,7 +53,8 @@ def engines(ds):
     text = _cfg_json()
     ref = EngineRef(EngineConfigRef.from_dict(json.loads(text)), dataset=ds)
     port = GNSEngine(EngineConfig.from_dict(json.loads(text)), device="cpu")
-    port.params = params_from_numpy(jax_params_to_numpy(ref.params))
+    port.params = params_from_numpy(jax_params_to_numpy(ref.params),
+                                    device="cpu")
     return ref, port
 
 

@@ -33,11 +33,12 @@ def ds():
 
 def _batches(ds, name):
     out = []
-    for mod, cache_cls in ((samp_ref, CacheRef), (samp_port, CachePort)):
+    for mod, cache_cls, kw in ((samp_ref, CacheRef, {}),
+                               (samp_port, CachePort, {"device": "cpu"})):
         cfg = mod.SamplerConfig(fanouts=(2, 3, 4), batch_size=16,
                                 cache=cache_cls(fraction=0.05))
         s = mod.make_sampler(name, ds.graph, cfg, ds.features, ds.labels,
-                             train_idx=ds.train_idx)
+                             train_idx=ds.train_idx, **kw)
         rng = np.random.default_rng(0)
         s.start_epoch(0, rng)
         targets = rng.choice(ds.train_idx, 16, replace=False)
@@ -60,7 +61,7 @@ def test_forward_matches_reference(ds, sampler, aggregate_impl, input_impl):
         table_ref, table_port = mb_ref.cache_gen.table, mb_port.cache_gen.table
     else:
         table_ref = sage_ref.dummy_cache_table(ds.feat_dim)
-        table_port = sage_port.dummy_cache_table(ds.feat_dim)
+        table_port = sage_port.dummy_cache_table(ds.feat_dim, device="cpu")
     want = np.asarray(sage_ref.forward(params, mb_ref.device, table_ref,
                                        cfg_ref))
     cfg_port = sage_port.SageConfig(feat_dim=ds.feat_dim, hidden_dim=32,
@@ -69,7 +70,8 @@ def test_forward_matches_reference(ds, sampler, aggregate_impl, input_impl):
                                     input_impl=input_impl)
     with torch.inference_mode():
         got = sage_port.forward(
-            sage_port.params_from_numpy(jax_params_to_numpy(params)),
+            sage_port.params_from_numpy(jax_params_to_numpy(params),
+                                        device="cpu"),
             mb_port.device.to("cpu"), table_port, cfg_port).numpy()
     assert got.shape == want.shape == (16, ds.num_classes)
     np.testing.assert_allclose(got, want, **TOL)
@@ -78,8 +80,8 @@ def test_forward_matches_reference(ds, sampler, aggregate_impl, input_impl):
 def test_params_layout_and_init(ds):
     cfg = sage_port.SageConfig(feat_dim=ds.feat_dim, hidden_dim=32,
                                num_classes=ds.num_classes)
-    a = sage_port.init_params(cfg, torch.Generator().manual_seed(0))
-    b = sage_port.init_params(cfg, torch.Generator().manual_seed(0))
+    a = sage_port.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    b = sage_port.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     ref = sage_ref.init_params(jax.random.PRNGKey(0), sage_ref.SageConfig(
         feat_dim=ds.feat_dim, hidden_dim=32, num_classes=ds.num_classes))
     assert len(a["layers"]) == len(ref["layers"]) == 3

@@ -14,7 +14,17 @@ pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
 
-BLOCKER = r'''
+# every module of the port's serving and training slices
+REQUIRED = (
+    "repro_torch.device", "repro_torch.core.pipeline",
+    "repro_torch.sampling.rng", "repro_torch.sampling.adjacency",
+    "repro_torch.sampling.ref", "repro_torch.sampling.kernels",
+    "repro_torch.sampling.device_sampler", "repro_torch.optim.adam",
+    "repro_torch.kernels.ops", "repro_torch.gns.engine",
+    "repro_torch.models.graphsage", "repro_torch.featurestore.store",
+)
+
+BLOCKER = f"REQUIRED = {REQUIRED!r}\n" + r'''
 import importlib, importlib.util, pkgutil, sys
 
 class Blocker:
@@ -30,6 +40,8 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in mods:
     importlib.import_module(name)
+missing = set(REQUIRED) - set(mods)
+assert not missing, missing
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -48,7 +60,7 @@ def test_port_and_smoke_script_import_without_jax_or_repro():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(proc.stdout.split()[1])
-    assert n >= 25          # every subpackage and module was walked
+    assert n >= 32          # every subpackage and module was walked
 
 
 def _run_smoke(cwd: Path):

@@ -6,14 +6,21 @@ no jax, so it runs on the GPU host:
 
 The kernels and the plain versions round each product and each sum
 separately, in ascending k, so integer-valued f32 must agree bit for bit;
-random f32 and bf16 tables are held to rtol 1e-5 / atol 1e-6.
+random f32 and bf16 tables are held to rtol 1e-5 / atol 1e-6 for K1 and
+K2.  K3 computes its weights with the plain version's f32 operations in
+the same order, so its lanes and its output are held bit for bit on every
+table.
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_parity import gather_case, lookup_case, requires_cuda  # noqa: E402
-from repro_torch.kernels import cache_lookup, gather_agg  # noqa: E402
+from _torch_parity import (adj_case, gather_case, lookup_case,  # noqa: E402
+                           requires_cuda, sample_case)
+from repro_torch.kernels import cache_lookup, gather_agg, ops  # noqa: E402
+from repro_torch.sampling import kernels as k3  # noqa: E402
+from repro_torch.sampling.adjacency import DeviceCacheAdj  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 SHAPES = [(16, 64, 32, 8, 4), (30, 100, 48, 7, 5), (40, 150, 100, 12, 5)]
@@ -75,3 +82,77 @@ def test_kernel_wrappers_check_their_operands_on_card():
         gather_agg.gather_agg_cuda(feat.t(), idx, w)
     with pytest.raises(ValueError):
         gather_agg.gather_agg_cuda(feat, idx, w.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d,b,k", [(60, 24, 200, 5), (305, 100, 4096, 5),
+                                        (64, 300, 33, 15), (40, 48, 70, 32)])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+def test_gns_sample_agg_kernel_matches_plain_on_card(rows, d, b, k,
+                                                     table_dtype):
+    dev = requires_cuda()
+    adj = DeviceCacheAdj(*(torch.from_numpy(a).to(dev)
+                           for a in adj_case(rows, rows, 3 * k)))
+    dst, fb_rows, fb_w, key = sample_case(rows + 1, rows, b, k)
+    dst, fb_rows, fb_w = (torch.from_numpy(a).to(dev)
+                          for a in (dst, fb_rows, fb_w))
+    rng = np.random.default_rng(d)
+    for exact in (True, False):
+        table = (rng.integers(-64, 65, (rows, d)) if exact
+                 else rng.normal(size=(rows, d))).astype(np.float32)
+        table = torch.from_numpy(table).to(dev, dtype=table_dtype)
+        lane_rows = torch.empty((b, k), dtype=torch.int32, device=dev)
+        lane_w = torch.empty((b, k), dtype=torch.float32, device=dev)
+        n0 = k3.launches.value
+        got = k3.gns_sample_agg_cuda(adj, table, dst, fb_rows, fb_w, key,
+                                     lane_rows, lane_w)
+        want_rows, want_w = k3.sample_lanes_plain(adj, dst, fb_rows, fb_w,
+                                                  key)
+        want = k3.gns_sample_agg_plain(adj, table, dst, fb_rows, fb_w, key)
+        torch.cuda.synchronize()
+        assert k3.launches.value == n0 + 1
+        assert torch.equal(lane_rows, want_rows)
+        assert torch.equal(lane_w, want_w)
+        assert torch.equal(got, want)
+        assert torch.equal(k3.gns_sample_agg(adj, table, dst, fb_rows, fb_w,
+                                             key), want)
+
+
+@pytest.mark.gpu
+def test_gns_sample_agg_wrapper_checks_its_operands_on_card():
+    dev = requires_cuda()
+    adj = DeviceCacheAdj(*(torch.from_numpy(a).to(dev)
+                           for a in adj_case(1, 30, 8)))
+    table = torch.randn(30, 16, device=dev)
+    dst, fb_rows, fb_w, key = sample_case(1, 30, 10, 33)
+    dst, fb_rows, fb_w = (torch.from_numpy(a).to(dev)
+                          for a in (dst, fb_rows, fb_w))
+    with pytest.raises(ValueError, match="lanes"):
+        k3.gns_sample_agg_cuda(adj, table, dst, fb_rows, fb_w, key)
+    with pytest.raises(ValueError):
+        k3.gns_sample_agg_cuda(adj, table[:29].contiguous(), dst,
+                               fb_rows[:, :4].contiguous(),
+                               fb_w[:, :4].contiguous(), key)
+    with pytest.raises(TypeError):
+        k3.gns_sample_agg_cuda(adj, table, dst.long(),
+                               fb_rows[:, :4].contiguous(),
+                               fb_w[:, :4].contiguous(), key)
+
+
+@pytest.mark.gpu
+def test_cache_lookup_gradient_on_card_matches_cpu():
+    """K1's backward is the same plain-torch VJP on both devices: the
+    card's gradient (K1 forward) equals the CPU's (plain forward) within
+    the tolerance of index_add_'s unordered sums on the card."""
+    dev = requires_cuda()
+    arrays = lookup_case(12, 20, 80, 16, 6, 4, False)
+    grads = []
+    for device in ("cpu", dev):
+        cache, streamed, slots, idx, w = (torch.from_numpy(a).to(device)
+                                          for a in arrays)
+        leaves = [t.requires_grad_(True) for t in (cache, streamed, w)]
+        out = ops.cache_lookup_agg(cache, streamed, slots, idx, w)
+        (out ** 2).sum().backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)

@@ -30,11 +30,12 @@ def ds():
 
 def _pair(ds, name, fanouts=(2, 3, 4), batch=16, **cache_kw):
     out = []
-    for mod, cache_cls in ((samp_ref, CacheRef), (samp_port, CachePort)):
+    for mod, cache_cls, kw in ((samp_ref, CacheRef, {}),
+                               (samp_port, CachePort, {"device": "cpu"})):
         cfg = mod.SamplerConfig(fanouts=fanouts, batch_size=batch,
                                 cache=cache_cls(fraction=0.05, **cache_kw))
         out.append(mod.make_sampler(name, ds.graph, cfg, ds.features,
-                                    ds.labels, train_idx=ds.train_idx))
+                                    ds.labels, train_idx=ds.train_idx, **kw))
     return out
 
 
@@ -103,10 +104,12 @@ def test_store_locality_placement_identical(ds):
     from DP group 1 the solver permutes the rows the same way, and the
     device table is uploaded in the same device-row order."""
     stores = []
-    for store_cls, cache_cls in ((StoreRef, CacheRef), (StorePort, CachePort)):
+    for store_cls, cache_cls, kw in ((StoreRef, CacheRef, {}),
+                                     (StorePort, CachePort, {"device": "cpu"})):
         cfg = cache_cls(fraction=0.05, shards=2, placement="locality")
         stores.append(store_cls(ds.features, ds.graph, cfg,
-                                train_idx=ds.train_idx, dp_group=1, seed=4))
+                                train_idx=ds.train_idx, dp_group=1, seed=4,
+                                **kw))
     ids = np.random.default_rng(8).integers(0, ds.graph.num_nodes, 300)
     for s in stores:
         s.refresh(version=0)
@@ -127,7 +130,7 @@ def test_table_is_a_copy_of_the_staging_half(ds):
     """``torch.from_numpy`` would alias the staging buffer a later build
     recycles: the uploaded table must not change when it is reused."""
     store = StorePort(ds.features, ds.graph, CachePort(fraction=0.05),
-                      train_idx=ds.train_idx, seed=0)
+                      device="cpu", train_idx=ds.train_idx, seed=0)
     gen = store.refresh(version=0)
     before = gen.table.clone()
     gen.staged[:] = -7.0
@@ -143,6 +146,6 @@ def test_unported_samplers_are_refused(ds):
                                    ds.labels)
     dev_cfg = samp_port.SamplerConfig(fanouts=(2, 3), batch_size=8,
                                       backend="device")
-    with pytest.raises(NotImplementedError):
-        samp_port.make_sampler("gns", ds.graph, dev_cfg, ds.features,
-                               ds.labels)
+    dev = samp_port.make_sampler("gns", ds.graph, dev_cfg, ds.features,
+                                 ds.labels, device="cpu")
+    assert dev.backend == "device" and dev.store.build_device_adj
