@@ -7,8 +7,8 @@ Run from the root of a checkout, on a host with one CUDA card.  Phases, one
 line each on stdout:
 
 1. build     — compile the port's CUDA kernels (K1 ``cache_lookup_agg``, K2
-               ``gather_agg``, K3 ``gns_sample_agg``) from
-               ``src/repro_torch/csrc``;
+               ``gather_agg``, K3 ``gns_sample_agg``, K4 ``flash_attention``)
+               from ``src/repro_torch/csrc``;
 2. parity    — at the bucket-128 and bucket-512 serving shapes of preset
                ``paper_train``, hold K1 and K2 against their plain PyTorch
                versions on the card: ``torch.equal`` on integer-valued f32,
@@ -47,10 +47,41 @@ line each on stdout:
                allclose — cuBLAS and the CPU order the f32 sums of the matmuls
                differently, and the reference aggregation's backward sums by
                ``index_add_`` in no fixed order on the card;
-7. times     — each kernel's median time over cold-L2 launches at the
-               serving and training shapes, its bound, the plain version's
-               time and, where one PyTorch call computes the same gather,
-               ``embedding_bag``'s.
+7. k4-parity — K4 against its plain version on the card, f32 and bf16, at
+               (a) the enc-dec serve shape (B=4, 16 heads, 1 query over 1024
+               keys, Dh=64), (b) qwen2-7b's geometry (28/4 heads, Dh=128,
+               4096 causal), (c) h2o-danube3's (32/8 heads, Dh=120, 8192
+               causal, window 4096) and (d) the JAX kernel tests' small
+               cases (MQA, a poisoned tail past ``kv_len``, odd lengths
+               37/53).  f32 within 2e-5 at (a) and (d), 1e-4 at (b) and (c)
+               (the online and the full softmax sum in other orders); bf16
+               within rtol 1e-2, atol 4e-3 (both round the same f32 value
+               once, so they differ by at most one bf16 ulp, <= 2^-7 |x|);
+8. lm-serve  — ``seamless-m4t-medium`` at its published width (12 + 12
+               layers, d_model 1024, 16 heads, vocab 256,206, bf16) with
+               ``attn_impl="pallas"`` and random weights from ``SEED``:
+               ``ServeEngine(max_batch=4).generate_batch`` serves 8 requests
+               in 2 batches (prompts of 32 tokens, 32 new tokens, 1024 stub
+               frames per request).  Every token must lie in the vocabulary,
+               every step's logits must be finite, and K4's counter, zeroed
+               just before, must equal 12 launches per single-token decode
+               step (744).  Then one more decode step of a batch, twice
+               from the same state: its 12 K4 calls each held to the plain
+               version on their own operands (the bf16 tolerance of 7.),
+               and its logits to those of ``attn_impl="reference"`` within
+               2^-6 of their largest magnitude (2-4 bf16 ulps).  Then 3 more
+               decode steps of one batch under
+               ``torch.profiler``: device busy time against the step time;
+9. lm-parity — the reduced ``seamless`` config (f32, ``attn_impl="pallas"``)
+               with the same parameters on the card and on the CPU: the
+               ``decode_step`` logits of one prefill and three
+               teacher-forced single-token steps allclose (rtol 1e-4, atol
+               1e-5: cuBLAS and the CPU order the f32 sums differently);
+10. times    — each kernel's median time over cold-L2 launches at the
+               serving and training shapes (K4 at (a)-(c) in bf16), its
+               bound, the plain version's time and, where one PyTorch call
+               computes the same function, that call's (``embedding_bag``
+               for the gathers, ``scaled_dot_product_attention`` for K4).
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit as ``nvidia-smi`` reports them, and as the last line
@@ -73,6 +104,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 HBM_MS = HBM_BYTES_PER_S / 1e3   # bytes per ms
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM bf16 dense on the tensor cores
 BUCKETS = (128, 512)           # timed / parity-checked serving shapes
 REPS = 30                      # timed launches per measurement
 SEED = 0
@@ -116,9 +148,12 @@ def median_ms(fn, flush) -> float:
     return float(np.median(times))
 
 
-def bound_ms(n_bytes: int, n_flops: int) -> tuple[float, str]:
+def bound_ms(n_bytes: int, n_flops: int,
+             flops_per_s: float = F32_FLOPS) -> tuple[float, str]:
+    """The larger of bytes over the HBM rate and operations over
+    ``flops_per_s``, in ms, and which of the two it is."""
     t_bytes = n_bytes / HBM_MS
-    t_ops = n_flops / F32_FLOPS * 1e3
+    t_ops = n_flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -696,6 +731,424 @@ def phase_times(engine, shapes, errs, counts) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# K4 and the LM serving slice
+# ---------------------------------------------------------------------------
+
+# name: (B, Hq, Hkv, Sq, Sk, Dh, causal, window, kv_len, q_offset); kv_len /
+# q_offset None: the op's own (Sk, Sk - Sq)
+K4_SHAPES = {
+    "a:serve": (4, 16, 16, 1, 1024, 64, False, None, None, None),
+    "b:qwen2-7b": (1, 28, 4, 4096, 4096, 128, True, None, None, None),
+    "c:danube3": (1, 32, 8, 8192, 8192, 120, True, 4096, None, None),
+    "d:mqa": (1, 8, 1, 64, 64, 64, True, None, None, None),
+    "d:kv_len-poisoned": (1, 2, 2, 32, 64, 32, False, None, 48, 16),
+    "d:odd-37/53": (1, 2, 1, 37, 53, 32, True, None, None, None),
+}
+K4_TIMED = ("a:serve", "b:qwen2-7b", "c:danube3")
+LM_ARCH = "seamless-m4t-medium"
+LM_BATCHES, LM_BATCH, LM_PROMPT, LM_NEW, LM_FRAMES = 2, 4, 32, 32, 1024
+
+
+def k4_operands(name: str, dtype) -> tuple:
+    """(q, k, v, kwargs) of one K4 case on the card, drawn from SEED; the
+    tail past an explicit kv_len is poisoned with 1e5."""
+    import torch
+    b, hq, hkv, sq, sk, dh, causal, window, kv_len, q_offset = K4_SHAPES[name]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn((b, h, s, dh), generator=gen, device="cuda"
+                           ).to(dtype)
+               for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
+    if kv_len is None:
+        kv_len, q_offset = sk, sk - sq
+    else:
+        k[:, :, kv_len:] = 1e5
+        v[:, :, kv_len:] = 1e5
+    return q, k, v, dict(causal=causal, window=window, kv_len=kv_len,
+                         q_offset=q_offset)
+
+
+K4_BF16_TOL = (1e-2, 4e-3)            # (rtol, atol): one bf16 ulp and more
+
+
+def k4_tolerance(name: str, dtype) -> tuple[float, float]:
+    """(rtol, atol) of K4 against its plain version."""
+    import torch
+    if dtype == torch.bfloat16:
+        return K4_BF16_TOL
+    tol = 1e-4 if name[0] in "bc" else 2e-5
+    return tol, tol
+
+
+def phase_k4_parity() -> dict:
+    """K4 vs its plain version at (a)-(d), f32 and bf16.  Returns the
+    largest |kernel - plain| per (case, dtype)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    log("k4-parity", why="f32 2e-5 at (a),(d) and 1e-4 at (b),(c): the "
+        "online and the full softmax sum in different orders, more so over "
+        "4096-8192 keys; bf16 rtol 1e-2, atol 4e-3: both keep p.v in f32 "
+        "and round each output to bf16 once, so they differ by at most one "
+        "bf16 ulp (<= 2^-7 of the value)")
+    errs = {}
+    for name in K4_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, kw = k4_operands(name, dtype)
+            got = flash_attention_cuda(q, k, v, **kw)
+            want = flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            rtol, atol = k4_tolerance(name, dtype)
+            err = float((got.float() - want.float()).abs().max())
+            ok = bool(torch.allclose(got.float(), want.float(), rtol=rtol,
+                                     atol=atol)) and got.dtype == dtype
+            dt = str(dtype).removeprefix("torch.")
+            log("k4-parity", case=name, dtype=dt, q=list(q.shape),
+                k=list(k.shape), **kw, rtol=rtol, atol=atol,
+                max_abs_err=err, ok=ok)
+            if not ok:
+                raise AssertionError(f"K4 {name} {dt}: max err {err}")
+            errs[(name, dtype)] = err
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def lm_config(reduced: bool):
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_ARCH)
+    return dataclasses.replace(cfg.reduced() if reduced else cfg,
+                               attn_impl="pallas")
+
+
+def phase_lm_serve() -> dict:
+    """Full-width seamless-m4t-medium through ServeEngine.generate_batch;
+    returns the launch counts of this run (every counter zeroed just
+    before, read just after)."""
+    import torch
+    from repro_torch.kernels import cache_lookup, gather_agg
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.models.lm import get_model
+    from repro_torch.models.scan_util import tree_map
+    from repro_torch.sampling import kernels as k3
+    cfg = lm_config(reduced=False)
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(SEED)          # on the GPU: no device= given
+    torch.cuda.synchronize()
+    leaves = []
+    tree_map(leaves.append, params)
+    n_params = sum(t.numel() for t in leaves)
+    log("lm-init", arch=cfg.name, params=n_params,
+        param_gb=round(sum(t.numel() * t.element_size() for t in leaves)
+                       / 1e9, 3),
+        layers=f"{cfg.encoder_layers}+{cfg.num_layers}", d_model=cfg.d_model,
+        heads=cfg.num_heads, vocab=cfg.vocab_size, dtype=cfg.dtype,
+        seconds=round(time.perf_counter() - t0, 2))
+    engine = ServeEngine(cfg, params, max_batch=LM_BATCH)
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    seen = []
+    decode = engine.model.decode_step
+
+    def checked(p, tokens, state):
+        logits, state = decode(p, tokens, state)
+        seen.append(tuple(logits.shape))
+        finite.logical_and_(torch.isfinite(logits).all())
+        return logits, state
+
+    engine.model = dataclasses.replace(engine.model, decode_step=checked)
+    rng = np.random.default_rng(SEED)
+    batches = []
+    for _ in range(LM_BATCHES):
+        reqs = [Request(rng.integers(0, cfg.vocab_size, LM_PROMPT)
+                        .astype(np.int32), max_new_tokens=LM_NEW)
+                for _ in range(LM_BATCH)]
+        frames = rng.standard_normal((LM_BATCH, LM_FRAMES, cfg.d_model),
+                                     dtype=np.float32)
+        batches.append((reqs, frames))
+    counters = {"cache_lookup_agg": cache_lookup.launches,
+                "gather_agg": gather_agg.launches,
+                "gns_sample_agg": k3.launches, "flash_attention": k4.launches}
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    comps = [engine.generate_batch(reqs, frame_embeds=frames)
+             for reqs, frames in batches]
+    counts = {name: c.value for name, c in counters.items()}
+    decode_steps = sum(c[0].steps - 1 for c in comps)
+    for i, batch in enumerate(comps):
+        c = batch[0]
+        log("lm-serve", batch=i, requests=len(batch),
+            prefill_ms=round(c.prefill_s * 1e3, 3),
+            decode_steps=c.steps - 1, decode_s=round(c.decode_s, 4),
+            ms_per_token=round(c.decode_s * 1e3 / (c.steps - 1), 3),
+            decode_tokens_per_s=round(len(batch) * (c.steps - 1)
+                                      / c.decode_s, 1))
+    tokens = np.stack([c.tokens for batch in comps for c in batch])
+    ok_tokens = tokens.shape == (LM_BATCHES * LM_BATCH, LM_NEW) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+    expect = cfg.num_layers * decode_steps
+    log("lm-serve", requests=len(tokens), tokens=list(tokens.shape),
+        distinct_tokens=int(np.unique(tokens).size),
+        logits=sorted(set(seen)), logits_finite=bool(finite),
+        launches=counts, expect_k4=expect,
+        peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    if not ok_tokens:
+        raise AssertionError(f"tokens out of range or short: {tokens.shape}")
+    if not bool(finite):
+        raise AssertionError("non-finite logits in a decode step")
+    if counts["flash_attention"] != expect:
+        raise AssertionError(f"K4 launched {counts['flash_attention']} "
+                             f"times, expected {expect}")
+    phase_lm_check(engine, *batches[0])
+    phase_lm_profile(engine, *batches[0])
+    del engine, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def lm_state(engine, reqs, frames) -> tuple:
+    """(next tokens, decode state) of one batch after its encoder, its
+    prompt's prefill and one decode step, as ``generate_batch`` runs them."""
+    import torch
+    from repro_torch.launch.serve import CACHE_MARGIN
+    from repro_torch.models import encdec
+    dev = engine.device
+    with torch.inference_mode():
+        state = engine.model.decode_init(
+            len(reqs), len(reqs[0].prompt) + LM_NEW + CACHE_MARGIN,
+            frames.shape[1], device=dev)
+        state["cross"] = encdec.prefill_encoder(
+            engine.params, engine.cfg, torch.from_numpy(frames).to(dev))
+        prompts = torch.from_numpy(np.stack([r.prompt for r in reqs])
+                                   ).to(dev)
+        nxt, state = engine._step(prompts, state)
+        nxt, state = engine._step(nxt, state)
+    return nxt, state
+
+
+def phase_lm_check(engine, reqs, frames) -> None:
+    """After the counted run: one full-width decode step of a served batch,
+    twice from the same state.  First through K4, whose 12 cross-attention
+    calls are recorded and each held to K4's plain version on the very
+    operands the model gave it; then with ``attn_impl="reference"``
+    (``mha_ref`` everywhere).  The two steps differ only in the
+    cross-attention, so their logits must agree within 2^-6 of the logits'
+    largest magnitude (two to four bf16 ulps there)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models import encdec
+    cfg = engine.cfg
+    nxt, state = lm_state(engine, reqs, frames)
+    calls = []
+    k4_op = ops.flash_attention
+
+    def recorded(q, k, v, **kw):
+        out = k4_op(q, k, v, **kw)
+        calls.append((q, k, v, kw, out))
+        return out
+
+    ops.flash_attention = recorded
+    try:
+        with torch.inference_mode():
+            got, _ = encdec.decode_step(engine.params, cfg, nxt, state)
+    finally:
+        ops.flash_attention = k4_op
+    with torch.inference_mode():
+        want, _ = encdec.decode_step(
+            engine.params, dataclasses.replace(cfg, attn_impl="reference"),
+            nxt, state)
+    rtol, atol = K4_BF16_TOL
+    ok_x, x_err = len(calls) == cfg.num_layers, 0.0
+    for q, k, v, kw, out in calls:
+        sq, sk = q.shape[2], k.shape[2]
+        plain = flash_attention_plain(q, k, v, causal=kw["causal"],
+                                      window=kw["window"], kv_len=sk,
+                                      q_offset=sk - sq)
+        x_err = max(x_err, float((out.float() - plain.float()).abs().max()))
+        ok_x = ok_x and bool(torch.allclose(out.float(), plain.float(),
+                                            rtol=rtol, atol=atol))
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    tol = 2.0 ** -6 * scale                    # 2-4 bf16 ulps at the top
+    err = float((got - want).abs().max())
+    ok = ok_x and err <= tol and bool(torch.isfinite(got).all())
+    shapes = [list(t.shape) for t in calls[0][:2]] if calls else None
+    log("lm-check", k4_calls=len(calls), q_k=shapes,
+        xattn_max_abs_err=x_err, xattn_rtol=rtol,
+        xattn_atol=atol, logits=list(got.shape), logits_max_abs=scale,
+        logits_max_abs_err=err, logits_tol=tol,
+        logits_equal_share=float((got == want).float().mean()),
+        same_argmax=bool((got.argmax(-1) == want.argmax(-1)).all()), ok=ok)
+    if not ok:
+        raise AssertionError(f"full-width K4 step vs reference: cross-attn "
+                             f"err {x_err}, logits err {err} > {tol}")
+
+
+def phase_lm_profile(engine, reqs, frames, steps: int = 3) -> None:
+    """After the counted run: ``steps`` single-token decode steps of one
+    batch under ``torch.profiler`` (no readback between them): the
+    device's busy time per step against the step's time by CUDA events,
+    the kernel launches per step, and the largest device and host
+    entries."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import encdec
+    nxt, state = lm_state(engine, reqs, frames)
+    with torch.inference_mode():
+        nxt, state = engine._step(nxt, state)          # one warm step
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for _ in range(steps):
+                nxt, state = engine._step(nxt, state)
+            end.record()
+            end.synchronize()
+    step_ms = start.elapsed_time(end) / steps
+    events = prof.key_averages()
+    on_card = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3 / steps
+    top = sorted(on_card, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    host = sorted(events, key=lambda e: e.self_cpu_time_total,
+                  reverse=True)[:8]
+    log("lm-profile", batch=len(reqs), steps=steps,
+        step_ms=round(step_ms, 3), device_busy_ms=round(busy_ms, 3),
+        idle_share=round(1.0 - busy_ms / step_ms, 4),
+        device_launches_per_step=sum(e.count for e in on_card) / steps,
+        top_device=[(e.key[:60], round(e.self_device_time_total / 1e3
+                                       / steps, 4), e.count // steps)
+                    for e in top],
+        top_host=[(e.key[:60], round(e.self_cpu_time_total / 1e3 / steps,
+                                     3), e.count // steps) for e in host])
+
+
+def phase_lm_parity() -> None:
+    """The reduced seamless config (f32) on the card against the CPU, from
+    the same parameters: logits of a prefill and three decode steps."""
+    import torch
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.models import encdec
+    from repro_torch.models.lm import get_model
+    from repro_torch.models.scan_util import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = lm_config(reduced=True)
+    params_cpu = get_model(cfg).init(SEED, device="cpu")
+    rng = np.random.default_rng(SEED)
+    b, s_enc, s, cache_len = 2, 24, 8, 16
+    frames = rng.standard_normal((b, s_enc, cfg.d_model), dtype=np.float32)
+    toks = rng.integers(0, cfg.vocab_size, (b, s + 3)).astype(np.int32)
+    feeds = [toks[:, :s]] + [toks[:, i:i + 1] for i in range(s, s + 3)]
+    logits = {}
+    n0 = k4.launches.value
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev), params_cpu)
+        with torch.inference_mode():
+            state = encdec.init_decode_state(cfg, b, cache_len, s_enc,
+                                             device=dev)
+            state["cross"] = encdec.prefill_encoder(
+                params, cfg, torch.from_numpy(frames).to(dev))
+            out = []
+            for feed in feeds:
+                lg, state = encdec.decode_step(
+                    params, cfg, torch.from_numpy(feed).to(dev), state)
+                out.append(lg.cpu().numpy())
+        logits[dev] = np.stack(out)
+    launched = k4.launches.value - n0
+    err = float(np.abs(logits["cuda"] - logits["cpu"]).max())
+    ok = (np.allclose(logits["cuda"], logits["cpu"], rtol=1e-4, atol=1e-5)
+          and launched == 3 * cfg.num_layers)
+    log("lm-parity", arch=cfg.name + " (reduced)", dtype=cfg.dtype,
+        steps=len(feeds), logits=list(logits["cuda"].shape),
+        k4_launches=launched, max_abs_err=err, ok=ok)
+    if not ok:
+        raise AssertionError(f"card vs CPU logits differ: {err} "
+                             f"(K4 launched {launched})")
+
+
+def k4_work(q, k, kw) -> tuple[int, int]:
+    """Bytes and flops K4 needs: q, the keys and values that some row sees,
+    the output, once each; 4 * Dh flops per visible (row, key) pair."""
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    pos = np.arange(sq, dtype=np.int64) + kw["q_offset"]
+    hi = np.full(sq, min(kw["kv_len"], sk), np.int64)
+    if kw["causal"]:
+        hi = np.minimum(hi, pos + 1)
+    lo = np.zeros(sq, np.int64)
+    if kw["window"] is not None:
+        lo = np.maximum(lo, pos - kw["window"] + 1)
+    seen = np.maximum(hi - lo, 0)
+    keys = max(int(hi.max() - lo[seen > 0].min()), 0) if seen.any() else 0
+    elt = q.element_size()
+    n_bytes = 2 * q.numel() * elt + 2 * b * hkv * keys * dh * elt
+    return n_bytes, 4 * dh * b * hq * int(seen.sum())
+
+
+def phase_k4_times(errs, counts) -> list:
+    """K4 at (a)-(c) in bf16 (the model's type): time, bound, plain
+    version and SDPA (timed only; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
+    dtype = torch.bfloat16
+    rows = []
+    for name in K4_TIMED:
+        q, k, v, kw = k4_operands(name, dtype)
+        n_bytes, n_flops = k4_work(q, k, kw)
+        t_bound, by = bound_ms(n_bytes, n_flops, BF16_FLOPS)
+        sq, sk = q.shape[2], k.shape[2]
+        mask = None
+        if kw["causal"] and (kw["window"] is not None or sq != sk):
+            i = torch.arange(sq, device="cuda")[:, None] + kw["q_offset"]
+            j = torch.arange(sk, device="cuda")[None, :]
+            mask = j <= i
+            if kw["window"] is not None:
+                mask &= j > i - kw["window"]
+        causal = kw["causal"] and mask is None
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=causal, enable_gqa=True)
+
+        lib = sdpa()
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        lib_err = float((lib.float() - want.float()).abs().max())
+        rows.append({
+            "name": f"flash_attention[{name},bf16]", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:90",
+            **launch_fields(counts, "flash_attention"),
+            "max_abs_err": errs[(name, dtype)],
+            "ms": median_ms(lambda: flash_attention_cuda(q, k, v, **kw),
+                            flush),
+            "plain_ms": median_ms(lambda: flash_attention_plain(q, k, v,
+                                                                **kw), flush),
+            "bound_ms": t_bound, "bound_by": by,
+            "library_ms": median_ms(sdpa, flush),
+            "library": "F.scaled_dot_product_attention(enable_gqa=True"
+                       + (", end-aligned attn_mask)" if mask is not None
+                          else f", is_causal={causal})"),
+            "library_max_abs_err": lib_err, "bytes": n_bytes,
+            "flops": n_flops, "q": list(q.shape), "k": list(k.shape)})
+        del q, k, v, want, lib, mask
+        torch.cuda.empty_cache()
+    for r in rows:
+        log("time", **{k: r[k] for k in ("name", "ms", "bound_ms", "bound_by",
+                                         "plain_ms", "library_ms", "bytes",
+                                         "flops")})
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -747,8 +1200,13 @@ def main() -> int:
         expect="cache_lookup_agg")["counts"]
     phase_train_parity(ds)
     k1_args = host_train_batch(host_engine, rng)
+
+    k4_errs = phase_k4_parity()
+    counts["lm_serve"] = phase_lm_serve()
+    phase_lm_parity()
     rows = (phase_times(engine, shapes, errs, counts)
-            + phase_train_times(k3_shapes, k3_errs, k1_args, counts))
+            + phase_train_times(k3_shapes, k3_errs, k1_args, counts)
+            + phase_k4_times(k4_errs, counts))
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -59,6 +59,22 @@ void gns_sample_agg(const torch::Tensor& indptr, const torch::Tensor& indices,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
+                     const torch::Tensor& v, torch::Tensor out, double scale,
+                     bool causal, int64_t window, int64_t kv_len,
+                     int64_t q_offset) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  repro_torch::launch_flash_attention(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+      q.scalar_type() == at::kBFloat16, static_cast<int>(q.size(0)),
+      static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
+      static_cast<int>(q.size(2)), static_cast<int>(k.size(2)),
+      static_cast<int>(q.size(3)), static_cast<float>(scale), causal,
+      static_cast<int>(window), static_cast<int>(kv_len),
+      static_cast<int>(q_offset), at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -69,4 +85,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("gns_sample_agg", &gns_sample_agg,
         "K3: device GNS draw + importance weight + gather-aggregate "
         "(writes out, and lane_rows/lane_w when write_lanes)");
+  m.def("flash_attention", &flash_attention,
+        "K4: blocked attention with an online softmax; window <= 0 means "
+        "none (writes out)");
 }

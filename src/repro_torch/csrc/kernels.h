@@ -37,4 +37,15 @@ void launch_gns_sample_agg(const int32_t* indptr, const int32_t* indices,
                            float* out, int32_t* lane_rows, float* lane_w,
                            int64_t B, int K, int D, cudaStream_t stream);
 
+// Blocked attention with an online softmax      (K4, flash_attention.cu)
+// q/out [B, Hq, Sq, Dh], k/v [B, Hkv, Sk, Dh], all float32 (bf16 == 0) or
+// all bfloat16, contiguous; Hq % Hkv == 0, Dh <= 256.  Query row i sits at
+// position i + q_offset; key j is visible when j < kv_len, and j <= i +
+// q_offset when causal, and j > i + q_offset - window when window > 0.
+void launch_flash_attention(const void* q, const void* k, const void* v,
+                            void* out, int bf16, int B, int Hq, int Hkv,
+                            int Sq, int Sk, int Dh, float scale, int causal,
+                            int window, int kv_len, int q_offset,
+                            cudaStream_t stream);
+
 }  // namespace repro_torch

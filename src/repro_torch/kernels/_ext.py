@@ -1,9 +1,9 @@
 """Build, load and count the port's CUDA kernels.
 
 The kernels live in ``repro_torch/csrc``: ``gather_agg.cu`` (K2),
-``cache_lookup.cu`` (K1) and ``gns_sample_agg.cu`` (K3) include only CUDA
-headers, and ``bindings.cpp`` is the one small file that includes
-``torch/extension.h``.  All four go to
+``cache_lookup.cu`` (K1), ``gns_sample_agg.cu`` (K3) and
+``flash_attention.cu`` (K4) include only CUDA headers, and ``bindings.cpp``
+is the one small file that includes ``torch/extension.h``.  All five go to
 ``torch.utils.cpp_extension.load`` in one call, for ``sm_90a`` (Hopper),
 into ``build/repro_torch_kernels`` at the root of the checkout.  The build
 happens at the first launch, never at import: a host without ``nvcc`` can
@@ -17,7 +17,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("bindings.cpp", "gather_agg.cu", "cache_lookup.cu",
-           "gns_sample_agg.cu")
+           "gns_sample_agg.cu", "flash_attention.cu")
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 
 _ext = None

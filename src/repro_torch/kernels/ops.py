@@ -17,13 +17,19 @@ Gradients follow the reference (``repro.kernels.ops``):
   through its Pallas call raises.  Here it raises ``NotImplementedError``
   too, when grad mode is on and an operand requires grad; training runs
   the upper layers through ``aggregate_impl="reference"``.
+* :func:`flash_attention` (K4) has no backward in the reference either; it
+  raises ``NotImplementedError`` under grad the same way.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels.cache_lookup import (cache_lookup_agg_cuda,
                                               cache_lookup_agg_plain)
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
 from repro_torch.kernels.gather_agg import gather_agg_cuda, gather_agg_plain
 
 
@@ -89,3 +95,26 @@ def cache_lookup_agg(cache_table: torch.Tensor, streamed: torch.Tensor,
     [B, D] f32.  Differentiable in ``cache_table``, ``streamed`` and ``w``
     (the reference's VJP, plain torch on both devices)."""
     return _CacheLookupAgg.apply(cache_table, streamed, slots, idx, w)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Blocked attention (K4).  q [B, Hq, Sq, Dh], k/v [B, Hkv, Sk, Dh] ->
+    q's shape and dtype.  The reference's semantics (``repro.kernels.ops
+    .flash_attention``): queries end-aligned to the keys, ``q_offset = Sk -
+    Sq`` and ``kv_len = Sk`` from the unpadded lengths.  The reference pads
+    Sq and Sk to its blocks; K4 masks its ragged edges itself, so nothing is
+    padded here.  Forward only, as the reference's."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError(
+            "flash_attention (K4) has no backward, as in the reference; "
+            "train with ArchConfig(attn_impl='reference')")
+    sq, sk = q.shape[2], k.shape[2]
+    kw = dict(causal=causal, window=window, scale=scale, kv_len=sk,
+              q_offset=sk - sq)
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, **kw)
+    return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                v.contiguous(), **kw)

@@ -1,0 +1,118 @@
+"""Shared LM building blocks: norms, RoPE, init helpers (port of
+``repro.models.common``).
+
+Parameters are plain nested dicts of tensors, as in the reference.  The
+reference draws its initial values from ``jax.random`` keys; those bits
+cannot be reproduced in torch, so the init here draws the same
+distributions from a ``torch.Generator`` (whose device is where the
+parameters land), and parity with the reference goes through
+``repro_torch.models.lm_params.params_from_numpy``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import resolve_device
+from repro_torch.models.scan_util import tree_map
+
+
+def make_generator(seed: int = 0, device=None) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` (None: the GPU), seeded."""
+    return torch.Generator(device=resolve_device(device)).manual_seed(seed)
+
+
+def model_dtype(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _normal(gen: torch.Generator, shape: tuple) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32)
+
+
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
+               dtype=torch.float32, scale: Optional[float] = None
+               ) -> torch.Tensor:
+    scale = scale if scale is not None else (in_dim ** -0.5)
+    return (_normal(gen, (in_dim, out_dim)) * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, dim: int,
+               dtype=torch.float32) -> torch.Tensor:
+    return (_normal(gen, (vocab, dim)) * 0.02).to(dtype)
+
+
+def zeros(gen: torch.Generator, shape: tuple,
+          dtype=torch.float32) -> torch.Tensor:
+    """Zeros on the generator's device (norm scales, biases)."""
+    return torch.zeros(shape, dtype=dtype, device=gen.device)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float = 1e4,
+               device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4) -> torch.Tensor:
+    """x: [..., S, Dh]; positions: broadcastable to [..., S].  Rotates the
+    interleaved (even, odd) pairs, as the reference does."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                  # [Dh/2]
+    ang = positions[..., None].float() * freqs               # [..., S, Dh/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x32 = x.float()
+    x1, x2 = x32[..., 0::2], x32[..., 1::2]
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    out = torch.stack([r1, r2], dim=-1).reshape(x.shape)
+    return out.to(x.dtype)
+
+
+def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The reference's table; ``jax.nn.gelu`` defaults to the tanh form."""
+    return {
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "relu": F.relu,
+        "silu": F.silu,
+        "swish": F.silu,
+        "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    }[name]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL in f32.  logits [..., V], labels [...] int."""
+    logits32 = logits.float()
+    logz = torch.logsumexp(logits32, dim=-1)
+    gold = torch.gather(logits32, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def stack_init(gen: torch.Generator, n: int, init_fn) -> dict:
+    """Initialise n copies of a param tree and stack leaves on axis 0 (the
+    reference's layout, so its stacked parameters load as they are)."""
+    trees = [init_fn(gen) for _ in range(n)]
+    return tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)

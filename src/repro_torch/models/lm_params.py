@@ -1,0 +1,43 @@
+"""LM parameters between the two packages.
+
+The reference's LM parameters are nested dicts of arrays, stacked on a
+leading ``[L, ...]`` axis per layer group.  :func:`params_from_numpy` turns
+them, given as numpy arrays (``np.asarray`` of each JAX leaf), into the
+port's dict of tensors with the same keys and shapes, so both packages
+compute the same thing in the tests.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def _leaf_to_torch(path: str, a, device, dtype) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes: torch cannot view it
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))      # a writable copy
+    if dtype is not None and t.is_floating_point() and "norm" not in path:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def _walk(tree, path, fn):
+    if isinstance(tree, dict):
+        return {k: _walk(v, f"{path}/{k}", fn) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
+    """Nested dicts of numpy arrays -> the same dicts of tensors on
+    ``device`` (None: the GPU; raises without one).  ``dtype`` None keeps
+    each leaf's type (bfloat16 numpy arrays become ``torch.bfloat16``);
+    otherwise every floating leaf but the norm scales (kept float32, as the
+    reference keeps them) is cast to it."""
+    dev = resolve_device(device)
+    return _walk(tree, "", lambda path, a: _leaf_to_torch(path, a, dev,
+                                                          dtype))
+

@@ -14,7 +14,7 @@ pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
 
-# every module of the port's serving and training slices
+# every module of the port's serving, training and LM serving slices
 REQUIRED = (
     "repro_torch.device", "repro_torch.core.pipeline",
     "repro_torch.sampling.rng", "repro_torch.sampling.adjacency",
@@ -22,6 +22,13 @@ REQUIRED = (
     "repro_torch.sampling.device_sampler", "repro_torch.optim.adam",
     "repro_torch.kernels.ops", "repro_torch.gns.engine",
     "repro_torch.models.graphsage", "repro_torch.featurestore.store",
+    "repro_torch.configs", "repro_torch.configs.seamless_m4t_medium",
+    "repro_torch.kernels.ref", "repro_torch.kernels.flash_attention",
+    "repro_torch.models.common", "repro_torch.models.scan_util",
+    "repro_torch.models.ffn", "repro_torch.models.attention",
+    "repro_torch.models.transformer", "repro_torch.models.encdec",
+    "repro_torch.models.lm", "repro_torch.models.lm_params",
+    "repro_torch.launch.serve",
 )
 
 BLOCKER = f"REQUIRED = {REQUIRED!r}\n" + r'''

@@ -9,7 +9,11 @@ separately, in ascending k, so integer-valued f32 must agree bit for bit;
 random f32 and bf16 tables are held to rtol 1e-5 / atol 1e-6 for K1 and
 K2.  K3 computes its weights with the plain version's f32 operations in
 the same order, so its lanes and its output are held bit for bit on every
-table.
+table.  K4 (flash attention) sums its online softmax in another order than
+the plain version's full softmax: f32 is held to 2e-5 (3e-5 for odd
+lengths), the JAX kernel tests' tolerances.  In bf16 both keep p.v in f32
+and round each output once, so they differ by at most one bf16 ulp
+(<= 2^-7 of the value): rtol 1e-2, atol 4e-3.
 """
 import numpy as np
 import pytest
@@ -19,6 +23,7 @@ torch = pytest.importorskip("torch")
 from _torch_parity import (adj_case, gather_case, lookup_case,  # noqa: E402
                            requires_cuda, sample_case)
 from repro_torch.kernels import cache_lookup, gather_agg, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as k4  # noqa: E402
 from repro_torch.sampling import kernels as k3  # noqa: E402
 from repro_torch.sampling.adjacency import DeviceCacheAdj  # noqa: E402
 
@@ -156,3 +161,95 @@ def test_cache_lookup_gradient_on_card_matches_cpu():
         grads.append([t.grad.cpu() for t in leaves])
     for a, b in zip(*grads):
         torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
+
+
+# (b, hq, hkv, sq, sk, dh, causal, window, kv_len, q_offset): the JAX
+# kernel tests' cases (MHA, GQA, MQA, window, cross, one-token decode, odd
+# lengths, a poisoned tail past kv_len), the serve shape of the enc-dec
+# decoder's cross-attention and danube's head dim 120
+K4_CASES = [
+    (1, 2, 2, 64, 64, 32, True, None, None, None),
+    (2, 4, 2, 128, 128, 64, True, None, None, None),
+    (1, 8, 1, 64, 64, 64, True, None, None, None),
+    (1, 2, 2, 128, 128, 32, True, 32, None, None),
+    (2, 2, 2, 32, 96, 32, False, None, None, None),
+    (1, 4, 2, 1, 256, 64, True, None, None, None),
+    (1, 2, 1, 37, 53, 32, True, None, None, None),
+    (1, 2, 2, 32, 64, 32, False, None, 48, 16),
+    (4, 16, 16, 1, 1024, 64, False, None, None, None),
+    (1, 4, 1, 70, 300, 120, True, 64, 290, 200),
+    (2, 4, 4, 3, 40, 256, True, None, None, None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K4_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain_on_card(case, dtype):
+    dev = requires_cuda()
+    b, hq, hkv, sq, sk, dh, causal, window, kv_len, q_offset = case
+    rng = np.random.default_rng(sk + dh)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, h, s, dh)).astype(
+        np.float32)).to(dev, dtype=dtype)
+        for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
+    if kv_len is not None:
+        k[:, :, kv_len:] = 1e5                 # poison the masked tail
+        v[:, :, kv_len:] = 1e5
+    kw = dict(causal=causal, window=window, kv_len=kv_len, q_offset=q_offset)
+    n0 = k4.launches.value
+    got = k4.flash_attention_cuda(q, k, v, **kw)
+    want = k4.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert k4.launches.value == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.bfloat16:
+        rtol, atol = 1e-2, 4e-3
+    else:
+        rtol = atol = 3e-5 if sq == 37 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_wrapper_checks_its_operands_on_card():
+    dev = requires_cuda()
+    q, k, v = (torch.randn(1, 2, 8, 64, device=dev) for _ in range(3))
+    for dh in (12, 264):
+        bad = torch.randn(1, 2, 8, dh, device=dev)
+        with pytest.raises(ValueError, match="head dim"):
+            k4.flash_attention_cuda(bad, bad, bad)
+    with pytest.raises(TypeError):
+        k4.flash_attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):
+        k4.flash_attention_cuda(q.transpose(2, 3), k, v)
+    with pytest.raises(ValueError):
+        k4.flash_attention_cuda(q, k, v, kv_len=9)
+    with pytest.raises(ValueError, match="multiple"):
+        k4.flash_attention_cuda(torch.randn(1, 3, 8, 64, device=dev), k, v)
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.flash_attention(q, k, v)
+
+
+@pytest.mark.gpu
+def test_flash_attention_op_launches_the_kernel_on_card(monkeypatch):
+    """A CUDA tensor at ops.flash_attention never reaches the plain
+    version: with the plain version made to raise, the op still answers,
+    the counter moves by one, and the result is the plain version's."""
+    dev = requires_cuda()
+    q = torch.randn(2, 4, 1, 64, device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn(2, 2, 50, 64, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    want = k4.flash_attention_plain(q, k, v, causal=False, kv_len=50,
+                                    q_offset=49)
+
+    def refuse(*args, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(ops, "flash_attention_plain", refuse)
+    n0 = k4.launches.value
+    got = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert k4.launches.value == n0 + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=4e-3)
