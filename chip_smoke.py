@@ -7,8 +7,11 @@ Run from the root of a checkout, on a host with one CUDA card.  Phases, one
 line each on stdout:
 
 1. build     — compile the port's CUDA kernels (K1 ``cache_lookup_agg``, K2
-               ``gather_agg``, K3 ``gns_sample_agg``, K4 ``flash_attention``)
-               from ``src/repro_torch/csrc``;
+               ``gather_agg``, K3 ``gns_sample_agg``, K4 ``flash_attention``
+               in three routes) from ``src/repro_torch/csrc``; then read
+               K4's kernels back with ``cuobjdump``: registers, stack and
+               local memory (spills), and the HMMA instructions that the
+               tensor-core route must hold;
 2. parity    — at the bucket-128 and bucket-512 serving shapes of preset
                ``paper_train``, hold K1 and K2 against their plain PyTorch
                versions on the card: ``torch.equal`` on integer-valued f32,
@@ -53,7 +56,12 @@ line each on stdout:
                4096 causal), (c) h2o-danube3's (32/8 heads, Dh=120, 8192
                causal, window 4096) and (d) the JAX kernel tests' small
                cases (MQA, a poisoned tail past ``kv_len``, odd lengths
-               37/53).  f32 within 2e-5 at (a) and (d), 1e-4 at (b) and (c)
+               37/53) with few-row and Dh-256 cases, each on the route
+               ``flash_attention_cuda`` picks (split-KV for at most 16 rows
+               per (batch, kv head), else the tensor cores in bf16 and the
+               CUDA cores in f32; the route counters must show it, and
+               every route must be met).  f32 within 2e-5 at (a) and (d),
+               1e-4 at (b) and (c)
                (the online and the full softmax sum in other orders); bf16
                within rtol 1e-2, atol 4e-3 (both round the same f32 value
                once, so they differ by at most one bf16 ulp, <= 2^-7 |x|);
@@ -64,24 +72,29 @@ line each on stdout:
                in 2 batches (prompts of 32 tokens, 32 new tokens, 1024 stub
                frames per request).  Every token must lie in the vocabulary,
                every step's logits must be finite, and K4's counter, zeroed
-               just before, must equal 12 launches per single-token decode
-               step (744).  Then one more decode step of a batch, twice
+               just before, must equal 12 calls per single-token decode
+               step (744), every one on the split-KV route (its route
+               counter).  Then one more decode step of a batch, twice
                from the same state: its 12 K4 calls each held to the plain
                version on their own operands (the bf16 tolerance of 7.),
                and its logits to those of ``attn_impl="reference"`` within
                2^-6 of their largest magnitude (2-4 bf16 ulps).  Then 3 more
                decode steps of one batch under
-               ``torch.profiler``: device busy time against the step time;
+               ``torch.profiler``: device busy time against the step time,
+               and K4's kernels' share of the busy time;
 9. lm-parity — the reduced ``seamless`` config (f32, ``attn_impl="pallas"``)
                with the same parameters on the card and on the CPU: the
                ``decode_step`` logits of one prefill and three
                teacher-forced single-token steps allclose (rtol 1e-4, atol
                1e-5: cuBLAS and the CPU order the f32 sums differently);
 10. times    — each kernel's median time over cold-L2 launches at the
-               serving and training shapes (K4 at (a)-(c) in bf16), its
-               bound, the plain version's time and, where one PyTorch call
-               computes the same function, that call's (``embedding_bag``
-               for the gathers, ``scaled_dot_product_attention`` for K4).
+               serving and training shapes, its bound, the plain version's
+               time and, where one PyTorch call computes the same function,
+               that call's (``embedding_bag`` for the gathers,
+               ``scaled_dot_product_attention`` for K4).  K4 at (a)-(c) in
+               bf16 takes turns with the CUDA-core kernel (route (iii) by
+               name, ``prev_ms``, the design the other routes replace on
+               these shapes), the plain version and SDPA, in one call.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit as ``nvidia-smi`` reports them, and as the last line
@@ -744,8 +757,22 @@ K4_SHAPES = {
     "d:mqa": (1, 8, 1, 64, 64, 64, True, None, None, None),
     "d:kv_len-poisoned": (1, 2, 2, 32, 64, 32, False, None, 48, 16),
     "d:odd-37/53": (1, 2, 1, 37, 53, 32, True, None, None, None),
+    # few rows (split-KV in both dtypes): MQA with a window; a chunk the
+    # rows at position 127 see none of; a poisoned tail at Dh 256
+    "d:split-mqa-window": (2, 8, 1, 2, 500, 64, True, 100, None, None),
+    "d:split-last-chunk-masked": (1, 4, 2, 4, 131, 32, True, None, None,
+                                  None),
+    "d:split-kv_len-dh256": (2, 4, 4, 1, 400, 256, False, None, 333, 332),
+    # many rows at Dh 256 with a window and a poisoned tail
+    "d:dh256-window-kv_len": (1, 2, 1, 100, 200, 256, True, 50, 180, 80),
 }
 K4_TIMED = ("a:serve", "b:qwen2-7b", "c:danube3")
+K4_SOURCES = {"split_kv": "flash_attention_split.cu",
+              "tensor_core": "flash_attention_tc.cu",
+              "simt": "flash_attention.cu"}
+# K4's device kernels by name (the split-KV route launches two)
+K4_KERNEL_NAMES = ("split_partial_kernel", "split_combine_kernel",
+                   "flash_tc_kernel", "flash_attention_kernel")
 LM_ARCH = "seamless-m4t-medium"
 LM_BATCHES, LM_BATCH, LM_PROMPT, LM_NEW, LM_FRAMES = 2, 4, 32, 32, 1024
 
@@ -780,37 +807,56 @@ def k4_tolerance(name: str, dtype) -> tuple[float, float]:
     return tol, tol
 
 
+def k4_routes_since(before: dict) -> dict:
+    """K4's calls per route since the snapshot ``before``."""
+    from repro_torch.kernels.flash_attention import route_calls
+    now = {name: c.value - before.get(name, 0)
+           for name, c in route_calls.items()}
+    return {name: n for name, n in now.items() if n}
+
+
 def phase_k4_parity() -> dict:
-    """K4 vs its plain version at (a)-(d), f32 and bf16.  Returns the
-    largest |kernel - plain| per (case, dtype)."""
+    """K4 vs its plain version at (a)-(d), f32 and bf16, each case on the
+    route ``flash_attention_cuda`` picks for it (logged from the route
+    counters; every route is met).  Returns the largest |kernel - plain|
+    per (case, dtype)."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     k4_route, route_calls)
     log("k4-parity", why="f32 2e-5 at (a),(d) and 1e-4 at (b),(c): the "
         "online and the full softmax sum in different orders, more so over "
         "4096-8192 keys; bf16 rtol 1e-2, atol 4e-3: both keep p.v in f32 "
         "and round each output to bf16 once, so they differ by at most one "
         "bf16 ulp (<= 2^-7 of the value)")
-    errs = {}
+    errs, met = {}, set()
     for name in K4_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, kw = k4_operands(name, dtype)
+            before = {n: c.value for n, c in route_calls.items()}
             got = flash_attention_cuda(q, k, v, **kw)
             want = flash_attention_plain(q, k, v, **kw)
             torch.cuda.synchronize()
+            took = k4_routes_since(before)
+            route = k4_route(q.shape[1] // k.shape[1] * q.shape[2], dtype)
             rtol, atol = k4_tolerance(name, dtype)
             err = float((got.float() - want.float()).abs().max())
-            ok = bool(torch.allclose(got.float(), want.float(), rtol=rtol,
-                                     atol=atol)) and got.dtype == dtype
+            ok = (bool(torch.allclose(got.float(), want.float(), rtol=rtol,
+                                      atol=atol)) and got.dtype == dtype
+                  and took == {route: 1})
             dt = str(dtype).removeprefix("torch.")
-            log("k4-parity", case=name, dtype=dt, q=list(q.shape),
-                k=list(k.shape), **kw, rtol=rtol, atol=atol,
-                max_abs_err=err, ok=ok)
+            log("k4-parity", case=name, dtype=dt, route=route, took=took,
+                q=list(q.shape), k=list(k.shape), **kw, rtol=rtol,
+                atol=atol, max_abs_err=err, ok=ok)
             if not ok:
-                raise AssertionError(f"K4 {name} {dt}: max err {err}")
+                raise AssertionError(f"K4 {name} {dt}: max err {err}, "
+                                     f"routes {took}")
             errs[(name, dtype)] = err
+            met.add(route)
             del q, k, v, got, want
     torch.cuda.empty_cache()
+    if met != set(route_calls):
+        raise AssertionError(f"K4 parity met routes {met} only")
     return errs
 
 
@@ -870,11 +916,12 @@ def phase_lm_serve() -> dict:
                 "gather_agg": gather_agg.launches,
                 "gns_sample_agg": k3.launches, "flash_attention": k4.launches}
     torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
+    for c in (*counters.values(), *k4.route_calls.values()):
         c.reset()
     comps = [engine.generate_batch(reqs, frame_embeds=frames)
              for reqs, frames in batches]
     counts = {name: c.value for name, c in counters.items()}
+    routes = {name: c.value for name, c in k4.route_calls.items()}
     decode_steps = sum(c[0].steps - 1 for c in comps)
     for i, batch in enumerate(comps):
         c = batch[0]
@@ -891,7 +938,7 @@ def phase_lm_serve() -> dict:
     log("lm-serve", requests=len(tokens), tokens=list(tokens.shape),
         distinct_tokens=int(np.unique(tokens).size),
         logits=sorted(set(seen)), logits_finite=bool(finite),
-        launches=counts, expect_k4=expect,
+        launches=counts, expect_k4=expect, k4_routes=routes,
         peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
     if not ok_tokens:
         raise AssertionError(f"tokens out of range or short: {tokens.shape}")
@@ -900,11 +947,14 @@ def phase_lm_serve() -> dict:
     if counts["flash_attention"] != expect:
         raise AssertionError(f"K4 launched {counts['flash_attention']} "
                              f"times, expected {expect}")
+    if routes["split_kv"] != expect:
+        raise AssertionError(f"K4 calls by route {routes}: expected all "
+                             f"{expect} on the split-KV route")
     phase_lm_check(engine, *batches[0])
     phase_lm_profile(engine, *batches[0])
     del engine, params
     torch.cuda.empty_cache()
-    return counts
+    return {**counts, "flash_attention_routes": routes}
 
 
 def lm_state(engine, reqs, frames) -> tuple:
@@ -1017,10 +1067,15 @@ def phase_lm_profile(engine, reqs, frames, steps: int = 3) -> None:
                  reverse=True)[:8]
     host = sorted(events, key=lambda e: e.self_cpu_time_total,
                   reverse=True)[:8]
+    k4 = [e for e in on_card if any(n in e.key for n in K4_KERNEL_NAMES)]
+    k4_ms = sum(e.self_device_time_total for e in k4) / 1e3 / steps
     log("lm-profile", batch=len(reqs), steps=steps,
         step_ms=round(step_ms, 3), device_busy_ms=round(busy_ms, 3),
         idle_share=round(1.0 - busy_ms / step_ms, 4),
         device_launches_per_step=sum(e.count for e in on_card) / steps,
+        k4_ms_per_step=round(k4_ms, 4),
+        k4_share_of_busy=round(k4_ms / busy_ms, 4),
+        k4_kernel_launches_per_step=sum(e.count for e in k4) / steps,
         top_device=[(e.key[:60], round(e.self_device_time_total / 1e3
                                        / steps, 4), e.count // steps)
                     for e in top],
@@ -1091,13 +1146,70 @@ def k4_work(q, k, kw) -> tuple[int, int]:
     return n_bytes, 4 * dh * b * hq * int(seen.sum())
 
 
+HOLD_CYCLES = 2_000_000   # about 1 ms of a spin kernel at the H100's clock
+
+
+def turns_ms(fns: dict, flush) -> dict:
+    """Median ms of each function over REPS rounds in which they take turns,
+    each launch timed with CUDA events after ``flush`` was overwritten
+    (cold L2).  A spin kernel (``torch.cuda._sleep``) then holds the stream
+    while the host records the start event and issues the function, so
+    that the events time the device's work and not the host's set-up (a
+    call with two launches and Python around them would otherwise show its
+    host time whenever the host is slower than the flush)."""
+    import torch
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in fns]
+    for _ in range(REPS):
+        for (name, fn), (start, end) in zip(fns.items(), events):
+            flush.zero_()
+            torch.cuda._sleep(HOLD_CYCLES)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def device_us(fns: dict, flush, reps: int = 10) -> dict:
+    """Device time per call of each kernel each function launches, in us,
+    under ``torch.profiler``, cold L2 as in :func:`turns_ms` (the flush and
+    the spin kernel left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for name, fn in fns.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                torch.cuda._sleep(HOLD_CYCLES)
+                fn()
+            torch.cuda.synchronize()
+        out[name] = [
+            (e.key[:48], round(e.self_device_time_total / reps, 2))
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not any(x in e.key for x in ("Fill", "spin", "sleep"))]
+    return out
+
+
 def phase_k4_times(errs, counts) -> list:
-    """K4 at (a)-(c) in bf16 (the model's type): time, bound, plain
-    version and SDPA (timed only; the port never calls it)."""
+    """K4 at (a)-(c) in bf16 (the model's type), in one call and in turns:
+    the route ``flash_attention_cuda`` takes, the CUDA-core kernel (route
+    (iii) by name, ``prev_ms``), the plain version and SDPA (timed
+    only; the port never calls it); and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     flash_attention_simt,
+                                                     k4_route)
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
     dtype = torch.bfloat16
     rows = []
@@ -1120,33 +1232,98 @@ def phase_k4_times(errs, counts) -> list:
                 q, k, v, attn_mask=mask, is_causal=causal, enable_gqa=True)
 
         lib = sdpa()
+        prev = flash_attention_simt(q, k, v, **kw)
         want = flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         lib_err = float((lib.float() - want.float()).abs().max())
+        prev_err = float((prev.float() - want.float()).abs().max())
+        t = turns_ms({
+            "ms": lambda: flash_attention_cuda(q, k, v, **kw),
+            "prev_ms": lambda: flash_attention_simt(q, k, v, **kw),
+            "plain_ms": lambda: flash_attention_plain(q, k, v, **kw),
+            "library_ms": sdpa}, flush)
+        if name == K4_TIMED[0]:
+            log("k4-device", case=name, **device_us({
+                "k4": lambda: flash_attention_cuda(q, k, v, **kw),
+                "sdpa": sdpa}, flush))
         rows.append({
             "name": f"flash_attention[{name},bf16]", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "k4_route": k4_route(q.shape[1] // k.shape[1] * sq, dtype),
+            "source": "src/repro_torch/csrc/" + K4_SOURCES[k4_route(
+                q.shape[1] // k.shape[1] * sq, dtype)],
             "replaces": "src/repro/kernels/flash_attention.py:90",
             **launch_fields(counts, "flash_attention"),
-            "max_abs_err": errs[(name, dtype)],
-            "ms": median_ms(lambda: flash_attention_cuda(q, k, v, **kw),
-                            flush),
-            "plain_ms": median_ms(lambda: flash_attention_plain(q, k, v,
-                                                                **kw), flush),
+            "launches_by_route": counts.get("lm_serve", {}).get(
+                "flash_attention_routes"),
+            "max_abs_err": errs[(name, dtype)], **t,
+            "prev": "src/repro_torch/csrc/flash_attention.cu",
+            "prev_max_abs_err": prev_err,
             "bound_ms": t_bound, "bound_by": by,
-            "library_ms": median_ms(sdpa, flush),
             "library": "F.scaled_dot_product_attention(enable_gqa=True"
                        + (", end-aligned attn_mask)" if mask is not None
                           else f", is_causal={causal})"),
             "library_max_abs_err": lib_err, "bytes": n_bytes,
             "flops": n_flops, "q": list(q.shape), "k": list(k.shape)})
-        del q, k, v, want, lib, mask
+        del q, k, v, want, lib, prev, mask
         torch.cuda.empty_cache()
     for r in rows:
-        log("time", **{k: r[k] for k in ("name", "ms", "bound_ms", "bound_by",
-                                         "plain_ms", "library_ms", "bytes",
-                                         "flops")})
+        log("time", **{k: r[k] for k in ("name", "k4_route", "ms", "prev_ms",
+                                         "bound_ms", "bound_by", "plain_ms",
+                                         "library_ms", "bytes", "flops")})
     return rows
+
+
+def k4_kernel_label(mangled: str) -> str:
+    """``flash_tc_kernel<128,64>`` from a mangled K4 kernel name."""
+    import re
+    name = next(n for n in K4_KERNEL_NAMES if n in mangled)
+    args = mangled.split(name, 1)[1]
+    args = args[1:args.index("EEv")] if args.startswith("I") else ""
+    parts = [m[0] or ("bf16" if m[1] else "f32") for m in re.findall(
+        r"Li(\d+)E|(13__nv_bfloat16)|(f)", args)]
+    return f"{name}<{','.join(parts)}>"
+
+
+def phase_k4_build() -> None:
+    """K4's kernels in the built library, read by ``cuobjdump``: registers,
+    stack and local memory (spills) per kernel, and the tensor-core
+    instructions (HMMA) in each one's SASS.  Every tensor-core route kernel
+    must hold HMMA."""
+    import re
+    import shutil
+    from repro_torch.kernels._ext import load_kernels
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = load_kernels().__file__
+
+    def dump(flag: str) -> str:
+        return subprocess.run([exe, flag, lib], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+
+    usage, fn = {}, None
+    for line in dump("-res-usage").splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            fn = m.group(1) if any(n in m.group(1)
+                                   for n in K4_KERNEL_NAMES) else None
+        elif fn and "REG:" in line:
+            usage[fn] = {k.lower(): int(v) for k, v in re.findall(
+                r"(REG|STACK|LOCAL):(\d+)", line)}
+    hmma, fn = {}, None
+    for line in dump("-sass").splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if m.group(1) in usage else None
+            if fn:
+                hmma[fn] = 0
+        elif fn and re.search(r"\bHMMA\b", line):
+            hmma[fn] += 1
+    for fn in sorted(usage, key=k4_kernel_label):
+        log("k4-build", kernel=k4_kernel_label(fn), **usage[fn],
+            hmma=hmma.get(fn, 0))
+    tc = [fn for fn in usage if "flash_tc_kernel" in fn]
+    if not tc or not all(hmma.get(fn) for fn in tc):
+        raise AssertionError(f"tensor-core route without HMMA: "
+                             f"{[(k4_kernel_label(f), hmma.get(f)) for f in tc]}")
 
 
 def main() -> int:
@@ -1168,6 +1345,7 @@ def main() -> int:
     t0 = time.perf_counter()
     load_kernels()
     log("build", seconds=round(time.perf_counter() - t0, 1))
+    phase_k4_build()
 
     from repro_torch.gns import GNSEngine
     from repro_torch.graph.datasets import get_dataset

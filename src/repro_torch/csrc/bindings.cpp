@@ -75,6 +75,52 @@ void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void flash_attention_split(const torch::Tensor& q, const torch::Tensor& k,
+                           const torch::Tensor& v, torch::Tensor out,
+                           torch::Tensor part_acc, torch::Tensor part_ml,
+                           double scale, bool causal, int64_t window,
+                           int64_t kv_len, int64_t q_offset,
+                           int64_t col_begin, int64_t col_end, int64_t chunk,
+                           int64_t splits, int64_t ways) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  const int bf16 = q.scalar_type() == at::kBFloat16;
+  const auto stream = at::cuda::getCurrentCUDAStream();
+  repro_torch::launch_flash_split_partial(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), part_acc.data_ptr<float>(),
+      part_ml.data_ptr<float>(), bf16, static_cast<int>(q.size(0)),
+      static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
+      static_cast<int>(q.size(2)), static_cast<int>(k.size(2)),
+      static_cast<int>(q.size(3)), static_cast<float>(scale), causal,
+      static_cast<int>(window), static_cast<int>(kv_len),
+      static_cast<int>(q_offset), static_cast<int>(col_begin),
+      static_cast<int>(col_end), static_cast<int>(chunk),
+      static_cast<int>(splits), static_cast<int>(ways), stream);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  repro_torch::launch_flash_split_combine(
+      part_acc.data_ptr<float>(), part_ml.data_ptr<float>(), out.data_ptr(),
+      bf16, static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
+      static_cast<int>(k.size(1)), static_cast<int>(q.size(2)),
+      static_cast<int>(q.size(3)), static_cast<int>(part_ml.size(2)),
+      stream);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void flash_attention_tc(const torch::Tensor& q, const torch::Tensor& k,
+                        const torch::Tensor& v, torch::Tensor out,
+                        double scale, bool causal, int64_t window,
+                        int64_t kv_len, int64_t q_offset) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  repro_torch::launch_flash_attention_tc(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+      static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
+      static_cast<int>(k.size(1)), static_cast<int>(q.size(2)),
+      static_cast<int>(k.size(2)), static_cast<int>(q.size(3)),
+      static_cast<float>(scale), causal, static_cast<int>(window),
+      static_cast<int>(kv_len), static_cast<int>(q_offset),
+      at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -88,4 +134,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attention", &flash_attention,
         "K4: blocked attention with an online softmax; window <= 0 means "
         "none (writes out)");
+  m.def("flash_attention_split", &flash_attention_split,
+        "K4 route (i): split-KV partials, then their combine (two launches; "
+        "writes part_acc, part_ml and out)");
+  m.def("flash_attention_tc", &flash_attention_tc,
+        "K4 route (ii): FlashAttention-2 on the tensor cores, bf16 "
+        "(writes out)");
 }

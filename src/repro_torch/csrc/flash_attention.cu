@@ -33,15 +33,16 @@
 // IEEE division throughout; no fast math.
 //
 // What bounds it on an H100: for decode (Sq = 1) HBM bytes, the K/V it
-// reads (at the serve shape, B=4, 16 heads, 1024 keys, Dh=64 in bf16,
-// 16.8 MB: 5 us); for prefill-sized causal or windowed attention the
-// operations, 4 * Dh per visible (row, key) pair, at 989 TFLOP/s for bf16
-// operands on the tensor cores (67 TFLOP/s f32).  This first design answers
-// neither well: the products run on the CUDA cores in f32 (no mma/wgmma),
-// K/V tiles are loaded without TMA or double buffering, and a decode step
-// has only B * Hkv blocks of one row each, so most SMs idle while each block
-// walks its keys tile by tile.  Split-KV for decode and tensor-core tiles
-// are a later PR's work.
+// reads; for prefill-sized causal or windowed attention the operations,
+// 4 * Dh per visible (row, key) pair, at 67 TFLOP/s for f32 on the CUDA
+// cores.  This kernel is route (iii) of flash_attention_cuda: it takes the
+// float32 calls with more than 16 rows per (batch, kv head).  The products
+// stay on the CUDA cores in f32 because the tensor cores would run f32 as
+// TF32 (about three decimal digits), which the f32 limits (2e-5 / 1e-4)
+// do not allow.  Few-row calls (decode) take the split-KV route
+// (flash_attention_split.cu) and bf16 prefill the tensor-core route
+// (flash_attention_tc.cu); the wrapper also exposes this kernel by name, as
+// the in-call baseline the other routes are timed against.
 #include "kernels.h"
 #include "row_accum.cuh"
 

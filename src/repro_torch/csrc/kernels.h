@@ -48,4 +48,31 @@ void launch_flash_attention(const void* q, const void* k, const void* v,
                             int window, int kv_len, int q_offset,
                             cudaStream_t stream);
 
+// K4, route (i): split-KV attention for at most 16 rows per (b, kv head)
+// (flash_attention_split.cu).  Pass 1, grid (splits, Hkv, B): keys
+// [col_begin, col_end) cut into chunks of `chunk` (a multiple of 32), each
+// shared by `ways` warps per group of rows; each block writes one partial
+// (m, l, acc[Dh]) per row to part_ml [B, Hkv, splits, G * Sq, 2] and
+// part_acc [..., Dh], f32.  Needs ceil(G * Sq / (8 / ways)) <= 4.  Pass 2
+// combines the splits into out.
+void launch_flash_split_partial(const void* q, const void* k, const void* v,
+                                float* part_acc, float* part_ml, int bf16,
+                                int B, int Hq, int Hkv, int Sq, int Sk,
+                                int Dh, float scale, int causal, int window,
+                                int kv_len, int q_offset, int col_begin,
+                                int col_end, int chunk, int splits, int ways,
+                                cudaStream_t stream);
+void launch_flash_split_combine(const float* part_acc, const float* part_ml,
+                                void* out, int bf16, int B, int Hq, int Hkv,
+                                int Sq, int Dh, int n_part,
+                                cudaStream_t stream);
+
+// K4, route (ii): FlashAttention-2 on the tensor cores (mma.sync), bf16
+// only (flash_attention_tc.cu); the arguments of launch_flash_attention.
+void launch_flash_attention_tc(const void* q, const void* k, const void* v,
+                               void* out, int B, int Hq, int Hkv, int Sq,
+                               int Sk, int Dh, float scale, int causal,
+                               int window, int kv_len, int q_offset,
+                               cudaStream_t stream);
+
 }  // namespace repro_torch

@@ -75,6 +75,11 @@ class GNSEngine:
             raise NotImplementedError(
                 f"mesh {cfg.mesh} needs the multi-device port; this engine "
                 "runs on one device")
+        if cfg.stream is not None:
+            raise NotImplementedError(
+                f"stream {cfg.stream} needs streaming ingest, not ported yet "
+                "(ROADMAP.md Queue A item 5, streaming ingest); this engine "
+                "would drop it")
         if dataset is None:
             dataset = get_dataset(cfg.data.name, scale=cfg.data.scale,
                                   seed=cfg.data.seed)

@@ -133,3 +133,12 @@ def test_engine_refuses_a_mesh():
     with pytest.raises(NotImplementedError):
         GNSEngine(dataclasses.replace(cfg, mesh=MeshConfig(data=2)),
                   device="cpu")
+
+
+def test_engine_refuses_a_stream_config():
+    """Streaming ingest is not ported: a stream config raises rather than
+    being dropped (the reference wires it in its constructor)."""
+    cfg = EngineConfig.preset("stream_replay")
+    assert cfg.stream is not None
+    with pytest.raises(NotImplementedError, match="streaming ingest"):
+        GNSEngine(cfg, device="cpu")

@@ -13,7 +13,12 @@ table.  K4 (flash attention) sums its online softmax in another order than
 the plain version's full softmax: f32 is held to 2e-5 (3e-5 for odd
 lengths), the JAX kernel tests' tolerances.  In bf16 both keep p.v in f32
 and round each output once, so they differ by at most one bf16 ulp
-(<= 2^-7 of the value): rtol 1e-2, atol 4e-3.
+(<= 2^-7 of the value): rtol 1e-2, atol 4e-3.  K4 has three routes (split-KV
+for at most 16 rows per (batch, kv head), the tensor cores for bf16 with
+more, the CUDA cores for float32 with more); every case asserts, through the
+route counters, the route ``k4_route`` names for it, and the cases give
+each route MQA, a window, odd lengths, a poisoned tail past ``kv_len`` and
+head dims 120 and 256 in every dtype it takes.
 """
 import numpy as np
 import pytest
@@ -179,6 +184,23 @@ K4_CASES = [
     (4, 16, 16, 1, 1024, 64, False, None, None, None),
     (1, 4, 1, 70, 300, 120, True, 64, 290, 200),
     (2, 4, 4, 3, 40, 256, True, None, None, None),
+    # split-KV route (G * Sq <= 16): MQA, a window, odd lengths, a poisoned
+    # tail, Dh 120 and 256, a chunk that the rows at position 127 see none
+    # of (keys 128-130), and a row that sees no key at all
+    (2, 8, 1, 1, 300, 64, True, None, None, None),
+    (1, 4, 2, 2, 500, 64, True, 100, None, None),
+    (1, 2, 1, 7, 53, 32, True, None, None, None),
+    (2, 4, 4, 1, 200, 64, False, None, 150, 149),
+    (1, 4, 1, 3, 300, 120, True, 64, 290, 200),
+    (2, 4, 4, 1, 400, 256, False, None, 333, 332),
+    (1, 4, 2, 4, 131, 32, True, None, None, None),
+    (1, 2, 2, 1, 16, 32, False, None, 0, 0),
+    # many rows at Dh 256 (tensor cores in bf16, CUDA cores in f32), with a
+    # window and a poisoned tail; several row and key tiles under a causal
+    # mask at qwen2's head dim
+    (1, 4, 2, 40, 90, 256, True, None, None, None),
+    (1, 2, 1, 100, 200, 256, True, 50, 180, 80),
+    (1, 28, 4, 300, 300, 128, True, None, None, None),
 ]
 
 
@@ -196,11 +218,15 @@ def test_flash_attention_kernel_matches_plain_on_card(case, dtype):
         k[:, :, kv_len:] = 1e5                 # poison the masked tail
         v[:, :, kv_len:] = 1e5
     kw = dict(causal=causal, window=window, kv_len=kv_len, q_offset=q_offset)
+    route = k4.k4_route(hq // hkv * sq, dtype)
     n0 = k4.launches.value
+    r0 = {name: c.value for name, c in k4.route_calls.items()}
     got = k4.flash_attention_cuda(q, k, v, **kw)
     want = k4.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     assert k4.launches.value == n0 + 1
+    assert {name: c.value - r0[name] for name, c in k4.route_calls.items()
+            } == {name: int(name == route) for name in k4.ROUTES}
     assert got.dtype == dtype and got.shape == q.shape
     if dtype == torch.bfloat16:
         rtol, atol = 1e-2, 4e-3
@@ -229,6 +255,49 @@ def test_flash_attention_wrapper_checks_its_operands_on_card():
     q.requires_grad_(True)
     with pytest.raises(NotImplementedError, match="no backward"):
         ops.flash_attention(q, k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    (1, 28, 4, 300, 300, 128, True, None, None, None),
+    (1, 8, 2, 200, 333, 120, True, 64, 300, 90),
+    (1, 2, 1, 37, 53, 32, True, None, None, None),
+    (1, 4, 2, 40, 90, 256, True, None, None, None),
+])
+def test_tensor_core_route_matches_the_cuda_core_route_on_card(case):
+    """Routes (ii) and (iii) by name on the same bf16 operands: each rounds
+    its output to bf16 once (the tensor cores also round p), so they agree
+    within the bf16 limit."""
+    dev = requires_cuda()
+    b, hq, hkv, sq, sk, dh, causal, window, kv_len, q_offset = case
+    rng = np.random.default_rng(sq + dh)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, h, s, dh)).astype(
+        np.float32)).to(dev, dtype=torch.bfloat16)
+        for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
+    kw = dict(causal=causal, window=window, kv_len=kv_len, q_offset=q_offset)
+    tc0 = k4.route_calls["tensor_core"].value
+    simt0 = k4.route_calls["simt"].value
+    tc = k4.flash_attention_tensor_core(q, k, v, **kw)
+    simt = k4.flash_attention_simt(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert k4.route_calls["tensor_core"].value == tc0 + 1
+    assert k4.route_calls["simt"].value == simt0 + 1
+    torch.testing.assert_close(tc.float(), simt.float(), rtol=1e-2,
+                               atol=4e-3)
+
+
+@pytest.mark.gpu
+def test_flash_attention_routes_check_their_operands_on_card():
+    dev = requires_cuda()
+    q = torch.randn(1, 4, 8, 64, device=dev)
+    k, v = (torch.randn(1, 1, 8, 64, device=dev) for _ in range(2))
+    with pytest.raises(TypeError, match="bfloat16"):
+        k4.flash_attention_tensor_core(q, k, v)
+    with pytest.raises(ValueError, match="at most 16 rows"):
+        k4.flash_attention_split_kv(q, k, v)
+    flat = torch.randn(q.numel() + 1, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        k4.flash_attention_cuda(flat[1:].view(q.shape), k, v)
 
 
 @pytest.mark.gpu
