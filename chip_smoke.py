@@ -7,22 +7,25 @@ Run from the root of a checkout, on a host with one CUDA card.  Phases, one
 line each on stdout:
 
 1. build     — compile the port's CUDA kernels (K1 ``cache_lookup_agg``, K2
-               ``gather_agg``, K3 ``gns_sample_agg``, K4 ``flash_attention``
+               ``gather_agg`` and K3 ``gns_sample_agg`` on row tiles with
+               their one-warp-per-row predecessors, K4 ``flash_attention``
                in three routes) from ``src/repro_torch/csrc``; then read
-               K4's kernels back with ``cuobjdump``: registers, stack and
-               local memory (spills), and the HMMA instructions that the
-               tensor-core route must hold;
+               them back with ``cuobjdump``: registers, stack and local
+               memory (spills) of K2's, K3's (``[kbuild]``; the tile kernels
+               must not spill) and K4's kernels, and the HMMA instructions
+               that K4's tensor-core route must hold (``[k4-build]``);
 2. parity    — at the bucket-128 and bucket-512 serving shapes of preset
                ``paper_train``, hold K1 and K2 against their plain PyTorch
-               versions on the card: ``torch.equal`` on integer-valued f32,
-               allclose (rtol 1e-5, atol 1e-6) on random f32 and on a bf16
-               table;
+               versions on the card: ``torch.equal`` on integer-valued f32
+               and, for K2, on random f32 and a bf16 table too; K1 allclose
+               (rtol 1e-5, atol 1e-6) on random f32 and on a bf16 table;
 3. serve     — ``GNSEngine`` on preset ``paper_train`` with the fused K1
                input layer and the K2 aggregation serves 64 requests of 1-16
                node ids through ``GNSServer`` in waves that use all three
-               buckets; every request must come back with finite logits, and
+               buckets; every request must come back with finite logits,
                both kernels' launch counters, zeroed just before, must be
-               above 0.  Then, for one prepared batch per bucket, the card's
+               above 0, and every K2 launch must take the vector path (D =
+               256).  Then, for one prepared batch per bucket, the card's
                logits must match the same engine's plain path on the CPU
                (allclose rtol 1e-4, atol 1e-4: cuBLAS and the CPU sum the f32
                matmul in different orders);
@@ -40,7 +43,8 @@ line each on stdout:
                ``fit(epochs=1, max_batches=2)`` and one eval batch through
                K1.  Losses must be finite; each prints its losses, its step
                time (CUDA events; median of the last 3 steps) and the
-               meter's sample / copy / compute split;
+               meter's sample / copy / compute split; every K3 launch of
+               (A) must take the vector path (D = 100);
    Then one more step of (A) under ``torch.profiler``: the device's busy
    time against the step's wall time, and the largest device and host
    entries (after the counted run, so it adds no launch to the counts);
@@ -88,13 +92,15 @@ line each on stdout:
                teacher-forced single-token steps allclose (rtol 1e-4, atol
                1e-5: cuBLAS and the CPU order the f32 sums differently);
 10. times    — each kernel's median time over cold-L2 launches at the
-               serving and training shapes, its bound, the plain version's
-               time and, where one PyTorch call computes the same function,
-               that call's (``embedding_bag`` for the gathers,
-               ``scaled_dot_product_attention`` for K4).  K4 at (a)-(c) in
-               bf16 takes turns with the CUDA-core kernel (route (iii) by
+               serving and training shapes, in turns within this call with
+               the plain version and, where one PyTorch call computes the
+               same function, that call (``embedding_bag`` for the gathers,
+               ``scaled_dot_product_attention`` for K4), and its bound.
+               K2 and K3 also take turns with their one-warp-per-row
+               predecessors (``prev_ms``, held bitwise equal first), K4 at
+               (a)-(c) in bf16 with the CUDA-core kernel (route (iii) by
                name, ``prev_ms``, the design the other routes replace on
-               these shapes), the plain version and SDPA, in one call.
+               these shapes).
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit as ``nvidia-smi`` reports them, and as the last line
@@ -141,25 +147,6 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 # timing and bounds
 # ---------------------------------------------------------------------------
-
-def median_ms(fn, flush) -> float:
-    """Median of REPS launches, each timed with CUDA events after the L2
-    cache was overwritten (the serving path finds these operands cold)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(REPS):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
 
 def bound_ms(n_bytes: int, n_flops: int,
              flops_per_s: float = F32_FLOPS) -> tuple[float, str]:
@@ -298,7 +285,7 @@ def phase_parity(engine, shapes, rng) -> dict:
         got, want = kernel(*args), plain(*args)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        if kind == "int":
+        if kind == "int" or name == "gather_agg":
             ok = torch.equal(got, want)
         else:
             ok = torch.allclose(got, want, rtol=1e-5, atol=1e-6)
@@ -347,8 +334,9 @@ def phase_serve(engine, rng) -> dict:
     waves[1][0] = 16
     waves[1][1] = 16
     waves[1][2] = 16                  # >= 48 ids: never fits bucket 32
-    cache_lookup.launches.reset()
-    gather_agg.launches.reset()
+    for c in (cache_lookup.launches, gather_agg.launches,
+              *gather_agg.path_calls.values()):
+        c.reset()
     t0 = time.perf_counter()
     results = []
     with engine.serve() as server:
@@ -365,12 +353,14 @@ def phase_serve(engine, rng) -> dict:
                 results.append(res)
     counts = {"cache_lookup_agg": cache_lookup.launches.value,
               "gather_agg": gather_agg.launches.value}
+    k2_paths = {p: c.value for p, c in gather_agg.path_calls.items()}
     wall = time.perf_counter() - t0
     snap = server.meter.snapshot()
     buckets = sorted({r.bucket for r in results})
     log("serve", requests=len(results), batches=snap["batches"],
         buckets=buckets, launches_k1=counts["cache_lookup_agg"],
-        launches_k2=counts["gather_agg"], wall_s=round(wall, 3),
+        launches_k2=counts["gather_agg"], k2_paths=k2_paths,
+        k2_vector_path_at_d=engine.mcfg.hidden_dim, wall_s=round(wall, 3),
         total_p50_ms=snap["total_p50_ms"], total_p99_ms=snap["total_p99_ms"],
         cache_hit_rate=snap["cache_hit_rate"])
     if len(results) != 64:
@@ -379,6 +369,9 @@ def phase_serve(engine, rng) -> dict:
         raise AssertionError(f"buckets used {buckets}, expected all three")
     if counts["cache_lookup_agg"] < 1 or counts["gather_agg"] < 1:
         raise AssertionError(f"a kernel was never launched: {counts}")
+    if k2_paths != {"vector": counts["gather_agg"], "scalar": 0}:
+        raise AssertionError(f"K2 left the vector path at D = "
+                             f"{engine.mcfg.hidden_dim}: {k2_paths}")
     return counts
 
 
@@ -485,6 +478,7 @@ def phase_train(engine, name: str, epochs: int, max_batches, eval_batches: int,
     counters = {"cache_lookup_agg": cache_lookup.launches,
                 "gather_agg": gather_agg.launches,
                 "gns_sample_agg": k3.launches}
+    paths = {"k2": gather_agg.path_calls, "k3": k3.path_calls}
     meter = engine.meter
     before = {f: getattr(meter, f) for f in METER_TIMES}
     swaps0 = engine.store.swaps
@@ -503,7 +497,8 @@ def phase_train(engine, name: str, epochs: int, max_batches, eval_batches: int,
         return loss, acc
 
     engine.run_batch = timed_step
-    for c in counters.values():
+    for c in (*counters.values(), *paths["k2"].values(),
+              *paths["k3"].values()):
         c.reset()
     t0 = time.perf_counter()
     try:
@@ -513,13 +508,16 @@ def phase_train(engine, name: str, epochs: int, max_batches, eval_batches: int,
         del engine.run_batch
     wall = time.perf_counter() - t0
     counts = {k: c.value for k, c in counters.items()}
+    path_counts = {k: {p: c.value for p, c in v.items()}
+                   for k, v in paths.items()}
     split = {f: getattr(meter, f) - before[f] for f in METER_TIMES}
     steps = len(step_ms)
     log("train", path=name, steps=steps, losses=losses,
         epoch_losses=rep.losses, val_acc=acc,
         step_ms_median_last3=float(np.median(step_ms[-3:])),
         step_ms=step_ms, swaps=engine.store.swaps - swaps0,
-        launches=counts, wall_s=round(wall, 3),
+        launches=counts, paths=path_counts,
+        feat_dim=engine.ds.feat_dim, wall_s=round(wall, 3),
         **{f + "_s": v for f, v in split.items()},
         input_nodes_per_batch=rep.input_nodes_per_batch,
         cached_nodes_per_batch=rep.cached_nodes_per_batch)
@@ -532,6 +530,10 @@ def phase_train(engine, name: str, epochs: int, max_batches, eval_batches: int,
         raise AssertionError(f"{name}: {expect} launched {counts[expect]} "
                              f"times for {steps} steps + {eval_batches} "
                              f"eval batches")
+    if path_counts["k3"] != {"vector": counts["gns_sample_agg"],
+                             "scalar": 0}:
+        raise AssertionError(f"{name}: K3 left the vector path at D = "
+                             f"{engine.ds.feat_dim}: {path_counts['k3']}")
     return {"counts": counts, "steps": steps, "step_ms": step_ms,
             "losses": losses, "split": split}
 
@@ -613,16 +615,28 @@ def launch_fields(counts: dict, kernel: str) -> dict:
     return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
 
+TIME_KEYS = ("name", "ms", "prev_ms", "bound_ms", "bound_by", "plain_ms",
+             "library_ms", "bytes", "lane_bound_ms", "path")
+
+
+def log_times(rows: list) -> None:
+    for r in rows:
+        log("time", **{k: r[k] for k in TIME_KEYS if k in r})
+
+
 def phase_train_times(k3_shapes, k3_errs, k1_args, counts) -> list:
-    """K3 at the training and bucket-128 shapes, K1 at the training shape
-    of the host-fused path: times, bounds, plain versions and the
-    ``embedding_bag`` yardstick of the gather."""
+    """K3 at the training and bucket-128 shapes, in turns with its
+    one-warp-per-row predecessor (``prev_ms``), its plain version and the
+    ``embedding_bag`` yardstick of the gather; K1 at the training shape of
+    the host-fused path, in turns with its plain version."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.cache_lookup import (cache_lookup_agg_cuda,
                                                   cache_lookup_agg_plain)
+    from repro_torch.kernels.gather_agg import access_path
     from repro_torch.sampling.kernels import (gns_sample_agg_cuda,
                                               gns_sample_agg_plain,
+                                              gns_sample_agg_rowwarp_cuda,
                                               sample_lanes_plain)
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
     rows = []
@@ -634,19 +648,29 @@ def phase_train_times(k3_shapes, k3_errs, k1_args, counts) -> list:
         t_bound, by = bound_ms(n_bytes, n_flops)
         lib_idx = lane_rows.clamp(min=0).long()
         lib_w = torch.where(lane_rows >= 0, lane_w, 0.0)
+        prev_equal = torch.equal(gns_sample_agg_rowwarp_cuda(*args),
+                                 gns_sample_agg_cuda(*args))
+        if not prev_equal:
+            raise AssertionError(f"K3 {name}: tile and rowwarp kernels "
+                                 f"differ")
+        t = turns_ms({
+            "ms": lambda: gns_sample_agg_cuda(*args),
+            "prev_ms": lambda: gns_sample_agg_rowwarp_cuda(*args),
+            "plain_ms": lambda: gns_sample_agg_plain(*args),
+            "library_ms": lambda: F.embedding_bag(
+                lib_idx, table, per_sample_weights=lib_w, mode="sum")},
+            flush)
         rows.append({
             "name": f"gns_sample_agg[{name}]", "route": "cuda",
             "source": "src/repro_torch/csrc/gns_sample_agg.cu",
             "replaces": "src/repro/sampling/kernels.py:138",
             **launch_fields(counts, "gns_sample_agg"),
-            "max_abs_err": k3_errs[name],
-            "ms": median_ms(lambda: gns_sample_agg_cuda(*args), flush),
-            "plain_ms": median_ms(lambda: gns_sample_agg_plain(*args), flush),
+            "max_abs_err": k3_errs[name], **t,
+            "prev": "src/repro_torch/csrc/rowwarp.cu", "prev_equal": True,
             "bound_ms": t_bound, "bound_by": by,
-            "library_ms": median_ms(lambda: F.embedding_bag(
-                lib_idx, table, per_sample_weights=lib_w, mode="sum"), flush),
             "library": "F.embedding_bag over the drawn lanes (gather only)",
-            "bytes": n_bytes, "B": dst.shape[0]})
+            "bytes": n_bytes, "B": dst.shape[0],
+            "path": access_path(table)})
     got = cache_lookup_agg_cuda(*k1_args)
     want = cache_lookup_agg_plain(*k1_args)
     torch.cuda.synchronize()
@@ -661,15 +685,13 @@ def phase_train_times(k3_shapes, k3_errs, k1_args, counts) -> list:
         "replaces": "src/repro/kernels/cache_lookup.py:78",
         **launch_fields(counts, "cache_lookup_agg"),
         "max_abs_err": err,
-        "ms": median_ms(lambda: cache_lookup_agg_cuda(*k1_args), flush),
-        "plain_ms": median_ms(lambda: cache_lookup_agg_plain(*k1_args),
-                              flush),
+        **turns_ms({"ms": lambda: cache_lookup_agg_cuda(*k1_args),
+                    "plain_ms": lambda: cache_lookup_agg_plain(*k1_args)},
+                   flush),
         "bound_ms": t_bound, "bound_by": by, "library_ms": None,
         "bytes": n_bytes, "lane_bound_ms": lane_bytes / HBM_MS,
         "B": k1_args[3].shape[0]})
-    for r in rows:
-        log("time", **{k: r[k] for k in ("name", "ms", "bound_ms", "bound_by",
-                                         "plain_ms", "library_ms", "bytes")})
+    log_times(rows)
     return rows
 
 
@@ -690,12 +712,16 @@ def host_train_batch(engine, rng) -> tuple:
 
 
 def phase_times(engine, shapes, errs, counts) -> list:
+    """K1 and K2 at the serving shapes.  K1 in turns with its plain
+    version; K2 in turns with its one-warp-per-row predecessor
+    (``prev_ms``), its plain version and ``embedding_bag``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.cache_lookup import (cache_lookup_agg_cuda,
                                                   cache_lookup_agg_plain)
-    from repro_torch.kernels.gather_agg import (gather_agg_cuda,
-                                                gather_agg_plain)
+    from repro_torch.kernels.gather_agg import (access_path, gather_agg_cuda,
+                                                gather_agg_plain,
+                                                gather_agg_rowwarp_cuda)
     dev = engine.device
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)  # > L2
     table = engine.store.generation.table
@@ -712,8 +738,9 @@ def phase_times(engine, shapes, errs, counts) -> list:
             "replaces": "src/repro/kernels/cache_lookup.py:78",
             **launch_fields(counts, "cache_lookup_agg"),
             "max_abs_err": errs[("cache_lookup_agg", b, 0)],
-            "ms": median_ms(lambda: cache_lookup_agg_cuda(*args), flush),
-            "plain_ms": median_ms(lambda: cache_lookup_agg_plain(*args), flush),
+            **turns_ms({"ms": lambda: cache_lookup_agg_cuda(*args),
+                        "plain_ms": lambda: cache_lookup_agg_plain(*args)},
+                       flush),
             "bound_ms": t_bound, "bound_by": by, "library_ms": None,
             "bytes": n_bytes, "lane_bound_ms": lane_bytes / HBM_MS})
         h = torch.randn((blk0.nbr_idx.shape[0], engine.mcfg.hidden_dim),
@@ -724,23 +751,28 @@ def phase_times(engine, shapes, errs, counts) -> list:
             idx, w = blk.nbr_idx, blk.nbr_w
             n_bytes, lane_bytes, n_flops = gather_work(feat, idx, w)
             t_bound, by = bound_ms(n_bytes, n_flops)
+            if not torch.equal(gather_agg_rowwarp_cuda(feat, idx, w),
+                               gather_agg_cuda(feat, idx, w)):
+                raise AssertionError(f"K2 b={b} layer {li}: tile and "
+                                     f"rowwarp kernels differ")
             rows.append({
                 "name": f"gather_agg[b={b},layer={li}]", "route": "cuda",
                 "source": "src/repro_torch/csrc/gather_agg.cu",
                 "replaces": "src/repro/kernels/gather_agg.py:51",
                 **launch_fields(counts, "gather_agg"),
                 "max_abs_err": errs[("gather_agg", b, li)],
-                "ms": median_ms(lambda: gather_agg_cuda(feat, idx, w), flush),
-                "plain_ms": median_ms(lambda: gather_agg_plain(feat, idx, w),
-                                      flush),
+                **turns_ms({
+                    "ms": lambda: gather_agg_cuda(feat, idx, w),
+                    "prev_ms": lambda: gather_agg_rowwarp_cuda(feat, idx, w),
+                    "plain_ms": lambda: gather_agg_plain(feat, idx, w),
+                    "library_ms": lambda: F.embedding_bag(
+                        idx, feat, per_sample_weights=w, mode="sum")},
+                    flush),
+                "prev": "src/repro_torch/csrc/rowwarp.cu", "prev_equal": True,
                 "bound_ms": t_bound, "bound_by": by,
-                "library_ms": median_ms(lambda: F.embedding_bag(
-                    idx, feat, per_sample_weights=w, mode="sum"), flush),
-                "bytes": n_bytes, "lane_bound_ms": lane_bytes / HBM_MS})
-    for r in rows:
-        log("time", **{k: r[k] for k in ("name", "ms", "bound_ms", "bound_by",
-                                         "plain_ms", "library_ms", "bytes",
-                                         "lane_bound_ms")})
+                "bytes": n_bytes, "lane_bound_ms": lane_bytes / HBM_MS,
+                "path": access_path(feat)})
+    log_times(rows)
     return rows
 
 
@@ -1273,38 +1305,52 @@ def phase_k4_times(errs, counts) -> list:
     return rows
 
 
-def k4_kernel_label(mangled: str) -> str:
-    """``flash_tc_kernel<128,64>`` from a mangled K4 kernel name."""
+# K2's and K3's device kernels by name: the tile kernels and their
+# one-warp-per-row predecessors (rowwarp.cu)
+TILE_KERNEL_NAMES = ("gather_agg_kernel", "gns_sample_agg_kernel")
+ROWWARP_KERNEL_NAMES = ("gather_agg_rowwarp_kernel",
+                        "gns_sample_agg_rowwarp_kernel")
+
+
+def kernel_label(mangled: str, names: tuple) -> str:
+    """``flash_tc_kernel<128,64>`` or ``gather_agg_kernel<f32,vec>`` from a
+    mangled kernel name that holds one of ``names``."""
     import re
-    name = next(n for n in K4_KERNEL_NAMES if n in mangled)
-    args = mangled.split(name, 1)[1]
+    name = next(n for n in names if f"{len(n)}{n}" in mangled)
+    args = mangled.split(f"{len(name)}{name}", 1)[1]
     args = args[1:args.index("EEv")] if args.startswith("I") else ""
-    parts = [m[0] or ("bf16" if m[1] else "f32") for m in re.findall(
-        r"Li(\d+)E|(13__nv_bfloat16)|(f)", args)]
+    parts = [m[0] or ("bf16" if m[1] else "f32" if m[2] else
+                      "vec" if m[3] == "1" else "scalar")
+             for m in re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(f)|Lb([01])E",
+                                 args)]
     return f"{name}<{','.join(parts)}>"
 
 
-def phase_k4_build() -> None:
-    """K4's kernels in the built library, read by ``cuobjdump``: registers,
-    stack and local memory (spills) per kernel, and the tensor-core
-    instructions (HMMA) in each one's SASS.  Every tensor-core route kernel
-    must hold HMMA."""
+def phase_kbuild() -> None:
+    """The kernels of K2, K3 and K4 in the built library, read by
+    ``cuobjdump``: registers, stack and local memory (spills) per kernel,
+    and for K4 the tensor-core instructions (HMMA) in each one's SASS.
+    K2's and K3's tile kernels must not spill (stack and local 0); every
+    tensor-core route kernel of K4 must hold HMMA."""
     import re
     import shutil
     from repro_torch.kernels._ext import load_kernels
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     lib = load_kernels().__file__
+    names = K4_KERNEL_NAMES + TILE_KERNEL_NAMES + ROWWARP_KERNEL_NAMES
 
     def dump(flag: str) -> str:
         return subprocess.run([exe, flag, lib], capture_output=True,
                               text=True, timeout=300, check=True).stdout
 
+    def named(fn: str, group: tuple) -> bool:     # as mangled: 17gather...
+        return any(f"{len(n)}{n}" in fn for n in group)
+
     usage, fn = {}, None
     for line in dump("-res-usage").splitlines():
         m = re.search(r"Function (\S+):", line)
         if m:
-            fn = m.group(1) if any(n in m.group(1)
-                                   for n in K4_KERNEL_NAMES) else None
+            fn = m.group(1) if named(m.group(1), names) else None
         elif fn and "REG:" in line:
             usage[fn] = {k.lower(): int(v) for k, v in re.findall(
                 r"(REG|STACK|LOCAL):(\d+)", line)}
@@ -1317,13 +1363,28 @@ def phase_k4_build() -> None:
                 hmma[fn] = 0
         elif fn and re.search(r"\bHMMA\b", line):
             hmma[fn] += 1
-    for fn in sorted(usage, key=k4_kernel_label):
-        log("k4-build", kernel=k4_kernel_label(fn), **usage[fn],
-            hmma=hmma.get(fn, 0))
-    tc = [fn for fn in usage if "flash_tc_kernel" in fn]
-    if not tc or not all(hmma.get(fn) for fn in tc):
-        raise AssertionError(f"tensor-core route without HMMA: "
-                             f"{[(k4_kernel_label(f), hmma.get(f)) for f in tc]}")
+    k4 = sorted((f for f in usage if named(f, K4_KERNEL_NAMES)),
+                key=lambda f: kernel_label(f, K4_KERNEL_NAMES))
+    for f in k4:
+        log("k4-build", kernel=kernel_label(f, K4_KERNEL_NAMES), **usage[f],
+            hmma=hmma.get(f, 0))
+    tiles = [f for f in usage if named(f, TILE_KERNEL_NAMES)]
+    for group, design in ((TILE_KERNEL_NAMES, "tile"),
+                          (ROWWARP_KERNEL_NAMES, "rowwarp")):
+        for f in sorted((f for f in usage if named(f, group)),
+                        key=lambda f: kernel_label(f, group)):
+            log("kbuild", kernel=kernel_label(f, group), design=design,
+                **usage[f])
+    tc = [f for f in k4 if "flash_tc_kernel" in f]
+    if not tc or not all(hmma.get(f) for f in tc):
+        raise AssertionError("tensor-core route without HMMA: " + str(
+            [(kernel_label(f, K4_KERNEL_NAMES), hmma.get(f)) for f in tc]))
+    # 2 kernels x 2 table types x 2 access paths
+    spills = {kernel_label(f, TILE_KERNEL_NAMES): usage[f] for f in tiles
+              if usage[f].get("stack") or usage[f].get("local")}
+    if len(tiles) != 8 or spills:
+        raise AssertionError(f"tile kernels: {len(tiles)} of 8 found, "
+                             f"spills {spills}")
 
 
 def main() -> int:
@@ -1345,7 +1406,7 @@ def main() -> int:
     t0 = time.perf_counter()
     load_kernels()
     log("build", seconds=round(time.perf_counter() - t0, 1))
-    phase_k4_build()
+    phase_kbuild()
 
     from repro_torch.gns import GNSEngine
     from repro_torch.graph.datasets import get_dataset

@@ -2,53 +2,79 @@
 //
 //   out[b, :] = sum_k w[b, k] * feat[idx[b, k], :]      (k ascending, f32)
 //
-// Replaces the TPU kernel repro/kernels/gather_agg.py::gather_agg_pallas.
-// That kernel runs a (B, D/block_d, K) grid with K innermost, so one output
-// tile stays in VMEM while the K rows stream in.  Here one warp owns a
-// destination row and loops over k itself (the sequential K axis becomes a
-// loop inside the warp); the sum lives in registers, and each output element
-// is written once.
+// Replaces the TPU kernel repro/kernels/gather_agg.py::gather_agg_pallas
+// (a (B, D/block_d, K) grid with K innermost, one output tile in VMEM while
+// the K rows stream in).
 //
-// What bounds it on an H100: HBM bytes.  Per call it reads the rows its
-// lanes name (B*K*D*elt bytes, or each distinct row once when repeats hit
-// in L2), idx and w (B*K*8) and writes the output (B*D*4), against two
-// flops per gathered element, far below the card's flop-per-byte balance.
-// The design spends nothing but loads on the rows: each warp load
-// instruction reads 32 neighbouring elements of one row (one 128-byte line
-// in f32), each lane keeps 8 independent loads in flight per k, and nothing
-// is staged through shared memory.  Rows that repeat across
-// destinations are left to L2.  No wgmma, TMA or pipelining yet.
+// What bounds it on an H100: at the serving shapes of preset paper_train
+// (layer 1: B = 16b rows, K = 10; layer 2: B = b, K = 15; D = 256, f32;
+// b = 128 or 512) the bytes the function needs are 1.6-23 MB, 0.5-7 us at
+// 3.35 TB/s, so the launch and the memory's latency bound the small calls:
+// at b=128 layer 2 the whole call is 128 rows.  At b=512 layer 1 the lanes
+// name 84 MB of rows, most of them repeats that L2 serves, and that
+// traffic bounds it.
 //
-// Every lane is accumulated, including lanes with w == 0 (padding), in
-// ascending k, product and sum rounded separately (see row_accum.cuh): the
-// result is bitwise the plain version's in repro_torch/kernels/gather_agg.py.
-// Indices must lie in [0, N); they are not checked on the device.
+// The design (tile_accum.cuh): a block owns a tile of rows; its threads
+// first copy the tile's idx and w into shared memory in one coalesced pass,
+// then each thread owns one 16-byte column group of a row, writes its K
+// row loads ahead of their sums (8 at a time), and stores its 4 sums as
+// one 16-byte word.  The tile plan gives each block one row of D = 256 (64
+// threads): 128 blocks at b=128 layer 2, 8,192 at b=512 layer 1, one
+// column group per thread, so a call waits out about three round trips to
+// memory (idx and w, the rows, the store) and the shared memory the tile
+// takes (80-120 bytes) leaves the SM's L1 to the rows.  K may be any size:
+// 32 lanes of each row at a time, the partial sums carried in the output.
+//
+// Bitwise the plain version in repro_torch/kernels/gather_agg.py on any
+// input (tile_accum.cuh).  Indices must lie in [0, N); they are not checked
+// on the device.
 #include "kernels.h"
-#include "row_accum.cuh"
+#include "tile_accum.cuh"
 
 namespace repro_torch {
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(kWarp * kRowsPerBlock)
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(tile::kMaxThreads)
 gather_agg_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
                   const float* __restrict__ w, float* __restrict__ out,
-                  int64_t B, int K, int D) {
-  const int64_t b =
-      static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.y;
-  if (b >= B) return;
-  const int lane = threadIdx.x;
-  const int32_t* idx_b = idx + b * K;
-  const float* w_b = w + b * K;
-  for (int d0 = 0; d0 < D; d0 += kPassCols) {
-    float acc[kColsPerLane];
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) acc[j] = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const T* row = feat + static_cast<int64_t>(idx_b[k]) * D;
-      accumulate_row(acc, row, w_b[k], d0, lane, D);
+                  int64_t B, int K, int D, int tile_rows) {
+  const tile::Lanes s =
+      tile::tile_lanes(tile_rows, min(K, tile::kLaneChunk));
+  const int64_t b0 = tile::tile_start(tile_rows);
+  const int rows = tile::tile_len(b0, tile_rows, B);
+  int l0 = 0;
+  do {                               // once for K <= 32 (and K = 0)
+    const int kn = min(tile::kLaneChunk, K - l0);
+    if (l0 > 0) __syncthreads();     // the last chunk's gather is done
+    for (int t = threadIdx.x; t < rows * kn; t += blockDim.x) {
+      const int r = t / kn;
+      const int64_t g = (b0 + r) * K + l0 + (t - r * kn);
+      s.row[t] = idx[g];
+      s.w[t] = w[g];
     }
-    store_row(acc, out + b * D, d0, lane, D);
+    __syncthreads();
+    tile::gather_tile<T, kVec>(feat, s, kn, l0 == 0, out, b0, rows, D);
+    l0 += tile::kLaneChunk;
+  } while (l0 < K);
+}
+
+// K2's units per block (tile_accum.cuh): one row of D = 256 per block.
+constexpr int kUnitsPerBlock = 64;
+
+template <typename T>
+void launch(const T* feat, const int32_t* idx, const float* w, float* out,
+            int64_t B, int K, int D, int vec, int tile_rows,
+            cudaStream_t stream) {
+  const tile::Plan p = tile::plan(K, D, vec, kUnitsPerBlock, tile_rows);
+  const dim3 grid = tile::tile_grid(B, p.rows);
+  const size_t smem = tile::lanes_bytes(p.rows, K);
+  if (vec) {
+    gather_agg_kernel<T, true><<<grid, p.threads, smem, stream>>>(
+        feat, idx, w, out, B, K, D, p.rows);
+  } else {
+    gather_agg_kernel<T, false><<<grid, p.threads, smem, stream>>>(
+        feat, idx, w, out, B, K, D, p.rows);
   }
 }
 
@@ -56,13 +82,13 @@ gather_agg_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
 
 void launch_gather_agg(const void* feat, int feat_bf16, const int32_t* idx,
                        const float* w, float* out, int64_t B, int K, int D,
-                       cudaStream_t stream) {
+                       int vec, int tile_rows, cudaStream_t stream) {
   if (feat_bf16) {
-    gather_agg_kernel<__nv_bfloat16><<<row_grid(B), row_block(), 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(feat), idx, w, out, B, K, D);
+    launch(static_cast<const __nv_bfloat16*>(feat), idx, w, out, B, K, D,
+           vec, tile_rows, stream);
   } else {
-    gather_agg_kernel<float><<<row_grid(B), row_block(), 0, stream>>>(
-        static_cast<const float*>(feat), idx, w, out, B, K, D);
+    launch(static_cast<const float*>(feat), idx, w, out, B, K, D, vec,
+           tile_rows, stream);
   }
 }
 

@@ -16,32 +16,41 @@
 // and folds in the draw that the reference leaves to XLA (draw_lanes, merged
 // with the fallback lanes in gns_sample_agg).  The Pallas kernel reads the
 // drawn rows from SMEM through scalar prefetch and runs a (B, D/block, K)
-// grid with K innermost.  Here one warp owns a destination row: lanes
-// 0..K-1 each make one draw in registers (native uint32 fmix32 chain, the
-// same bits as repro_torch/sampling/rng.py), the (row, w) pairs reach the
-// whole warp by __shfl_sync, and the warp accumulates the K rows in
-// ascending order with row_accum.cuh, as K1 and K2 do.  The drawn lanes
-// never touch device memory unless the caller asks for them (lane_rows,
-// lane_w), which lets a test hold the draw to its plain version bit for bit.
+// grid with K innermost.
 //
 // What bounds it on an H100: HBM bytes, dominated by the output.  At the
 // training shape of preset paper_train (B = 176,000, K = 5, D = 100, a
 // 305-row f32 table) it writes 70.4 MB of output and reads 7 MB of fallback
 // lanes, 0.7 MB of dst_rows and a 122 KB table: about 78 MB, 23 us at
 // 3.35 TB/s, against two flops per gathered element and a few integer ops
-// per lane.  The design moves only those bytes: the output is written once
-// (each warp store covers 32 neighbouring columns of one row), the fallback
-// lanes and dst_rows are read once, and the table and the CSR are small
-// enough to stay in L2 across the whole launch.  No TMA, no pipelining yet.
+// per lane.  At the bucket-128 serving shape (B = 22,528) it is 10 MB, 3 us,
+// and the launch and latency show.
+//
+// The design (tile_accum.cuh): a block owns a tile of 40 rows (D = 100).
+// Pass 1 runs the draw for every (row, lane) pair of the tile, one pair
+// per thread (200 of 256), so the tile's chains of dependent loads
+// (dst_rows -> indptr -> indices -> hitp) are all in flight together; the
+// fallback lanes are read beside dst_rows, not after it, which takes one
+// round trip off the chain of the uncached rows (almost all of them at the
+// training shape; the cached rows' unused fallback lanes cost 8 bytes a
+// lane).  The lanes go to shared memory, and to lane_rows/lane_w when the
+// caller asks (coalesced: the tile's lanes are contiguous there).  Pass 2
+// gathers: a thread owns four 16-byte column groups in turn (25 per row),
+// issues each one's K loads and stores one 16-byte word, so the output,
+// the bulk of the bytes, is written in full 16-byte words by neighbouring
+// threads.  At 32 registers and 1.6 KB of shared memory, 8 blocks (320
+// rows) are resident per SM, and the table (122 KB at paper_train) stays
+// in L1.  b in mix32 is the global row index (b0 + r), never the
+// tile-local one.
 //
 // Rounding: the weight is computed with __fdiv_rn / __fmul_rn, and the sum
-// with __fmul_rn then __fadd_rn (row_accum.cuh), so nvcc contracts nothing
+// with __fmul_rn then __fadd_rn (tile_accum.cuh), so nvcc contracts nothing
 // into an FMA; the result is bitwise the plain version's in
 // repro_torch/sampling/kernels.py on any input.  Indices are not checked on
 // the device: dst_rows must lie in [-1, table_rows), fb_rows in
 // [-1, table_rows).  K <= 32 (the wrapper checks).
 #include "kernels.h"
-#include "row_accum.cuh"
+#include "tile_accum.cuh"
 
 namespace repro_torch {
 namespace {
@@ -64,8 +73,8 @@ __device__ __forceinline__ uint32_t mix32(uint32_t key_lo, uint32_t key_hi,
   return fmix32(h ^ lane);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWarp * kRowsPerBlock)
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(tile::kMaxThreads)
 gns_sample_agg_kernel(const int32_t* __restrict__ indptr,
                       const int32_t* __restrict__ indices, int64_t cap,
                       const float* __restrict__ deg,
@@ -76,21 +85,22 @@ gns_sample_agg_kernel(const int32_t* __restrict__ indptr,
                       const float* __restrict__ fb_w, uint32_t key_lo,
                       uint32_t key_hi, float* __restrict__ out,
                       int32_t* __restrict__ lane_rows,
-                      float* __restrict__ lane_w, int64_t B, int K, int D) {
-  const int64_t b =
-      static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.y;
-  if (b >= B) return;              // uniform across the warp
-  const int lane = threadIdx.x;
+                      float* __restrict__ lane_w, int64_t B, int K, int D,
+                      int tile_rows) {
+  const tile::Lanes s = tile::tile_lanes(tile_rows, K);
+  const int64_t b0 = tile::tile_start(tile_rows);
+  const int rows = tile::tile_len(b0, tile_rows, B);
 
-  // --- the draw: lane l < K makes lane l's (row, w) in registers --------
-  int32_t row = -1;
-  float w = 0.0f;
-  if (lane < K) {
+  // --- pass 1: the draw, one (row, lane) pair per thread -----------------
+  for (int t = threadIdx.x; t < rows * K; t += blockDim.x) {
+    const int r = t / K;
+    const int lane = t - r * K;
+    const int64_t b = b0 + r;
+    const int64_t g = b0 * K + t;            // = b * K + lane
     const int32_t dst = dst_rows[b];
-    if (dst < 0) {                 // uncached: the host's fallback lane
-      row = fb_rows[b * K + lane];
-      w = fb_w[b * K + lane];
-    } else {
+    int32_t row = fb_rows[g];                // uncached: the fallback lane
+    float w = fb_w[g];
+    if (dst >= 0) {
       const int32_t start = indptr[dst];
       const int32_t n_c = indptr[dst + 1] - start;
       const bool take_all = n_c <= K;
@@ -105,6 +115,8 @@ gns_sample_agg_kernel(const int32_t* __restrict__ indptr,
       int64_t flat = static_cast<int64_t>(start) + off;
       flat = flat < 0 ? 0 : (flat >= cap ? cap - 1 : flat);
       const int32_t drawn = indices[flat];
+      row = -1;
+      w = 0.0f;
       if (n_c > 0 && (!take_all || lane < n_c)) {
         const float ncf = fmaxf(static_cast<float>(n_c), 1.0f);
         const float frac = __fdiv_rn(fminf(static_cast<float>(K), ncf), ncf);
@@ -115,24 +127,52 @@ gns_sample_agg_kernel(const int32_t* __restrict__ indptr,
       }
     }
     if (lane_rows != nullptr) {
-      lane_rows[b * K + lane] = row;
-      lane_w[b * K + lane] = w;
+      lane_rows[g] = row;
+      lane_w[g] = w;
     }
-    if (row < 0) w = 0.0f;         // dead lane: w = 0 times row 0
+    s.row[t] = max(row, 0);                  // dead lane: w = 0 times row 0
+    s.w[t] = row < 0 ? 0.0f : w;
   }
+  __syncthreads();
 
-  // --- the gather: the whole warp walks the K lanes in ascending order ---
-  for (int d0 = 0; d0 < D; d0 += kPassCols) {
-    float acc[kColsPerLane];
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) acc[j] = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const int32_t r = __shfl_sync(0xffffffffu, row, k);
-      const float wk = __shfl_sync(0xffffffffu, w, k);
-      accumulate_row(acc, table + static_cast<int64_t>(max(r, 0)) * D, wk,
-                     d0, lane, D);
-    }
-    store_row(acc, out + b * D, d0, lane, D);
+  // --- pass 2: the gather, lanes in ascending order ----------------------
+  tile::gather_tile<T, kVec>(table, s, K, true, out, b0, rows, D);
+}
+
+// K3's units per block (tile_accum.cuh): 40 rows of D = 100 per block.
+constexpr int kUnitsPerBlock = 1024;
+
+template <typename T, bool kVec>
+void launch_path(const int32_t* indptr, const int32_t* indices,
+                 int64_t cap, const float* deg, const float* hitp,
+                 const T* table, const int32_t* dst_rows,
+                 const int32_t* fb_rows, const float* fb_w, uint32_t key_lo,
+                 uint32_t key_hi, float* out, int32_t* lane_rows,
+                 float* lane_w, int64_t B, int K, int D, int tile_rows,
+                 cudaStream_t stream) {
+  const tile::Plan p = tile::plan(K, D, kVec, kUnitsPerBlock, tile_rows);
+  gns_sample_agg_kernel<T, kVec>
+      <<<tile::tile_grid(B, p.rows), p.threads,
+         tile::lanes_bytes(p.rows, K), stream>>>(
+          indptr, indices, cap, deg, hitp, table, dst_rows, fb_rows, fb_w,
+          key_lo, key_hi, out, lane_rows, lane_w, B, K, D, p.rows);
+}
+
+template <typename T>
+void launch(const int32_t* indptr, const int32_t* indices, int64_t cap,
+            const float* deg, const float* hitp, const T* table,
+            const int32_t* dst_rows, const int32_t* fb_rows, const float* fb_w,
+            uint32_t key_lo, uint32_t key_hi, float* out, int32_t* lane_rows,
+            float* lane_w, int64_t B, int K, int D, int vec, int tile_rows,
+            cudaStream_t stream) {
+  if (vec) {
+    launch_path<T, true>(indptr, indices, cap, deg, hitp, table, dst_rows,
+                         fb_rows, fb_w, key_lo, key_hi, out, lane_rows,
+                         lane_w, B, K, D, tile_rows, stream);
+  } else {
+    launch_path<T, false>(indptr, indices, cap, deg, hitp, table, dst_rows,
+                          fb_rows, fb_w, key_lo, key_hi, out, lane_rows,
+                          lane_w, B, K, D, tile_rows, stream);
   }
 }
 
@@ -144,18 +184,17 @@ void launch_gns_sample_agg(const int32_t* indptr, const int32_t* indices,
                            const int32_t* dst_rows, const int32_t* fb_rows,
                            const float* fb_w, uint32_t key_lo, uint32_t key_hi,
                            float* out, int32_t* lane_rows, float* lane_w,
-                           int64_t B, int K, int D, cudaStream_t stream) {
+                           int64_t B, int K, int D, int vec, int tile_rows,
+                           cudaStream_t stream) {
   if (table_bf16) {
-    gns_sample_agg_kernel<__nv_bfloat16>
-        <<<row_grid(B), row_block(), 0, stream>>>(
-            indptr, indices, cap, deg, hitp,
-            static_cast<const __nv_bfloat16*>(table), dst_rows, fb_rows, fb_w,
-            key_lo, key_hi, out, lane_rows, lane_w, B, K, D);
+    launch(indptr, indices, cap, deg, hitp,
+           static_cast<const __nv_bfloat16*>(table), dst_rows, fb_rows, fb_w,
+           key_lo, key_hi, out, lane_rows, lane_w, B, K, D, vec, tile_rows,
+           stream);
   } else {
-    gns_sample_agg_kernel<float><<<row_grid(B), row_block(), 0, stream>>>(
-        indptr, indices, cap, deg, hitp, static_cast<const float*>(table),
-        dst_rows, fb_rows, fb_w, key_lo, key_hi, out, lane_rows, lane_w, B, K,
-        D);
+    launch(indptr, indices, cap, deg, hitp, static_cast<const float*>(table),
+           dst_rows, fb_rows, fb_w, key_lo, key_hi, out, lane_rows, lane_w, B,
+           K, D, vec, tile_rows, stream);
   }
 }
 

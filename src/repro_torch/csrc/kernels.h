@@ -9,11 +9,24 @@
 
 namespace repro_torch {
 
+// K2's and K3's tiles hold at most this many destination rows
+// (tile_accum.cuh).
+constexpr int kMaxTileRows = 64;
+
 // out[b, :] = sum_k w[b, k] * feat[idx[b, k], :]        (K2, gather_agg.cu)
 // feat [N, D] float32 (feat_bf16 == 0) or bfloat16 (feat_bf16 == 1).
+// vec != 0: 4 columns per access (D % 4 == 0, feat 16-byte (f32) or 8-byte
+// (bf16) aligned, out 16-byte aligned), else one.  tile_rows 0: the
+// kernel's own tile plan; 1..kMaxTileRows: that many rows per tile.
 void launch_gather_agg(const void* feat, int feat_bf16, const int32_t* idx,
                        const float* w, float* out, int64_t B, int K, int D,
-                       cudaStream_t stream);
+                       int vec, int tile_rows, cudaStream_t stream);
+
+// K2's one-warp-per-row predecessor, kept for comparison (rowwarp.cu).
+void launch_gather_agg_rowwarp(const void* feat, int feat_bf16,
+                               const int32_t* idx, const float* w,
+                               float* out, int64_t B, int K, int D,
+                               cudaStream_t stream);
 
 // out[b, :] = sum_k w[b, k] * h0(idx[b, k])              (K1, cache_lookup.cu)
 // h0(r) = slots[r] >= 0 ? cache[slots[r], :] : streamed[r, :]
@@ -28,14 +41,23 @@ void launch_cache_lookup_agg(const void* cache, int cache_bf16,
 // when dst_rows[b] >= 0, else take the fallback lanes fb_rows/fb_w; then
 // out[b, :] = sum_l w_l * table[max(row_l, 0), :].  table [C, D] float32
 // (table_bf16 == 0) or bfloat16.  lane_rows/lane_w [B, K] receive the
-// merged lanes when not null.
+// merged lanes when not null.  K <= 32; vec and tile_rows as K2's.
 void launch_gns_sample_agg(const int32_t* indptr, const int32_t* indices,
                            int64_t cap, const float* deg, const float* hitp,
                            const void* table, int table_bf16,
                            const int32_t* dst_rows, const int32_t* fb_rows,
                            const float* fb_w, uint32_t key_lo, uint32_t key_hi,
                            float* out, int32_t* lane_rows, float* lane_w,
-                           int64_t B, int K, int D, cudaStream_t stream);
+                           int64_t B, int K, int D, int vec, int tile_rows,
+                           cudaStream_t stream);
+
+// K3's one-warp-per-row predecessor, kept for comparison (rowwarp.cu).
+void launch_gns_sample_agg_rowwarp(
+    const int32_t* indptr, const int32_t* indices, int64_t cap,
+    const float* deg, const float* hitp, const void* table, int table_bf16,
+    const int32_t* dst_rows, const int32_t* fb_rows, const float* fb_w,
+    uint32_t key_lo, uint32_t key_hi, float* out, int32_t* lane_rows,
+    float* lane_w, int64_t B, int K, int D, cudaStream_t stream);
 
 // Blocked attention with an online softmax      (K4, flash_attention.cu)
 // q/out [B, Hq, Sq, Dh], k/v [B, Hkv, Sk, Dh], all float32 (bf16 == 0) or

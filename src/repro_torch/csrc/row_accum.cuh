@@ -1,4 +1,5 @@
-// Shared pieces of the two gather-aggregate kernels (K1, K2).
+// Shared pieces of the one-warp-per-row gather-aggregate kernels: K1
+// (cache_lookup.cu) and the predecessors of K2 and K3 (rowwarp.cu).
 //
 // Layout: one warp owns one destination row b; the block holds
 // kRowsPerBlock such warps.  Lane l of the warp owns the columns

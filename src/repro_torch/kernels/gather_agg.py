@@ -3,15 +3,24 @@
 The aggregation of GraphSAGE layers 1..L-1 when
 ``aggregate_impl="pallas"``.  Counterpart of the TPU kernel
 ``repro/kernels/gather_agg.py::gather_agg_pallas``; the CUDA kernel is
-``repro_torch/csrc/gather_agg.cu``, whose header says what bounds it on an
-H100 (HBM bytes) and how its design answers that.
+``repro_torch/csrc/gather_agg.cu`` on the row tiles of
+``csrc/tile_accum.cuh``, whose headers say what bounds it on an H100 and
+how the tile layout answers that.
 
 * :func:`gather_agg_plain` — the plain PyTorch version: the sequential
   k loop, each step ``out + w·row`` rounded as two operations.  The CPU path
   and the tests use it, and the card's parity check holds the kernel to it.
-* :func:`gather_agg_cuda` — the wrapper: checks its operands, allocates the
-  output, launches the kernel on the current stream and counts the launch
-  in :data:`launches`.  It never falls back to the plain version.
+* :func:`gather_agg_cuda` — the wrapper: checks its operands, picks the
+  access path (:func:`access_path`), allocates the output, launches the
+  kernel on the current stream and counts the launch in :data:`launches`
+  and its path in :data:`path_calls`.  It never falls back to the plain version.
+* :func:`gather_agg_rowwarp_cuda` — the one-warp-per-row kernel that the
+  tile kernel replaced (``csrc/rowwarp.cu``), kept for comparison: the
+  smoke script times it beside the tile kernel, a card test holds the two
+  bitwise equal.  No path of the port calls it, and it counts nothing.
+
+:func:`access_path` serves K3 as well (``repro_torch/sampling/kernels.py``);
+the tile plan is the kernels' own (``csrc/tile_accum.cuh``).
 """
 from __future__ import annotations
 
@@ -20,8 +29,18 @@ import torch
 from repro_torch.kernels._ext import LaunchCounter, load_kernels
 
 launches = LaunchCounter()
+# launches by access path: "vector" (4 columns per access) or "scalar"
+path_calls = {"vector": LaunchCounter(), "scalar": LaunchCounter()}
 
 TABLE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def access_path(table: torch.Tensor) -> str:
+    """``"vector"`` when the kernels can read ``table``'s rows 4 columns at
+    a time (D % 4 == 0 and the first row 16-byte aligned for f32, 8-byte
+    for bf16: 4 elements), else ``"scalar"`` (one column per thread)."""
+    aligned = table.data_ptr() % (4 * table.element_size()) == 0
+    return "vector" if table.shape[-1] % 4 == 0 and aligned else "scalar"
 
 
 def gather_agg_plain(feat: torch.Tensor, idx: torch.Tensor,
@@ -53,10 +72,9 @@ def check_rows(name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} must be contiguous")
 
 
-def gather_agg_cuda(feat: torch.Tensor, idx: torch.Tensor,
-                    w: torch.Tensor) -> torch.Tensor:
-    """Launch K2.  feat [N, D] f32/bf16, idx [B, K] int32, w [B, K] f32, all
-    contiguous on one CUDA device -> [B, D] f32."""
+def check_gather(feat: torch.Tensor, idx: torch.Tensor,
+                 w: torch.Tensor) -> torch.Tensor:
+    """Check K2's operands; return its [B, D] f32 output, uninitialised."""
     if not feat.is_cuda:
         raise ValueError(f"gather_agg_cuda needs CUDA tensors, got "
                          f"{feat.device}")
@@ -66,9 +84,29 @@ def gather_agg_cuda(feat: torch.Tensor, idx: torch.Tensor,
     check_rows("w", w, dev, (torch.float32,), 2)
     if w.shape != idx.shape:
         raise ValueError(f"w {tuple(w.shape)} != idx {tuple(idx.shape)}")
-    out = torch.empty((idx.shape[0], feat.shape[1]), dtype=torch.float32,
-                      device=dev)
+    return torch.empty((idx.shape[0], feat.shape[1]), dtype=torch.float32,
+                       device=dev)
+
+
+def gather_agg_cuda(feat: torch.Tensor, idx: torch.Tensor,
+                    w: torch.Tensor) -> torch.Tensor:
+    """Launch K2.  feat [N, D] f32/bf16, idx [B, K] int32, w [B, K] f32, all
+    contiguous on one CUDA device -> [B, D] f32."""
+    out = check_gather(feat, idx, w)
     if out.numel():                  # an empty grid is not a valid launch
-        load_kernels().gather_agg(feat, idx, w, out)
+        path = access_path(feat)
+        load_kernels().gather_agg(feat, idx, w, out, path == "vector",
+                                  0)   # 0: the kernel's own tile plan
         launches.add()
+        path_calls[path].add()
+    return out
+
+
+def gather_agg_rowwarp_cuda(feat: torch.Tensor, idx: torch.Tensor,
+                            w: torch.Tensor) -> torch.Tensor:
+    """K2's one-warp-per-row predecessor on the same operands, for
+    comparison only.  Not counted."""
+    out = check_gather(feat, idx, w)
+    if out.numel():
+        load_kernels().gather_agg_rowwarp(feat, idx, w, out)
     return out

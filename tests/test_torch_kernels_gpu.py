@@ -6,11 +6,19 @@ no jax, so it runs on the GPU host:
 
 The kernels and the plain versions round each product and each sum
 separately, in ascending k, so integer-valued f32 must agree bit for bit;
-random f32 and bf16 tables are held to rtol 1e-5 / atol 1e-6 for K1 and
-K2.  K3 computes its weights with the plain version's f32 operations in
-the same order, so its lanes and its output are held bit for bit on every
-table.  K4 (flash attention) sums its online softmax in another order than
-the plain version's full softmax: f32 is held to 2e-5 (3e-5 for odd
+random f32 and bf16 tables are held to rtol 1e-5 / atol 1e-6 for K1.  K2
+and K3 are held bit for bit on every table: K3 computes its weights with
+the plain version's f32 operations in the same order, so its lanes agree
+bit for bit too.  K2 and K3 run on row tiles with two access paths (4
+columns per access when D % 4 == 0 and the table is aligned, else one);
+every case asserts, through the path counters, the path ``access_path``
+names for it, and the cases give both paths ragged last tiles, B = 1, K = 1
+and 32 (and K2 K > 32, whose lanes go in chunks of 32), D up to 520, bf16
+tables and tables that are views at an unaligned offset.  Each tile kernel
+is also held bit for bit to its one-warp-per-row predecessor
+(``*_rowwarp_cuda``) at the main path's shapes.  K4 (flash attention)
+sums its online softmax in another order than the plain version's full
+softmax: f32 is held to 2e-5 (3e-5 for odd
 lengths), the JAX kernel tests' tolerances.  In bf16 both keep p.v in f32
 and round each output once, so they differ by at most one bf16 ulp
 (<= 2^-7 of the value): rtol 1e-2, atol 4e-3.  K4 has three routes (split-KV
@@ -60,9 +68,37 @@ def test_cache_lookup_kernel_matches_plain_on_card(c, s0, d, b, k,
             torch.testing.assert_close(got, want, **TOL)
 
 
+# (n, d, b, k): both access paths (d % 4), B = 1, K = 1, 32 and above 32
+# (lanes in chunks of 32), D above 256, a ragged last tile (b = 3001 at
+# d = 100: tiles of 2 rows, the last of 1), tiles of 64 rows at d = 4 with
+# K = 32
+K2_CASES = [(64, 32, 8, 4), (100, 48, 9, 10), (704, 256, 64, 10),
+            (64, 300, 33, 15), (50, 30, 70, 5), (50, 33, 1, 1),
+            (300, 520, 45, 7), (400, 100, 3001, 5), (64, 64, 300, 32),
+            (64, 36, 50, 40), (64, 33, 20, 70), (64, 4, 20000, 32)]
+
+
+def path_counts(counters: dict) -> dict:
+    return {name: c.value for name, c in counters.items()}
+
+
+def assert_took(counters: dict, before: dict, path: str) -> None:
+    """Exactly one launch since ``before``, on ``path``."""
+    assert {name: c.value - before[name] for name, c in counters.items()
+            } == {name: int(name == path) for name in counters}
+
+
+def unaligned_copy(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """``t`` copied into a contiguous view that starts ``offset`` elements
+    into a fresh buffer."""
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = flat[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,d,b,k", [(64, 32, 8, 4), (100, 48, 9, 10),
-                                     (704, 256, 64, 10), (64, 300, 33, 15)])
+@pytest.mark.parametrize("n,d,b,k", K2_CASES)
 @pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
 def test_gather_agg_kernel_matches_plain_on_card(n, d, b, k, table_dtype):
     dev = requires_cuda()
@@ -70,15 +106,37 @@ def test_gather_agg_kernel_matches_plain_on_card(n, d, b, k, table_dtype):
         feat, idx, w = (torch.from_numpy(a).to(dev)
                         for a in gather_case(8, n, d, b, k, exact))
         feat = feat.to(table_dtype)
+        path = gather_agg.access_path(feat)
+        assert path == ("vector" if d % 4 == 0 else "scalar")
         n0 = gather_agg.launches.value
+        p0 = path_counts(gather_agg.path_calls)
         got = gather_agg.gather_agg_cuda(feat, idx, w)
         want = gather_agg.gather_agg_plain(feat, idx, w)
         torch.cuda.synchronize()
         assert gather_agg.launches.value == n0 + 1
-        if exact:
-            assert torch.equal(got, want)
-        else:
-            torch.testing.assert_close(got, want, **TOL)
+        assert_took(gather_agg.path_calls, p0, path)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset,path", [(1, "scalar"), (2, "scalar"),
+                                         (4, "vector")])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+def test_gather_agg_unaligned_table_on_card(offset, path, table_dtype):
+    """A table that starts 1, 2 or 4 elements into its buffer: 4 elements
+    keep 16-byte (f32) and 8-byte (bf16) alignment, 1 keeps neither, 2
+    keeps 8 bytes in f32 (too few) and 4 in bf16 (too few)."""
+    dev = requires_cuda()
+    feat, idx, w = (torch.from_numpy(a).to(dev)
+                    for a in gather_case(11, 200, 64, 500, 10, False))
+    feat = unaligned_copy(feat.to(table_dtype), offset)
+    assert gather_agg.access_path(feat) == path
+    p0 = path_counts(gather_agg.path_calls)
+    got = gather_agg.gather_agg_cuda(feat, idx, w)
+    want = gather_agg.gather_agg_plain(feat, idx, w)
+    torch.cuda.synchronize()
+    assert_took(gather_agg.path_calls, p0, path)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
@@ -94,38 +152,124 @@ def test_kernel_wrappers_check_their_operands_on_card():
         gather_agg.gather_agg_cuda(feat, idx, w.cpu())
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("rows,d,b,k", [(60, 24, 200, 5), (305, 100, 4096, 5),
-                                        (64, 300, 33, 15), (40, 48, 70, 32)])
-@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
-def test_gns_sample_agg_kernel_matches_plain_on_card(rows, d, b, k,
-                                                     table_dtype):
-    dev = requires_cuda()
+# (rows, d, b, k): both access paths, B = 1 with K = 1, D above 256, a
+# ragged last tile (b = 3001 at d = 100: tiles of 40 rows, the last of 1),
+# K = 32 with tiles of 64 rows at d = 4
+K3_CASES = [(60, 24, 200, 5), (305, 100, 4096, 5), (64, 300, 33, 15),
+            (40, 48, 70, 32), (60, 30, 200, 5), (40, 33, 1, 1),
+            (64, 520, 50, 7), (305, 100, 3001, 5), (100, 4, 20000, 32)]
+
+
+def k3_case(dev, rows, b, k):
+    """K3's operands on the card: a CSR over ``rows`` table rows, dst_rows,
+    fallback lanes and a key."""
     adj = DeviceCacheAdj(*(torch.from_numpy(a).to(dev)
                            for a in adj_case(rows, rows, 3 * k)))
     dst, fb_rows, fb_w, key = sample_case(rows + 1, rows, b, k)
     dst, fb_rows, fb_w = (torch.from_numpy(a).to(dev)
                           for a in (dst, fb_rows, fb_w))
+    return adj, dst, fb_rows, fb_w, key
+
+
+def hold_k3(adj, table, dst, fb_rows, fb_w, key) -> None:
+    """One K3 launch on ``table``: its path, lanes and output bit for bit."""
+    dev = table.device
+    b, k = fb_rows.shape
+    path = k3.access_path(table)
+    lane_rows = torch.empty((b, k), dtype=torch.int32, device=dev)
+    lane_w = torch.empty((b, k), dtype=torch.float32, device=dev)
+    n0 = k3.launches.value
+    p0 = path_counts(k3.path_calls)
+    got = k3.gns_sample_agg_cuda(adj, table, dst, fb_rows, fb_w, key,
+                                 lane_rows, lane_w)
+    want_rows, want_w = k3.sample_lanes_plain(adj, dst, fb_rows, fb_w, key)
+    want = k3.gns_sample_agg_plain(adj, table, dst, fb_rows, fb_w, key)
+    torch.cuda.synchronize()
+    assert k3.launches.value == n0 + 1
+    assert_took(k3.path_calls, p0, path)
+    assert torch.equal(lane_rows, want_rows)
+    assert torch.equal(lane_w, want_w)
+    assert torch.equal(got, want)
+    assert torch.equal(k3.gns_sample_agg(adj, table, dst, fb_rows, fb_w,
+                                         key), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d,b,k", K3_CASES)
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+def test_gns_sample_agg_kernel_matches_plain_on_card(rows, d, b, k,
+                                                     table_dtype):
+    dev = requires_cuda()
+    adj, dst, fb_rows, fb_w, key = k3_case(dev, rows, b, k)
     rng = np.random.default_rng(d)
     for exact in (True, False):
         table = (rng.integers(-64, 65, (rows, d)) if exact
                  else rng.normal(size=(rows, d))).astype(np.float32)
         table = torch.from_numpy(table).to(dev, dtype=table_dtype)
-        lane_rows = torch.empty((b, k), dtype=torch.int32, device=dev)
-        lane_w = torch.empty((b, k), dtype=torch.float32, device=dev)
-        n0 = k3.launches.value
-        got = k3.gns_sample_agg_cuda(adj, table, dst, fb_rows, fb_w, key,
-                                     lane_rows, lane_w)
-        want_rows, want_w = k3.sample_lanes_plain(adj, dst, fb_rows, fb_w,
-                                                  key)
-        want = k3.gns_sample_agg_plain(adj, table, dst, fb_rows, fb_w, key)
-        torch.cuda.synchronize()
-        assert k3.launches.value == n0 + 1
-        assert torch.equal(lane_rows, want_rows)
-        assert torch.equal(lane_w, want_w)
-        assert torch.equal(got, want)
-        assert torch.equal(k3.gns_sample_agg(adj, table, dst, fb_rows, fb_w,
-                                             key), want)
+        assert k3.access_path(table) == ("vector" if d % 4 == 0
+                                         else "scalar")
+        hold_k3(adj, table, dst, fb_rows, fb_w, key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset,path", [(1, "scalar"), (2, "scalar"),
+                                         (4, "vector")])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+def test_gns_sample_agg_unaligned_table_on_card(offset, path, table_dtype):
+    """K3 on a table view 1, 2 or 4 elements into its buffer (the paths of
+    the K2 test of the same name)."""
+    dev = requires_cuda()
+    adj, dst, fb_rows, fb_w, key = k3_case(dev, 80, 900, 5)
+    table = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(80, 64)).astype(np.float32)).to(dev, dtype=table_dtype)
+    table = unaligned_copy(table, offset)
+    assert k3.access_path(table) == path
+    hold_k3(adj, table, dst, fb_rows, fb_w, key)
+
+
+# the main path's shapes (preset paper_train): K2 at the serving buckets
+# 128 and 512, layers 1 and 2 (B, K, D); K3 at the training shape and at
+# bucket 128 (B, K, D over a 305-row table, almost every row uncached)
+K2_MAIN = [(2048, 10, 256), (128, 15, 256), (8192, 10, 256), (512, 15, 256)]
+K3_MAIN = [(176000, 5, 100), (22528, 5, 100)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,k,d", K2_MAIN)
+def test_gather_agg_matches_its_rowwarp_predecessor_on_card(b, k, d):
+    dev = requires_cuda()
+    feat, idx, w = (torch.from_numpy(a).to(dev)
+                    for a in gather_case(13, 16 * b, d, b, k, False))
+    assert gather_agg.access_path(feat) == "vector"
+    got = gather_agg.gather_agg_cuda(feat, idx, w)
+    prev = gather_agg.gather_agg_rowwarp_cuda(feat, idx, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, prev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,k,d", K3_MAIN)
+def test_gns_sample_agg_matches_its_rowwarp_predecessor_on_card(b, k, d):
+    dev = requires_cuda()
+    rows = 305
+    adj = DeviceCacheAdj(*(torch.from_numpy(a).to(dev)
+                           for a in adj_case(rows, rows, 3 * k)))
+    dst, fb_rows, fb_w, key = sample_case(rows, rows, b, k, uncached=0.99)
+    dst, fb_rows, fb_w = (torch.from_numpy(a).to(dev)
+                          for a in (dst, fb_rows, fb_w))
+    table = torch.from_numpy(np.random.default_rng(b).normal(
+        size=(rows, d)).astype(np.float32)).to(dev)
+    assert k3.access_path(table) == "vector"
+    lanes = [(torch.empty_like(fb_rows), torch.empty_like(fb_w))
+             for _ in range(2)]
+    got = k3.gns_sample_agg_cuda(adj, table, dst, fb_rows, fb_w, key,
+                                 *lanes[0])
+    prev = k3.gns_sample_agg_rowwarp_cuda(adj, table, dst, fb_rows, fb_w,
+                                          key, *lanes[1])
+    torch.cuda.synchronize()
+    assert torch.equal(got, prev)
+    assert torch.equal(lanes[0][0], lanes[1][0])
+    assert torch.equal(lanes[0][1], lanes[1][1])
 
 
 @pytest.mark.gpu
