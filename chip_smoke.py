@@ -7,26 +7,27 @@ Run from the root of a checkout, on a host with one CUDA card.  Phases, one
 line each on stdout:
 
 1. build     — compile the port's CUDA kernels (K1 ``cache_lookup_agg``, K2
-               ``gather_agg`` and K3 ``gns_sample_agg`` on row tiles with
-               their one-warp-per-row predecessors, K4 ``flash_attention``
-               in three routes) from ``src/repro_torch/csrc``; then read
-               them back with ``cuobjdump``: registers, stack and local
-               memory (spills) of K2's, K3's (``[kbuild]``; the tile kernels
-               must not spill) and K4's kernels, and the HMMA instructions
-               that K4's tensor-core route must hold (``[k4-build]``);
+               ``gather_agg`` and K3 ``gns_sample_agg`` on row tiles, K4
+               ``flash_attention`` in three routes) from
+               ``src/repro_torch/csrc``; then read them back with
+               ``cuobjdump``: registers, stack and local memory (spills) of
+               K1's, K2's and K3's 12 tile kernels (``[kbuild]``; each must
+               use at most 64 registers and not spill) and K4's kernels,
+               and the HMMA instructions that K4's tensor-core route must
+               hold (``[k4-build]``);
 2. parity    — at the bucket-128 and bucket-512 serving shapes of preset
                ``paper_train``, hold K1 and K2 against their plain PyTorch
-               versions on the card: ``torch.equal`` on integer-valued f32
-               and, for K2, on random f32 and a bf16 table too; K1 allclose
-               (rtol 1e-5, atol 1e-6) on random f32 and on a bf16 table;
+               versions on the card: ``torch.equal`` on integer-valued f32,
+               random f32 and a bf16 table;
 3. serve     — ``GNSEngine`` on preset ``paper_train`` with the fused K1
                input layer and the K2 aggregation serves 64 requests of 1-16
                node ids through ``GNSServer`` in waves that use all three
                buckets; every request must come back with finite logits,
                both kernels' launch counters, zeroed just before, must be
-               above 0, and every K2 launch must take the vector path (D =
-               256).  Then, for one prepared batch per bucket, the card's
-               logits must match the same engine's plain path on the CPU
+               above 0, and every K1 and K2 launch must take the vector
+               path (D = 100 and 256).  Then, for one prepared batch per
+               bucket, the card's logits must match the same engine's plain
+               path on the CPU
                (allclose rtol 1e-4, atol 1e-4: cuBLAS and the CPU sum the f32
                matmul in different orders);
 4. k3-parity — K3 against its plain version at the training shape of
@@ -44,7 +45,8 @@ line each on stdout:
                K1.  Losses must be finite; each prints its losses, its step
                time (CUDA events; median of the last 3 steps) and the
                meter's sample / copy / compute split; every K3 launch of
-               (A) must take the vector path (D = 100);
+               (A) and every K1 launch of (B) must take the vector path
+               (D = 100);
    Then one more step of (A) under ``torch.profiler``: the device's busy
    time against the step's wall time, and the largest device and host
    entries (after the counted run, so it adds no launch to the counts);
@@ -94,13 +96,13 @@ line each on stdout:
 10. times    — each kernel's median time over cold-L2 launches at the
                serving and training shapes, in turns within this call with
                the plain version and, where one PyTorch call computes the
-               same function, that call (``embedding_bag`` for the gathers,
-               ``scaled_dot_product_attention`` for K4), and its bound.
-               K2 and K3 also take turns with their one-warp-per-row
-               predecessors (``prev_ms``, held bitwise equal first), K4 at
-               (a)-(c) in bf16 with the CUDA-core kernel (route (iii) by
-               name, ``prev_ms``, the design the other routes replace on
-               these shapes).
+               same function, that call (``embedding_bag`` for the gathers;
+               for K1 over its lanes resolved ahead into one table, gather
+               only; ``scaled_dot_product_attention`` for K4), and its
+               bound.  K1 is held bitwise to its plain version at the
+               training shape first; K4 at (a)-(c) in bf16 also takes turns
+               with the CUDA-core kernel (route (iii) by name, ``prev_ms``,
+               the design the other routes replace on these shapes).
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit as ``nvidia-smi`` reports them, and as the last line
@@ -285,10 +287,7 @@ def phase_parity(engine, shapes, rng) -> dict:
         got, want = kernel(*args), plain(*args)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        if kind == "int" or name == "gather_agg":
-            ok = torch.equal(got, want)
-        else:
-            ok = torch.allclose(got, want, rtol=1e-5, atol=1e-6)
+        ok = torch.equal(got, want)
         log("parity", kernel=name, bucket=b, layer=layer, data=kind,
             table=str(dtype).removeprefix("torch."), B=idx.shape[0],
             K=idx.shape[1], D=got.shape[1], max_abs_err=err, ok=ok)
@@ -335,6 +334,7 @@ def phase_serve(engine, rng) -> dict:
     waves[1][1] = 16
     waves[1][2] = 16                  # >= 48 ids: never fits bucket 32
     for c in (cache_lookup.launches, gather_agg.launches,
+              *cache_lookup.path_calls.values(),
               *gather_agg.path_calls.values()):
         c.reset()
     t0 = time.perf_counter()
@@ -353,13 +353,15 @@ def phase_serve(engine, rng) -> dict:
                 results.append(res)
     counts = {"cache_lookup_agg": cache_lookup.launches.value,
               "gather_agg": gather_agg.launches.value}
+    k1_paths = {p: c.value for p, c in cache_lookup.path_calls.items()}
     k2_paths = {p: c.value for p, c in gather_agg.path_calls.items()}
     wall = time.perf_counter() - t0
     snap = server.meter.snapshot()
     buckets = sorted({r.bucket for r in results})
     log("serve", requests=len(results), batches=snap["batches"],
         buckets=buckets, launches_k1=counts["cache_lookup_agg"],
-        launches_k2=counts["gather_agg"], k2_paths=k2_paths,
+        launches_k2=counts["gather_agg"], k1_paths=k1_paths,
+        k2_paths=k2_paths, k1_vector_path_at_d=engine.ds.feat_dim,
         k2_vector_path_at_d=engine.mcfg.hidden_dim, wall_s=round(wall, 3),
         total_p50_ms=snap["total_p50_ms"], total_p99_ms=snap["total_p99_ms"],
         cache_hit_rate=snap["cache_hit_rate"])
@@ -369,6 +371,9 @@ def phase_serve(engine, rng) -> dict:
         raise AssertionError(f"buckets used {buckets}, expected all three")
     if counts["cache_lookup_agg"] < 1 or counts["gather_agg"] < 1:
         raise AssertionError(f"a kernel was never launched: {counts}")
+    if k1_paths != {"vector": counts["cache_lookup_agg"], "scalar": 0}:
+        raise AssertionError(f"K1 left the vector path at D = "
+                             f"{engine.ds.feat_dim}: {k1_paths}")
     if k2_paths != {"vector": counts["gather_agg"], "scalar": 0}:
         raise AssertionError(f"K2 left the vector path at D = "
                              f"{engine.mcfg.hidden_dim}: {k2_paths}")
@@ -478,7 +483,8 @@ def phase_train(engine, name: str, epochs: int, max_batches, eval_batches: int,
     counters = {"cache_lookup_agg": cache_lookup.launches,
                 "gather_agg": gather_agg.launches,
                 "gns_sample_agg": k3.launches}
-    paths = {"k2": gather_agg.path_calls, "k3": k3.path_calls}
+    paths = {"k1": cache_lookup.path_calls, "k2": gather_agg.path_calls,
+             "k3": k3.path_calls}
     meter = engine.meter
     before = {f: getattr(meter, f) for f in METER_TIMES}
     swaps0 = engine.store.swaps
@@ -497,8 +503,8 @@ def phase_train(engine, name: str, epochs: int, max_batches, eval_batches: int,
         return loss, acc
 
     engine.run_batch = timed_step
-    for c in (*counters.values(), *paths["k2"].values(),
-              *paths["k3"].values()):
+    for c in (*counters.values(),
+              *(c for v in paths.values() for c in v.values())):
         c.reset()
     t0 = time.perf_counter()
     try:
@@ -530,10 +536,11 @@ def phase_train(engine, name: str, epochs: int, max_batches, eval_batches: int,
         raise AssertionError(f"{name}: {expect} launched {counts[expect]} "
                              f"times for {steps} steps + {eval_batches} "
                              f"eval batches")
-    if path_counts["k3"] != {"vector": counts["gns_sample_agg"],
-                             "scalar": 0}:
-        raise AssertionError(f"{name}: K3 left the vector path at D = "
-                             f"{engine.ds.feat_dim}: {path_counts['k3']}")
+    for k, kernel in (("k1", "cache_lookup_agg"), ("k3", "gns_sample_agg")):
+        if path_counts[k] != {"vector": counts[kernel], "scalar": 0}:
+            raise AssertionError(f"{name}: {k.upper()} left the vector path "
+                                 f"at D = {engine.ds.feat_dim}: "
+                                 f"{path_counts[k]}")
     return {"counts": counts, "steps": steps, "step_ms": step_ms,
             "losses": losses, "split": split}
 
@@ -615,7 +622,7 @@ def launch_fields(counts: dict, kernel: str) -> dict:
     return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
 
-TIME_KEYS = ("name", "ms", "prev_ms", "bound_ms", "bound_by", "plain_ms",
+TIME_KEYS = ("name", "ms", "bound_ms", "bound_by", "plain_ms",
              "library_ms", "bytes", "lane_bound_ms", "path")
 
 
@@ -624,11 +631,47 @@ def log_times(rows: list) -> None:
         log("time", **{k: r[k] for k in TIME_KEYS if k in r})
 
 
+def lookup_row(label: str, args: tuple, counts: dict, err: float,
+               flush) -> dict:
+    """K1's ``[time]`` row at one shape, in turns with its plain version
+    and the ``embedding_bag`` yardstick (gather only: the lanes resolved
+    beforehand, untimed, into rows of ``torch.cat([cache, streamed])``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.cache_lookup import (cache_lookup_agg_cuda,
+                                                  cache_lookup_agg_plain,
+                                                  lookup_access_path)
+    cache, streamed, slots, idx, w = args
+    lane_slots = slots.long()[idx.long()]
+    lib_idx = torch.where(lane_slots >= 0, lane_slots,
+                          cache.shape[0] + idx.long())
+    lib_table = torch.cat([cache.float(), streamed])
+    n_bytes, lane_bytes, n_flops = lookup_work(*args)
+    t_bound, by = bound_ms(n_bytes, n_flops)
+    return {
+        "name": f"cache_lookup_agg[{label},layer=0]", "route": "cuda",
+        "source": "src/repro_torch/csrc/cache_lookup.cu",
+        "replaces": "src/repro/kernels/cache_lookup.py:78",
+        **launch_fields(counts, "cache_lookup_agg"),
+        "max_abs_err": err,
+        **turns_ms({
+            "ms": lambda: cache_lookup_agg_cuda(*args),
+            "plain_ms": lambda: cache_lookup_agg_plain(*args),
+            "library_ms": lambda: F.embedding_bag(
+                lib_idx, lib_table, per_sample_weights=w, mode="sum")},
+            flush),
+        "bound_ms": t_bound, "bound_by": by,
+        "library": "F.embedding_bag over the lanes resolved into "
+                   "torch.cat([cache, streamed]) (gather only)",
+        "bytes": n_bytes, "lane_bound_ms": lane_bytes / HBM_MS,
+        "B": idx.shape[0], "path": lookup_access_path(cache, streamed)}
+
+
 def phase_train_times(k3_shapes, k3_errs, k1_args, counts) -> list:
-    """K3 at the training and bucket-128 shapes, in turns with its
-    one-warp-per-row predecessor (``prev_ms``), its plain version and the
-    ``embedding_bag`` yardstick of the gather; K1 at the training shape of
-    the host-fused path, in turns with its plain version."""
+    """K3 at the training and bucket-128 shapes, in turns with its plain
+    version and the ``embedding_bag`` yardstick of the gather; K1 at the
+    training shape of the host-fused path, held bitwise to its plain
+    version, then timed (:func:`lookup_row`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.cache_lookup import (cache_lookup_agg_cuda,
@@ -636,7 +679,6 @@ def phase_train_times(k3_shapes, k3_errs, k1_args, counts) -> list:
     from repro_torch.kernels.gather_agg import access_path
     from repro_torch.sampling.kernels import (gns_sample_agg_cuda,
                                               gns_sample_agg_plain,
-                                              gns_sample_agg_rowwarp_cuda,
                                               sample_lanes_plain)
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
     rows = []
@@ -648,14 +690,8 @@ def phase_train_times(k3_shapes, k3_errs, k1_args, counts) -> list:
         t_bound, by = bound_ms(n_bytes, n_flops)
         lib_idx = lane_rows.clamp(min=0).long()
         lib_w = torch.where(lane_rows >= 0, lane_w, 0.0)
-        prev_equal = torch.equal(gns_sample_agg_rowwarp_cuda(*args),
-                                 gns_sample_agg_cuda(*args))
-        if not prev_equal:
-            raise AssertionError(f"K3 {name}: tile and rowwarp kernels "
-                                 f"differ")
         t = turns_ms({
             "ms": lambda: gns_sample_agg_cuda(*args),
-            "prev_ms": lambda: gns_sample_agg_rowwarp_cuda(*args),
             "plain_ms": lambda: gns_sample_agg_plain(*args),
             "library_ms": lambda: F.embedding_bag(
                 lib_idx, table, per_sample_weights=lib_w, mode="sum")},
@@ -666,7 +702,6 @@ def phase_train_times(k3_shapes, k3_errs, k1_args, counts) -> list:
             "replaces": "src/repro/sampling/kernels.py:138",
             **launch_fields(counts, "gns_sample_agg"),
             "max_abs_err": k3_errs[name], **t,
-            "prev": "src/repro_torch/csrc/rowwarp.cu", "prev_equal": True,
             "bound_ms": t_bound, "bound_by": by,
             "library": "F.embedding_bag over the drawn lanes (gather only)",
             "bytes": n_bytes, "B": dst.shape[0],
@@ -675,22 +710,14 @@ def phase_train_times(k3_shapes, k3_errs, k1_args, counts) -> list:
     want = cache_lookup_agg_plain(*k1_args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+    if not torch.equal(got, want):
         raise AssertionError(f"K1 at the training shape: max err {err}")
-    n_bytes, lane_bytes, n_flops = lookup_work(*k1_args)
-    t_bound, by = bound_ms(n_bytes, n_flops)
-    rows.append({
-        "name": "cache_lookup_agg[train,layer=0]", "route": "cuda",
-        "source": "src/repro_torch/csrc/cache_lookup.cu",
-        "replaces": "src/repro/kernels/cache_lookup.py:78",
-        **launch_fields(counts, "cache_lookup_agg"),
-        "max_abs_err": err,
-        **turns_ms({"ms": lambda: cache_lookup_agg_cuda(*k1_args),
-                    "plain_ms": lambda: cache_lookup_agg_plain(*k1_args)},
-                   flush),
-        "bound_ms": t_bound, "bound_by": by, "library_ms": None,
-        "bytes": n_bytes, "lane_bound_ms": lane_bytes / HBM_MS,
-        "B": k1_args[3].shape[0]})
+    log("parity", kernel="cache_lookup_agg", shape="train", layer=0,
+        data="sampled", table=str(k1_args[0].dtype).removeprefix("torch."),
+        B=k1_args[3].shape[0], K=k1_args[3].shape[1], D=got.shape[1],
+        max_abs_err=err, ok=True)
+    del got, want
+    rows.append(lookup_row("train", k1_args, counts, err, flush))
     log_times(rows)
     return rows
 
@@ -712,16 +739,12 @@ def host_train_batch(engine, rng) -> tuple:
 
 
 def phase_times(engine, shapes, errs, counts) -> list:
-    """K1 and K2 at the serving shapes.  K1 in turns with its plain
-    version; K2 in turns with its one-warp-per-row predecessor
-    (``prev_ms``), its plain version and ``embedding_bag``."""
+    """K1 and K2 at the serving shapes, each in turns with its plain
+    version and ``embedding_bag``."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.cache_lookup import (cache_lookup_agg_cuda,
-                                                  cache_lookup_agg_plain)
     from repro_torch.kernels.gather_agg import (access_path, gather_agg_cuda,
-                                                gather_agg_plain,
-                                                gather_agg_rowwarp_cuda)
+                                                gather_agg_plain)
     dev = engine.device
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)  # > L2
     table = engine.store.generation.table
@@ -730,19 +753,8 @@ def phase_times(engine, shapes, errs, counts) -> list:
         blk0 = db.blocks[0]
         args = (table, db.input_streamed, db.input_cache_slots, blk0.nbr_idx,
                 blk0.nbr_w)
-        n_bytes, lane_bytes, n_flops = lookup_work(*args)
-        t_bound, by = bound_ms(n_bytes, n_flops)
-        rows.append({
-            "name": f"cache_lookup_agg[b={b},layer=0]", "route": "cuda",
-            "source": "src/repro_torch/csrc/cache_lookup.cu",
-            "replaces": "src/repro/kernels/cache_lookup.py:78",
-            **launch_fields(counts, "cache_lookup_agg"),
-            "max_abs_err": errs[("cache_lookup_agg", b, 0)],
-            **turns_ms({"ms": lambda: cache_lookup_agg_cuda(*args),
-                        "plain_ms": lambda: cache_lookup_agg_plain(*args)},
-                       flush),
-            "bound_ms": t_bound, "bound_by": by, "library_ms": None,
-            "bytes": n_bytes, "lane_bound_ms": lane_bytes / HBM_MS})
+        rows.append(lookup_row(f"b={b}", args, counts,
+                               errs[("cache_lookup_agg", b, 0)], flush))
         h = torch.randn((blk0.nbr_idx.shape[0], engine.mcfg.hidden_dim),
                         device=dev)
         for li in (1, 2):
@@ -751,10 +763,6 @@ def phase_times(engine, shapes, errs, counts) -> list:
             idx, w = blk.nbr_idx, blk.nbr_w
             n_bytes, lane_bytes, n_flops = gather_work(feat, idx, w)
             t_bound, by = bound_ms(n_bytes, n_flops)
-            if not torch.equal(gather_agg_rowwarp_cuda(feat, idx, w),
-                               gather_agg_cuda(feat, idx, w)):
-                raise AssertionError(f"K2 b={b} layer {li}: tile and "
-                                     f"rowwarp kernels differ")
             rows.append({
                 "name": f"gather_agg[b={b},layer={li}]", "route": "cuda",
                 "source": "src/repro_torch/csrc/gather_agg.cu",
@@ -763,12 +771,10 @@ def phase_times(engine, shapes, errs, counts) -> list:
                 "max_abs_err": errs[("gather_agg", b, li)],
                 **turns_ms({
                     "ms": lambda: gather_agg_cuda(feat, idx, w),
-                    "prev_ms": lambda: gather_agg_rowwarp_cuda(feat, idx, w),
                     "plain_ms": lambda: gather_agg_plain(feat, idx, w),
                     "library_ms": lambda: F.embedding_bag(
                         idx, feat, per_sample_weights=w, mode="sum")},
                     flush),
-                "prev": "src/repro_torch/csrc/rowwarp.cu", "prev_equal": True,
                 "bound_ms": t_bound, "bound_by": by,
                 "bytes": n_bytes, "lane_bound_ms": lane_bytes / HBM_MS,
                 "path": access_path(feat)})
@@ -1305,11 +1311,10 @@ def phase_k4_times(errs, counts) -> list:
     return rows
 
 
-# K2's and K3's device kernels by name: the tile kernels and their
-# one-warp-per-row predecessors (rowwarp.cu)
-TILE_KERNEL_NAMES = ("gather_agg_kernel", "gns_sample_agg_kernel")
-ROWWARP_KERNEL_NAMES = ("gather_agg_rowwarp_kernel",
-                        "gns_sample_agg_rowwarp_kernel")
+# K1's, K2's and K3's device kernels by name: the tile kernels
+TILE_KERNEL_NAMES = ("cache_lookup_agg_kernel", "gather_agg_kernel",
+                     "gns_sample_agg_kernel")
+TILE_MAX_REGS = 64
 
 
 def kernel_label(mangled: str, names: tuple) -> str:
@@ -1327,17 +1332,18 @@ def kernel_label(mangled: str, names: tuple) -> str:
 
 
 def phase_kbuild() -> None:
-    """The kernels of K2, K3 and K4 in the built library, read by
-    ``cuobjdump``: registers, stack and local memory (spills) per kernel,
-    and for K4 the tensor-core instructions (HMMA) in each one's SASS.
-    K2's and K3's tile kernels must not spill (stack and local 0); every
-    tensor-core route kernel of K4 must hold HMMA."""
+    """The kernels of K1-K4 in the built library, read by ``cuobjdump``:
+    registers, stack and local memory (spills) per kernel, and for K4 the
+    tensor-core instructions (HMMA) in each one's SASS.  The 12 tile
+    kernels of K1-K3 must use at most ``TILE_MAX_REGS`` registers and not
+    spill (stack and local 0); every tensor-core route kernel of K4 must
+    hold HMMA."""
     import re
     import shutil
     from repro_torch.kernels._ext import load_kernels
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     lib = load_kernels().__file__
-    names = K4_KERNEL_NAMES + TILE_KERNEL_NAMES + ROWWARP_KERNEL_NAMES
+    names = K4_KERNEL_NAMES + TILE_KERNEL_NAMES
 
     def dump(flag: str) -> str:
         return subprocess.run([exe, flag, lib], capture_output=True,
@@ -1368,23 +1374,22 @@ def phase_kbuild() -> None:
     for f in k4:
         log("k4-build", kernel=kernel_label(f, K4_KERNEL_NAMES), **usage[f],
             hmma=hmma.get(f, 0))
-    tiles = [f for f in usage if named(f, TILE_KERNEL_NAMES)]
-    for group, design in ((TILE_KERNEL_NAMES, "tile"),
-                          (ROWWARP_KERNEL_NAMES, "rowwarp")):
-        for f in sorted((f for f in usage if named(f, group)),
-                        key=lambda f: kernel_label(f, group)):
-            log("kbuild", kernel=kernel_label(f, group), design=design,
-                **usage[f])
+    tiles = sorted((f for f in usage if named(f, TILE_KERNEL_NAMES)),
+                   key=lambda f: kernel_label(f, TILE_KERNEL_NAMES))
+    for f in tiles:
+        log("kbuild", kernel=kernel_label(f, TILE_KERNEL_NAMES), **usage[f])
     tc = [f for f in k4 if "flash_tc_kernel" in f]
     if not tc or not all(hmma.get(f) for f in tc):
         raise AssertionError("tensor-core route without HMMA: " + str(
             [(kernel_label(f, K4_KERNEL_NAMES), hmma.get(f)) for f in tc]))
-    # 2 kernels x 2 table types x 2 access paths
-    spills = {kernel_label(f, TILE_KERNEL_NAMES): usage[f] for f in tiles
-              if usage[f].get("stack") or usage[f].get("local")}
-    if len(tiles) != 8 or spills:
-        raise AssertionError(f"tile kernels: {len(tiles)} of 8 found, "
-                             f"spills {spills}")
+    # 3 kernels x 2 table types x 2 access paths
+    over = {kernel_label(f, TILE_KERNEL_NAMES): usage[f] for f in tiles
+            if usage[f].get("stack") or usage[f].get("local")
+            or usage[f]["reg"] > TILE_MAX_REGS}
+    if len(tiles) != 12 or over:
+        raise AssertionError(f"tile kernels: {len(tiles)} of 12 found; "
+                             f"spilling or over {TILE_MAX_REGS} registers: "
+                             f"{over}")
 
 
 def main() -> int:

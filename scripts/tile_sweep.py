@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
-"""Tile sizes of K2 and K3 on one CUDA card: a sweep.
+"""Tile sizes of K1, K2 and K3 on one CUDA card: a sweep.
 
     python3 scripts/tile_sweep.py [--reps 30]
 
 Run from the root of a checkout on a host with a CUDA card.  It builds the
 port's kernels, prints the build read-back of ``chip_smoke.py``
-(``[kbuild]``, ``[k4-build]``), then times K2 (``gather_agg``) and K3
-(``gns_sample_agg``) at the main path's shapes of preset ``paper_train``
-for several tile sizes (rows per block, passed to the kernels' bindings
-in place of their own plan), in turns within one call with the wrappers
-(the kernels' own plan, ``tiles=auto``) and the one-warp-per-row
-predecessor, each launch after a 96 MB write that evicts L2 (the timing of
-``chip_smoke.turns_ms``).  Every tile size is first held bitwise equal to
-the predecessor.  The operands are synthetic, drawn from a seed: K2's
-rows are uniform over 16 times B source rows, K3 draws over a 305-row
-table with 99.8% of the destinations uncached, as at the training shape.
-One ``[sweep]`` line per shape and tile size, then the card's name and
-power limit.
+(``[kbuild]``, ``[k4-build]``), then times K1 (``cache_lookup_agg``), K2
+(``gather_agg``) and K3 (``gns_sample_agg``) at the main path's shapes of
+preset ``paper_train`` for several tile sizes (rows per block, passed to
+the kernels' bindings in place of their own plan), in turns within one
+call with the wrappers (the kernels' own plan, ``tiles=auto``), each
+launch after a 96 MB write that evicts L2 (the timing of
+``chip_smoke.turns_ms``).  Every tile size, and the wrapper, is first held
+bitwise equal to the plain version.  K1's operands are the main path's
+own, sampled from preset ``paper_train`` as ``chip_smoke.py`` samples
+them (the host-fused training batch, and one batch per serving bucket).
+K2's and K3's are synthetic, drawn from a seed: K2's rows are uniform
+over 16 times B source rows, K3 draws over a 305-row table with 99.8% of
+the destinations uncached, as at the training shape.  One ``[sweep]``
+line per shape and tile size, then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 SEED = 0
 # (B, K, D): K2 at buckets 128 and 512, layers 1 and 2; K3 at the training
-# shape and bucket 128
+# shape and bucket 128.  K1 at the training shape (B = 176,000) and buckets
+# 128 and 512 (B = 22,528 and 90,112), K = 5, D = 100
 K2_SHAPES = {"b=128,layer=1": (2048, 10, 256),
              "b=128,layer=2": (128, 15, 256),
              "b=512,layer=1": (8192, 10, 256),
@@ -37,6 +40,7 @@ K2_SHAPES = {"b=128,layer=1": (2048, 10, 256),
 K3_SHAPES = {"train": (176000, 5, 100), "b=128": (22528, 5, 100)}
 K2_ROWS = (1, 2, 4, 8, 16)
 K3_ROWS = (2, 5, 10, 20, 40, 64)
+K1_ROWS = (5, 10, 20, 40, 64)
 TABLE_ROWS = 305
 
 
@@ -72,6 +76,39 @@ def k3_operands(bsz: int, k: int, d: int, rng, device="cuda"):
     return (adj, torch.from_numpy(table).to(device),
             *(torch.from_numpy(a).to(device) for a in (dst, fb_rows, fb_w)),
             key)
+
+
+def k1_operands(rng) -> dict:
+    """K1's operands at its three main-path shapes, on the card: the
+    host-fused training batch and one serving batch per bucket of preset
+    ``paper_train``."""
+    import chip_smoke
+    from repro_torch.gns import GNSEngine
+    from repro_torch.graph.datasets import get_dataset
+    cfg = chip_smoke.train_config("fused")
+    ds = get_dataset(cfg.data.name, scale=cfg.data.scale, seed=cfg.data.seed)
+    train = GNSEngine(cfg, dataset=ds)
+    train.ensure_cache(np.random.default_rng(SEED))
+    out = {"train": chip_smoke.host_train_batch(train, rng)}
+    serve = chip_smoke.build_engine(ds)
+    serve.ensure_cache(np.random.default_rng(SEED))
+    for b, (mb, db) in chip_smoke.serving_shapes(serve, rng).items():
+        blk0 = db.blocks[0]
+        out[f"b={b}"] = (mb.cache_gen.table, db.input_streamed,
+                         db.input_cache_slots, blk0.nbr_idx, blk0.nbr_w)
+    return out
+
+
+def k1_tiles(cache, streamed, slots, idx, w, rows: int):
+    """K1 through its binding with ``rows`` rows per tile."""
+    import torch
+    from repro_torch.kernels._ext import load_kernels
+    from repro_torch.kernels.cache_lookup import lookup_access_path
+    out = torch.empty((idx.shape[0], cache.shape[1]), device=cache.device)
+    load_kernels().cache_lookup_agg(
+        cache, streamed, slots, idx, w, out,
+        lookup_access_path(cache, streamed) == "vector", rows)
+    return out
 
 
 def k2_tiles(feat, idx, w, rows: int):
@@ -111,6 +148,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
     import chip_smoke
+    from repro_torch.kernels import cache_lookup as k1
     from repro_torch.kernels import gather_agg as k2
     from repro_torch.kernels.gather_agg import access_path
     from repro_torch.sampling import kernels as k3
@@ -118,26 +156,38 @@ def main() -> int:
     chip_smoke.phase_kbuild()
     rng = np.random.default_rng(SEED)
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
-    cases = [("gather_agg", name, shape, K2_ROWS, k2_operands(*shape, rng),
-              k2.gather_agg_cuda, k2.gather_agg_rowwarp_cuda, k2_tiles)
-             for name, shape in K2_SHAPES.items()]
-    cases += [("gns_sample_agg", name, shape, K3_ROWS,
-               k3_operands(*shape, rng), k3.gns_sample_agg_cuda,
-               k3.gns_sample_agg_rowwarp_cuda, k3_tiles)
-              for name, shape in K3_SHAPES.items()]
-    for kernel, name, (bsz, k, d), sizes, args, new, prev, tiles in cases:
-        table = args[0] if kernel == "gather_agg" else args[1]
-        want = prev(*args)
-        fns = {"auto": lambda: new(*args), "rowwarp": lambda: prev(*args)}
+    cases = []
+    for name, shape in K2_SHAPES.items():
+        args = k2_operands(*shape, rng)
+        cases.append(("gather_agg", name, shape, args, access_path(args[0]),
+                      K2_ROWS, k2.gather_agg_cuda, k2.gather_agg_plain,
+                      k2_tiles))
+    for name, shape in K3_SHAPES.items():
+        args = k3_operands(*shape, rng)
+        cases.append(("gns_sample_agg", name, shape, args,
+                      access_path(args[1]), K3_ROWS, k3.gns_sample_agg_cuda,
+                      k3.gns_sample_agg_plain, k3_tiles))
+    for name, args in k1_operands(rng).items():
+        cases.append(("cache_lookup_agg", name,
+                      (*args[3].shape, args[0].shape[1]), args,
+                      k1.lookup_access_path(*args[:2]), K1_ROWS,
+                      k1.cache_lookup_agg_cuda, k1.cache_lookup_agg_plain,
+                      k1_tiles))
+    for (kernel, name, (bsz, k, d), args, path, sizes, new, plain,
+         tiles) in cases:
+        want = plain(*args)
+        fns = {"auto": lambda: new(*args)}
         for rows in sizes:
-            if not torch.equal(tiles(*args, rows), want):
-                raise AssertionError(f"{kernel}[{name}] rows={rows} differs "
-                                     f"from the rowwarp kernel")
             fns[f"rows={rows}"] = (lambda r: lambda: tiles(*args, r))(rows)
+        for label, fn in fns.items():
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"{kernel}[{name}] {label} differs "
+                                     f"from the plain version")
+        del want
         times = chip_smoke.turns_ms(fns, flush)
         for label, ms in times.items():
             chip_smoke.log("sweep", kernel=kernel, shape=name, B=bsz, K=k,
-                           D=d, path=access_path(table), tiles=label, ms=ms)
+                           D=d, path=path, tiles=label, ms=ms)
     print(chip_smoke.nvidia_smi())
     return 0
 

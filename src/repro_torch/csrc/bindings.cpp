@@ -12,10 +12,10 @@
 
 namespace {
 
-// The access path the Python wrapper chose
-// (repro_torch/kernels/gather_agg.py::access_path) and a tile size given
-// in place of the kernel's own plan (0), checked here because a wrong one
-// would fault on the device.
+// The access path the Python wrapper chose for one table
+// (repro_torch/kernels/gather_agg.py::access_path; K1 checks both of its
+// tables) and a tile size given in place of the kernel's own plan (0),
+// checked here because a wrong one would fault on the device.
 void check_tiles(const torch::Tensor& table, const torch::Tensor& out,
                  bool vec, int64_t tile_rows) {
   TORCH_CHECK(tile_rows >= 0 && tile_rows <= repro_torch::kMaxTileRows,
@@ -45,28 +45,21 @@ void gather_agg(const torch::Tensor& feat, const torch::Tensor& idx,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-void gather_agg_rowwarp(const torch::Tensor& feat, const torch::Tensor& idx,
-                        const torch::Tensor& w, torch::Tensor out) {
-  const c10::cuda::CUDAGuard guard(feat.device());
-  repro_torch::launch_gather_agg_rowwarp(
-      feat.data_ptr(), feat.scalar_type() == at::kBFloat16,
-      idx.data_ptr<int32_t>(), w.data_ptr<float>(), out.data_ptr<float>(),
-      idx.size(0), static_cast<int>(idx.size(1)),
-      static_cast<int>(feat.size(1)), at::cuda::getCurrentCUDAStream());
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
-}
-
 void cache_lookup_agg(const torch::Tensor& cache,
                       const torch::Tensor& streamed,
                       const torch::Tensor& slots, const torch::Tensor& idx,
-                      const torch::Tensor& w, torch::Tensor out) {
+                      const torch::Tensor& w, torch::Tensor out, bool vec,
+                      int64_t tile_rows) {
+  check_tiles(cache, out, vec, tile_rows);
+  check_tiles(streamed, out, vec, tile_rows);
   const c10::cuda::CUDAGuard guard(cache.device());
   repro_torch::launch_cache_lookup_agg(
       cache.data_ptr(), cache.scalar_type() == at::kBFloat16,
       streamed.data_ptr<float>(), slots.data_ptr<int32_t>(),
       idx.data_ptr<int32_t>(), w.data_ptr<float>(), out.data_ptr<float>(),
       idx.size(0), static_cast<int>(idx.size(1)),
-      static_cast<int>(cache.size(1)), at::cuda::getCurrentCUDAStream());
+      static_cast<int>(cache.size(1)), vec, static_cast<int>(tile_rows),
+      at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -91,28 +84,6 @@ void gns_sample_agg(const torch::Tensor& indptr, const torch::Tensor& indices,
       write_lanes ? lane_w.data_ptr<float>() : nullptr, dst_rows.size(0),
       static_cast<int>(fb_rows.size(1)), static_cast<int>(table.size(1)),
       vec, static_cast<int>(tile_rows), at::cuda::getCurrentCUDAStream());
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
-}
-
-void gns_sample_agg_rowwarp(
-    const torch::Tensor& indptr, const torch::Tensor& indices,
-    const torch::Tensor& deg, const torch::Tensor& hitp,
-    const torch::Tensor& table, const torch::Tensor& dst_rows,
-    const torch::Tensor& fb_rows, const torch::Tensor& fb_w, int64_t key_lo,
-    int64_t key_hi, torch::Tensor out, torch::Tensor lane_rows,
-    torch::Tensor lane_w, bool write_lanes) {
-  const c10::cuda::CUDAGuard guard(table.device());
-  repro_torch::launch_gns_sample_agg_rowwarp(
-      indptr.data_ptr<int32_t>(), indices.data_ptr<int32_t>(),
-      indices.size(0), deg.data_ptr<float>(), hitp.data_ptr<float>(),
-      table.data_ptr(), table.scalar_type() == at::kBFloat16,
-      dst_rows.data_ptr<int32_t>(), fb_rows.data_ptr<int32_t>(),
-      fb_w.data_ptr<float>(), static_cast<uint32_t>(key_lo),
-      static_cast<uint32_t>(key_hi), out.data_ptr<float>(),
-      write_lanes ? lane_rows.data_ptr<int32_t>() : nullptr,
-      write_lanes ? lane_w.data_ptr<float>() : nullptr, dst_rows.size(0),
-      static_cast<int>(fb_rows.size(1)), static_cast<int>(table.size(1)),
-      at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -184,17 +155,13 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("gather_agg", &gather_agg,
         "K2: out[b] = sum_k w[b,k] * feat[idx[b,k]] in row tiles (writes "
         "out)");
-  m.def("gather_agg_rowwarp", &gather_agg_rowwarp,
-        "K2's one-warp-per-row predecessor, for comparison (writes out)");
   m.def("cache_lookup_agg", &cache_lookup_agg,
-        "K1: fused cache lookup + layer-0 gather-aggregate (writes out)");
+        "K1: fused cache lookup + layer-0 gather-aggregate in row tiles "
+        "(writes out)");
   m.def("gns_sample_agg", &gns_sample_agg,
         "K3: device GNS draw + importance weight + gather-aggregate "
         "in row tiles (writes out, and lane_rows/lane_w when "
         "write_lanes)");
-  m.def("gns_sample_agg_rowwarp", &gns_sample_agg_rowwarp,
-        "K3's one-warp-per-row predecessor, for comparison (writes out, "
-        "and lane_rows/lane_w when write_lanes)");
   m.def("flash_attention", &flash_attention,
         "K4: blocked attention with an online softmax; window <= 0 means "
         "none (writes out)");

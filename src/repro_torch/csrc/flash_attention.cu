@@ -43,8 +43,8 @@
 // (flash_attention_split.cu) and bf16 prefill the tensor-core route
 // (flash_attention_tc.cu); the wrapper also exposes this kernel by name, as
 // the in-call baseline the other routes are timed against.
+#include "flash_common.cuh"
 #include "kernels.h"
-#include "row_accum.cuh"
 
 namespace repro_torch {
 namespace {

@@ -52,7 +52,6 @@
 // the scratch; the kernels allocate nothing.
 #include "flash_common.cuh"
 #include "kernels.h"
-#include "row_accum.cuh"
 
 namespace repro_torch {
 namespace {

@@ -1,13 +1,22 @@
-// Shared pieces of K4's two Hopper routes (flash_attention_split.cu,
-// flash_attention_tc.cu): the Pallas kernel's mask value, 16-byte cp.async
-// copies with zero fill, the visibility rule of a (query position, key)
-// pair, and the output store.
+// Shared pieces of K4's routes (flash_attention_split.cu,
+// flash_attention_tc.cu, flash_attention.cu): the warp width and the
+// widening of an element to f32; the Pallas kernel's mask value, 16-byte
+// cp.async copies with zero fill, the visibility rule of a (query
+// position, key) pair, and the output store.
 #pragma once
 
 #include <cstdint>
 #include <cuda_bf16.h>
 
 namespace repro_torch {
+
+constexpr int kWarp = 32;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
 namespace flash {
 
 constexpr float kNeg = -1e30f;        // the Pallas kernel's _NEG, never -inf

@@ -43,20 +43,12 @@ gather_agg_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
       tile::tile_lanes(tile_rows, min(K, tile::kLaneChunk));
   const int64_t b0 = tile::tile_start(tile_rows);
   const int rows = tile::tile_len(b0, tile_rows, B);
-  int l0 = 0;
-  do {                               // once for K <= 32 (and K = 0)
-    const int kn = min(tile::kLaneChunk, K - l0);
-    if (l0 > 0) __syncthreads();     // the last chunk's gather is done
-    for (int t = threadIdx.x; t < rows * kn; t += blockDim.x) {
-      const int r = t / kn;
-      const int64_t g = (b0 + r) * K + l0 + (t - r * kn);
-      s.row[t] = idx[g];
-      s.w[t] = w[g];
-    }
-    __syncthreads();
-    tile::gather_tile<T, kVec>(feat, s, kn, l0 == 0, out, b0, rows, D);
-    l0 += tile::kLaneChunk;
-  } while (l0 < K);
+  const auto resolve = [&](int64_t g, int32_t& code, float& wt) {
+    code = idx[g];
+    wt = w[g];
+  };
+  tile::gather_lanes(tile::OneTable<T, kVec>{feat}, resolve, s, K, out, b0,
+                     rows, D);
 }
 
 // K2's units per block (tile_accum.cuh): one row of D = 256 per block.

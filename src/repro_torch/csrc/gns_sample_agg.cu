@@ -130,13 +130,14 @@ gns_sample_agg_kernel(const int32_t* __restrict__ indptr,
       lane_rows[g] = row;
       lane_w[g] = w;
     }
-    s.row[t] = max(row, 0);                  // dead lane: w = 0 times row 0
+    s.code[t] = max(row, 0);                 // dead lane: w = 0 times row 0
     s.w[t] = row < 0 ? 0.0f : w;
   }
   __syncthreads();
 
   // --- pass 2: the gather, lanes in ascending order ----------------------
-  tile::gather_tile<T, kVec>(table, s, K, true, out, b0, rows, D);
+  tile::gather_tile(tile::OneTable<T, kVec>{table}, s, K, true, out, b0,
+                    rows, D);
 }
 
 // K3's units per block (tile_accum.cuh): 40 rows of D = 100 per block.

@@ -9,7 +9,7 @@
 
 namespace repro_torch {
 
-// K2's and K3's tiles hold at most this many destination rows
+// K1's, K2's and K3's tiles hold at most this many destination rows
 // (tile_accum.cuh).
 constexpr int kMaxTileRows = 64;
 
@@ -22,19 +22,15 @@ void launch_gather_agg(const void* feat, int feat_bf16, const int32_t* idx,
                        const float* w, float* out, int64_t B, int K, int D,
                        int vec, int tile_rows, cudaStream_t stream);
 
-// K2's one-warp-per-row predecessor, kept for comparison (rowwarp.cu).
-void launch_gather_agg_rowwarp(const void* feat, int feat_bf16,
-                               const int32_t* idx, const float* w,
-                               float* out, int64_t B, int K, int D,
-                               cudaStream_t stream);
-
 // out[b, :] = sum_k w[b, k] * h0(idx[b, k])              (K1, cache_lookup.cu)
 // h0(r) = slots[r] >= 0 ? cache[slots[r], :] : streamed[r, :]
 // cache [C, D] float32 (cache_bf16 == 0) or bfloat16; streamed [S0, D] f32.
+// vec and tile_rows as K2's (vec: both tables aligned).
 void launch_cache_lookup_agg(const void* cache, int cache_bf16,
                              const float* streamed, const int32_t* slots,
                              const int32_t* idx, const float* w, float* out,
-                             int64_t B, int K, int D, cudaStream_t stream);
+                             int64_t B, int K, int D, int vec, int tile_rows,
+                             cudaStream_t stream);
 
 // The device GNS input layer                           (K3, gns_sample_agg.cu)
 // per row b: draw K lanes from the CSR (indptr, indices[cap], deg, hitp)
@@ -50,14 +46,6 @@ void launch_gns_sample_agg(const int32_t* indptr, const int32_t* indices,
                            float* out, int32_t* lane_rows, float* lane_w,
                            int64_t B, int K, int D, int vec, int tile_rows,
                            cudaStream_t stream);
-
-// K3's one-warp-per-row predecessor, kept for comparison (rowwarp.cu).
-void launch_gns_sample_agg_rowwarp(
-    const int32_t* indptr, const int32_t* indices, int64_t cap,
-    const float* deg, const float* hitp, const void* table, int table_bf16,
-    const int32_t* dst_rows, const int32_t* fb_rows, const float* fb_w,
-    uint32_t key_lo, uint32_t key_hi, float* out, int32_t* lane_rows,
-    float* lane_w, int64_t B, int K, int D, cudaStream_t stream);
 
 // Blocked attention with an online softmax      (K4, flash_attention.cu)
 // q/out [B, Hq, Sq, Dh], k/v [B, Hkv, Sk, Dh], all float32 (bf16 == 0) or

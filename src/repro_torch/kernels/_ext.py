@@ -1,11 +1,10 @@
 """Build, load and count the port's CUDA kernels.
 
 The kernels live in ``repro_torch/csrc``: ``gather_agg.cu`` (K2),
-``cache_lookup.cu`` (K1), ``gns_sample_agg.cu`` (K3), ``rowwarp.cu`` (the
-one-warp-per-row predecessors of K2 and K3, built for comparison) and K4's
-three routes, ``flash_attention_split.cu`` (split-KV decode),
-``flash_attention_tc.cu`` (tensor cores, bf16) and ``flash_attention.cu``
-(CUDA cores, f32).  They include only CUDA headers, and ``bindings.cpp`` is
+``cache_lookup.cu`` (K1) and ``gns_sample_agg.cu`` (K3), on the row tiles
+of ``tile_accum.cuh``, and K4's three routes, ``flash_attention_split.cu``
+(split-KV decode), ``flash_attention_tc.cu`` (tensor cores, bf16) and
+``flash_attention.cu`` (CUDA cores, f32).  They include only CUDA headers, and ``bindings.cpp`` is
 the one small file that includes ``torch/extension.h``.  All of them go to
 ``torch.utils.cpp_extension.load`` in one call, for ``sm_90a`` (Hopper),
 into ``build/repro_torch_kernels`` at the root of the checkout.  The build
@@ -20,7 +19,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("bindings.cpp", "gather_agg.cu", "cache_lookup.cu",
-           "gns_sample_agg.cu", "rowwarp.cu", "flash_attention.cu",
+           "gns_sample_agg.cu", "flash_attention.cu",
            "flash_attention_split.cu", "flash_attention_tc.cu")
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 

@@ -7,26 +7,43 @@ The GNS input layer (``input_impl="fused"``): every input row is resolved
 against the device cache and aggregated into the first GraphSAGE layer in
 one pass, without materialising h0.  Counterpart of the TPU kernel
 ``repro/kernels/cache_lookup.py::cache_lookup_agg_pallas``; the CUDA kernel
-is ``repro_torch/csrc/cache_lookup.cu``, whose header says what bounds it on
-an H100 (HBM bytes) and how its design answers that: it reads
-``slots[idx[b,k]]`` itself and loads only the live row.
+is ``repro_torch/csrc/cache_lookup.cu`` on the row tiles of
+``csrc/tile_accum.cuh``, whose headers say what bounds it on an H100 (the
+padded output at the training shape, the launch and latency at the serve
+shapes) and how its design answers that: the tile's lanes follow
+``idx[b,k]`` to ``slots`` together, and each lane loads only its live row.
 
 * :func:`cache_lookup_agg_plain` — the plain PyTorch version, the
   sequential-k loop of ``repro/kernels/ref.py::cache_lookup_agg_ref``.  The
   CPU path and the tests use it, and the card's parity check holds the
-  kernel to it.
-* :func:`cache_lookup_agg_cuda` — the wrapper: checks its operands,
-  allocates the output, launches the kernel on the current stream and
-  counts the launch in :data:`launches`.  It never falls back.
+  kernel to it bit for bit.
+* :func:`cache_lookup_agg_cuda` — the wrapper: checks its operands, picks
+  the access path (:func:`lookup_access_path`), allocates the output,
+  launches the kernel on the current stream and counts the launch in
+  :data:`launches` and its path in :data:`path_calls`.  It never falls
+  back.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels._ext import LaunchCounter, load_kernels
-from repro_torch.kernels.gather_agg import TABLE_DTYPES, check_rows
+from repro_torch.kernels.gather_agg import (TABLE_DTYPES, access_path,
+                                            check_rows)
 
 launches = LaunchCounter()
+# launches by access path: "vector" (4 columns per access) or "scalar"
+path_calls = {"vector": LaunchCounter(), "scalar": LaunchCounter()}
+
+
+def lookup_access_path(cache_table: torch.Tensor,
+                       streamed: torch.Tensor) -> str:
+    """``"vector"`` when K1 can read both of its tables 4 columns at a
+    time (:func:`~repro_torch.kernels.gather_agg.access_path` of each:
+    D % 4 == 0, the cache 16-byte aligned in f32 or 8-byte in bf16, the
+    streamed rows 16-byte aligned), else ``"scalar"``."""
+    vec = access_path(cache_table) == access_path(streamed) == "vector"
+    return "vector" if vec else "scalar"
 
 
 def cache_lookup_agg_plain(cache_table: torch.Tensor, streamed: torch.Tensor,
@@ -75,7 +92,10 @@ def cache_lookup_agg_cuda(cache_table: torch.Tensor, streamed: torch.Tensor,
     out = torch.empty((idx.shape[0], cache_table.shape[1]),
                       dtype=torch.float32, device=dev)
     if out.numel():                  # an empty grid is not a valid launch
+        path = lookup_access_path(cache_table, streamed)
         load_kernels().cache_lookup_agg(cache_table, streamed, slots, idx, w,
-                                        out)
+                                        out, path == "vector",
+                                        0)   # 0: the kernel's own tile plan
         launches.add()
+        path_calls[path].add()
     return out

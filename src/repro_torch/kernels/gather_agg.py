@@ -14,12 +14,9 @@ how the tile layout answers that.
   access path (:func:`access_path`), allocates the output, launches the
   kernel on the current stream and counts the launch in :data:`launches`
   and its path in :data:`path_calls`.  It never falls back to the plain version.
-* :func:`gather_agg_rowwarp_cuda` — the one-warp-per-row kernel that the
-  tile kernel replaced (``csrc/rowwarp.cu``), kept for comparison: the
-  smoke script times it beside the tile kernel, a card test holds the two
-  bitwise equal.  No path of the port calls it, and it counts nothing.
 
-:func:`access_path` serves K3 as well (``repro_torch/sampling/kernels.py``);
+:func:`access_path` serves K3 as well (``repro_torch/sampling/kernels.py``)
+and, for each of its two tables, K1 (``cache_lookup.lookup_access_path``);
 the tile plan is the kernels' own (``csrc/tile_accum.cuh``).
 """
 from __future__ import annotations
@@ -72,9 +69,10 @@ def check_rows(name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_gather(feat: torch.Tensor, idx: torch.Tensor,
-                 w: torch.Tensor) -> torch.Tensor:
-    """Check K2's operands; return its [B, D] f32 output, uninitialised."""
+def gather_agg_cuda(feat: torch.Tensor, idx: torch.Tensor,
+                    w: torch.Tensor) -> torch.Tensor:
+    """Launch K2.  feat [N, D] f32/bf16, idx [B, K] int32, w [B, K] f32, all
+    contiguous on one CUDA device -> [B, D] f32."""
     if not feat.is_cuda:
         raise ValueError(f"gather_agg_cuda needs CUDA tensors, got "
                          f"{feat.device}")
@@ -84,29 +82,12 @@ def check_gather(feat: torch.Tensor, idx: torch.Tensor,
     check_rows("w", w, dev, (torch.float32,), 2)
     if w.shape != idx.shape:
         raise ValueError(f"w {tuple(w.shape)} != idx {tuple(idx.shape)}")
-    return torch.empty((idx.shape[0], feat.shape[1]), dtype=torch.float32,
-                       device=dev)
-
-
-def gather_agg_cuda(feat: torch.Tensor, idx: torch.Tensor,
-                    w: torch.Tensor) -> torch.Tensor:
-    """Launch K2.  feat [N, D] f32/bf16, idx [B, K] int32, w [B, K] f32, all
-    contiguous on one CUDA device -> [B, D] f32."""
-    out = check_gather(feat, idx, w)
+    out = torch.empty((idx.shape[0], feat.shape[1]), dtype=torch.float32,
+                      device=dev)
     if out.numel():                  # an empty grid is not a valid launch
         path = access_path(feat)
         load_kernels().gather_agg(feat, idx, w, out, path == "vector",
                                   0)   # 0: the kernel's own tile plan
         launches.add()
         path_calls[path].add()
-    return out
-
-
-def gather_agg_rowwarp_cuda(feat: torch.Tensor, idx: torch.Tensor,
-                            w: torch.Tensor) -> torch.Tensor:
-    """K2's one-warp-per-row predecessor on the same operands, for
-    comparison only.  Not counted."""
-    out = check_gather(feat, idx, w)
-    if out.numel():
-        load_kernels().gather_agg_rowwarp(feat, idx, w, out)
     return out

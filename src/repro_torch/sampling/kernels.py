@@ -18,9 +18,6 @@
   (``csrc/gns_sample_agg.cu``, row tiles of ``csrc/tile_accum.cuh``): draw,
   merge and gather in one launch, counted in :data:`launches` and its
   access path in :data:`path_calls`.
-* :func:`gns_sample_agg_rowwarp_cuda` — the one-warp-per-row kernel that
-  the tile kernel replaced (``csrc/rowwarp.cu``), kept for comparison
-  only; not counted, and no path of the port calls it.
 * :func:`gns_sample_agg` — the entry the model's layer 0 calls; it
   dispatches by device alone (the plain version on the CPU, K3 on the
   card, never a fallback from one to the other).
@@ -124,13 +121,16 @@ def gns_sample_agg_plain(adj: DeviceCacheAdj, cache_table: torch.Tensor,
     return slot_gather_agg_plain(cache_table, lane_rows, lane_w)
 
 
-def check_sample(adj: DeviceCacheAdj, cache_table: torch.Tensor,
-                 dst_rows: torch.Tensor, fb_rows: torch.Tensor,
-                 fb_w: torch.Tensor, lane_rows: torch.Tensor | None,
-                 lane_w: torch.Tensor | None) -> tuple:
-    """Check K3's operands; return ``(out, lane_rows, lane_w,
-    write_lanes)``: the [B, D] f32 output, uninitialised, and the lane
-    outputs (empty when not asked for)."""
+def gns_sample_agg_cuda(adj: DeviceCacheAdj, cache_table: torch.Tensor,
+                        dst_rows: torch.Tensor, fb_rows: torch.Tensor,
+                        fb_w: torch.Tensor, key,
+                        lane_rows: torch.Tensor | None = None,
+                        lane_w: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch K3.  adj on the table's CUDA device (indptr/indices int32,
+    deg/hitp f32), table [C, D] f32/bf16 with C = adj.table_rows, dst_rows
+    [B] int32, fb_rows/fb_w [B, k] int32/f32 with 1 <= k <= 32, all
+    contiguous -> [B, D] f32.  ``lane_rows``/``lane_w`` ([B, k] int32/f32),
+    when given, receive the merged lanes."""
     if not cache_table.is_cuda:
         raise ValueError(f"gns_sample_agg_cuda needs CUDA tensors, got "
                          f"{cache_table.device}")
@@ -166,21 +166,6 @@ def check_sample(adj: DeviceCacheAdj, cache_table: torch.Tensor,
         lane_w = torch.empty(0, dtype=torch.float32, device=dev)
     out = torch.empty((bsz, cache_table.shape[1]), dtype=torch.float32,
                       device=dev)
-    return out, lane_rows, lane_w, write_lanes
-
-
-def gns_sample_agg_cuda(adj: DeviceCacheAdj, cache_table: torch.Tensor,
-                        dst_rows: torch.Tensor, fb_rows: torch.Tensor,
-                        fb_w: torch.Tensor, key,
-                        lane_rows: torch.Tensor | None = None,
-                        lane_w: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch K3.  adj on the table's CUDA device (indptr/indices int32,
-    deg/hitp f32), table [C, D] f32/bf16 with C = adj.table_rows, dst_rows
-    [B] int32, fb_rows/fb_w [B, k] int32/f32 with 1 <= k <= 32, all
-    contiguous -> [B, D] f32.  ``lane_rows``/``lane_w`` ([B, k] int32/f32),
-    when given, receive the merged lanes."""
-    out, lane_rows, lane_w, write_lanes = check_sample(
-        adj, cache_table, dst_rows, fb_rows, fb_w, lane_rows, lane_w)
     key_lo, key_hi = key_words(key)
     if out.numel():                  # an empty grid is not a valid launch
         path = access_path(cache_table)
@@ -190,25 +175,6 @@ def gns_sample_agg_cuda(adj: DeviceCacheAdj, cache_table: torch.Tensor,
             0)                       # 0: the kernel's own tile plan
         launches.add()
         path_calls[path].add()
-    return out
-
-
-def gns_sample_agg_rowwarp_cuda(adj: DeviceCacheAdj,
-                                cache_table: torch.Tensor,
-                                dst_rows: torch.Tensor, fb_rows: torch.Tensor,
-                                fb_w: torch.Tensor, key,
-                                lane_rows: torch.Tensor | None = None,
-                                lane_w: torch.Tensor | None = None
-                                ) -> torch.Tensor:
-    """K3's one-warp-per-row predecessor on the same operands, for
-    comparison only.  Not counted."""
-    out, lane_rows, lane_w, write_lanes = check_sample(
-        adj, cache_table, dst_rows, fb_rows, fb_w, lane_rows, lane_w)
-    key_lo, key_hi = key_words(key)
-    if out.numel():
-        load_kernels().gns_sample_agg_rowwarp(
-            *adj.tensors(), cache_table, dst_rows, fb_rows, fb_w, key_lo,
-            key_hi, out, lane_rows, lane_w, write_lanes)
     return out
 
 

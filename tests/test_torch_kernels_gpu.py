@@ -5,18 +5,17 @@ no jax, so it runs on the GPU host:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
 The kernels and the plain versions round each product and each sum
-separately, in ascending k, so integer-valued f32 must agree bit for bit;
-random f32 and bf16 tables are held to rtol 1e-5 / atol 1e-6 for K1.  K2
-and K3 are held bit for bit on every table: K3 computes its weights with
-the plain version's f32 operations in the same order, so its lanes agree
-bit for bit too.  K2 and K3 run on row tiles with two access paths (4
-columns per access when D % 4 == 0 and the table is aligned, else one);
-every case asserts, through the path counters, the path ``access_path``
-names for it, and the cases give both paths ragged last tiles, B = 1, K = 1
-and 32 (and K2 K > 32, whose lanes go in chunks of 32), D up to 520, bf16
-tables and tables that are views at an unaligned offset.  Each tile kernel
-is also held bit for bit to its one-warp-per-row predecessor
-(``*_rowwarp_cuda``) at the main path's shapes.  K4 (flash attention)
+separately, in ascending k, so K1, K2 and K3 are held bit for bit
+(``torch.equal``) on integer-valued f32, random f32 and bf16 tables: K3
+computes its weights with the plain version's f32 operations in the same
+order, so its lanes agree bit for bit too.  K1, K2 and K3 run on row tiles
+with two access paths (4 columns per access when D % 4 == 0 and every
+table is aligned, else one); every case asserts, through the path
+counters, the path ``access_path`` (K1: ``lookup_access_path``) names for
+it, and the cases give both paths ragged last tiles, B = 1, K = 1 and 32
+(and for K1 and K2 K > 32, whose lanes go in chunks of 32), D up to 520,
+bf16 tables and tables that are views at an unaligned offset; K1 also all
+hits, all misses and a mix, and the main path's shapes.  K4 (flash attention)
 sums its online softmax in another order than the plain version's full
 softmax: f32 is held to 2e-5 (3e-5 for odd
 lengths), the JAX kernel tests' tolerances.  In bf16 both keep p.v in f32
@@ -40,8 +39,30 @@ from repro_torch.kernels import flash_attention as k4  # noqa: E402
 from repro_torch.sampling import kernels as k3  # noqa: E402
 from repro_torch.sampling.adjacency import DeviceCacheAdj  # noqa: E402
 
-TOL = dict(rtol=1e-5, atol=1e-6)
 SHAPES = [(16, 64, 32, 8, 4), (30, 100, 48, 7, 5), (40, 150, 100, 12, 5)]
+
+
+def k1_case(dev, seed, c, s0, d, b, k, exact, table_dtype, miss_frac=0.5):
+    """K1's operands on the card (``lookup_case``), the cache in
+    ``table_dtype``."""
+    cache, streamed, slots, idx, w = (
+        torch.from_numpy(a).to(dev)
+        for a in lookup_case(seed, c, s0, d, b, k, exact, miss_frac))
+    return cache.to(table_dtype), streamed, slots, idx, w
+
+
+def hold_k1(cache, streamed, slots, idx, w, path: str) -> None:
+    """One K1 launch on ``path`` (asserted through ``path_calls``), bit for
+    bit its plain version."""
+    assert cache_lookup.lookup_access_path(cache, streamed) == path
+    n0 = cache_lookup.launches.value
+    p0 = path_counts(cache_lookup.path_calls)
+    got = cache_lookup.cache_lookup_agg_cuda(cache, streamed, slots, idx, w)
+    want = cache_lookup.cache_lookup_agg_plain(cache, streamed, slots, idx, w)
+    torch.cuda.synchronize()
+    assert cache_lookup.launches.value == n0 + 1
+    assert_took(cache_lookup.path_calls, p0, path)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
@@ -52,20 +73,79 @@ def test_cache_lookup_kernel_matches_plain_on_card(c, s0, d, b, k,
                                                    table_dtype):
     dev = requires_cuda()
     for exact in (True, False):
-        cache, streamed, slots, idx, w = (
-            torch.from_numpy(a).to(dev)
-            for a in lookup_case(7, c, s0, d, b, k, exact))
-        cache = cache.to(table_dtype)
-        n0 = cache_lookup.launches.value
-        got = cache_lookup.cache_lookup_agg_cuda(cache, streamed, slots, idx, w)
-        want = cache_lookup.cache_lookup_agg_plain(cache, streamed, slots,
-                                                   idx, w)
-        torch.cuda.synchronize()
-        assert cache_lookup.launches.value == n0 + 1
-        if exact:
-            assert torch.equal(got, want)
-        else:
-            torch.testing.assert_close(got, want, **TOL)
+        hold_k1(*k1_case(dev, 7, c, s0, d, b, k, exact, table_dtype),
+                "vector")
+
+
+# (c, s0, d, b, k): B = 1 with K = 1; a ragged last tile (b = 3001 at
+# d = 100: tiles of 40 rows, the last of 1); K = 32, 40 (chunks of 32 and
+# 8) and 70 (32, 32, 6) on both paths; the scalar path at d = 30, 33 and 1;
+# D above 256; tiles of 64 rows at d = 4 with K = 32
+K1_CASES = [(20, 80, 100, 1, 1), (40, 300, 100, 3001, 5),
+            (30, 200, 64, 50, 32), (30, 200, 36, 50, 40),
+            (30, 200, 64, 20, 70), (30, 200, 33, 20, 70),
+            (25, 100, 30, 200, 5), (25, 100, 1, 9, 3),
+            (64, 400, 520, 45, 7), (100, 2000, 4, 20000, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,s0,d,b,k", K1_CASES)
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+def test_cache_lookup_kernel_shapes_on_card(c, s0, d, b, k, table_dtype):
+    dev = requires_cuda()
+    path = "vector" if d % 4 == 0 else "scalar"
+    for exact in (True, False):
+        hold_k1(*k1_case(dev, 17, c, s0, d, b, k, exact, table_dtype), path)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("miss_frac", [0.0, 1.0, 0.5])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+def test_cache_lookup_hits_and_misses_on_card(miss_frac, table_dtype):
+    """Every lane a hit (the cache covers all 200 input rows), every lane a
+    miss, and half and half."""
+    dev = requires_cuda()
+    for exact in (True, False):
+        args = k1_case(dev, 5, 200, 200, 100, 300, 5, exact, table_dtype,
+                       miss_frac)
+        _, _, slots, idx, _ = args
+        hits = float((slots.long()[idx.long()] >= 0).float().mean())
+        lo, hi = {0.0: (1.0, 1.0), 1.0: (0.0, 0.0), 0.5: (0.2, 0.8)}[miss_frac]
+        assert lo <= hits <= hi
+        hold_k1(*args, "vector")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("table", ["cache", "streamed"])
+@pytest.mark.parametrize("offset,path", [(1, "scalar"), (2, "scalar"),
+                                         (4, "vector")])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+def test_cache_lookup_unaligned_table_on_card(table, offset, path,
+                                              table_dtype):
+    """The cache or the streamed rows as a view 1, 2 or 4 elements into its
+    buffer: either one unaligned sends the whole launch down the scalar
+    path (the offsets of the K2 test of the same name)."""
+    dev = requires_cuda()
+    cache, streamed, slots, idx, w = k1_case(dev, 11, 60, 400, 64, 500, 10,
+                                             False, table_dtype)
+    if table == "cache":
+        cache = unaligned_copy(cache, offset)
+    else:
+        streamed = unaligned_copy(streamed, offset)
+    hold_k1(cache, streamed, slots, idx, w, path)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [176000, 90112, 22528])
+def test_cache_lookup_main_path_shapes_on_card(b):
+    """The main path's shapes (preset paper_train: the training shape of
+    the host-fused input, buckets 512 and 128): K = 5, D = 100, a 305-row
+    cache over 6 b input rows."""
+    dev = requires_cuda()
+    for exact in (True, False):
+        args = k1_case(dev, b, 305, 6 * b, 100, b, 5, exact, torch.float32)
+        for table_dtype in (torch.float32, torch.bfloat16):
+            hold_k1(args[0].to(table_dtype), *args[1:], "vector")
 
 
 # (n, d, b, k): both access paths (d % 4), B = 1, K = 1, 32 and above 32
@@ -225,51 +305,6 @@ def test_gns_sample_agg_unaligned_table_on_card(offset, path, table_dtype):
     table = unaligned_copy(table, offset)
     assert k3.access_path(table) == path
     hold_k3(adj, table, dst, fb_rows, fb_w, key)
-
-
-# the main path's shapes (preset paper_train): K2 at the serving buckets
-# 128 and 512, layers 1 and 2 (B, K, D); K3 at the training shape and at
-# bucket 128 (B, K, D over a 305-row table, almost every row uncached)
-K2_MAIN = [(2048, 10, 256), (128, 15, 256), (8192, 10, 256), (512, 15, 256)]
-K3_MAIN = [(176000, 5, 100), (22528, 5, 100)]
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,k,d", K2_MAIN)
-def test_gather_agg_matches_its_rowwarp_predecessor_on_card(b, k, d):
-    dev = requires_cuda()
-    feat, idx, w = (torch.from_numpy(a).to(dev)
-                    for a in gather_case(13, 16 * b, d, b, k, False))
-    assert gather_agg.access_path(feat) == "vector"
-    got = gather_agg.gather_agg_cuda(feat, idx, w)
-    prev = gather_agg.gather_agg_rowwarp_cuda(feat, idx, w)
-    torch.cuda.synchronize()
-    assert torch.equal(got, prev)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,k,d", K3_MAIN)
-def test_gns_sample_agg_matches_its_rowwarp_predecessor_on_card(b, k, d):
-    dev = requires_cuda()
-    rows = 305
-    adj = DeviceCacheAdj(*(torch.from_numpy(a).to(dev)
-                           for a in adj_case(rows, rows, 3 * k)))
-    dst, fb_rows, fb_w, key = sample_case(rows, rows, b, k, uncached=0.99)
-    dst, fb_rows, fb_w = (torch.from_numpy(a).to(dev)
-                          for a in (dst, fb_rows, fb_w))
-    table = torch.from_numpy(np.random.default_rng(b).normal(
-        size=(rows, d)).astype(np.float32)).to(dev)
-    assert k3.access_path(table) == "vector"
-    lanes = [(torch.empty_like(fb_rows), torch.empty_like(fb_w))
-             for _ in range(2)]
-    got = k3.gns_sample_agg_cuda(adj, table, dst, fb_rows, fb_w, key,
-                                 *lanes[0])
-    prev = k3.gns_sample_agg_rowwarp_cuda(adj, table, dst, fb_rows, fb_w,
-                                          key, *lanes[1])
-    torch.cuda.synchronize()
-    assert torch.equal(got, prev)
-    assert torch.equal(lanes[0][0], lanes[1][0])
-    assert torch.equal(lanes[0][1], lanes[1][1])
 
 
 @pytest.mark.gpu
