@@ -49,14 +49,34 @@ line each on stdout:
                (D = 100);
    Then one more step of (A) under ``torch.profiler``: the device's busy
    time against the step's wall time, and the largest device and host
-   entries (after the counted run, so it adds no launch to the counts);
+   entries (after the counted run, so it adds no launch to the counts;
+   so are the baselines' profiled steps in 7.);
 6. train-parity — one step of (A) at batch 250 on the card against the same
                engine on the CPU from the same parameters and seeds: loss
                (rtol 1e-4) and updated parameters (rtol 1e-4, atol 1e-5)
                allclose — cuBLAS and the CPU order the f32 sums of the matmuls
                differently, and the reference aggregation's backward sums by
                ``index_add_`` in no fixed order on the card;
-7. k4-parity — K4 against its plain version on the card, f32 and bf16, at
+7. baselines — the paper's baselines ``ns``, ``ladies`` and ``lazygcn`` on
+               the same dataset, each a ``GNSEngine`` on the host backend
+               with ``input_impl="fused"`` (no feature store: a 1-row dummy
+               cache, every K1 lane a miss): ``fit(epochs=1,
+               max_batches=3)`` and one eval batch, K1's counters zeroed
+               just before each and read just after: its launches must
+               equal steps plus eval batches, all on the vector path;
+               losses finite; LazyGCN's recycled steps (no bytes streamed)
+               where the reference's schedule puts them.  One line per
+               sampler: step ms (CUDA events, median), the meter's sample /
+               slice / copy / compute split per step, input nodes, isolated
+               rows and streamed bytes per batch; then one more step of
+               each (LazyGCN: a fresh and a recycled one) under
+               ``torch.profiler``, as (A)'s.  Then one LADIES step at
+               batch 250 on the card against the CPU (6.'s tolerances); a
+               checkpoint round trip: ``save`` the trained engine of (A),
+               ``restore`` it into a fresh card engine and a CPU engine
+               (every parameter and moment equal); and ``describe()`` of
+               every engine;
+8. k4-parity — K4 against its plain version on the card, f32 and bf16, at
                (a) the enc-dec serve shape (B=4, 16 heads, 1 query over 1024
                keys, Dh=64), (b) qwen2-7b's geometry (28/4 heads, Dh=128,
                4096 causal), (c) h2o-danube3's (32/8 heads, Dh=120, 8192
@@ -71,7 +91,7 @@ line each on stdout:
                (the online and the full softmax sum in other orders); bf16
                within rtol 1e-2, atol 4e-3 (both round the same f32 value
                once, so they differ by at most one bf16 ulp, <= 2^-7 |x|);
-8. lm-serve  — ``seamless-m4t-medium`` at its published width (12 + 12
+9. lm-serve  — ``seamless-m4t-medium`` at its published width (12 + 12
                layers, d_model 1024, 16 heads, vocab 256,206, bf16) with
                ``attn_impl="pallas"`` and random weights from ``SEED``:
                ``ServeEngine(max_batch=4).generate_batch`` serves 8 requests
@@ -82,25 +102,27 @@ line each on stdout:
                step (744), every one on the split-KV route (its route
                counter).  Then one more decode step of a batch, twice
                from the same state: its 12 K4 calls each held to the plain
-               version on their own operands (the bf16 tolerance of 7.),
+               version on their own operands (the bf16 tolerance of 8.),
                and its logits to those of ``attn_impl="reference"`` within
                2^-6 of their largest magnitude (2-4 bf16 ulps).  Then 3 more
                decode steps of one batch under
                ``torch.profiler``: device busy time against the step time,
                and K4's kernels' share of the busy time;
-9. lm-parity — the reduced ``seamless`` config (f32, ``attn_impl="pallas"``)
+10. lm-parity — the reduced ``seamless`` config (f32, ``attn_impl="pallas"``)
                with the same parameters on the card and on the CPU: the
                ``decode_step`` logits of one prefill and three
                teacher-forced single-token steps allclose (rtol 1e-4, atol
                1e-5: cuBLAS and the CPU order the f32 sums differently);
-10. times    — each kernel's median time over cold-L2 launches at the
-               serving and training shapes, in turns within this call with
+11. times    — each kernel's median time over cold-L2 launches at the
+               serving and training shapes (K1 also at LADIES's: B = 2,024
+               rows of 32 lanes over 2,536 streamed rows, all misses), in
+               turns within this call with
                the plain version and, where one PyTorch call computes the
                same function, that call (``embedding_bag`` for the gathers;
                for K1 over its lanes resolved ahead into one table, gather
                only; ``scaled_dot_product_attention`` for K4), and its
-               bound.  K1 is held bitwise to its plain version at the
-               training shape first; K4 at (a)-(c) in bf16 also takes turns
+               bound.  K1 is held bitwise to its plain version at both
+               training shapes first; K4 at (a)-(c) in bf16 also takes turns
                with the CUDA-core kernel (route (iii) by name, ``prev_ms``,
                the design the other routes replace on these shapes).
 
@@ -487,8 +509,9 @@ def phase_train(engine, name: str, epochs: int, max_batches, eval_batches: int,
              "k3": k3.path_calls}
     meter = engine.meter
     before = {f: getattr(meter, f) for f in METER_TIMES}
-    swaps0 = engine.store.swaps
-    step_ms, losses = [], []
+    store = engine.store
+    swaps0 = store.swaps if store is not None else 0
+    step_ms, losses, batches = [], [], []
     run_batch = engine.run_batch
 
     def timed_step(mb):
@@ -500,6 +523,8 @@ def phase_train(engine, name: str, epochs: int, max_batches, eval_batches: int,
         end.synchronize()
         step_ms.append(start.elapsed_time(end))
         losses.append(loss)
+        batches.append({"bytes_streamed": mb.bytes_streamed,
+                        "layer0": list(mb.device.blocks[0].nbr_idx.shape)})
         return loss, acc
 
     engine.run_batch = timed_step
@@ -521,7 +546,8 @@ def phase_train(engine, name: str, epochs: int, max_batches, eval_batches: int,
     log("train", path=name, steps=steps, losses=losses,
         epoch_losses=rep.losses, val_acc=acc,
         step_ms_median_last3=float(np.median(step_ms[-3:])),
-        step_ms=step_ms, swaps=engine.store.swaps - swaps0,
+        step_ms=step_ms,
+        swaps=(store.swaps - swaps0) if store is not None else None,
         launches=counts, paths=path_counts,
         feat_dim=engine.ds.feat_dim, wall_s=round(wall, 3),
         **{f + "_s": v for f, v in split.items()},
@@ -542,55 +568,52 @@ def phase_train(engine, name: str, epochs: int, max_batches, eval_batches: int,
                                  f"at D = {engine.ds.feat_dim}: "
                                  f"{path_counts[k]}")
     return {"counts": counts, "steps": steps, "step_ms": step_ms,
-            "losses": losses, "split": split}
+            "losses": losses, "split": split, "batches": batches,
+            "report": rep}
 
 
-def phase_profile(engine, rng) -> None:
-    """One more step of (A), after its counted run, under
+def phase_profile(engine, rng, path: str, steps: int = 1) -> None:
+    """``steps`` more steps of a path, after its counted run, each under
     ``torch.profiler``: the device's busy time (kernels and copies) against
     the step's time by CUDA events (the profiler's start-up left out, its
     per-op recording left in), and the largest device and host entries."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    engine.store.record = False
-    try:
-        targets = rng.choice(engine.ds.train_idx, engine.scfg.batch_size,
-                             replace=False)
-        mb = engine.sampler.sample(targets, rng)
-    finally:
-        engine.store.record = True
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start.record()       # inside: the profiler's own start-up is out
-        engine.run_batch(mb)
-        end.record()
-        end.synchronize()
-    wall_ms = start.elapsed_time(end)
-    events = prof.key_averages()
-    on_card = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
-    top = sorted(on_card, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:8]
-    host = sorted(events, key=lambda e: e.self_cpu_time_total,
-                  reverse=True)[:8]
-    log("profile", path="device", step_wall_ms=round(wall_ms, 3),
-        device_busy_ms=round(busy_ms, 3),
-        idle_share=round(1.0 - busy_ms / wall_ms, 4),
-        top_device=[(e.key[:60], round(e.self_device_time_total / 1e3, 3),
-                     e.count) for e in top],
-        top_host=[(e.key[:60], round(e.self_cpu_time_total / 1e3, 3),
-                   e.count) for e in host])
+    for step in range(steps):
+        mb = sample_quietly(engine, rng)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start.record()   # inside: the profiler's own start-up is out
+            engine.run_batch(mb)
+            end.record()
+            end.synchronize()
+        wall_ms = start.elapsed_time(end)
+        events = prof.key_averages()
+        on_card = [e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+        top = sorted(on_card, key=lambda e: e.self_device_time_total,
+                     reverse=True)[:8]
+        host = sorted(events, key=lambda e: e.self_cpu_time_total,
+                      reverse=True)[:8]
+        log("profile", path=path, step=step,
+            bytes_streamed=mb.bytes_streamed,
+            step_wall_ms=round(wall_ms, 3), device_busy_ms=round(busy_ms, 3),
+            idle_share=round(1.0 - busy_ms / wall_ms, 4),
+            top_device=[(e.key[:60], round(e.self_device_time_total / 1e3, 3),
+                         e.count) for e in top],
+            top_host=[(e.key[:60], round(e.self_cpu_time_total / 1e3, 3),
+                       e.count) for e in host])
 
 
-def phase_train_parity(ds) -> None:
-    """One step of (A) on the card against the same engine on the CPU."""
+def phase_train_parity(ds, cfg, phase: str) -> None:
+    """One training step of ``cfg`` on the card against the same engine on
+    the CPU, from the same parameters and seeds; logged as ``phase``."""
     from repro_torch.gns import GNSEngine
     from repro_torch.models.graphsage import params_from_numpy
-    cfg = train_config("device", batch_size=PARITY_BATCH)
     card = GNSEngine(cfg, dataset=ds)
     cpu = GNSEngine(cfg, device="cpu", dataset=ds)
     cpu.params = params_from_numpy(
@@ -605,12 +628,136 @@ def phase_train_parity(ds) -> None:
             a, b = lc[k].cpu().numpy(), lp[k].numpy()
             err = max(err, float(np.abs(a - b).max()))
             ok = ok and np.allclose(a, b, rtol=1e-4, atol=1e-5)
-    log("train-parity", batch=PARITY_BATCH, loss_card=rep_card.losses,
-        loss_cpu=rep_cpu.losses, param_max_abs_err=err, ok=ok)
+    log(phase, sampler=cfg.sampler, batch=cfg.sampling.batch_size,
+        loss_card=rep_card.losses, loss_cpu=rep_cpu.losses,
+        param_max_abs_err=err, ok=ok)
     if not ok:
-        raise AssertionError(f"card vs CPU train step differ: losses "
-                             f"{rep_card.losses} {rep_cpu.losses}, params "
-                             f"max err {err}")
+        raise AssertionError(f"{phase}: card vs CPU train step differ: "
+                             f"losses {rep_card.losses} {rep_cpu.losses}, "
+                             f"params max err {err}")
+
+
+BASELINES = ("ns", "ladies", "lazygcn")
+BASELINE_STEPS = 3             # fit() steps per baseline, then 1 eval batch
+
+
+def baseline_config(name: str, batch_size: int = 1000):
+    """Preset ``paper_train`` with the baseline sampler ``name`` on the
+    host backend, layer 0 through K1 (``input_impl="fused"``; no feature
+    store, so a 1-row dummy cache and every lane a miss)."""
+    return dataclasses.replace(train_config("fused", batch_size),
+                               sampler=name)
+
+
+def lazygcn_recycled(scfg, n: int) -> list:
+    """Which of ``n`` LazyGCN steps of one epoch reuse the megabatch: each
+    period p takes max(round(R·rho^p), 1) steps, the first fresh (the
+    reference's ``LazyGCNSampler.sample``)."""
+    out, period = [], 0
+    while len(out) < n:
+        r = max(int(round(scfg.recycle_period
+                          * scfg.recycle_growth ** period)), 1)
+        out += [False] + [True] * (r - 1)
+        period += 1
+    return out[:n]
+
+
+def phase_baselines(ds) -> tuple:
+    """The paper's baselines trained on the card through K1: for each
+    sampler ``fit(epochs=1, max_batches=BASELINE_STEPS)`` and one eval
+    batch (:func:`phase_train`, K1's counters zeroed just before each and
+    read just after; its launches equal steps + eval batches, all on the
+    vector path).  Returns the summed launch counts and the engines."""
+    from repro_torch.gns import GNSEngine
+    counts, engines = {}, {}
+    for name in BASELINES:
+        engine = GNSEngine(baseline_config(name), dataset=ds)
+        out = phase_train(engine, f"baseline_{name}", epochs=1,
+                          max_batches=BASELINE_STEPS, eval_batches=1,
+                          expect="cache_lookup_agg")
+        batches, split, rep = out["batches"], out["split"], out["report"]
+        recycled = [b["bytes_streamed"] == 0 for b in batches]
+        log("baseline", sampler=name, steps=out["steps"],
+            step_ms_median=float(np.median(out["step_ms"])),
+            **{f.removeprefix("t_") + "_s_per_step": split[f] / out["steps"]
+               for f in ("t_sample", "t_slice", "t_copy", "t_compute")},
+            input_nodes_per_batch=rep.input_nodes_per_batch,
+            isolated_per_batch=rep.isolated_per_batch,
+            streamed_bytes_per_batch=float(np.mean(
+                [b["bytes_streamed"] for b in batches])),
+            input_rows_padded=engine.sampler.pad_sizes[0][1],
+            layer0_lanes=batches[0]["layer0"], recycled=recycled)
+        if name == "lazygcn":
+            want = lazygcn_recycled(engine.scfg, out["steps"])
+            if recycled != want or not any(want):
+                raise AssertionError(f"lazygcn recycled steps {recycled}, "
+                                     f"the schedule puts them at {want}")
+        elif any(recycled):
+            raise AssertionError(f"{name}: a step streamed no bytes")
+        for k, v in out["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+        engines[name] = engine
+        # after the counted run: a LazyGCN fresh step, then a recycled one
+        phase_profile(engine, np.random.default_rng(SEED),
+                      f"baseline_{name}", 2 if name == "lazygcn" else 1)
+    return counts, engines
+
+
+def engine_state(engine) -> list:
+    """(name, tensor) of the engine's parameters and AdamW moments."""
+    out = []
+    for tree, tag in ((engine.params, "params"),
+                      (engine.opt_state["m"], "m"),
+                      (engine.opt_state["v"], "v")):
+        for i, layer in enumerate(tree["layers"]):
+            out += [(f"{tag}/{i}/{k}", layer[k]) for k in sorted(layer)]
+    return out
+
+
+def phase_checkpoint(engine, ds) -> None:
+    """``save`` the trained engine of path (A), then ``restore`` it into a
+    fresh engine on the card (every tensor ``torch.equal``, on the card)
+    and into one on the CPU (equal after ``.cpu()``).  The checkpoint goes
+    under ``build/`` of this checkout and is removed after."""
+    import tempfile
+    import torch
+    from repro_torch.gns import GNSEngine
+    (ROOT / "build").mkdir(exist_ok=True)
+    step = engine.opt_state["step"]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build",
+                                     prefix="chip_smoke_ckpt_") as d:
+        t0 = time.perf_counter()
+        path = engine.save(d, step=step)
+        t_save = time.perf_counter() - t0
+        want = engine_state(engine)
+        size = sum(f.stat().st_size for f in Path(path).iterdir())
+        for device in ("cuda", "cpu"):
+            fresh = GNSEngine(engine.cfg, device=device, dataset=ds)
+            t0 = time.perf_counter()
+            got_step = fresh.restore(d)
+            t_restore = time.perf_counter() - t0
+            got = engine_state(fresh)
+            bad = [n for (n, a), (_, b) in zip(want, got)
+                   if b.device.type != device or not torch.equal(a.cpu(),
+                                                                 b.cpu())]
+            ok = (got_step == step and fresh.opt_state["step"] == step
+                  and len(got) == len(want) and not bad)
+            log("checkpoint", into=device, step=got_step, tensors=len(got),
+                bytes=size, save_s=round(t_save, 3),
+                restore_s=round(t_restore, 3), mismatched=bad, ok=ok)
+            if not ok:
+                raise AssertionError(f"checkpoint into {device}: step "
+                                     f"{got_step} of {step}, {bad}")
+
+
+def phase_describe(engines: dict) -> None:
+    """Each engine's ``describe()`` record, its meter cut to two counts."""
+    for name, engine in engines.items():
+        rec = engine.describe()
+        log("describe", engine=name, sampler=engine.cfg.sampler,
+            **{k: v for k, v in rec.items() if k != "meter"},
+            meter_steps=rec["meter"]["steps"],
+            meter_bytes_streamed=rec["meter"]["bytes_streamed"])
 
 
 def launch_fields(counts: dict, kernel: str) -> dict:
@@ -667,11 +814,12 @@ def lookup_row(label: str, args: tuple, counts: dict, err: float,
         "B": idx.shape[0], "path": lookup_access_path(cache, streamed)}
 
 
-def phase_train_times(k3_shapes, k3_errs, k1_args, counts) -> list:
+def phase_train_times(k3_shapes, k3_errs, k1_shapes, counts) -> list:
     """K3 at the training and bucket-128 shapes, in turns with its plain
     version and the ``embedding_bag`` yardstick of the gather; K1 at the
-    training shape of the host-fused path, held bitwise to its plain
-    version, then timed (:func:`lookup_row`)."""
+    training shapes of the host-fused path and of LADIES
+    (``k1_shapes``), each held bitwise to its plain version, then timed
+    (:func:`lookup_row`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.cache_lookup import (cache_lookup_agg_cuda,
@@ -706,36 +854,50 @@ def phase_train_times(k3_shapes, k3_errs, k1_args, counts) -> list:
             "library": "F.embedding_bag over the drawn lanes (gather only)",
             "bytes": n_bytes, "B": dst.shape[0],
             "path": access_path(table)})
-    got = cache_lookup_agg_cuda(*k1_args)
-    want = cache_lookup_agg_plain(*k1_args)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError(f"K1 at the training shape: max err {err}")
-    log("parity", kernel="cache_lookup_agg", shape="train", layer=0,
-        data="sampled", table=str(k1_args[0].dtype).removeprefix("torch."),
-        B=k1_args[3].shape[0], K=k1_args[3].shape[1], D=got.shape[1],
-        max_abs_err=err, ok=True)
-    del got, want
-    rows.append(lookup_row("train", k1_args, counts, err, flush))
+    for shape, k1_args in k1_shapes.items():
+        got = cache_lookup_agg_cuda(*k1_args)
+        want = cache_lookup_agg_plain(*k1_args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1 at the {shape} shape: max err {err}")
+        idx, w = k1_args[3], k1_args[4]
+        log("parity", kernel="cache_lookup_agg", shape=shape, layer=0,
+            data="sampled",
+            table=str(k1_args[0].dtype).removeprefix("torch."),
+            B=idx.shape[0], K=idx.shape[1], D=got.shape[1],
+            cache_rows=k1_args[0].shape[0],
+            hit_lanes=int((k1_args[2].long()[idx.long()] >= 0).sum()),
+            live_lanes=int((w != 0).sum()), max_abs_err=err, ok=True)
+        del got, want
+        rows.append(lookup_row(shape, k1_args, counts, err, flush))
     log_times(rows)
     return rows
 
 
-def host_train_batch(engine, rng) -> tuple:
-    """K1's operands at the training shape of the host-fused path, on the
-    card (sampled with the store's accounting off)."""
-    engine.store.record = False
+def sample_quietly(engine, rng):
+    """One training batch of ``engine``, with its store's accounting (if it
+    has a store) off, so the training meter stays as the run left it."""
+    if engine.store is not None:
+        engine.store.record = False
     try:
         targets = rng.choice(engine.ds.train_idx, engine.scfg.batch_size,
                              replace=False)
-        mb = engine.sampler.sample(targets, rng)
+        return engine.sampler.sample(targets, rng)
     finally:
-        engine.store.record = True
+        if engine.store is not None:
+            engine.store.record = True
+
+
+def host_train_batch(engine, rng) -> tuple:
+    """K1's operands at the training shape of a host-fused engine, on the
+    card: its cache table (a storeless engine's 1-row dummy), streamed
+    rows, slots and layer 0's lanes."""
+    mb = sample_quietly(engine, rng)
     db = mb.device.to(engine.device)
     blk0 = db.blocks[0]
-    return (mb.cache_gen.table, db.input_streamed, db.input_cache_slots,
-            blk0.nbr_idx, blk0.nbr_w)
+    return (engine._cache_table(mb), db.input_streamed,
+            db.input_cache_slots, blk0.nbr_idx, blk0.nbr_w)
 
 
 def phase_times(engine, shapes, errs, counts) -> list:
@@ -1438,18 +1600,29 @@ def main() -> int:
     counts["train_device"] = phase_train(
         dev_engine, "device", epochs=2, max_batches=None, eval_batches=2,
         expect="gns_sample_agg")["counts"]
-    phase_profile(dev_engine, rng)
+    phase_profile(dev_engine, rng, "device")
     counts["train_host_fused"] = phase_train(
         host_engine, "host_fused", epochs=1, max_batches=2, eval_batches=1,
         expect="cache_lookup_agg")["counts"]
-    phase_train_parity(ds)
-    k1_args = host_train_batch(host_engine, rng)
+    phase_train_parity(ds, train_config("device", PARITY_BATCH),
+                       "train-parity")
+    k1_shapes = {"train": host_train_batch(host_engine, rng)}
+    counts["train_baselines"], baseline_engines = phase_baselines(ds)
+    phase_train_parity(ds, baseline_config("ladies", PARITY_BATCH),
+                       "baseline-parity")
+    phase_checkpoint(dev_engine, ds)
+    phase_describe({"serve": engine, "train_device": dev_engine,
+                    "train_host_fused": host_engine,
+                    **{f"baseline_{k}": v
+                       for k, v in baseline_engines.items()}})
+    k1_shapes["ladies"] = host_train_batch(baseline_engines["ladies"], rng)
+    del baseline_engines
 
     k4_errs = phase_k4_parity()
     counts["lm_serve"] = phase_lm_serve()
     phase_lm_parity()
     rows = (phase_times(engine, shapes, errs, counts)
-            + phase_train_times(k3_shapes, k3_errs, k1_args, counts)
+            + phase_train_times(k3_shapes, k3_errs, k1_shapes, counts)
             + phase_k4_times(k4_errs, counts))
 
     print(json.dumps({"kernels": rows}))

@@ -32,7 +32,8 @@ ROOT = Path(__file__).resolve().parents[1]
 SEED = 0
 # (B, K, D): K2 at buckets 128 and 512, layers 1 and 2; K3 at the training
 # shape and bucket 128.  K1 at the training shape (B = 176,000) and buckets
-# 128 and 512 (B = 22,528 and 90,112), K = 5, D = 100
+# 128 and 512 (B = 22,528 and 90,112), K = 5, D = 100, and at LADIES's
+# training shape (B = 2,024, K = 32, D = 100, every lane a miss)
 K2_SHAPES = {"b=128,layer=1": (2048, 10, 256),
              "b=128,layer=2": (128, 15, 256),
              "b=512,layer=1": (8192, 10, 256),
@@ -40,7 +41,7 @@ K2_SHAPES = {"b=128,layer=1": (2048, 10, 256),
 K3_SHAPES = {"train": (176000, 5, 100), "b=128": (22528, 5, 100)}
 K2_ROWS = (1, 2, 4, 8, 16)
 K3_ROWS = (2, 5, 10, 20, 40, 64)
-K1_ROWS = (5, 10, 20, 40, 64)
+K1_ROWS = (1, 2, 5, 10, 20, 40, 64)
 TABLE_ROWS = 305
 
 
@@ -79,9 +80,9 @@ def k3_operands(bsz: int, k: int, d: int, rng, device="cuda"):
 
 
 def k1_operands(rng) -> dict:
-    """K1's operands at its three main-path shapes, on the card: the
-    host-fused training batch and one serving batch per bucket of preset
-    ``paper_train``."""
+    """K1's operands at its four main-path shapes, on the card: the
+    host-fused training batch, one serving batch per bucket and one LADIES
+    training batch of preset ``paper_train``."""
     import chip_smoke
     from repro_torch.gns import GNSEngine
     from repro_torch.graph.datasets import get_dataset
@@ -90,6 +91,8 @@ def k1_operands(rng) -> dict:
     train = GNSEngine(cfg, dataset=ds)
     train.ensure_cache(np.random.default_rng(SEED))
     out = {"train": chip_smoke.host_train_batch(train, rng)}
+    ladies = GNSEngine(chip_smoke.baseline_config("ladies"), dataset=ds)
+    out["ladies"] = chip_smoke.host_train_batch(ladies, rng)
     serve = chip_smoke.build_engine(ds)
     serve.ensure_cache(np.random.default_rng(SEED))
     for b, (mb, db) in chip_smoke.serving_shapes(serve, rng).items():

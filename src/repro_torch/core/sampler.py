@@ -5,18 +5,21 @@ same seeds give the same blocks as the reference, array for array.  They
 emit :class:`repro_torch.core.minibatch.MiniBatch` objects with run-constant
 padded shapes.
 
-Ported so far:
+Implemented:
 
 * :class:`NeighborSampler` — node-wise neighbor sampling (GraphSAGE/NS), the
   paper's primary baseline.
 * :class:`GNSSampler`      — the paper's contribution: cache-prioritized
   sampling with importance correction; input layer samples *only* from the
   cache (§4.1 setup).
+* :class:`LadiesSampler`   — layer-dependent importance sampling (LADIES),
+  with the paper's observed isolated-node pathology measurable per batch.
+* :class:`LazyGCNSampler`  — mega-batch recycling (LazyGCN): fresh NS sample
+  every R iterations, recycled in between (recycle growth rate rho).
 
 With ``SamplerConfig(backend="device")``, :func:`make_sampler` builds the
 GNS sampler whose input layer is drawn on the device
-(:class:`repro_torch.sampling.device_sampler.DeviceGNSSampler`).  LADIES
-and LazyGCN are not ported yet; :func:`make_sampler` refuses them.
+(:class:`repro_torch.sampling.device_sampler.DeviceGNSSampler`).
 
 Weight conventions (all carried in ``nbr_w`` so the forward is identical for
 every sampler):
@@ -25,6 +28,7 @@ every sampler):
 * GNS:    cached lane  w = 1/(p_u^(ℓ) · deg(v)),    p from eq. (11)–(12)
           top-up lane  w = |N(v)\\C| / (t_v · deg(v))
           → E[Σ w·h] = full-neighborhood *mean* (property-tested)
+* LADIES: w = row-normalized 1/q_u  (the LADIES P̃ row normalization)
 """
 from __future__ import annotations
 
@@ -50,7 +54,7 @@ class SamplerConfig:
     importance_mode: str = "ht"            # "ht" | "paper"  (see importance.py)
     backend: str = "host"                  # "host" | "device" — where the GNS
                                            # input layer draws
-    # LADIES (kept so the reference's config JSON loads unchanged)
+    # LADIES
     layer_size: int = 512                  # nodes sampled per layer
     lane_cap: int = 32                     # max edges kept per dst row (HT-subsampled)
     # LazyGCN
@@ -388,9 +392,146 @@ class GNSSampler:
                          store=self.store, gen=self._gen)
 
 
+# ---------------------------------------------------------------------------
+# LADIES — layer-dependent importance sampling baseline
+# ---------------------------------------------------------------------------
+
+class LadiesSampler:
+    """LADIES [Zou et al. '19], as benchmarked by the paper.
+
+    q_u ∝ Σ_{v ∈ B_ℓ} Â²_{v,u} with Â row-normalized; samples ``layer_size``
+    distinct nodes per layer, keeps edges between consecutive layers with
+    1/(s·q_u) importance weights, row-renormalized (the LADIES P̃).  Rows with
+    no sampled neighbor are the *isolated nodes* of paper Table 5.
+    """
+
+    name = "ladies"
+
+    def __init__(self, graph: CSRGraph, cfg: SamplerConfig,
+                 features: np.ndarray, labels: np.ndarray):
+        self.g, self.cfg = graph, cfg
+        self.features, self.labels = features, labels
+        self._stamp = _Stamp(graph.num_nodes)
+        self._inv_deg = 1.0 / np.maximum(graph.degrees, 1).astype(np.float64)
+        b, s, L = cfg.batch_size, cfg.layer_size, cfg.num_layers
+        # src chain: S_ℓ = D_ℓ + layer_size (input-first list)
+        self.pad_sizes = [(b + (L - 1 - li) * s, b + (L - li) * s)
+                          for li in range(L)]
+
+    def start_epoch(self, epoch: int, rng: np.random.Generator):
+        pass
+
+    def _layer_probs(self, cur: np.ndarray) -> np.ndarray:
+        """q ∝ Σ_{v∈cur} Â²_{v,·} — touched entries only."""
+        g = self.g
+        starts, ends = g.indptr[cur], g.indptr[cur + 1]
+        lens = ends - starts
+        total = int(lens.sum())
+        if total == 0:
+            return np.zeros(0, np.int64), np.zeros(0, np.float64)
+        flat_src = np.repeat(np.arange(len(cur)), lens)
+        flat_idx = np.concatenate([g.indices[s:e] for s, e in zip(starts, ends)])
+        contrib = (self._inv_deg[cur[flat_src]]) ** 2
+        cand, inv = np.unique(flat_idx, return_inverse=True)
+        q = np.zeros(len(cand), dtype=np.float64)
+        np.add.at(q, inv, contrib)
+        return cand, q / q.sum()
+
+    def sample(self, targets: np.ndarray, rng: np.random.Generator) -> MiniBatch:
+        cfg = self.cfg
+        ids = np.asarray(targets, dtype=np.int64)
+        blocks: list[LayerBlock] = []
+        K = cfg.lane_cap
+        for li in range(cfg.num_layers - 1, -1, -1):
+            cand, q = self._layer_probs(ids)
+            s = min(cfg.layer_size, len(cand))
+            if s > 0:
+                gumbel = -np.log(-np.log(rng.random(len(cand)) + 1e-300) + 1e-300)
+                keys = np.log(q + 1e-300) + gumbel
+                picked = cand[np.argpartition(keys, -s)[-s:]]
+            else:
+                picked = cand
+            self._stamp.set(picked)
+            # node-id -> q lookup for weight computation
+            qfull = np.zeros(self.g.num_nodes, dtype=np.float64)
+            qfull[cand] = q
+            # lanes: for each dst, neighbors ∩ picked, HT-subsampled to K
+            nbrs = np.zeros((len(ids), K), dtype=np.int64)
+            mask = np.zeros((len(ids), K), dtype=bool)
+            w = np.zeros((len(ids), K), dtype=np.float64)
+            starts, ends = self.g.indptr[ids], self.g.indptr[ids + 1]
+            for r, (a, b) in enumerate(zip(starts, ends)):   # per-dst ragged; ids are small
+                nb = self.g.indices[a:b]
+                hit = nb[self._stamp.contains(nb)]
+                if len(hit) == 0:
+                    continue
+                if len(hit) > K:
+                    hit = rng.choice(hit, size=K, replace=False)
+                    corr = 1.0   # row renorm below absorbs subsample correction
+                else:
+                    corr = 1.0
+                m = len(hit)
+                nbrs[r, :m] = hit
+                mask[r, :m] = True
+                w[r, :m] = corr / np.maximum(qfull[hit], 1e-12)
+            rs = w.sum(axis=1, keepdims=True)
+            w = np.where(mask, w / np.maximum(rs, 1e-12), 0.0)   # LADIES row norm
+            src_ids, idx = _union_src(ids, nbrs, mask, self._stamp)
+            pad_dst, pad_src = self.pad_sizes[li]
+            blocks.append(make_block(idx, w, pad_dst, pad_src))
+            ids = src_ids
+        return _assemble(blocks, ids, targets, self.features, self.labels,
+                         self.pad_sizes, cfg.batch_size)
+
+
+# ---------------------------------------------------------------------------
+# LazyGCN — mega-batch recycling baseline
+# ---------------------------------------------------------------------------
+
+class LazyGCNSampler:
+    """LazyGCN [Ramezani et al. '20]: fresh NS sample every R iterations,
+    recycled (identical computation graph) in between; recycle count grows by
+    rho per period.  Captures the reuse/overfit tradeoff the paper measures
+    (Fig. 4); the rho-growing megabatch is modeled by growing the recycle
+    count (static shapes stay fixed), as the reference does.
+    """
+
+    name = "lazygcn"
+
+    def __init__(self, graph: CSRGraph, cfg: SamplerConfig,
+                 features: np.ndarray, labels: np.ndarray):
+        self.inner = NeighborSampler(graph, cfg, features, labels)
+        self.cfg = cfg
+        self._cached: Optional[MiniBatch] = None
+        self._uses_left = 0
+        self._period = 0
+
+    @property
+    def pad_sizes(self):
+        return self.inner.pad_sizes
+
+    def start_epoch(self, epoch: int, rng: np.random.Generator):
+        self._cached, self._uses_left = None, 0
+
+    def sample(self, targets: np.ndarray, rng: np.random.Generator) -> MiniBatch:
+        if self._uses_left > 0 and self._cached is not None:
+            self._uses_left -= 1
+            mb = self._cached
+            # recycled batch: zero fresh feature traffic (mega-batch stays on device)
+            return dataclasses.replace(mb, bytes_streamed=0, num_input=mb.num_input)
+        mb = self.inner.sample(targets, rng)
+        r = max(int(round(self.cfg.recycle_period *
+                          (self.cfg.recycle_growth ** self._period))), 1)
+        self._period += 1
+        self._cached, self._uses_left = mb, r - 1
+        return mb
+
+
 SAMPLERS = {
     "ns": NeighborSampler,
     "gns": GNSSampler,
+    "ladies": LadiesSampler,
+    "lazygcn": LazyGCNSampler,
 }
 
 
@@ -410,5 +551,6 @@ def make_sampler(name: str, graph: CSRGraph, cfg: SamplerConfig,
         return GNSSampler(graph, cfg, features, labels, train_idx=train_idx,
                           store=store, device=device)
     if name not in SAMPLERS:
-        raise NotImplementedError(f"sampler {name!r} is not ported")
+        raise ValueError(f"unknown sampler {name!r}; known: "
+                         f"{sorted(SAMPLERS)}")
     return SAMPLERS[name](graph, cfg, features, labels)

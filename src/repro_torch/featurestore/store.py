@@ -717,3 +717,13 @@ class FeatureStore:
         if t is not None:
             t.join(timeout)
         return self.swap_if_ready()
+
+    # ------------------------------------------------------------------
+    # shape helpers (used by repro_torch.gns.describe)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def padded_rows(num_nodes: int, fraction: float, multiple: int = 1) -> int:
+        """Device-table row count, padded so ``multiple`` shards divide
+        evenly (shape-only callers; delegates to ``CacheConfig.size`` so the
+        padding rule has one home)."""
+        return CacheConfig(fraction=fraction, shards=multiple).size(num_nodes)

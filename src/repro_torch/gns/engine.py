@@ -17,7 +17,11 @@ built from one declarative :class:`~repro_torch.gns.config.EngineConfig`
 * :meth:`infer_prepare` / :meth:`infer_compute` — the two halves
   :class:`~repro_torch.serve.GNSServer` drives per micro-batch;
 * :meth:`serve`         — a :class:`~repro_torch.serve.GNSServer` over
-  this engine.
+  this engine;
+* :meth:`describe`      — the traffic record of this config
+  (:func:`repro_torch.gns.describe.traffic_report`);
+* :meth:`save` / :meth:`restore` — parameters and optimizer state through
+  :mod:`repro_torch.checkpoint`, in the reference's format.
 
 The reference's jit'd train step is eager here: forward, ``loss.backward``
 through ``torch.autograd.grad`` (:func:`graphsage.value_and_grad`) and the
@@ -25,11 +29,13 @@ repo's own AdamW, with TF32 off on the card.  Its logits and eval steps
 are forwards under ``torch.inference_mode()``.  With
 ``SamplerConfig(backend="device")`` layer 0 is drawn on the device (kernel
 K3); with ``ModelConfig(input_impl="fused")`` on the host backend it runs
-through kernel K1.
+through kernel K1.  Every sampler of the reference trains here: ``gns``,
+``ns``, ``ladies`` and ``lazygcn``.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU and without ``device=`` it raises rather than run on the
-CPU.  ``describe``, meshes (DP > 1) and streaming ingest are not ported.
+CPU.  Meshes (DP > 1) and streaming ingest are not ported: the engine
+refuses a config that asks for either.
 """
 from __future__ import annotations
 
@@ -40,12 +46,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import checkpoint
 from repro_torch.core.minibatch import MiniBatch
 from repro_torch.core.pipeline import EpochLoader, Prefetcher
 from repro_torch.core.sampler import GNSSampler, make_sampler
 from repro_torch.device import resolve_device
 from repro_torch.featurestore import FeatureStore, TrafficMeter
 from repro_torch.gns.config import EngineConfig
+from repro_torch.gns.describe import traffic_report
 from repro_torch.graph.datasets import get_dataset
 from repro_torch.models import graphsage
 from repro_torch.optim.adam import AdamW
@@ -65,10 +73,12 @@ class TrainReport:
 class GNSEngine:
     """The wired pipeline for one :class:`EngineConfig`."""
 
-    def __init__(self, cfg: EngineConfig, *, device=None, dataset=None):
-        """``device`` defaults to ``cuda``; ``dataset`` overrides the
-        declarative ``cfg.data`` with a built dataset (as the reference's
-        ``dataset=`` does)."""
+    def __init__(self, cfg: EngineConfig, *, device=None, dataset=None,
+                 model_cfg: Optional[graphsage.SageConfig] = None):
+        """``device`` defaults to ``cuda``; ``dataset`` and ``model_cfg``
+        override the declarative ``cfg.data`` and ``cfg.model`` with a
+        built dataset and a :class:`graphsage.SageConfig` (as the
+        reference's do; the ``GNNTrainer`` shim's path)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         if cfg.mesh is not None and cfg.mesh.data * cfg.mesh.model > 1:
@@ -89,13 +99,15 @@ class GNSEngine:
         if self.scfg.backend == "device" and cfg.sampler != "gns":
             raise ValueError("backend='device' is the GNS device sampler; "
                              f"sampler={cfg.sampler!r} has none")
-        m = cfg.model
-        self.mcfg = graphsage.SageConfig(
-            feat_dim=self.ds.feat_dim, hidden_dim=m.hidden_dim,
-            num_classes=self.ds.num_classes,
-            num_layers=len(self.scfg.fanouts),
-            aggregate_impl=m.aggregate_impl, input_impl=m.input_impl,
-            sample_kernel=m.sample_kernel)
+        if model_cfg is None:
+            m = cfg.model
+            model_cfg = graphsage.SageConfig(
+                feat_dim=self.ds.feat_dim, hidden_dim=m.hidden_dim,
+                num_classes=self.ds.num_classes,
+                num_layers=len(self.scfg.fanouts),
+                aggregate_impl=m.aggregate_impl, input_impl=m.input_impl,
+                sample_kernel=m.sample_kernel)
+        self.mcfg = model_cfg
         self.meter = TrafficMeter()
         # eval and one-shot inference book their copy time on side meters,
         # never on the training breakdown
@@ -364,3 +376,37 @@ class GNSEngine:
             if self.store is not None:
                 self.store.record = True
         return out
+
+    # ------------------------------------------------------------------
+    # checkpoints and the traffic record
+    # ------------------------------------------------------------------
+    def save(self, directory, step: int = 0, *, keep: int = 3):
+        """Checkpoint the parameters and the optimizer state as ``step``
+        (:func:`repro_torch.checkpoint.save_checkpoint`; the reference's
+        format, so either package restores it).  Returns its directory."""
+        tree = {"params": self.params, "opt_state": self.opt_state}
+        return checkpoint.save_checkpoint(directory, step, tree,
+                                          extra={"seed": self.cfg.seed},
+                                          keep=keep)
+
+    def restore(self, directory, step: Optional[int] = None) -> int:
+        """Resume from :meth:`save` (the newest step when ``step`` is
+        None): parameters and moments go back onto this engine's device.
+        Returns the restored step."""
+        tree_like = {"params": self.params, "opt_state": self.opt_state}
+        tree, step, _extra = checkpoint.load_checkpoint(
+            directory, tree_like, step=step, device=self.device)
+        self.params, self.opt_state = tree["params"], tree["opt_state"]
+        return step
+
+    def describe(self) -> dict:
+        """The traffic record of this config: cache rows and table bytes,
+        padded input rows and worst-case streamed bytes per batch, the
+        sampler backend and the meter's breakdown (the reference's record
+        without a mesh)."""
+        return traffic_report(
+            num_nodes=self.ds.graph.num_nodes, feat_dim=self.ds.feat_dim,
+            cache_frac=self.scfg.cache.fraction,
+            batch=self.scfg.batch_size, fanouts=self.scfg.fanouts,
+            n_shards=(self.store.n_shards if self.store else 1),
+            meter=self.meter, backend=self.scfg.backend)

@@ -17,7 +17,7 @@ so no step reads a counter back from the card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -60,8 +60,13 @@ def clip_by_global_norm(grads: dict, max_norm: float) -> tuple:
 class AdamW:
     """AdamW: ``state = init(params)``, ``params, state = update(...)``."""
 
-    def __init__(self, cfg: AdamConfig = AdamConfig()):
+    def __init__(self, cfg: AdamConfig = AdamConfig(),
+                 lr_schedule: Optional[Callable[[int], Any]] = None):
+        """``lr_schedule``: step -> multiplier of ``cfg.lr``
+        (:mod:`repro_torch.optim.schedules`), taken at the step being made
+        (1 for the first update), as the reference does."""
         self.cfg = cfg
+        self.lr_schedule = lr_schedule
 
     def init(self, params: dict) -> dict:
         def zeros(p):
@@ -79,6 +84,8 @@ class AdamW:
             grads, _ = clip_by_global_norm(grads, cfg.clip_norm)
         step = state["step"] + 1
         lr, b1, b2 = cfg.lr, cfg.b1, cfg.b2
+        if self.lr_schedule is not None:      # f32, as the reference's jnp
+            lr = float(np.float32(self.lr_schedule(step)) * np.float32(lr))
         step_f = np.float32(step)        # the corrections in f32
         bc1 = float(np.float32(1.0) - np.float32(b1) ** step_f)
         bc2 = float(np.float32(1.0) - np.float32(b2) ** step_f)

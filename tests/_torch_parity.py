@@ -68,6 +68,34 @@ def lookup_case(seed, c, s0, d, b, k, exact, miss_frac=0.5):
     return cache, streamed, slots, idx, w
 
 
+def ladies_case(seed, s0, d, b, k, exact, live_frac=0.25, isolated=0.05):
+    """numpy inputs of K1 on LADIES's layer 0 with no feature store: a
+    1-row zero cache, every slot -1 (all lanes miss), [s0, d] streamed
+    rows, and [b, k] lanes of which each row's first few are live (about
+    ``live_frac`` of them, none on about ``isolated`` of the rows); masked
+    lanes hold idx 0 and w 0, as ``make_block`` pads them.  Live weights
+    are integer-valued when ``exact``, else each row's sum to 1 (the LADIES
+    row normalisation)."""
+    rng = np.random.default_rng(seed)
+    cache = np.zeros((1, d), np.float32)
+    if exact:
+        streamed = rng.integers(-128, 129, (s0, d)).astype(np.float32)
+        w = rng.integers(-8, 9, (b, k)).astype(np.float32)
+    else:
+        streamed = rng.normal(size=(s0, d)).astype(np.float32)
+        w = rng.random((b, k)).astype(np.float32)
+    slots = np.full(s0, -1, np.int32)
+    n_live = rng.binomial(k, live_frac, b)
+    n_live[rng.random(b) < isolated] = 0
+    live = np.arange(k)[None, :] < n_live[:, None]
+    idx = np.where(live, rng.integers(0, s0, (b, k)), 0).astype(np.int32)
+    w = np.where(live, w, 0.0).astype(np.float32)
+    if not exact:
+        w = (w / np.maximum(w.sum(axis=1, keepdims=True), 1e-12)).astype(
+            np.float32)
+    return cache, streamed, slots, idx, w
+
+
 def gather_case(seed, n, d, b, k, exact):
     """numpy inputs of K2: an [n, d] table, [b, k] indices and weights;
     integer-valued when ``exact``."""

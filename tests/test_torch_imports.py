@@ -14,7 +14,8 @@ pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
 
-# every module of the port's serving, training and LM serving slices
+# every module of the port's serving, training, LM serving and training-
+# surface (baselines, checkpoints, describe, schedules, trainer) slices
 REQUIRED = (
     "repro_torch.device", "repro_torch.core.pipeline",
     "repro_torch.sampling.rng", "repro_torch.sampling.adjacency",
@@ -28,7 +29,11 @@ REQUIRED = (
     "repro_torch.models.ffn", "repro_torch.models.attention",
     "repro_torch.models.transformer", "repro_torch.models.encdec",
     "repro_torch.models.lm", "repro_torch.models.lm_params",
-    "repro_torch.launch.serve",
+    "repro_torch.launch.serve", "repro_torch.core.sampler",
+    "repro_torch.core.variance", "repro_torch.optim.schedules",
+    "repro_torch.gns.describe", "repro_torch.checkpoint",
+    "repro_torch.checkpoint.store", "repro_torch.train",
+    "repro_torch.train.trainer",
 )
 
 BLOCKER = f"REQUIRED = {REQUIRED!r}\n" + r'''

@@ -15,7 +15,8 @@ counters, the path ``access_path`` (K1: ``lookup_access_path``) names for
 it, and the cases give both paths ragged last tiles, B = 1, K = 1 and 32
 (and for K1 and K2 K > 32, whose lanes go in chunks of 32), D up to 520,
 bf16 tables and tables that are views at an unaligned offset; K1 also all
-hits, all misses and a mix, and the main path's shapes.  K4 (flash attention)
+hits, all misses and a mix, the main path's shapes, and LADIES's layer 0
+(a 1-row dummy cache, every lane a miss, K = 32, most lanes masked).  K4 (flash attention)
 sums its online softmax in another order than the plain version's full
 softmax: f32 is held to 2e-5 (3e-5 for odd
 lengths), the JAX kernel tests' tolerances.  In bf16 both keep p.v in f32
@@ -32,8 +33,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_parity import (adj_case, gather_case, lookup_case,  # noqa: E402
-                           requires_cuda, sample_case)
+from _torch_parity import (adj_case, gather_case,  # noqa: E402
+                           ladies_case, lookup_case, requires_cuda,
+                           sample_case)
 from repro_torch.kernels import cache_lookup, gather_agg, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as k4  # noqa: E402
 from repro_torch.sampling import kernels as k3  # noqa: E402
@@ -146,6 +148,27 @@ def test_cache_lookup_main_path_shapes_on_card(b):
         args = k1_case(dev, b, 305, 6 * b, 100, b, 5, exact, torch.float32)
         for table_dtype in (torch.float32, torch.bfloat16):
             hold_k1(args[0].to(table_dtype), *args[1:], "vector")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s0,d,b,k", [(2536, 100, 2024, 32),
+                                      (1512, 100, 1000, 32),
+                                      (90, 64, 50, 32)])
+def test_cache_lookup_ladies_shape_on_card(s0, d, b, k):
+    """LADIES's layer 0 with no feature store (preset paper_train, batch
+    1000, layer_size 512, lane_cap 32: 2,024 rows of 32 lanes over 2,536
+    streamed rows): the 1-row dummy cache, every lane a miss, about a
+    quarter of the lanes live and the rest masked (idx 0, w 0), some rows
+    with no live lane."""
+    dev = requires_cuda()
+    for exact in (True, False):
+        cache, streamed, slots, idx, w = (
+            torch.from_numpy(a).to(dev)
+            for a in ladies_case(b, s0, d, b, k, exact))
+        assert not bool((slots >= 0).any())
+        live = float((w != 0).float().mean())
+        assert 0.1 < live < 0.4 and bool(((w != 0).sum(1) == 0).any())
+        hold_k1(cache, streamed, slots, idx, w, "vector")
 
 
 # (n, d, b, k): both access paths (d % 4), B = 1, K = 1, 32 and above 32

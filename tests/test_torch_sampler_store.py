@@ -138,14 +138,26 @@ def test_table_is_a_copy_of_the_staging_half(ds):
     assert store.meter.bytes_cache_upload == gen.table.numel() * 4
 
 
-def test_unported_samplers_are_refused(ds):
-    cfg = samp_port.SamplerConfig(fanouts=(2, 3), batch_size=8)
-    for name in ("ladies", "lazygcn"):
-        with pytest.raises(NotImplementedError):
-            samp_port.make_sampler(name, ds.graph, cfg, ds.features,
-                                   ds.labels)
+def test_device_backend_builds_the_device_sampler(ds):
     dev_cfg = samp_port.SamplerConfig(fanouts=(2, 3), batch_size=8,
                                       backend="device")
     dev = samp_port.make_sampler("gns", ds.graph, dev_cfg, ds.features,
                                  ds.labels, device="cpu")
     assert dev.backend == "device" and dev.store.build_device_adj
+
+
+def test_unknown_sampler_is_refused(ds):
+    """Every name the reference knows is built; any other is refused, as
+    the reference refuses it (its registry raises KeyError)."""
+    assert set(samp_port.SAMPLERS) == set(samp_ref.SAMPLERS)
+    cfg = samp_port.SamplerConfig(fanouts=(2, 3), batch_size=8)
+    with pytest.raises(KeyError):
+        samp_ref.make_sampler("fastgcn", ds.graph, cfg, ds.features,
+                              ds.labels)
+    with pytest.raises(ValueError, match="unknown sampler 'fastgcn'"):
+        samp_port.make_sampler("fastgcn", ds.graph, cfg, ds.features,
+                               ds.labels)
+    for name in ("ladies", "lazygcn"):
+        s = samp_port.make_sampler(name, ds.graph, cfg, ds.features,
+                                   ds.labels)
+        assert isinstance(s, samp_port.SAMPLERS[name]) and s.name == name
