@@ -30,6 +30,32 @@ line each on stdout:
                path on the CPU
                (allclose rtol 1e-4, atol 1e-4: cuBLAS and the CPU sum the f32
                matmul in different orders);
+   fabric    — a 2-worker ``ServeFabric`` over the same engine, tenants
+               ``mobile`` (weight 2, queue 16) and ``batch`` (weight 1,
+               queue 64): 4 waves of 24 requests, then worker 0 is killed
+               with a batch in flight mid-wave (12 more requests): its
+               batch is reclaimed and served by the survivor (failover and
+               retries at least 1).  Every request ``ok`` with finite
+               logits, the meter's errors 0, ``fabric_error`` None, K1's and
+               K2's counters (zeroed just before) above 0 and all on the
+               vector path.  Prints each tenant's p50/p99, batches per
+               worker, the launches and the wall time.  Then one prepared
+               batch computed before and after a forced ``store.refresh()``
+               gives the same logits bit for bit (the generation pin);
+   stream    — preset ``stream_replay`` at its own width (scale 0.25,
+               D = 100, hidden 256, fanouts (5, 10), two shards, locality
+               placement, adaptive policy, buckets 32/128) with K1's input
+               and K2's aggregation, behind a 2-worker fabric: request
+               bursts between the 4 batches of a temporal event stream (64
+               events each, 10% new nodes) staged with ``ingest_events``;
+               the watchdog merges them (bounded wait until nothing is
+               pending and the merged generation is live and routed), then
+               new nodes are served with finite logits.  The same checks as
+               ``fabric``; prints ``merges_applied``, ``rows_migrated`` and
+               the routed-local fraction before and after.  Then one engine
+               on the card and one on the CPU, same seeds and parameters,
+               merge the same events: ``infer`` on the same ids (every new
+               node among them) allclose (rtol 1e-4, atol 1e-4);
 4. k3-parity — K3 against its plain version at the training shape of
                ``paper_train`` with ``backend="device"`` (B = 176,000 rows,
                k = 5, D = 100) and at the bucket-128 serving shape: the drawn
@@ -341,10 +367,38 @@ def phase_parity(engine, shapes, rng) -> dict:
     return errs
 
 
+def reset_k12() -> None:
+    """K1's and K2's launch and access-path counters to 0."""
+    from repro_torch.kernels import cache_lookup, gather_agg
+    for c in (cache_lookup.launches, gather_agg.launches,
+              *cache_lookup.path_calls.values(),
+              *gather_agg.path_calls.values()):
+        c.reset()
+
+
+def read_k12(engine, phase: str) -> dict:
+    """K1's and K2's launches since :func:`reset_k12`; raises unless both
+    ran and every launch took the vector path."""
+    from repro_torch.kernels import cache_lookup, gather_agg
+    counts = {"cache_lookup_agg": cache_lookup.launches.value,
+              "gather_agg": gather_agg.launches.value}
+    k1_paths = {p: c.value for p, c in cache_lookup.path_calls.items()}
+    k2_paths = {p: c.value for p, c in gather_agg.path_calls.items()}
+    if counts["cache_lookup_agg"] < 1 or counts["gather_agg"] < 1:
+        raise AssertionError(f"{phase}: a kernel was never launched: "
+                             f"{counts}")
+    if k1_paths != {"vector": counts["cache_lookup_agg"], "scalar": 0}:
+        raise AssertionError(f"{phase}: K1 left the vector path at D = "
+                             f"{engine.ds.feat_dim}: {k1_paths}")
+    if k2_paths != {"vector": counts["gather_agg"], "scalar": 0}:
+        raise AssertionError(f"{phase}: K2 left the vector path at D = "
+                             f"{engine.mcfg.hidden_dim}: {k2_paths}")
+    return {"counts": counts, "k1_paths": k1_paths, "k2_paths": k2_paths}
+
+
 def phase_serve(engine, rng) -> dict:
     """Serve request waves through GNSServer; returns the launch counts of
     this run (counters zeroed just before it, read just after)."""
-    from repro_torch.kernels import cache_lookup, gather_agg
     n_cls = engine.mcfg.num_classes
     num_nodes = engine.ds.graph.num_nodes
     # wave sizes in requests: 1 request (bucket 32), 7 (33..112 ids, bucket
@@ -355,10 +409,7 @@ def phase_serve(engine, rng) -> dict:
     waves[1][0] = 16
     waves[1][1] = 16
     waves[1][2] = 16                  # >= 48 ids: never fits bucket 32
-    for c in (cache_lookup.launches, gather_agg.launches,
-              *cache_lookup.path_calls.values(),
-              *gather_agg.path_calls.values()):
-        c.reset()
+    reset_k12()
     t0 = time.perf_counter()
     results = []
     with engine.serve() as server:
@@ -373,17 +424,15 @@ def phase_serve(engine, rng) -> dict:
                         not np.isfinite(res.logits).all():
                     raise AssertionError("bad logits for a served request")
                 results.append(res)
-    counts = {"cache_lookup_agg": cache_lookup.launches.value,
-              "gather_agg": gather_agg.launches.value}
-    k1_paths = {p: c.value for p, c in cache_lookup.path_calls.items()}
-    k2_paths = {p: c.value for p, c in gather_agg.path_calls.items()}
     wall = time.perf_counter() - t0
+    k12 = read_k12(engine, "serve")
+    counts = k12["counts"]
     snap = server.meter.snapshot()
     buckets = sorted({r.bucket for r in results})
     log("serve", requests=len(results), batches=snap["batches"],
         buckets=buckets, launches_k1=counts["cache_lookup_agg"],
-        launches_k2=counts["gather_agg"], k1_paths=k1_paths,
-        k2_paths=k2_paths, k1_vector_path_at_d=engine.ds.feat_dim,
+        launches_k2=counts["gather_agg"], k1_paths=k12["k1_paths"],
+        k2_paths=k12["k2_paths"], k1_vector_path_at_d=engine.ds.feat_dim,
         k2_vector_path_at_d=engine.mcfg.hidden_dim, wall_s=round(wall, 3),
         total_p50_ms=snap["total_p50_ms"], total_p99_ms=snap["total_p99_ms"],
         cache_hit_rate=snap["cache_hit_rate"])
@@ -391,14 +440,6 @@ def phase_serve(engine, rng) -> dict:
         raise AssertionError(f"{len(results)} of 64 requests served")
     if buckets != [32, 128, 512]:
         raise AssertionError(f"buckets used {buckets}, expected all three")
-    if counts["cache_lookup_agg"] < 1 or counts["gather_agg"] < 1:
-        raise AssertionError(f"a kernel was never launched: {counts}")
-    if k1_paths != {"vector": counts["cache_lookup_agg"], "scalar": 0}:
-        raise AssertionError(f"K1 left the vector path at D = "
-                             f"{engine.ds.feat_dim}: {k1_paths}")
-    if k2_paths != {"vector": counts["gather_agg"], "scalar": 0}:
-        raise AssertionError(f"K2 left the vector path at D = "
-                             f"{engine.mcfg.hidden_dim}: {k2_paths}")
     return counts
 
 
@@ -422,6 +463,246 @@ def phase_engine_parity(engine, rng) -> None:
             max_abs_err=err, ok=ok)
         if not ok or not np.isfinite(on_card).all():
             raise AssertionError(f"card vs CPU logits differ at b={b}: {err}")
+
+
+# ---------------------------------------------------------------------------
+# the multi-tenant fabric and streaming ingest
+# ---------------------------------------------------------------------------
+
+FABRIC_WAIT_S = 120.0           # bound on every wait of the two phases
+
+
+def wait_for(pred, what: str, timeout: float = FABRIC_WAIT_S) -> None:
+    """Poll ``pred`` until it holds; raise after ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out after {timeout} s: {what}")
+        time.sleep(0.01)
+
+
+def check_results(futs, n_cls: int, phase: str) -> list:
+    """Every future ``ok`` with finite logits of its request's shape."""
+    out = []
+    for n, fut in futs:
+        res = fut.result(timeout=FABRIC_WAIT_S)
+        if res.status != "ok":
+            raise AssertionError(f"{phase}: request status {res.status}")
+        if res.logits.shape != (n, n_cls) or \
+                not np.isfinite(res.logits).all():
+            raise AssertionError(f"{phase}: bad logits for a request")
+        out.append(res)
+    return out
+
+
+def check_fabric(fab, phase: str) -> dict:
+    """No request failed inside a worker and no build failed inside the
+    watchdog: both are absorbed there, so each is read here."""
+    snap = fab.snapshot()
+    if snap["errors"] != 0 or fab.fabric_error is not None:
+        raise AssertionError(f"{phase}: errors={snap['errors']} "
+                             f"fabric_error={fab.fabric_error!r}")
+    return snap
+
+
+def fabric_split(fab, snap) -> dict:
+    """Where a request's time went: queue wait and batch compute (sample +
+    copy + forward + readback) p50/p99, and the host->device copy's wall
+    time per batch from the workers' own meters."""
+    copy_s = sum(w.copy_meter.t_copy for w in fab.workers)
+    return {k: snap[k] for k in ("queue_wait_p50_ms", "queue_wait_p99_ms",
+                                 "compute_p50_ms", "compute_p99_ms",
+                                 "fill_fraction")} | {
+        "copy_ms_per_batch": round(copy_s / max(snap["batches"], 1) * 1e3,
+                                   3)}
+
+
+def phase_fabric(engine, rng) -> dict:
+    """Serve about 100 requests of two tenants through a 2-worker
+    ``ServeFabric`` over the ``paper_train`` serve engine, kill one worker
+    mid-wave (its in-flight batch reclaimed and served by the survivor),
+    then hold one prepared batch's logits bitwise across a forced refresh.
+    Returns the K1/K2 launch counts of the fabric's run."""
+    from repro_torch.gns import FabricConfig, TenantConfig
+    n_cls = engine.mcfg.num_classes
+    num_nodes = engine.ds.graph.num_nodes
+    cfg = FabricConfig(workers=2, tenants=(
+        TenantConfig("mobile", weight=2.0, max_queue=16),
+        TenantConfig("batch", weight=1.0, max_queue=64)),
+        stall_timeout_ms=10_000.0)
+    fab = engine.serve_fabric(cfg)
+    reset_k12()
+    t0 = time.perf_counter()
+    results = []
+    with fab:
+        # 4 waves of 12 mobile (1-8 ids) and 12 batch (4-16 ids) requests
+        for _ in range(4):
+            futs = []
+            for i in range(24):
+                tenant = "mobile" if i % 2 == 0 else "batch"
+                n = int(rng.integers(1, 9) if tenant == "mobile"
+                        else rng.integers(4, 17))
+                futs.append((n, fab.submit(rng.integers(0, num_nodes, n),
+                                           tenant=tenant)))
+            results += check_results(futs, n_cls, "fabric")
+        # chaos: worker 0 dies with its next batch in flight, mid-wave
+        w0 = fab.workers[0]
+        w0.kill()
+        futs = [(8, fab.submit(rng.integers(0, num_nodes, 8),
+                               tenant="mobile", worker=0))]
+        futs += [(n, fab.submit(rng.integers(0, num_nodes, n),
+                                tenant=("mobile", "batch")[i % 2]))
+                 for i, n in enumerate(rng.integers(1, 17, 11))]
+        wait_for(lambda: not w0.alive(), "the killed worker's thread ends")
+        results += check_results(futs, n_cls, "fabric")
+        wait_for(lambda: fab.healthy() == [1], "worker 0 leaves rotation")
+    wall = time.perf_counter() - t0
+    k12 = read_k12(engine, "fabric")
+    snap = check_fabric(fab, "fabric")
+    rt = snap["routing"]
+    if rt["failovers"] < 1 or rt["retries"] < 1:
+        raise AssertionError(f"fabric: the kill did not fail over: {rt}")
+    if len(results) != 108:
+        raise AssertionError(f"fabric: {len(results)} of 108 served")
+    tenants = {t: (v["served"], v["total_p50_ms"], v["total_p99_ms"])
+               for t, v in snap["tenants"].items()}
+    log("fabric", requests=len(results), batches=snap["batches"],
+        batches_per_worker=rt["worker_batches"],
+        tenants_served_p50_p99_ms=tenants, failovers=rt["failovers"],
+        retries=rt["retries"], healthy=fab.healthy(),
+        launches_k1=k12["counts"]["cache_lookup_agg"],
+        launches_k2=k12["counts"]["gather_agg"], k1_paths=k12["k1_paths"],
+        k2_paths=k12["k2_paths"], total_p50_ms=snap["total_p50_ms"],
+        total_p99_ms=snap["total_p99_ms"], **fabric_split(fab, snap),
+        wall_s=round(wall, 3))
+    # the generation pin: a prepared batch computed before and after a
+    # forced refresh publishes generation g+1 gives the same bits
+    ids = rng.choice(num_nodes, 100, replace=False)
+    mb = engine.infer_prepare(ids, bucket=128, rng=rng)
+    before = engine.infer_compute(mb)
+    v0 = engine.store.version
+    engine.store.refresh(np.random.default_rng(SEED + 1), version=v0 + 1)
+    after = engine.infer_compute(mb)
+    same = np.array_equal(before, after)
+    log("fabric-pin", batch_generation=mb.cache_version,
+        live_generation=engine.store.version, bitwise_equal=same)
+    if not same or engine.store.version != v0 + 1 or mb.cache_version != v0:
+        raise AssertionError("fabric: a pinned batch changed across a swap")
+    return k12["counts"]
+
+
+def stream_config():
+    """Preset ``stream_replay`` at its own width (scale 0.25, D = 100,
+    hidden 256, fanouts (5, 10), two shards, locality placement, adaptive
+    policy, buckets 32/128), with K1's input layer and K2's aggregation."""
+    from repro_torch.gns import EngineConfig, ModelConfig
+    return EngineConfig.preset(
+        "stream_replay", seed=SEED,
+        model=ModelConfig(hidden_dim=256, aggregate_impl="pallas",
+                          input_impl="fused"))
+
+
+def route_counts(fab) -> tuple:
+    m = fab.meter
+    with m.lock:
+        return m.routed_known_ids, m.routed_local_ids
+
+
+def phase_stream(rng) -> dict:
+    """Serve preset ``stream_replay`` through a 2-worker fabric while a
+    temporal event stream is ingested between request bursts; the watchdog
+    drains the deltas into an async build and swaps it in; a new node is
+    served.  Then one engine on the card and one on the CPU, same seeds and
+    parameters, merge the same events: ``infer`` on the same ids (new nodes
+    among them) within rtol 1e-4, atol 1e-4.  Returns the K1/K2 launch
+    counts of the fabric's run."""
+    from repro_torch.data import temporal_event_stream
+    from repro_torch.gns import FabricConfig, GNSEngine
+    cfg = stream_config()
+    t0 = time.perf_counter()
+    engine = GNSEngine(cfg)
+    v0 = engine.ds.graph.num_nodes
+    n_cls = engine.mcfg.num_classes
+    val = engine.ds.val_idx.astype(np.int64)
+    hot = (val[: len(val) // 2][:64], val[len(val) // 2:][:64])
+    fab = engine.serve_fabric(FabricConfig(workers=2,
+                                           stall_timeout_ms=10_000.0))
+
+    def burst(n=16):
+        futs = []
+        for i in range(n):
+            k = int(rng.integers(2, 9))
+            futs.append((k, fab.submit(rng.choice(hot[i % 2], k,
+                                                  replace=False))))
+        return check_results(futs, n_cls, "stream")
+
+    def local_fraction(c0, c1):
+        known = c1[0] - c0[0]
+        return round((c1[1] - c0[1]) / known, 4) if known else None
+
+    events = temporal_event_stream(engine.ds, num_batches=4,
+                                   events_per_batch=64, new_node_frac=0.1,
+                                   seed=SEED)
+    reset_k12()
+    with fab:
+        burst()                             # placement demand histograms
+        c0 = route_counts(fab)
+        served = len(burst())
+        frac_before = local_fraction(c0, route_counts(fab))
+        for ev in events:
+            engine.ingest_events(ev)
+            served += len(burst(8))         # serving never pauses
+        v1 = v0 + events.total_new_nodes
+        wait_for(lambda: engine.pending_deltas == 0
+                 and engine.store.generation.graph.num_nodes == v1
+                 and fab.router.table_version == engine.store.version,
+                 "the merged generation swapped in")
+        c1 = route_counts(fab)
+        served += len(burst())
+        frac_after = local_fraction(c1, route_counts(fab))
+        new = np.arange(v0, v1, dtype=np.int64)[:8]
+        out = fab.infer(new, timeout=FABRIC_WAIT_S)
+        if out.shape != (len(new), n_cls) or not np.isfinite(out).all():
+            raise AssertionError("stream: a new node's logits")
+    wall = time.perf_counter() - t0
+    k12 = read_k12(engine, "stream")
+    snap = check_fabric(fab, "stream")
+    st = engine.describe()["stream"]
+    log("stream", nodes_before=v0, nodes_after=engine.ds.graph.num_nodes,
+        events=events.total_events, new_nodes=events.total_new_nodes,
+        merges_applied=st["merges_applied"],
+        rows_migrated=st["rows_migrated"],
+        swaps_observed=snap["swaps_observed"],
+        route_local_before=frac_before, route_local_after=frac_after,
+        requests=served + 1, batches=snap["batches"],
+        launches_k1=k12["counts"]["cache_lookup_agg"],
+        launches_k2=k12["counts"]["gather_agg"], k1_paths=k12["k1_paths"],
+        k2_paths=k12["k2_paths"], total_p50_ms=snap["total_p50_ms"],
+        total_p99_ms=snap["total_p99_ms"], **fabric_split(fab, snap),
+        wall_s=round(wall, 3))
+    if st["merges_applied"] < 1 or st["pending_deltas"] != 0:
+        raise AssertionError(f"stream: deltas not merged: {st}")
+    # the card against the CPU on the same merged structure
+    card = GNSEngine(cfg)
+    cpu = GNSEngine(cfg, device="cpu")
+    cpu.params = {"layers": [{k: v.cpu() for k, v in layer.items()}
+                             for layer in card.params["layers"]]}
+    for eng in (card, cpu):
+        for ev in events:
+            eng.ingest_events(ev)
+        eng.merge_deltas()
+    if not np.array_equal(card.ds.graph.indices, cpu.ds.graph.indices):
+        raise AssertionError("stream: card and CPU merged different graphs")
+    ids = np.concatenate([np.arange(v0, v1), rng.choice(v0, 200, False)])
+    on_card, on_cpu = card.infer(ids), cpu.infer(ids)
+    err = float(np.abs(on_card - on_cpu).max())
+    ok = (np.isfinite(on_card).all()
+          and np.allclose(on_card, on_cpu, rtol=1e-4, atol=1e-4))
+    log("stream-parity", ids=len(ids), new_nodes=int(v1 - v0),
+        logits=list(on_card.shape), max_abs_err=err, ok=ok)
+    if not ok:
+        raise AssertionError(f"stream: card vs CPU logits differ: {err}")
+    return k12["counts"]
 
 
 def device_shapes(engine, rng) -> dict:
@@ -909,11 +1190,12 @@ def phase_times(engine, shapes, errs, counts) -> list:
                                                 gather_agg_plain)
     dev = engine.device
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)  # > L2
-    table = engine.store.generation.table
     rows = []
-    for b, (_, db) in shapes.items():
+    for b, (mb, db) in shapes.items():
         blk0 = db.blocks[0]
-        args = (table, db.input_streamed, db.input_cache_slots, blk0.nbr_idx,
+        # the table of the generation the batch pinned (the fabric phase
+        # has since refreshed the live one)
+        args = (mb.cache_gen.table, db.input_streamed, db.input_cache_slots, blk0.nbr_idx,
                 blk0.nbr_w)
         rows.append(lookup_row(f"b={b}", args, counts,
                                errs[("cache_lookup_agg", b, 0)], flush))
@@ -1592,6 +1874,8 @@ def main() -> int:
     errs = phase_parity(engine, shapes, rng)
     counts = {"serve": phase_serve(engine, rng)}
     phase_engine_parity(engine, rng)
+    counts["fabric"] = phase_fabric(engine, rng)
+    counts["stream"] = phase_stream(rng)
 
     dev_engine = GNSEngine(train_config("device"), dataset=ds)
     host_engine = GNSEngine(train_config("fused"), dataset=ds)

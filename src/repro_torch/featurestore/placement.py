@@ -314,8 +314,20 @@ class RoutingTable:
         return float((self.shard_of_node >= 0).sum()) / n if n else 0.0
 
     def owners(self, node_ids: np.ndarray) -> np.ndarray:
-        """Owning shard per id (-1 where uncached)."""
-        return self.shard_of_node[np.asarray(node_ids, dtype=np.int64)]
+        """Owning shard per id (-1 where uncached).
+
+        An id at or past the end of the table is a node that a streaming
+        merge added after this table's generation was built: that
+        generation did not cache it, so it is unowned (-1) and the router
+        falls back to least-loaded dispatch for it.  (The reference indexes
+        without this bound and raises ``IndexError``.)
+        """
+        ids = np.asarray(node_ids, dtype=np.int64)
+        n = len(self.shard_of_node)
+        out = np.full(ids.shape, -1, dtype=self.shard_of_node.dtype)
+        known = ids < n
+        out[known] = self.shard_of_node[ids[known]]
+        return out
 
 
 def routing_table_from_state(state, num_nodes: int) -> RoutingTable:

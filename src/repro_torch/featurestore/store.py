@@ -32,8 +32,15 @@ One device: the table is never sharded across cards here.  A
 placement still permutes rows, exactly as the reference lays them out.
 With ``build_device_adj`` each generation also carries its cached-neighbor
 CSR over device-table rows (``Generation.device_adj``), uploaded with the
-table, for the device sampling backend.  Streaming ingest is not ported
-yet.
+table, for the device sampling backend.
+
+Streaming ingest (``attach_stream``): staged deltas of a
+:class:`~repro_torch.stream.DeltaBuffer` are drained at the top of each
+generation build and merged into the host tiers (``graph``, ``features``,
+``labels``), so structure changes publish only through the atomic swap;
+with ``placement="locality"`` the re-solve is incremental (rows whose
+demand signature is unchanged keep their shard, ``rows_migrated`` counts
+the rest).
 """
 from __future__ import annotations
 
@@ -52,7 +59,8 @@ from repro_torch.featurestore.meter import TrafficMeter
 from repro_torch.featurestore.placement import (PlacementMap, RoutingTable,
                                                 home_shard,
                                                 routing_table_from_state,
-                                                solve_placement)
+                                                solve_placement,
+                                                solve_placement_incremental)
 from repro_torch.featurestore.policies import CachePolicy, make_policy
 
 
@@ -252,7 +260,8 @@ class Generation:
 
 
 @guarded_by("_lock", "_shadow", "_thread", "_refresh_err",
-            writes_only=("_live", "swaps", "refreshes"))
+            writes_only=("_live", "swaps", "refreshes",
+                         "merges_applied", "rows_migrated"))
 class FeatureStore:
     """Facade over the three feature tiers + the cache refresh lifecycle.
 
@@ -321,6 +330,19 @@ class FeatureStore:
         self._rng = np.random.default_rng(seed)
         self.refreshes = 0
         self.swaps = 0
+        # --- streaming ingest (attach_stream) ----------------------------
+        self.labels: Optional[np.ndarray] = None
+                                    # host label array, grown alongside
+                                    # `features` at merges (set by the engine;
+                                    # plain ref-swap like `features`)
+        self._stream = None         # DeltaBuffer | None — staged mutations
+        self.stream_cfg = None      # StreamConfig | None
+        self._merge_listeners: list = []
+        self._placement_sig: Optional[dict] = None
+                                    # previous solve's per-row demand
+                                    # signature (incremental re-solve pins)
+        self.merges_applied = 0
+        self.rows_migrated = 0      # rows the incremental re-solve moved
         self.record = True          # False: suspend meter + policy feedback
                                     # (evaluation must not skew training
                                     # metrics or the adaptive traffic EMA)
@@ -331,6 +353,8 @@ class FeatureStore:
                                     # policy/placement feedback stays live —
                                     # serving traffic steers the cache
                                     # without touching training metrics
+        self.refresh_delay = 0.0    # test hook: artificial build latency (s)
+        self.upload_delay = 0.0     # test hook: artificial upload latency (s)
 
     # ------------------------------------------------------------------
     # generation access (readers snapshot once per batch)
@@ -537,13 +561,21 @@ class FeatureStore:
         return lam
 
     def _solve_placement(self, state: CacheState,
-                         rng: np.random.Generator) -> Optional[PlacementMap]:
+                         rng: np.random.Generator,
+                         graph=None) -> Optional[PlacementMap]:
         """Locality placement for one generation (None = stay contiguous).
 
         Uses the meter's per-DP-group request histograms restricted to the
-        drawn membership; until any traffic is observed the layout stays
-        contiguous.  The reference's incremental re-solve serves streaming
-        ingest, which is not ported.
+        drawn membership; until any traffic is observed (cold start, or a
+        store whose batches never went through ``assemble_input``) the
+        layout stays contiguous.
+
+        Streaming stores (``attach_stream`` with ``incremental_placement``)
+        re-solve **incrementally**: every row whose demand signature
+        (hottest requesting group + degree) is unchanged since the previous
+        solve keeps its shard via the solver's pin pass, so only rows the
+        ingest actually touched migrate — bounded migration per merge, and
+        the serving router's local fraction cannot collapse on a swap.
         """
         if self.cfg.placement != "locality" or self.n_shards <= 1:
             return None
@@ -551,15 +583,142 @@ class FeatureStore:
                                                 state.table_rows)
         if traffic is None:
             return None
+        if graph is None:
+            graph = self.graph
         seed = int(rng.integers(2 ** 31))
-        return solve_placement(traffic, self.n_shards, state.rows_per_shard,
-                               group_ids=list(self.meter.group_ids()),
-                               seed=seed)
+        gids = list(self.meter.group_ids())
+        node_ids = np.asarray(state.node_ids, dtype=np.int64)
+        n = len(node_ids)
+        # per-slot demand signature: hottest group (-1 when untouched) + degree
+        total = traffic.sum(axis=0)
+        hot = np.asarray(gids, dtype=np.int64)[np.argmax(traffic, axis=0)]
+        hot = np.where(total > 0, hot, -1)[:n]
+        deg = np.asarray(graph.degrees)[node_ids].astype(np.int64)
+        prev = self._placement_sig
+        scfg = self.stream_cfg
+        pin = None
+        if (prev is not None and len(prev["node_ids"])
+                and scfg is not None and scfg.incremental_placement):
+            pos = np.searchsorted(prev["node_ids"], node_ids)
+            pos = np.clip(pos, 0, len(prev["node_ids"]) - 1)
+            common = prev["node_ids"][pos] == node_ids
+            same = common & (prev["hot"][pos] == hot) \
+                & (prev["degree"][pos] == deg)
+            pin = np.full(state.table_rows, -1, dtype=np.int64)
+            pin[:n][same] = prev["shard"][pos[same]]
+        if pin is not None and (pin >= 0).any():
+            pm = solve_placement_incremental(
+                traffic, self.n_shards, state.rows_per_shard,
+                pin_shard=pin, group_ids=gids, seed=seed)
+        else:
+            pm = solve_placement(traffic, self.n_shards,
+                                 state.rows_per_shard,
+                                 group_ids=gids, seed=seed)
+        new_shard = (np.asarray(pm.device_row_of_slot[:n], dtype=np.int64)
+                     // state.rows_per_shard)
+        if prev is not None and len(prev["node_ids"]):
+            pos = np.searchsorted(prev["node_ids"], node_ids)
+            pos = np.clip(pos, 0, len(prev["node_ids"]) - 1)
+            common = prev["node_ids"][pos] == node_ids
+            moved = int((new_shard[common]
+                         != prev["shard"][pos[common]]).sum())
+            if moved:
+                with self._lock:
+                    self.rows_migrated += moved
+        order = np.argsort(node_ids, kind="stable")
+        self._placement_sig = {"node_ids": node_ids[order],
+                               "shard": new_shard[order],
+                               "hot": hot[order],
+                               "degree": deg[order]}
+        return pm
+
+    # ------------------------------------------------------------------
+    # streaming ingest (repro_torch.stream)
+    # ------------------------------------------------------------------
+    def attach_stream(self, buffer, cfg=None) -> None:
+        """Wire a :class:`repro_torch.stream.DeltaBuffer` into the refresh
+        cycle.
+
+        Producers stage mutations into ``buffer`` at any time; every
+        subsequent generation build drains it FIRST (``_absorb_deltas``), so
+        structure changes only ever publish through the atomic swap and
+        in-flight batches pinned to older generations replay bitwise
+        identically.  Set once, before serving starts.
+        """
+        from repro_torch.gns.config import StreamConfig
+        self._stream = buffer
+        self.stream_cfg = cfg if cfg is not None else StreamConfig()
+
+    def add_merge_listener(self, cb) -> None:
+        """``cb(store, batch)`` runs on the build thread right after a
+        drained :class:`DeltaBatch` is folded into the host tiers (the
+        engine uses this to keep its dataset view in sync)."""
+        self._merge_listeners.append(cb)
+
+    def pending_deltas(self) -> int:
+        """Ops staged in the attached stream buffer (0 when none attached)."""
+        buf = self._stream
+        return buf.pending() if buf is not None else 0
+
+    def stream_merge_due(self) -> bool:
+        """True when enough deltas are staged to justify kicking a refresh
+        (the fabric watchdog's drain trigger)."""
+        cfg = self.stream_cfg
+        if self._stream is None or cfg is None:
+            return False
+        return self.pending_deltas() >= max(int(cfg.merge_min_pending), 1)
+
+    def _absorb_deltas(self) -> bool:
+        """Drain the stream buffer and fold it into the host tiers.
+
+        Runs at the top of ``_build`` — generation builds are serialized
+        (``begin_refresh`` single-flight + ``refresh`` absorbing in-flight
+        builds), so this is the ONLY writer of ``graph``/``features``/
+        ``labels``, and each is republished by a single reference swap
+        (features strictly before graph: any reader that can see post-merge
+        node ids must also see their feature rows).  Pre-merge readers keep
+        their own refs via the pinned generation and never observe the swap.
+        """
+        buf = self._stream
+        if buf is None or buf.pending() == 0:
+            return False
+        batch = buf.drain()
+        if batch is None:
+            return False
+        # imported here: keeps featurestore <-> stream from importing
+        # cyclically
+        from repro_torch.stream.merge import merge_delta_csr
+        cfg = self.stream_cfg
+        sym = cfg.symmetrize if cfg is not None else True
+        new_graph = merge_delta_csr(self.graph, batch, symmetrize=sym)
+        feats = self.features
+        if batch.num_new_nodes:
+            feats = np.concatenate(
+                [np.asarray(self.features),
+                 batch.node_feats.astype(np.float32)])
+            if self.labels is not None:
+                lbl = (batch.node_labels if batch.node_labels is not None
+                       else np.zeros(batch.num_new_nodes, np.int64))
+                self.labels = np.concatenate(
+                    [self.labels, lbl.astype(self.labels.dtype)])
+        self.features = feats           # features BEFORE graph (see above)
+        self.graph = new_graph
+        self.policy.bind(new_graph, self.train_idx)
+        # structure changed: every cached score/λ is stale
+        self._static_probs = None
+        self._lam_cache = None
+        self.meter.bytes_delta_upload += batch.payload_bytes
+        with self._lock:
+            self.merges_applied += 1
+        for cb in list(self._merge_listeners):
+            cb(self, batch)
+        return True
 
     def _build(self, rng: np.random.Generator, version: int,
                staged_idx: int) -> Generation:
         """Build one full generation: score → draw → place → gather → upload."""
         t0 = time.perf_counter()
+        self._absorb_deltas()
         g = self.graph      # ONE snapshot: everything this generation carries
                             # (membership, probs, adjacency, routing) must
                             # come from the same structure
@@ -568,7 +727,7 @@ class FeatureStore:
                              train_idx=self.train_idx, probs=probs,
                              version=version,
                              n_shards=self.n_shards, table_rows=self.size)
-        state.placement = self._solve_placement(state, rng)
+        state.placement = self._solve_placement(state, rng, graph=g)
         # recycle this staging half: retire its previous owner BEFORE writing
         # so stale snapshots fall back to the host tier instead of reading
         # another generation's rows (see gather_rows)
@@ -585,6 +744,8 @@ class FeatureStore:
                                    record=False)
         if n < self.size:
             buf[n:] = 0.0
+        if self.refresh_delay:
+            time.sleep(self.refresh_delay)            # test hook
         tbl = self._upload(buf, state)
         lam = self._solve_lambda(probs)
         adj = (g.induced_cache_adjacency(state.in_cache)
@@ -623,6 +784,8 @@ class FeatureStore:
         pm = state.placement if state is not None else None
         if pm is not None and not pm.is_identity:
             buf = buf[pm.slot_of_device_row]       # fresh permuted copy
+        if self.upload_delay:
+            time.sleep(self.upload_delay)          # test hook: slow upload
         tbl = torch.from_numpy(buf).to(device=self.device, dtype=self.dtype,
                                        copy=True)
         if tbl.is_cuda:

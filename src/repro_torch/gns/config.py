@@ -6,8 +6,10 @@ cache/placement, mesh, model, optimizer and serving sub-configs — that
 (FeatureStore → sampler → forward).  The dataclasses are field-for-field
 the reference's, so the JSON that ``repro.gns.config.EngineConfig.to_dict``
 writes loads here unchanged through :meth:`EngineConfig.from_dict`, and the
-JSON written here loads there.  Sub-configs of surfaces not ported yet
-(mesh, fabric, streaming) are carried as data.
+JSON written here loads there.  Sub-configs of surfaces not ported yet are
+carried as data: the mesh (the engine refuses one with more than one
+device) and the fabric's RPC transport settings (``transport="tcp"`` and
+its endpoint and connection fields; the fabric refuses ``"tcp"``).
 
 In ``ModelConfig``, ``aggregate_impl="pallas"`` and ``input_impl="fused"``
 select the port's CUDA kernels (K2 ``gather_agg`` and K1
@@ -80,8 +82,11 @@ class TenantConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FabricConfig:
-    """Declarative multi-tenant serving fabric (``repro.serve.ServeFabric``;
-    carried as data, the fabric is not ported yet).
+    """Declarative multi-tenant serving fabric
+    (``repro_torch.serve.ServeFabric``, built by
+    ``GNSEngine.serve_fabric``).  Only ``transport="inproc"`` is ported: the
+    RPC fields below are carried as data, and ``transport="tcp"`` raises
+    ``NotImplementedError`` when the fabric is built.
 
     Scales the single ``GNSServer`` worker to a fleet over ONE shared cache
     generation: each worker owns a DP group (and therefore a home shard of
@@ -109,8 +114,8 @@ class FabricConfig:
     max_retries: int = 2            # failover re-routes per request before
                                     # its future fails with WorkerDown
     transport: str = "inproc"       # "inproc" (threads over one cache) |
-                                    # "tcp" (repro.rpc: each worker is a
-                                    # RemoteWorkerProxy to a WorkerEndpoint
+                                    # "tcp" (the RPC transport, not ported:
+                                    # each worker a proxy to an endpoint
                                     # process with its own cache replica)
     endpoints: Sequence[str] = ()   # "host:port" per worker (tcp transport;
                                     # len must equal ``workers``)
@@ -185,10 +190,10 @@ class RefreshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class StreamConfig:
-    """Declarative streaming-ingest sub-block (``repro.stream``; carried
-    as data, streaming ingest is not ported yet).
+    """Declarative streaming-ingest sub-block (``repro_torch.stream``; the
+    engine attaches a ``DeltaBuffer`` to its store when this is set).
 
-    Governs the :class:`~repro.stream.DeltaBuffer` the engine's
+    Governs the :class:`~repro_torch.stream.DeltaBuffer` the engine's
     ``ingest()`` surface stages edge/node deltas into, and when/how the
     store folds them into the live structure.  Deltas are merged ONLY at a
     generation boundary (``FeatureStore._build``), so the atomic swap that

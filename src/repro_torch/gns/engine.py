@@ -18,10 +18,17 @@ built from one declarative :class:`~repro_torch.gns.config.EngineConfig`
   :class:`~repro_torch.serve.GNSServer` drives per micro-batch;
 * :meth:`serve`         — a :class:`~repro_torch.serve.GNSServer` over
   this engine;
+* :meth:`serve_fabric`  — a multi-tenant, multi-worker
+  :class:`~repro_torch.serve.ServeFabric` over this engine;
+* :meth:`ingest` / :meth:`ingest_nodes` / :meth:`ingest_events` /
+  :meth:`merge_deltas` — streaming ingest: stage edge and node deltas
+  (:mod:`repro_torch.stream`), merged into the graph at the next cache
+  generation;
 * :meth:`describe`      — the traffic record of this config
   (:func:`repro_torch.gns.describe.traffic_report`);
-* :meth:`save` / :meth:`restore` — parameters and optimizer state through
-  :mod:`repro_torch.checkpoint`, in the reference's format.
+* :meth:`save` / :meth:`restore` — parameters, optimizer state and the
+  un-merged delta log through :mod:`repro_torch.checkpoint`, in the
+  reference's format.
 
 The reference's jit'd train step is eager here: forward, ``loss.backward``
 through ``torch.autograd.grad`` (:func:`graphsage.value_and_grad`) and the
@@ -34,8 +41,8 @@ through kernel K1.  Every sampler of the reference trains here: ``gns``,
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU and without ``device=`` it raises rather than run on the
-CPU.  Meshes (DP > 1) and streaming ingest are not ported: the engine
-refuses a config that asks for either.
+CPU.  Meshes (DP > 1) are not ported: the engine refuses a config that
+asks for one.
 """
 from __future__ import annotations
 
@@ -85,11 +92,6 @@ class GNSEngine:
             raise NotImplementedError(
                 f"mesh {cfg.mesh} needs the multi-device port; this engine "
                 "runs on one device")
-        if cfg.stream is not None:
-            raise NotImplementedError(
-                f"stream {cfg.stream} needs streaming ingest, not ported yet "
-                "(ROADMAP.md Queue A item 5, streaming ingest); this engine "
-                "would drop it")
         if dataset is None:
             dataset = get_dataset(cfg.data.name, scale=cfg.data.scale,
                                   seed=cfg.data.seed)
@@ -136,6 +138,11 @@ class GNSEngine:
         # ("bucket"), all sharing THE store, so every bucket rides the same
         # live cache generation and feeds the same policy signals
         self._bucket_samplers: dict = {}
+        # streaming ingest: wired now when the config declares it, on the
+        # first ingest() otherwise
+        self._stream = None
+        if cfg.stream is not None and self.store is not None:
+            self._init_stream(cfg.stream)
 
     # ------------------------------------------------------------------
     def _cache_table(self, mb: MiniBatch) -> torch.Tensor:
@@ -349,6 +356,14 @@ class GNSEngine:
         return GNSServer(self, serve_cfg if serve_cfg is not None
                          else self.cfg.serve_config())
 
+    def serve_fabric(self, fabric_cfg=None, serve_cfg=None):
+        """A :class:`repro_torch.serve.ServeFabric` fleet over this engine
+        (not started).  Defaults come from ``EngineConfig.serve.fabric``
+        (through :meth:`EngineConfig.serve_config`, so the unified refresh
+        hint applies) — a bare ``FabricConfig()`` when unset."""
+        from repro_torch.serve import ServeFabric
+        return ServeFabric(self, cfg=fabric_cfg, serve_cfg=serve_cfg)
+
     def infer(self, node_ids: np.ndarray) -> np.ndarray:
         """Mini-batch inference over arbitrary node ids.  [N, classes] f32.
 
@@ -378,35 +393,154 @@ class GNSEngine:
         return out
 
     # ------------------------------------------------------------------
+    # streaming ingest (repro_torch.stream)
+    # ------------------------------------------------------------------
+    def _init_stream(self, scfg=None):
+        """Attach a :class:`repro_torch.stream.DeltaBuffer` to the store."""
+        from repro_torch.gns.config import StreamConfig
+        from repro_torch.stream import DeltaBuffer
+        if self.store is None:
+            raise ValueError(
+                "streaming ingest rides the GNS feature store's generations; "
+                f"sampler={self.cfg.sampler!r} has no store")
+        if scfg is None:
+            scfg = (self.cfg.stream if self.cfg.stream is not None
+                    else StreamConfig())
+        buf = DeltaBuffer(self.ds.graph.num_nodes, self.ds.feat_dim,
+                          max_pending=scfg.max_pending)
+        self.store.labels = self.ds.labels
+        self.store.attach_stream(buf, scfg)
+        self.store.add_merge_listener(self._on_merge)
+        self._stream = buf
+        return buf
+
+    def _on_merge(self, store, batch) -> None:
+        """Build-thread merge callback: re-point the engine's dataset view
+        at the post-merge host tiers (reference swaps only — samplers adopt
+        structure with the generation, at their own swap point)."""
+        self.ds.graph = store.graph
+        self.ds.features = store.features
+        if store.labels is not None:
+            self.ds.labels = store.labels
+
+    @property
+    def stream(self):
+        """The delta staging buffer (created on first touch)."""
+        return self._stream if self._stream is not None \
+            else self._init_stream()
+
+    @property
+    def pending_deltas(self) -> int:
+        """Staged mutations awaiting the next generation merge."""
+        return self.store.pending_deltas() if self.store is not None else 0
+
+    def ingest(self, src, dst, op: str = "insert") -> int:
+        """Stage edge mutations for the next generation merge.
+
+        Non-blocking and thread-safe (serving stays live); raises
+        :class:`repro_torch.serve.QueueFull` past ``stream.max_pending``.
+        The edges become visible to sampling and serving only when a
+        generation built after the merge is adopted — in-flight batches
+        replay bitwise-identically against their pinned pre-merge
+        generation.  Returns the first assigned sequence number.
+        """
+        buf = self.stream
+        if op == "insert":
+            return buf.add_edges(src, dst)
+        if op != "delete":
+            raise ValueError(f"op must be insert|delete, got {op!r}")
+        return buf.delete_edges(src, dst)
+
+    def ingest_nodes(self, features: np.ndarray,
+                     labels: Optional[np.ndarray] = None) -> np.ndarray:
+        """Stage new nodes (+feature rows); returns their assigned ids,
+        allocated contiguously above the current id space, so staged edges
+        may reference them at once."""
+        return self.stream.add_nodes(features, labels)
+
+    def ingest_events(self, ev) -> int:
+        """Stage one :class:`repro_torch.data.temporal.EventBatch` (nodes
+        first, then the edges that may reference them)."""
+        buf = self.stream
+        if ev.node_feats is not None and len(ev.node_feats):
+            ids = buf.add_nodes(ev.node_feats, ev.node_labels)
+            if int(ids[0]) != ev.node_base:
+                raise ValueError(
+                    "event batches must be ingested in stream order: new "
+                    f"ids start at {int(ids[0])}, the batch at "
+                    f"{ev.node_base}")
+        return buf.add_edges(ev.src, ev.dst)
+
+    def merge_deltas(self):
+        """Force a merge NOW: synchronous refresh (drains the buffer at the
+        build boundary) + adoption by the training sampler.  The serving
+        path instead lets the fabric watchdog kick an ASYNC refresh when
+        ``store.stream_merge_due()`` — same machinery, no pause."""
+        if self.store is None:
+            raise ValueError("merge_deltas needs the GNS feature store")
+        gen = self.store.refresh(version=self.store.version + 1)
+        self.sampler.adopt_generation()
+        return gen
+
+    # ------------------------------------------------------------------
     # checkpoints and the traffic record
     # ------------------------------------------------------------------
     def save(self, directory, step: int = 0, *, keep: int = 3):
-        """Checkpoint the parameters and the optimizer state as ``step``
-        (:func:`repro_torch.checkpoint.save_checkpoint`; the reference's
-        format, so either package restores it).  Returns its directory."""
+        """Checkpoint the parameters, the optimizer state AND the un-merged
+        delta log as ``step`` (:func:`repro_torch.checkpoint
+        .save_checkpoint`; the reference's format, so either package
+        restores it).  The stream buffer's seq-stamped ops ride the
+        checkpoint's ``aux`` side-payload, so a crash between an ingest and
+        the next merge loses nothing.  Returns its directory."""
         tree = {"params": self.params, "opt_state": self.opt_state}
-        return checkpoint.save_checkpoint(directory, step, tree,
-                                          extra={"seed": self.cfg.seed},
-                                          keep=keep)
+        aux = {}
+        extra: dict = {"seed": self.cfg.seed}
+        if self._stream is not None:
+            st = self._stream.state()
+            extra["stream"] = {"next_node": int(st["next_node"]),
+                               "next_seq": int(st["next_seq"])}
+            aux = {f"stream/{k}": v for k, v in st.items()}
+        return checkpoint.save_checkpoint(directory, step, tree, extra=extra,
+                                          keep=keep, aux=aux)
 
     def restore(self, directory, step: Optional[int] = None) -> int:
         """Resume from :meth:`save` (the newest step when ``step`` is
         None): parameters and moments go back onto this engine's device.
-        Returns the restored step."""
+        The staged delta log, when the checkpoint carries one, is re-staged
+        into this engine's buffer with its original seqs (last-op-wins
+        makes the replay idempotent).  Returns the restored step."""
         tree_like = {"params": self.params, "opt_state": self.opt_state}
         tree, step, _extra = checkpoint.load_checkpoint(
             directory, tree_like, step=step, device=self.device)
         self.params, self.opt_state = tree["params"], tree["opt_state"]
+        aux = checkpoint.load_aux(directory, step)
+        stream_state = {k.split("/", 1)[1]: v for k, v in aux.items()
+                        if k.startswith("stream/")}
+        if stream_state:
+            self.stream.restore(stream_state)
         return step
 
     def describe(self) -> dict:
         """The traffic record of this config: cache rows and table bytes,
         padded input rows and worst-case streamed bytes per batch, the
         sampler backend and the meter's breakdown (the reference's record
-        without a mesh)."""
-        return traffic_report(
+        without a mesh), and with streaming ingest attached its run state
+        under ``"stream"``."""
+        rec = traffic_report(
             num_nodes=self.ds.graph.num_nodes, feat_dim=self.ds.feat_dim,
             cache_frac=self.scfg.cache.fraction,
             batch=self.scfg.batch_size, fanouts=self.scfg.fanouts,
             n_shards=(self.store.n_shards if self.store else 1),
             meter=self.meter, backend=self.scfg.backend)
+        if self._stream is not None and self.store is not None:
+            # run-state fields: diff() drops "stream" as volatile, by name
+            scfg = self.store.stream_cfg
+            rec["stream"] = {
+                "enabled": True,
+                "max_pending": scfg.max_pending,
+                "incremental_placement": scfg.incremental_placement,
+                "pending_deltas": self.store.pending_deltas(),
+                "merges_applied": self.store.merges_applied,
+                "rows_migrated": self.store.rows_migrated,
+            }
+        return rec

@@ -1,0 +1,586 @@
+"""ServeFabric — the multi-tenant, multi-worker serving fleet (port of
+``repro.serve.fabric``, in-process transport).
+
+:class:`~repro_torch.serve.server.GNSServer` serves off the live cache
+generation with one worker; the fabric scales that to N workers without
+giving up any of its invariants:
+
+* **N workers, one cache.**  Each :class:`FabricWorker` owns a DP group
+  (``group = worker index``), a
+  :class:`~repro_torch.serve.tenancy.FairScheduler` and a
+  :class:`~repro_torch.serve.batcher.MicroBatcher`; all of them sample
+  against the SAME :class:`~repro_torch.featurestore.FeatureStore`
+  generation.  Sampling windows (store.serving scope + ``infer_prepare``)
+  are serialized under one fabric-level sample lock — the store's "one
+  accounting mode at a time" contract and the shared per-bucket samplers
+  both require it — while the forwards (``infer_compute``: K1 and K2 on a
+  CUDA device, launched on the default stream from each worker thread) run
+  concurrently.
+* **Placement-aware routing.**  ``submit`` routes each request through
+  :class:`~repro_torch.serve.router.Router` to the worker whose home shard
+  owns the most of its ids (table re-adopted at every generation swap); the
+  request's ids then land on that worker's DP-group histogram, so the next
+  placement solve pulls its hot rows local — routing and placement converge
+  on each other.
+* **Per-tenant isolation.**  Admission happens at the chosen worker's
+  per-tenant bounded queue: a flooding tenant fills its OWN quota and eats
+  its own :class:`~repro_torch.serve.server.QueueFull` while other tenants'
+  admissions stay untouched.
+* **Failover.**  A watchdog thread detects stalled workers (stale
+  heartbeat) and dead workers (thread gone): either way the worker leaves
+  the routing rotation and its queued requests are re-routed to healthy
+  workers (``max_retries`` re-routes per request, then the future fails
+  with :class:`WorkerDown`); a dead worker's in-flight batch is reclaimed
+  and re-routed too.  A stalled worker that wakes up re-enters the
+  rotation on its next heartbeat.
+* **Generation maintenance is centralized.**  Only the watchdog publishes
+  completed refreshes (``swap_if_ready``), kicks serving-driven refreshes
+  and drains staged streaming deltas into an async build — workers never
+  touch the swap path, so batches keep pinning their generation exactly as
+  in the single server (bitwise-identical results across a swap).
+
+On a CUDA engine :meth:`ServeFabric.start` builds the kernels before any
+worker starts (a build failure raises from ``start()``), so no worker's
+first batch stalls the others behind the build.  Only the in-process
+transport is ported: ``FabricConfig(transport="tcp")`` raises.
+
+Lock order (enforced by the runtime sanitizer of
+:mod:`repro_torch.analysis`): every lock in the fabric is leaf-held — no
+code path acquires a second fabric lock while holding one, and
+meter/scheduler/router internals take only their own.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.analysis import TrackedLock, guarded_by, sanitizer_enabled
+from repro_torch.featurestore.meter import TrafficMeter
+from repro_torch.serve.batcher import MicroBatcher
+from repro_torch.serve.metrics import BatchRecord, ServeMeter
+from repro_torch.serve.router import Router
+from repro_torch.serve.server import (QueueFull, ServeFuture, ServeResult,
+                                ServerClosed)
+from repro_torch.serve.tenancy import FairScheduler
+
+DEFAULT_TENANT = "default"
+
+
+class WorkerDown(RuntimeError):
+    """No healthy worker could take the request (after retries)."""
+
+
+class WorkerKilled(RuntimeError):
+    """Chaos-test injection: the worker thread aborts mid-batch."""
+
+
+@dataclasses.dataclass
+class _FabPending:
+    """A routed request (fabric-internal; batcher-compatible shape)."""
+    node_ids: np.ndarray
+    future: ServeFuture
+    t_submit: float                   # monotonic
+    deadline: Optional[float]         # absolute monotonic, None = unbounded
+    tenant: str = DEFAULT_TENANT
+    attempts: int = 0                 # failover re-routes so far
+
+
+@guarded_by("_wlock", "_inflight", writes_only=("last_beat",))
+class FabricWorker:
+    """One serving worker: scheduler -> micro-batcher -> forward.
+
+    The worker thread is the only writer of ``_inflight`` while alive; the
+    watchdog reclaims it (under ``_wlock``) only after the thread died.
+    ``last_beat`` is written once per loop iteration and read lock-free by
+    the watchdog (writes_only snapshot contract).
+    """
+
+    def __init__(self, fabric: "ServeFabric", index: int):
+        self.fabric = fabric
+        self.index = index
+        self.group = index                  # DP group / histogram row;
+                                            # home shard = group % n_shards
+        cfg, serve_cfg = fabric.cfg, fabric.serve_cfg
+        self.scheduler = FairScheduler(
+            cfg.tenants, default_weight=cfg.default_weight,
+            default_quota=cfg.default_quota)
+        # the batcher's own queue is kept shallow (~ one batch ahead):
+        # backlog lives in the scheduler where quotas + fair order apply
+        self.batcher = MicroBatcher(
+            serve_cfg.buckets, max_wait_s=serve_cfg.max_wait_ms * 1e-3,
+            max_queue=max(serve_cfg.max_queue, 2 * len(serve_cfg.buckets)))
+        self.copy_meter = TrafficMeter()    # single-writer host->device
+                                            # booking for THIS worker's
+                                            # compute calls
+        self._rng = np.random.default_rng(
+            fabric.engine.cfg.seed + 0xFAB0 + index)
+        self._wlock = threading.Lock()
+        self._inflight: List[_FabPending] = []
+        self.last_beat = time.monotonic()
+        self._fed_ids = 0                   # ids sitting in the batcher
+                                            # (worker-thread only)
+        self.stall_s = 0.0                  # chaos hook: sleep mid-batch
+        self._die = False                   # chaos hook: abort mid-batch
+        self._thread: Optional[threading.Thread] = None
+
+    # ------------------------------------------------------------------
+    def start(self) -> None:
+        assert self._thread is None, "worker already started"
+        self._thread = threading.Thread(
+            target=self._run, daemon=True, name=f"gns-fabric-{self.index}")
+        self._thread.start()
+
+    def alive(self) -> bool:
+        t = self._thread
+        return t is not None and t.is_alive()
+
+    def join(self, timeout: float) -> None:
+        t = self._thread
+        if t is not None:
+            t.join(timeout)
+
+    def kill(self) -> None:
+        """Chaos hook: the next batch aborts the worker thread mid-flight."""
+        self._die = True
+
+    def beat_age(self, now: float) -> float:
+        return now - self.last_beat       # lock-free snapshot (writes_only)
+
+    def take_inflight(self) -> List[_FabPending]:
+        """Watchdog reclaim — only meaningful once the thread is dead."""
+        with self._wlock:
+            out, self._inflight = self._inflight, []
+        return out
+
+    def backlog(self) -> int:
+        return self.scheduler.qsize() + self.batcher.qsize()
+
+    # ------------------------------------------------------------------
+    # worker thread
+    # ------------------------------------------------------------------
+    def _beat(self) -> None:
+        with self._wlock:
+            self.last_beat = time.monotonic()
+
+    def _pump(self) -> None:
+        """Move requests scheduler -> batcher in weighted-fair order, at
+        most ~one batch's worth ahead (backlog must stay in the scheduler
+        so quotas keep meaning something)."""
+        while self._fed_ids < self.batcher.capacity:
+            nxt = self.scheduler.pop()
+            if nxt is None:
+                return
+            tenant, p = nxt
+            if not self.batcher.offer(p):
+                self.scheduler.push_front(tenant, p)   # keep FIFO
+                return
+            self._fed_ids += len(p.node_ids)
+
+    def _run(self) -> None:
+        fab = self.fabric
+        while True:
+            self._beat()
+            self._pump()
+            batch = self.batcher.next_batch(timeout=0.002)
+            if batch is None:
+                if fab.stopping and (not fab.drain_on_stop
+                                     or self.backlog() == 0):
+                    return
+                self.scheduler.work_ev.wait(timeout=0.02)
+                continue
+            self._fed_ids -= sum(len(p.node_ids) for p in batch)
+            t_start = time.monotonic()
+            live, expired = [], []
+            for p in batch:
+                (expired if p.deadline is not None and p.deadline < t_start
+                 else live).append(p)
+            for p in expired:
+                fab.meter.observe_expired(t_start - p.t_submit,
+                                          tenant=p.tenant)
+                p.future._complete(ServeResult(
+                    logits=None, status="expired",
+                    queue_wait_s=t_start - p.t_submit,
+                    total_s=t_start - p.t_submit))
+            if not live:
+                continue
+            with self._wlock:
+                self._inflight = list(live)
+            try:
+                self._serve_batch(live, t_start)
+            except WorkerKilled:
+                return         # chaos: die with the batch in flight — the
+                               # watchdog reclaims _inflight and re-routes
+            except BaseException as e:
+                fab.meter.observe_error(len(live))
+                for p in live:
+                    p.future._fail(e)
+            with self._wlock:
+                self._inflight = []
+            if fab.stopping and (not fab.drain_on_stop
+                                 or self.backlog() == 0):
+                return
+
+    def _serve_batch(self, live: Sequence[_FabPending],
+                     t_start: float) -> None:
+        fab = self.fabric
+        eng = fab.engine
+        ids = np.concatenate([p.node_ids for p in live])
+        bucket = self.batcher.bucket_for(len(ids))
+        t0 = time.perf_counter()
+        mb = fab._prepare(self, ids, bucket)
+        if self.stall_s:
+            time.sleep(self.stall_s)      # chaos hook: in-flight stall
+        if self._die:
+            raise WorkerKilled(f"worker {self.index} killed (chaos hook)")
+        logits = eng.infer_compute(mb, meter=self.copy_meter)
+        compute_s = time.perf_counter() - t0
+        t_done = time.monotonic()
+        version = mb.cache_version
+        fab.meter.observe_batch(BatchRecord(
+            bucket=bucket, n_requests=len(live), n_ids=len(ids),
+            compute_s=compute_s, cache_version=version,
+            hit_fraction=mb.num_cached / max(mb.num_input, 1)),
+            worker=self.index)
+        lo = 0
+        for p in live:
+            n = len(p.node_ids)
+            # copy, don't view (as GNSServer._serve_batch)
+            res = ServeResult(
+                logits=logits[lo:lo + n].copy(), status="ok",
+                queue_wait_s=t_start - p.t_submit, compute_s=compute_s,
+                total_s=t_done - p.t_submit, bucket=bucket,
+                cache_version=version)
+            lo += n
+            fab.meter.observe_request(
+                res.queue_wait_s, res.compute_s, res.total_s,
+                tenant=p.tenant,
+                late=p.deadline is not None and t_done > p.deadline)
+            p.future._complete(res)
+
+
+@guarded_by("_flock", "_healthy", writes_only=("_fab_accepting",
+                                               "fabric_error"))
+class ServeFabric:
+    """The worker fleet + router + watchdog over one GNSEngine.
+
+    Usage::
+
+        fabric = engine.serve_fabric()        # FabricConfig via EngineConfig
+        with fabric:
+            fut = fabric.submit(ids, tenant="mobile")
+            res = fut.result(timeout=10)
+        print(fabric.meter.snapshot())        # incl. per-tenant + routing
+    """
+
+    def __init__(self, engine, cfg=None, serve_cfg=None):
+        if cfg is None:
+            cfg = engine.cfg.serve_config().fabric
+        if cfg is None:
+            from repro_torch.gns.config import FabricConfig
+            cfg = FabricConfig()
+        if cfg.transport != "inproc":
+            raise NotImplementedError(
+                f"transport={cfg.transport!r} needs the RPC transport, not "
+                "ported yet (ROADMAP.md Queue A item 6, the RPC fabric); "
+                "only transport='inproc' serves here")
+        assert cfg.workers >= 1, cfg
+        self.engine = engine
+        self.cfg = cfg
+        self.serve_cfg = (serve_cfg if serve_cfg is not None
+                          else engine.cfg.serve_config())
+        self.meter = ServeMeter(latency_window=self.serve_cfg.latency_window)
+        n_shards = engine.store.n_shards if engine.store is not None else 1
+        self.router = Router(range(cfg.workers), n_shards,
+                             mode=("locality" if cfg.routing == "locality"
+                                   else "spread"))
+        # serializes every worker's sampling window: the store's
+        # serving-scope/dp_group flips and the shared per-bucket samplers
+        # are store-global state.  Wrapped for the sanitizer's lock-order
+        # graph even though no guarded attrs live under it.
+        lk = threading.Lock()
+        self._sample_lock = (TrackedLock(lk, "ServeFabric._sample_lock")
+                             if sanitizer_enabled() else lk)
+        self._flock = threading.Lock()
+        self._healthy = frozenset(range(cfg.workers))
+        self._fab_accepting = False
+        self.fabric_error: Optional[BaseException] = None
+                                    # last failed serving-driven build
+                                    # (serving continues on the live gen)
+        self.stopping = False       # worker exit flag (monotonic: set once
+                                    # by stop(), plain-read by workers)
+        self.drain_on_stop = True
+        self._stop = threading.Event()
+        self._refresh_rng = np.random.default_rng(engine.cfg.seed + 0x5E12)
+        self._last_refresh_batches = 0
+        self.workers = [FabricWorker(self, i) for i in range(cfg.workers)]
+        self._watchdog: Optional[threading.Thread] = None
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    # ------------------------------------------------------------------
+    def start(self) -> "ServeFabric":
+        assert self._watchdog is None, "fabric already started"
+        if self.engine.device.type == "cuda":
+            # build the kernels now, not under the first worker's first
+            # batch (the build holds the loader's lock for tens of seconds,
+            # past any stall timeout); a failed build raises here
+            from repro_torch.kernels._ext import load_kernels
+            load_kernels()
+        # cold-start the cache before any worker runs, and give the router
+        # its first table (generation 0's layout)
+        self.engine.ensure_cache(self._refresh_rng)
+        if self.engine.store is not None:
+            self.router.adopt(self.engine.store.routing_table())
+        for w in self.workers:
+            w.start()
+        self._stop.clear()
+        self._watchdog = threading.Thread(
+            target=self._watch, daemon=True, name="gns-fabric-watchdog")
+        self._watchdog.start()
+        with self._flock:
+            self._fab_accepting = True
+        return self
+
+    def stop(self, drain: bool = True, timeout: float = 30.0) -> None:
+        """Stop accepting, serve out queues (``drain=True``), join, cancel
+        leftovers (never concurrently with a live worker)."""
+        with self._flock:
+            self._fab_accepting = False
+        self.drain_on_stop = drain
+        self.stopping = True
+        self._stop.set()
+        wd = self._watchdog
+        if wd is not None:
+            wd.join(timeout)
+        self._watchdog = None
+        deadline = time.monotonic() + timeout
+        for w in self.workers:
+            w.join(max(deadline - time.monotonic(), 0.1))
+        for w in self.workers:
+            if w.alive():
+                continue      # stalled past timeout: leave its queue alone
+            for _tenant, p in w.scheduler.drain():
+                p.future._fail(ServerClosed("fabric stopped before serving"))
+            for p in w.batcher.drain():
+                p.future._fail(ServerClosed("fabric stopped before serving"))
+            for p in w.take_inflight():
+                p.future._fail(ServerClosed("fabric stopped before serving"))
+
+    def __enter__(self) -> "ServeFabric":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    def healthy(self) -> List[int]:
+        with self._flock:
+            return sorted(self._healthy)
+
+    # ------------------------------------------------------------------
+    # client surface
+    # ------------------------------------------------------------------
+    def submit(self, node_ids: np.ndarray, tenant: str = DEFAULT_TENANT,
+               deadline_ms: Optional[float] = None,
+               worker: Optional[int] = None) -> ServeFuture:
+        """Route + enqueue one request for ``tenant``.
+
+        Raises :class:`QueueFull` when the tenant's queue on the chosen
+        worker is at quota (that tenant's backpressure — nobody else's),
+        :class:`WorkerDown` when no healthy worker exists,
+        :class:`ServerClosed` outside start()/stop().  ``worker`` pins the
+        request to one worker, bypassing routing AND health (test/ops
+        escape hatch).
+        """
+        if not self._fab_accepting:
+            raise ServerClosed("fabric is not accepting requests")
+        ids = np.asarray(node_ids, dtype=np.int64).ravel()
+        if not len(ids):
+            raise ValueError("empty request")
+        capacity = self.workers[0].batcher.capacity
+        if len(ids) > capacity:
+            raise ValueError(
+                f"request of {len(ids)} ids exceeds the largest bucket "
+                f"{capacity} — chunk it client-side")
+        if deadline_ms is None:
+            deadline_ms = self.serve_cfg.default_deadline_ms
+        now = time.monotonic()
+        p = _FabPending(
+            node_ids=ids, future=ServeFuture(), t_submit=now,
+            deadline=now + deadline_ms * 1e-3 if deadline_ms is not None
+            else None, tenant=tenant)
+        if worker is not None:
+            target = worker
+            self.meter.observe_route(0, 0, fallback=True)
+        else:
+            with self._flock:
+                healthy = sorted(self._healthy)
+            if not healthy:
+                raise WorkerDown("no healthy workers")
+            d = self.router.route(ids, healthy)
+            target = d.worker
+            self.meter.observe_route(d.known, d.local, fallback=d.fallback)
+        self.meter.observe_submit(tenant)
+        if not self.workers[target].scheduler.offer(tenant, p):
+            self.meter.observe_reject(tenant)
+            raise QueueFull(
+                f"tenant {tenant!r} queue at quota on worker {target}")
+        if not self._fab_accepting:
+            # stop() raced the enqueue; its cancellation sweep may already
+            # have run — never hand out a future nobody will complete
+            p.future._fail(ServerClosed("fabric stopped while enqueueing"))
+            raise ServerClosed("fabric stopped while the request enqueued")
+        return p.future
+
+    def infer(self, node_ids: np.ndarray, tenant: str = DEFAULT_TENANT,
+              timeout: Optional[float] = 60.0) -> np.ndarray:
+        """Blocking convenience: submit + wait; returns [n_ids, classes]."""
+        res = self.submit(node_ids, tenant=tenant).result(timeout)
+        if res.status != "ok":
+            raise RuntimeError(f"request ended with status={res.status!r}")
+        return res.logits
+
+    # ------------------------------------------------------------------
+    # sampling window (shared-store critical section)
+    # ------------------------------------------------------------------
+    def _prepare(self, worker: FabricWorker, ids: np.ndarray, bucket: int):
+        """One serialized sampling window: route tier accounting to the
+        serve meter, stamp the worker's DP group on the store (per-group
+        histograms = the routing table's future), sample + assemble."""
+        eng = self.engine
+        with self._sample_lock:
+            if eng.store is not None:
+                eng.store.dp_group = worker.group
+                with eng.store.serving(self.meter.traffic):
+                    return eng.infer_prepare(ids, bucket=bucket,
+                                             rng=worker._rng)
+            return eng.infer_prepare(ids, bucket=bucket, rng=worker._rng)
+
+    # ------------------------------------------------------------------
+    # watchdog: health, failover, generation maintenance
+    # ------------------------------------------------------------------
+    def _watch(self) -> None:
+        interval = self.cfg.watch_interval_ms * 1e-3
+        stall_s = self.cfg.stall_timeout_ms * 1e-3
+        while not self._stop.wait(interval):
+            self._poll_store()
+            now = time.monotonic()
+            for w in self.workers:
+                dead = not w.alive()
+                stalled = (not dead) and w.beat_age(now) > stall_s
+                if dead or stalled:
+                    with self._flock:
+                        was_healthy = w.index in self._healthy
+                        self._healthy = self._healthy - {w.index}
+                        any_healthy = bool(self._healthy)
+                    if was_healthy:
+                        self.meter.observe_failover()
+                    if stalled and not any_healthy:
+                        # EVERY worker is stalled (e.g. a slow first
+                        # batch on each): nowhere to re-route, and the
+                        # workers are alive — leave the queue in place, it
+                        # is served when they wake up.  Dead workers still
+                        # drain below (fail fast is right when nothing can
+                        # ever serve the requests).
+                        continue
+                    orphans = [p for _t, p in w.scheduler.drain()]
+                    if dead:
+                        # the thread is gone: its batcher + in-flight batch
+                        # are safe to reclaim (no concurrent owner)
+                        orphans.extend(w.batcher.drain())
+                        orphans.extend(w.take_inflight())
+                    for p in orphans:
+                        self._reroute(p)
+                else:
+                    with self._flock:
+                        if w.index not in self._healthy:
+                            self._healthy = self._healthy | {w.index}
+
+    def _reroute(self, p: _FabPending) -> None:
+        """Failover: hand an orphaned request to a healthy worker."""
+        if p.future.done():
+            return
+        now = time.monotonic()
+        if p.deadline is not None and p.deadline < now:
+            self.meter.observe_expired(now - p.t_submit, tenant=p.tenant)
+            p.future._complete(ServeResult(
+                logits=None, status="expired",
+                queue_wait_s=now - p.t_submit, total_s=now - p.t_submit))
+            return
+        p.attempts += 1
+        self.meter.observe_retry(p.tenant)
+        if p.attempts > self.cfg.max_retries:
+            p.future._fail(WorkerDown(
+                f"request re-routed {p.attempts - 1} times without being "
+                f"served"))
+            return
+        with self._flock:
+            healthy = sorted(self._healthy)
+        if not healthy:
+            p.future._fail(WorkerDown("no healthy workers"))
+            return
+        d = self.router.route(p.node_ids, healthy)
+        if not self.workers[d.worker].scheduler.offer(p.tenant, p):
+            self.meter.observe_reject(p.tenant)
+            p.future._fail(QueueFull(
+                f"tenant {p.tenant!r} queue at quota on failover target "
+                f"{d.worker}"))
+
+    def _poll_store(self) -> None:
+        """Swap point + refresh cadence + streaming-ingest drain (the
+        single-server loop's tail, centralized so N workers never race the
+        swap).  An error here (a failed build) is parked in
+        ``fabric_error`` and counted; serving goes on off the live
+        generation."""
+        store = self.engine.store
+        if store is None:
+            return
+        try:
+            if store.swap_if_ready():
+                self.meter.observe_swap()
+                self.router.adopt(store.routing_table())
+            every = self.serve_cfg.refresh_every
+            if every is not None and not self._stop.is_set():
+                n = self.meter.batch_count()
+                if (n > 0 and n - self._last_refresh_batches >= every
+                        and not store.refreshing):
+                    self._last_refresh_batches = n
+                    store.begin_refresh(self._refresh_rng,
+                                        version=store.version + 1)
+            # streaming ingest: staged deltas past the merge threshold kick
+            # an ASYNC build (which drains the buffer at its boundary) —
+            # serving never pauses, the swap above publishes the merge
+            if (not self._stop.is_set() and store.stream_merge_due()
+                    and not store.refreshing):
+                store.begin_refresh(self._refresh_rng,
+                                    version=store.version + 1)
+        except BaseException as e:
+            with self._flock:         # publish to client threads
+                self.fabric_error = e
+            self.meter.observe_refresh_failure()
+
+    # ------------------------------------------------------------------
+    # observability
+    # ------------------------------------------------------------------
+    def rpc_traffic(self) -> dict:
+        """Aggregate wire bytes over the workers' meters (0 in process: no
+        frame crosses a wire)."""
+        tx = sum(w.copy_meter.bytes_rpc_tx for w in self.workers)
+        rx = sum(w.copy_meter.bytes_rpc_rx for w in self.workers)
+        return {"bytes_rpc_tx": tx, "bytes_rpc_rx": rx}
+
+    def pull_remote_stats(self, timeout: float = 5.0) -> dict:
+        """The per-endpoint STATS of a cross-host fleet; in process there
+        is no endpoint to ask, so ``{}``."""
+        return {}
+
+    def snapshot(self) -> dict:
+        """``meter.snapshot()`` plus the scheduler fair-share counters per
+        worker."""
+        snap = self.meter.snapshot()
+        snap["scheduler_counters"] = {
+            w.index: w.scheduler.counters() for w in self.workers}
+        return snap

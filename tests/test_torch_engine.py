@@ -135,10 +135,26 @@ def test_engine_refuses_a_mesh():
                   device="cpu")
 
 
-def test_engine_refuses_a_stream_config():
-    """Streaming ingest is not ported: a stream config raises rather than
-    being dropped (the reference wires it in its constructor)."""
+def test_engine_builds_the_stream_replay_preset():
+    """Streaming ingest is ported: preset ``stream_replay`` builds on the
+    CPU with its delta buffer attached, as the reference wires it in its
+    constructor."""
     cfg = EngineConfig.preset("stream_replay")
     assert cfg.stream is not None
-    with pytest.raises(NotImplementedError, match="streaming ingest"):
-        GNSEngine(cfg, device="cpu")
+    eng = GNSEngine(cfg, device="cpu")
+    rec = eng.describe()["stream"]
+    assert rec["enabled"] and rec["pending_deltas"] == 0
+    assert rec["max_pending"] == cfg.stream.max_pending
+    assert eng.store.n_shards == 2 and eng.store.stream_cfg == cfg.stream
+
+
+def test_fabric_refuses_the_tcp_transport():
+    """The RPC transport is not ported: ``transport="tcp"`` raises when the
+    fabric is built, rather than serving in process instead."""
+    from repro_torch.gns import FabricConfig
+    eng = GNSEngine(EngineConfig.from_dict(json.loads(_cfg_json())),
+                    device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+        eng.serve_fabric(FabricConfig(workers=2, transport="tcp",
+                                      endpoints=("127.0.0.1:1",
+                                                 "127.0.0.1:2")))

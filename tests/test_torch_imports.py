@@ -14,8 +14,9 @@ pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
 
-# every module of the port's serving, training, LM serving and training-
-# surface (baselines, checkpoints, describe, schedules, trainer) slices
+# every module of the port's serving, training, LM serving, training-
+# surface (baselines, checkpoints, describe, schedules, trainer) and
+# fabric / streaming-ingest (with the runtime lock sanitizer) slices
 REQUIRED = (
     "repro_torch.device", "repro_torch.core.pipeline",
     "repro_torch.sampling.rng", "repro_torch.sampling.adjacency",
@@ -33,7 +34,12 @@ REQUIRED = (
     "repro_torch.core.variance", "repro_torch.optim.schedules",
     "repro_torch.gns.describe", "repro_torch.checkpoint",
     "repro_torch.checkpoint.store", "repro_torch.train",
-    "repro_torch.train.trainer",
+    "repro_torch.train.trainer", "repro_torch.analysis",
+    "repro_torch.analysis.runtime", "repro_torch.serve.tenancy",
+    "repro_torch.serve.router", "repro_torch.serve.fabric",
+    "repro_torch.stream", "repro_torch.stream.delta",
+    "repro_torch.stream.merge", "repro_torch.data",
+    "repro_torch.data.temporal",
 )
 
 BLOCKER = f"REQUIRED = {REQUIRED!r}\n" + r'''
