@@ -42,6 +42,22 @@ line each on stdout:
                worker, the launches and the wall time.  Then one prepared
                batch computed before and after a forced ``store.refresh()``
                gives the same logits bit for bit (the generation pin);
+   tcp       — the same engine's config (JSON) behind a 2-worker
+               ``ServeFabric(transport="tcp")``: two ``python -m
+               repro_torch.rpc.endpoint`` processes on this card, each with
+               its own engine replica launching K1 and K2, started after
+               this process built the kernels.  24 requests of 2-8
+               validation ids one at a time through an inproc fabric over a
+               fresh engine and then through tcp: logits bit for bit, the
+               same generation and bucket, wire bytes both ways.  Then the
+               fabric phase's 4 waves over tcp (per-tenant p50/p99, rpc
+               wait, batches per worker, wire bytes, and tcp p99 over the
+               inproc waves' p99, logged, not asserted), then endpoint 0 is
+               SIGKILLed with 16 pinned requests in flight: all served by
+               worker 1, 0 errors, a failover, ``healthy() == [1]`` and
+               STATS from worker 1 only.  A SHUTDOWN frame stops the
+               survivor, which prints its K1 and K2 launches: each at least
+               1, all on the vector path (``launches_by_path["tcp"]``);
    stream    — preset ``stream_replay`` at its own width (scale 0.25,
                D = 100, hidden 256, fanouts (5, 10), two shards, locality
                placement, adaptive policy, buckets 32/128) with K1's input
@@ -95,8 +111,10 @@ line each on stdout:
                sampler: step ms (CUDA events, median), the meter's sample /
                slice / copy / compute split per step, input nodes, isolated
                rows and streamed bytes per batch; then one more step of
-               each (LazyGCN: a fresh and a recycled one) under
-               ``torch.profiler``, as (A)'s.  Then one LADIES step at
+               each (LazyGCN: a fresh and a recycled one, which reuses the
+               fresh one's device copy) under ``torch.profiler``, as (A)'s,
+               with each step's ``Memcpy HtoD`` and host ``aten::copy_``
+               time and count.  Then one LADIES step at
                batch 250 on the card against the CPU (6.'s tolerances); a
                checkpoint round trip: ``save`` the trained engine of (A),
                ``restore`` it into a fresh card engine and a CPU engine
@@ -522,7 +540,8 @@ def phase_fabric(engine, rng) -> dict:
     ``ServeFabric`` over the ``paper_train`` serve engine, kill one worker
     mid-wave (its in-flight batch reclaimed and served by the survivor),
     then hold one prepared batch's logits bitwise across a forced refresh.
-    Returns the K1/K2 launch counts of the fabric's run."""
+    Returns the K1/K2 launch counts of the fabric's run and the meter's
+    snapshot after the 4 waves (before the kill)."""
     from repro_torch.gns import FabricConfig, TenantConfig
     n_cls = engine.mcfg.num_classes
     num_nodes = engine.ds.graph.num_nodes
@@ -545,6 +564,7 @@ def phase_fabric(engine, rng) -> dict:
                 futs.append((n, fab.submit(rng.integers(0, num_nodes, n),
                                            tenant=tenant)))
             results += check_results(futs, n_cls, "fabric")
+        waves = fab.meter.snapshot()
         # chaos: worker 0 dies with its next batch in flight, mid-wave
         w0 = fab.workers[0]
         w0.kill()
@@ -573,7 +593,8 @@ def phase_fabric(engine, rng) -> dict:
         launches_k1=k12["counts"]["cache_lookup_agg"],
         launches_k2=k12["counts"]["gather_agg"], k1_paths=k12["k1_paths"],
         k2_paths=k12["k2_paths"], total_p50_ms=snap["total_p50_ms"],
-        total_p99_ms=snap["total_p99_ms"], **fabric_split(fab, snap),
+        total_p99_ms=snap["total_p99_ms"],
+        waves_total_p99_ms=waves["total_p99_ms"], **fabric_split(fab, snap),
         wall_s=round(wall, 3))
     # the generation pin: a prepared batch computed before and after a
     # forced refresh publishes generation g+1 gives the same bits
@@ -588,7 +609,265 @@ def phase_fabric(engine, rng) -> dict:
         live_generation=engine.store.version, bitwise_equal=same)
     if not same or engine.store.version != v0 + 1 or mb.cache_version != v0:
         raise AssertionError("fabric: a pinned batch changed across a swap")
-    return k12["counts"]
+    return k12["counts"], waves
+
+
+# ---------------------------------------------------------------------------
+# the RPC fabric: endpoint processes over TCP
+# ---------------------------------------------------------------------------
+
+TCP_SEED = SEED + 2            # the tcp phase's own requests
+TCP_REQUESTS = 24              # sent one at a time, inproc then tcp
+
+
+class Endpoint:
+    """One ``python -m repro_torch.rpc.endpoint`` process on the card, its
+    stdout lines read by a daemon thread (every read has a deadline) and
+    its stderr in a file beside the config."""
+
+    def __init__(self, cfg_path: Path, index: int):
+        import os
+        import queue
+        import threading
+        self.index = index
+        self.err_path = cfg_path.parent / f"endpoint{index}.err"
+        with open(self.err_path, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.rpc.endpoint",
+                 "--config", str(cfg_path), "--index", str(index),
+                 "--port", "0"],
+                cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                stdout=subprocess.PIPE, stderr=err, text=True)
+        self.lines = queue.Queue()
+
+        def pump():
+            with self.proc.stdout:
+                for line in self.proc.stdout:
+                    self.lines.put(line)
+            self.lines.put(None)                 # EOF
+
+        threading.Thread(target=pump, daemon=True).start()
+        self.port = None
+
+    def line(self, tag: str) -> str:
+        """The first stdout line that starts with ``tag``."""
+        import queue
+        deadline = time.monotonic() + FABRIC_WAIT_S
+        while True:
+            try:
+                line = self.lines.get(
+                    timeout=max(deadline - time.monotonic(), 0.01))
+            except queue.Empty:
+                line = None
+            if line is None:
+                raise AssertionError(
+                    f"tcp: endpoint {self.index} printed no {tag} line "
+                    f"(exit {self.proc.poll()}): "
+                    f"{self.err_path.read_text()[-2000:]}")
+            if line.startswith(tag):
+                return line.strip()
+
+    def ready(self) -> str:
+        line = self.line("GNS_ENDPOINT_READY")
+        self.port = int(dict(kv.split("=") for kv in
+                             line.split()[1:])["port"])
+        return f"127.0.0.1:{self.port}"
+
+    def check_running(self) -> None:
+        if self.proc.poll() is not None:
+            raise AssertionError(
+                f"tcp: endpoint {self.index} exited on its own "
+                f"({self.proc.returncode}): "
+                f"{self.err_path.read_text()[-2000:]}")
+
+    def reap(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=FABRIC_WAIT_S)
+
+
+def tcp_requests(engine) -> list:
+    """``TCP_REQUESTS`` requests of 2-8 validation ids, tenants
+    alternating."""
+    rng = np.random.default_rng(TCP_SEED)
+    val = engine.ds.val_idx.astype(np.int64)
+    return [("mobile" if i % 2 == 0 else "batch",
+             rng.choice(val, int(rng.integers(2, 9)), replace=False))
+            for i in range(TCP_REQUESTS)]
+
+
+def one_at_a_time(fab, reqs) -> list:
+    with fab:
+        out = [fab.submit(ids, tenant=t).result(timeout=FABRIC_WAIT_S)
+               for t, ids in reqs]
+    check_fabric(fab, "tcp")
+    if any(r.status != "ok" for r in out):
+        raise AssertionError("tcp: a sequential request failed")
+    return out
+
+
+def phase_tcp(engine, inproc_waves: dict) -> dict:
+    """The served engine's config behind a 2-worker tcp fabric whose
+    workers are two endpoint processes on this card (started after this
+    process built the kernels, so they load the built extension).  (1)
+    ``TCP_REQUESTS`` requests one at a time through an inproc fabric over a
+    fresh engine from the same config, then through tcp: logits bit for
+    bit, the same generation and bucket.  (2) The fabric phase's 4 waves
+    of 24 requests through tcp: per-tenant p50/p99, rpc wait, batches per
+    worker, wire bytes and the p99 ratio to the inproc fabric's waves.  (3)
+    SIGKILL endpoint 0 with pinned requests in flight: every request served
+    by worker 1, 0 errors, a failover, only worker 1 healthy and answering
+    STATS.  (4) A SHUTDOWN frame to the survivor, which prints its K1 and
+    K2 launches: each at least 1, all on the vector path.  Returns those
+    counts."""
+    import os
+    import signal
+    import socket
+    import tempfile
+    from repro_torch.gns import (EngineConfig, FabricConfig, GNSEngine,
+                                 TenantConfig)
+    from repro_torch.rpc import wire
+    from repro_torch.rpc.endpoint import LAUNCHES_TAG
+    n_cls = engine.mcfg.num_classes
+    num_nodes = engine.ds.graph.num_nodes
+    (ROOT / "build").mkdir(exist_ok=True)
+    eps = []
+    with tempfile.TemporaryDirectory(dir=ROOT / "build",
+                                     prefix="chip_smoke_tcp_") as d:
+        cfg_path = Path(d) / "engine.json"
+        cfg_path.write_text(json.dumps(engine.cfg.to_dict()))
+        try:
+            t0 = time.perf_counter()
+            eps = [Endpoint(cfg_path, i) for i in range(2)]
+            addrs = tuple(ep.ready() for ep in eps)
+            t_ready = time.perf_counter() - t0
+            tenants = (TenantConfig("mobile", weight=2.0, max_queue=16),
+                       TenantConfig("batch", weight=1.0, max_queue=64))
+
+            def tcp_fabric():
+                return engine.serve_fabric(FabricConfig(
+                    workers=2, transport="tcp", endpoints=addrs,
+                    tenants=tenants, stall_timeout_ms=10_000.0))
+
+            # (1) bitwise against inproc, one request at a time
+            fresh = GNSEngine(EngineConfig.from_dict(
+                json.loads(cfg_path.read_text())))
+            reqs = tcp_requests(fresh)
+            inproc = one_at_a_time(fresh.serve_fabric(FabricConfig(
+                workers=2, tenants=tenants, stall_timeout_ms=10_000.0)),
+                reqs)
+            fab = tcp_fabric()
+            tcp = one_at_a_time(fab, reqs)
+            del fresh
+            rpc = fab.rpc_traffic()
+            same = all(np.array_equal(a.logits, b.logits)
+                       and a.cache_version == b.cache_version
+                       and a.bucket == b.bucket for a, b in zip(inproc, tcp))
+            seq = [np.median([r.total_s for r in rs]) * 1e3
+                   for rs in (inproc, tcp)]
+            log("tcp-bitwise", requests=len(reqs), bitwise_equal=same,
+                buckets=sorted({r.bucket for r in tcp}),
+                generations=sorted({r.cache_version for r in tcp}),
+                endpoints_ready_s=round(t_ready, 2),
+                inproc_total_p50_ms=round(seq[0], 3),
+                tcp_total_p50_ms=round(seq[1], 3),
+                tcp_over_inproc_p50=round(seq[1] / seq[0], 3), **rpc)
+            if not same:
+                raise AssertionError("tcp: logits, generation or bucket "
+                                     "differ from the inproc fabric")
+            if rpc["bytes_rpc_tx"] <= 0 or rpc["bytes_rpc_rx"] <= 0:
+                raise AssertionError(f"tcp: no wire traffic: {rpc}")
+
+            # (2) the fabric phase's waves, then (3) the chaos
+            rng = np.random.default_rng(TCP_SEED + 1)
+            fab = tcp_fabric()
+            t0 = time.perf_counter()
+            with fab:
+                for _ in range(4):
+                    futs = []
+                    for i in range(24):
+                        tenant = "mobile" if i % 2 == 0 else "batch"
+                        n = int(rng.integers(1, 9) if tenant == "mobile"
+                                else rng.integers(4, 17))
+                        futs.append((n, fab.submit(
+                            rng.integers(0, num_nodes, n), tenant=tenant)))
+                    check_results(futs, n_cls, "tcp")
+                wall = time.perf_counter() - t0
+                snap = check_fabric(fab, "tcp")
+                for ep in eps:
+                    ep.check_running()
+                w0 = fab.workers[0]
+                batches1 = snap["routing"]["worker_batches"].get(1, 0)
+                futs = [(8, fab.submit(rng.integers(0, num_nodes, 8),
+                                       tenant="batch", worker=0))
+                        for _ in range(16)]
+                wait_for(lambda: w0.inflight_count() > 0,
+                         "a pinned request in flight on endpoint 0")
+                os.kill(eps[0].proc.pid, signal.SIGKILL)
+                wait_for(lambda: not w0.alive(), "worker 0's proxy ends")
+                check_results(futs, n_cls, "tcp-chaos")
+                wait_for(lambda: fab.healthy() == [1],
+                         "worker 0 leaves rotation")
+                remote = fab.pull_remote_stats(timeout=FABRIC_WAIT_S)
+            chaos = check_fabric(fab, "tcp-chaos")
+            rt, wrt = chaos["routing"], snap["routing"]
+            tenants_ms = {t: (v["served"], v["total_p50_ms"],
+                              v["total_p99_ms"])
+                          for t, v in snap["tenants"].items()}
+            log("tcp", requests=96, batches=snap["batches"],
+                batches_per_worker=wrt["worker_batches"],
+                tenants_served_p50_p99_ms=tenants_ms,
+                total_p50_ms=snap["total_p50_ms"],
+                total_p99_ms=snap["total_p99_ms"],
+                rpc_wait_p50_ms=snap.get("rpc_wait_p50_ms"),
+                rpc_wait_p99_ms=snap.get("rpc_wait_p99_ms"),
+                queue_wait_p99_ms=snap["queue_wait_p99_ms"],
+                compute_p50_ms=snap["compute_p50_ms"],
+                compute_p99_ms=snap["compute_p99_ms"],
+                inproc_waves_total_p99_ms=inproc_waves["total_p99_ms"],
+                tcp_over_inproc_p99=round(snap["total_p99_ms"]
+                                          / inproc_waves["total_p99_ms"], 3),
+                wall_s=round(wall, 3), **fab.rpc_traffic())
+            served_by_1 = rt["worker_batches"].get(1, 0) - batches1
+            log("tcp-chaos", pinned=len(futs), failovers=rt["failovers"],
+                retries=rt["retries"], healthy=fab.healthy(),
+                worker1_batches_after_kill=served_by_1,
+                remote_stats_from=sorted(remote),
+                endpoint0_exit=eps[0].proc.wait(timeout=FABRIC_WAIT_S))
+            if rt["failovers"] < 1 or served_by_1 < 1:
+                raise AssertionError(f"tcp: the SIGKILL did not fail "
+                                     f"over to worker 1: {rt}")
+            if fab.healthy() != [1] or sorted(remote) != [1]:
+                raise AssertionError(f"tcp: healthy {fab.healthy()}, "
+                                     f"STATS from {sorted(remote)}")
+            if eps[0].proc.returncode != -signal.SIGKILL:
+                raise AssertionError("tcp: endpoint 0 was not the one "
+                                     "killed")
+
+            # (4) stop the survivor and read its launches
+            eps[1].check_running()
+            with socket.create_connection(("127.0.0.1", eps[1].port),
+                                          timeout=FABRIC_WAIT_S) as sock:
+                wire.send_frame(sock, wire.SHUTDOWN)
+                line = eps[1].line(LAUNCHES_TAG)
+            code = eps[1].proc.wait(timeout=FABRIC_WAIT_S)
+        finally:
+            for ep in eps:
+                ep.reap()
+    got = json.loads(line.removeprefix(LAUNCHES_TAG))
+    counts = {k: got[k] for k in ("cache_lookup_agg", "gather_agg")}
+    log("tcp-endpoint", index=got["index"], exit=code,
+        launches_k1=counts["cache_lookup_agg"],
+        launches_k2=counts["gather_agg"], k1_paths=got["k1_paths"],
+        k2_paths=got["k2_paths"])
+    if code != 0 or min(counts.values()) < 1:
+        raise AssertionError(f"tcp: survivor exit {code}, launches {counts}")
+    if (got["k1_paths"] != {"vector": counts["cache_lookup_agg"],
+                            "scalar": 0}
+            or got["k2_paths"] != {"vector": counts["gather_agg"],
+                                   "scalar": 0}):
+        raise AssertionError(f"tcp: a launch left the vector path: {got}")
+    return counts
 
 
 def stream_config():
@@ -857,7 +1136,9 @@ def phase_profile(engine, rng, path: str, steps: int = 1) -> None:
     """``steps`` more steps of a path, after its counted run, each under
     ``torch.profiler``: the device's busy time (kernels and copies) against
     the step's time by CUDA events (the profiler's start-up left out, its
-    per-op recording left in), and the largest device and host entries."""
+    per-op recording left in), the host->device copies (device time and
+    count) and the host's ``aten::copy_``, and the largest device and host
+    entries."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for step in range(steps):
@@ -880,10 +1161,18 @@ def phase_profile(engine, rng, path: str, steps: int = 1) -> None:
                      reverse=True)[:8]
         host = sorted(events, key=lambda e: e.self_cpu_time_total,
                       reverse=True)[:8]
+        htod = [e for e in on_card if e.key.startswith("Memcpy HtoD")]
+        copy = [e for e in events if e.key == "aten::copy_"]
         log("profile", path=path, step=step,
             bytes_streamed=mb.bytes_streamed,
             step_wall_ms=round(wall_ms, 3), device_busy_ms=round(busy_ms, 3),
             idle_share=round(1.0 - busy_ms / wall_ms, 4),
+            memcpy_htod_ms_count=(
+                round(sum(e.self_device_time_total for e in htod) / 1e3, 3),
+                sum(e.count for e in htod)),
+            host_copy_ms_count=(
+                round(sum(e.self_cpu_time_total for e in copy) / 1e3, 3),
+                sum(e.count for e in copy)),
             top_device=[(e.key[:60], round(e.self_device_time_total / 1e3, 3),
                          e.count) for e in top],
             top_host=[(e.key[:60], round(e.self_cpu_time_total / 1e3, 3),
@@ -1874,7 +2163,8 @@ def main() -> int:
     errs = phase_parity(engine, shapes, rng)
     counts = {"serve": phase_serve(engine, rng)}
     phase_engine_parity(engine, rng)
-    counts["fabric"] = phase_fabric(engine, rng)
+    counts["fabric"], fabric_waves = phase_fabric(engine, rng)
+    counts["tcp"] = phase_tcp(engine, fabric_waves)
     counts["stream"] = phase_stream(rng)
 
     dev_engine = GNSEngine(train_config("device"), dataset=ds)

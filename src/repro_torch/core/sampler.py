@@ -517,7 +517,8 @@ class LazyGCNSampler:
         if self._uses_left > 0 and self._cached is not None:
             self._uses_left -= 1
             mb = self._cached
-            # recycled batch: zero fresh feature traffic (mega-batch stays on device)
+            # recycled batch: zero fresh feature traffic (it shares the
+            # fresh batch's host arrays, so GNSEngine reuses their device copy)
             return dataclasses.replace(mb, bytes_streamed=0, num_input=mb.num_input)
         mb = self.inner.sample(targets, rng)
         r = max(int(round(self.cfg.recycle_period *

@@ -6,10 +6,8 @@ cache/placement, mesh, model, optimizer and serving sub-configs — that
 (FeatureStore → sampler → forward).  The dataclasses are field-for-field
 the reference's, so the JSON that ``repro.gns.config.EngineConfig.to_dict``
 writes loads here unchanged through :meth:`EngineConfig.from_dict`, and the
-JSON written here loads there.  Sub-configs of surfaces not ported yet are
-carried as data: the mesh (the engine refuses one with more than one
-device) and the fabric's RPC transport settings (``transport="tcp"`` and
-its endpoint and connection fields; the fabric refuses ``"tcp"``).
+JSON written here loads there.  The mesh, a surface not ported yet, is
+carried as data: the engine refuses one with more than one device.
 
 In ``ModelConfig``, ``aggregate_impl="pallas"`` and ``input_impl="fused"``
 select the port's CUDA kernels (K2 ``gather_agg`` and K1
@@ -84,9 +82,9 @@ class TenantConfig:
 class FabricConfig:
     """Declarative multi-tenant serving fabric
     (``repro_torch.serve.ServeFabric``, built by
-    ``GNSEngine.serve_fabric``).  Only ``transport="inproc"`` is ported: the
-    RPC fields below are carried as data, and ``transport="tcp"`` raises
-    ``NotImplementedError`` when the fabric is built.
+    ``GNSEngine.serve_fabric``), in process (``transport="inproc"``) or
+    over TCP to one ``repro_torch.rpc.WorkerEndpoint`` process per worker
+    (``transport="tcp"``).
 
     Scales the single ``GNSServer`` worker to a fleet over ONE shared cache
     generation: each worker owns a DP group (and therefore a home shard of
@@ -114,9 +112,9 @@ class FabricConfig:
     max_retries: int = 2            # failover re-routes per request before
                                     # its future fails with WorkerDown
     transport: str = "inproc"       # "inproc" (threads over one cache) |
-                                    # "tcp" (the RPC transport, not ported:
-                                    # each worker a proxy to an endpoint
-                                    # process with its own cache replica)
+                                    # "tcp" (each worker a proxy to an
+                                    # endpoint process with its own cache
+                                    # replica)
     endpoints: Sequence[str] = ()   # "host:port" per worker (tcp transport;
                                     # len must equal ``workers``)
     heartbeat_ms: float = 100.0     # endpoint heartbeat period; beat ages

@@ -56,7 +56,8 @@ import torch
 from repro_torch import checkpoint
 from repro_torch.core.minibatch import MiniBatch
 from repro_torch.core.pipeline import EpochLoader, Prefetcher
-from repro_torch.core.sampler import GNSSampler, make_sampler
+from repro_torch.core.sampler import (GNSSampler, LazyGCNSampler,
+                                      make_sampler)
 from repro_torch.device import resolve_device
 from repro_torch.featurestore import FeatureStore, TrafficMeter
 from repro_torch.gns.config import EngineConfig
@@ -134,6 +135,10 @@ class GNSEngine:
         self.opt_state = self.opt.init(self.params)
         self._dummy_cache = graphsage.dummy_cache_table(self.ds.feat_dim,
                                                         self.device)
+        # a recycling sampler (LazyGCN) hands the same host arrays out again:
+        # (host DeviceBatch, its device copy) of the last fresh training
+        # batch, so a recycled step copies nothing, as its meter books
+        self._held_batch = None
         # serving-shaped inference: one sampler per padded batch size
         # ("bucket"), all sharing THE store, so every bucket rides the same
         # live cache generation and feeds the same policy signals
@@ -159,12 +164,20 @@ class GNSEngine:
         gen = mb.cache_gen
         return gen.device_adj if gen is not None else None
 
-    def _put_batch(self, mb: MiniBatch, meter: TrafficMeter):
+    def _put_batch(self, mb: MiniBatch, meter: TrafficMeter,
+                   hold: bool = False):
         """Host -> device copy of the batch, its wall time booked on
-        ``meter`` (the copies are queued, not waited for, on a GPU)."""
+        ``meter`` (the copies are queued, not waited for, on a GPU).  A
+        batch whose host arrays are the held batch's (a recycled LazyGCN
+        batch) reuses the held copy; ``hold`` keeps this copy for that."""
+        held = self._held_batch
+        if held is not None and held[0] is mb.device:
+            return held[1]
         t0 = time.perf_counter()
         out = mb.device.to(self.device)
         meter.t_copy += time.perf_counter() - t0
+        if hold:
+            self._held_batch = (mb.device, out)
         return out
 
     # ------------------------------------------------------------------
@@ -175,7 +188,8 @@ class GNSEngine:
         accuracy).  ``t_compute`` includes the sync that reading the loss
         forces, so it is the device time of the step plus its launches."""
         m = self.meter
-        dev_batch = self._put_batch(mb, m)
+        dev_batch = self._put_batch(
+            mb, m, hold=isinstance(self.sampler, LazyGCNSampler))
         m.add_batch(mb.bytes_streamed)
         t0 = time.perf_counter()
         loss, acc, grads = graphsage.value_and_grad(
@@ -201,6 +215,9 @@ class GNSEngine:
         n_inputs, n_cached, n_iso, n_b = 0, 0, 0, 0
         for ep in range(epochs):
             t_ep = time.perf_counter()
+            # start_epoch drops the sampler's megabatch: no later batch
+            # shares the held one's arrays
+            self._held_batch = None
             # epoch start (the cache refresh happens in start_epoch)
             it = loader.epoch(ep)
             if prefetch:

@@ -20,8 +20,8 @@ reads a position back from the card.
 
 Not ported yet (each raises ``NotImplementedError``): MLA (deepseek-v2)
 and the sliding-window ring cache, both with the decoder-only LM
-(``ROADMAP.md`` Queue A item 14); the reference's mesh branches of
-``sharded_attention`` wait for multi-GPU (Queue A item 12).
+(``ROADMAP.md`` Queue A item 9); the reference's mesh branches of
+``sharded_attention`` wait for multi-GPU (Queue A item 7).
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ from repro_torch.models.common import (apply_rope, dense_init, model_dtype,
                                        zeros)
 
 _LATER = ("is not ported yet: it comes with the decoder-only LM "
-          "(ROADMAP.md Queue A item 14)")
+          "(ROADMAP.md Queue A item 9)")
 
 
 # ---------------------------------------------------------------------------

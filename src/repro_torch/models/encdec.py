@@ -1,7 +1,7 @@
 """Encoder-decoder assembly (seamless-m4t): bidirectional encoder over stub
 frame embeddings + causal decoder with cross-attention (port of
 ``repro.models.encdec``; ``encdec_loss`` waits for the training slice,
-``ROADMAP.md`` Queue A item 14).
+``ROADMAP.md`` Queue A item 9).
 
 The modality frontend is a stub, as in the reference: the encoder takes
 precomputed frame embeddings [B, S_enc, d_model].  Encoder and decoder

@@ -26,7 +26,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import encdec
 from repro_torch.models.common import make_generator
 
-_TODO = "ROADMAP.md Queue A item 14"
+_TODO = "ROADMAP.md Queue A item 9"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,6 @@
 """Token embedding and unembedding (port of ``repro.models.transformer``
 ``embed_tokens`` / ``unembed``).  The decoder-only LM itself is not ported
-yet (``ROADMAP.md`` Queue A item 14)."""
+yet (``ROADMAP.md`` Queue A item 9)."""
 from __future__ import annotations
 
 import torch

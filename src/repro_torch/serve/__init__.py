@@ -9,8 +9,9 @@ or a context manager), :class:`ServeConfig`, :class:`MicroBatcher`,
 :class:`ServeFabric` over one engine (``engine.serve_fabric()``) with its
 :class:`FairScheduler` (per-tenant weighted-fair admission), its
 :class:`Router` (placement-aware routing) and the failover errors
-:class:`WorkerDown` / :class:`WorkerKilled`.  The fabric's RPC transport
-(``FabricConfig(transport="tcp")``) is not ported yet.
+:class:`WorkerDown` / :class:`WorkerKilled`.  Over
+``FabricConfig(transport="tcp")`` the fabric's workers are proxies to
+:class:`repro_torch.rpc.WorkerEndpoint` processes.
 
 Quickstart::
 

@@ -1,5 +1,5 @@
 """ServeFabric — the multi-tenant, multi-worker serving fleet (port of
-``repro.serve.fabric``, in-process transport).
+``repro.serve.fabric``).
 
 :class:`~repro_torch.serve.server.GNSServer` serves off the live cache
 generation with one worker; the fabric scales that to N workers without
@@ -41,8 +41,12 @@ giving up any of its invariants:
 
 On a CUDA engine :meth:`ServeFabric.start` builds the kernels before any
 worker starts (a build failure raises from ``start()``), so no worker's
-first batch stalls the others behind the build.  Only the in-process
-transport is ported: ``FabricConfig(transport="tcp")`` raises.
+first batch stalls the others behind the build.  Under
+``FabricConfig(transport="tcp")`` each worker is a
+:class:`~repro_torch.rpc.RemoteWorkerProxy` to a
+:class:`~repro_torch.rpc.WorkerEndpoint` process that holds its own engine
+replica and cache generations: the coordinator then computes nothing (no
+generation 0, no kernel build) and only drives the refresh cadence.
 
 Lock order (enforced by the runtime sanitizer of
 :mod:`repro_torch.analysis`): every lock in the fabric is leaf-held — no
@@ -282,11 +286,6 @@ class ServeFabric:
         if cfg is None:
             from repro_torch.gns.config import FabricConfig
             cfg = FabricConfig()
-        if cfg.transport != "inproc":
-            raise NotImplementedError(
-                f"transport={cfg.transport!r} needs the RPC transport, not "
-                "ported yet (ROADMAP.md Queue A item 6, the RPC fabric); "
-                "only transport='inproc' serves here")
         assert cfg.workers >= 1, cfg
         self.engine = engine
         self.cfg = cfg
@@ -316,7 +315,21 @@ class ServeFabric:
         self._stop = threading.Event()
         self._refresh_rng = np.random.default_rng(engine.cfg.seed + 0x5E12)
         self._last_refresh_batches = 0
-        self.workers = [FabricWorker(self, i) for i in range(cfg.workers)]
+        if cfg.transport == "tcp":
+            # cross-host fleet: each worker is a proxy over a TCP channel
+            # to a WorkerEndpoint process holding its own cache replica
+            from repro_torch.rpc import RemoteWorkerProxy
+            endpoints = tuple(cfg.endpoints)
+            if len(endpoints) != cfg.workers:
+                raise ValueError(
+                    f"transport='tcp' needs one endpoint per worker: "
+                    f"{len(endpoints)} endpoints for {cfg.workers} workers")
+            self.workers = [RemoteWorkerProxy(self, i, endpoints[i])
+                            for i in range(cfg.workers)]
+        else:
+            if cfg.transport != "inproc":
+                raise ValueError(f"unknown transport {cfg.transport!r}")
+            self.workers = [FabricWorker(self, i) for i in range(cfg.workers)]
         self._watchdog: Optional[threading.Thread] = None
 
     # ------------------------------------------------------------------
@@ -324,19 +337,27 @@ class ServeFabric:
     # ------------------------------------------------------------------
     def start(self) -> "ServeFabric":
         assert self._watchdog is None, "fabric already started"
-        if self.engine.device.type == "cuda":
-            # build the kernels now, not under the first worker's first
-            # batch (the build holds the loader's lock for tens of seconds,
-            # past any stall timeout); a failed build raises here
-            from repro_torch.kernels._ext import load_kernels
-            load_kernels()
-        # cold-start the cache before any worker runs, and give the router
-        # its first table (generation 0's layout)
-        self.engine.ensure_cache(self._refresh_rng)
-        if self.engine.store is not None:
-            self.router.adopt(self.engine.store.routing_table())
-        for w in self.workers:
-            w.start()
+        if self.cfg.transport == "tcp":
+            # generation 0 lives on the endpoints (same config + same seeded
+            # rng streams -> bitwise the generation the inproc fabric would
+            # build); the placement leader's HELLO_ACK ships the routing
+            # table, adopted via _adopt_remote_table during w.start()
+            for w in self.workers:
+                w.start()
+        else:
+            if self.engine.device.type == "cuda":
+                # build the kernels now, not under the first worker's first
+                # batch (the build holds the loader's lock for tens of
+                # seconds, past any stall timeout); a failed build raises
+                from repro_torch.kernels._ext import load_kernels
+                load_kernels()
+            # cold-start the cache before any worker runs, and give the
+            # router its first table (generation 0's layout)
+            self.engine.ensure_cache(self._refresh_rng)
+            if self.engine.store is not None:
+                self.router.adopt(self.engine.store.routing_table())
+            for w in self.workers:
+                w.start()
         self._stop.clear()
         self._watchdog = threading.Thread(
             target=self._watch, daemon=True, name="gns-fabric-watchdog")
@@ -535,6 +556,21 @@ class ServeFabric:
         swap).  An error here (a failed build) is parked in
         ``fabric_error`` and counted; serving goes on off the live
         generation."""
+        if self.cfg.transport == "tcp":
+            # generations live on the endpoints: the coordinator only drives
+            # the refresh CADENCE (broadcast REFRESH frames); each endpoint
+            # swaps locally and ships its new table back in a SWAPPED frame
+            # (_on_remote_swap adopts the placement leader's copy)
+            every = self.serve_cfg.refresh_every
+            if every is None or self._stop.is_set():
+                return
+            n = self.meter.batch_count()
+            if n > 0 and n - self._last_refresh_batches >= every:
+                self._last_refresh_batches = n
+                for w in self.workers:
+                    if w.alive():
+                        w.request_refresh()
+            return
         store = self.engine.store
         if store is None:
             return
@@ -563,6 +599,37 @@ class ServeFabric:
             self.meter.observe_refresh_failure()
 
     # ------------------------------------------------------------------
+    # tcp transport hooks (called by RemoteWorkerProxy threads)
+    # ------------------------------------------------------------------
+    def _placement_leader(self, candidate: int) -> int:
+        """Which endpoint's routing table the Router follows: the
+        lowest-index live worker (``candidate`` counts as live — it is the
+        worker currently reporting).  Replicas under adaptive policies can
+        drift apart; following ONE keeps routing coherent (divergence only
+        costs locality on the others, never correctness)."""
+        with self._flock:
+            alive = {w.index for w in self.workers if w.alive()}
+        alive.add(candidate)
+        return min(alive)
+
+    def _adopt_remote_table(self, index: int, table) -> None:
+        """HELLO_ACK handshake: adopt the placement leader's table."""
+        if table is not None and index == self._placement_leader(index):
+            self.router.adopt(table)
+
+    def _on_remote_swap(self, index: int, table) -> None:
+        """SWAPPED frame: an endpoint published a new generation."""
+        if index == self._placement_leader(index):
+            self.meter.observe_swap()
+            if table is not None:
+                self.router.adopt(table)
+
+    def _note_fabric_error(self, err: BaseException) -> None:
+        with self._flock:
+            self.fabric_error = err
+        self.meter.observe_refresh_failure()
+
+    # ------------------------------------------------------------------
     # observability
     # ------------------------------------------------------------------
     def rpc_traffic(self) -> dict:
@@ -573,14 +640,32 @@ class ServeFabric:
         return {"bytes_rpc_tx": tx, "bytes_rpc_rx": rx}
 
     def pull_remote_stats(self, timeout: float = 5.0) -> dict:
-        """The per-endpoint STATS of a cross-host fleet; in process there
-        is no endpoint to ask, so ``{}``."""
-        return {}
+        """tcp transport: pull each live endpoint's STATS (remote tenant
+        ledgers + wire counters) into the serve meter's ``remote`` section.
+        Returns the raw per-worker replies (``{}`` in process: there is no
+        endpoint to ask)."""
+        out = {}
+        if self.cfg.transport != "tcp":
+            return out
+        from repro_torch.rpc import RpcError
+        for w in self.workers:
+            if not w.alive():
+                continue
+            try:
+                stats = w.fetch_remote_stats(timeout=timeout)
+            except (RpcError, TimeoutError):
+                continue
+            out[w.index] = stats
+            self.meter.observe_remote_stats(w.index, stats)
+        return out
 
     def snapshot(self) -> dict:
-        """``meter.snapshot()`` plus the scheduler fair-share counters per
-        worker."""
+        """``meter.snapshot()`` plus the transport view: scheduler
+        fair-share counters per worker and, over tcp, the aggregate wire
+        traffic."""
         snap = self.meter.snapshot()
         snap["scheduler_counters"] = {
             w.index: w.scheduler.counters() for w in self.workers}
+        if self.cfg.transport == "tcp":
+            snap["rpc"] = self.rpc_traffic()
         return snap

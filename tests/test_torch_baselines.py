@@ -337,6 +337,60 @@ def test_baseline_fit_matches_reference(ds, name, prefetch):
         ref.evaluate(num_batches=2), abs=1e-6)
 
 
+@pytest.mark.parametrize("prefetch", [False, True])
+def test_recycled_lazygcn_batch_keeps_its_device_copy(ds, prefetch,
+                                                      monkeypatch):
+    """A recycled LazyGCN step reuses its megabatch's device copy:
+    ``DeviceBatch.to`` runs once per fresh batch (periods of 2, 3 and 4
+    batches over two epochs of 5), and the losses and parameters equal,
+    bit for bit, those of the same run with every step copied."""
+    from repro_torch.core.minibatch import DeviceBatch
+    text = _cfg_json("lazygcn", prefetch=prefetch)
+    to_calls = [0]
+    plain_to = DeviceBatch.to
+
+    def counted_to(self, device):
+        to_calls[0] += 1
+        return plain_to(self, device)
+
+    def run(copy_every_step: bool):
+        eng = GNSEngine(EngineConfig.from_dict(json.loads(text)),
+                        device="cpu", dataset=ds)
+        fresh = [0]
+        inner_sample = eng.sampler.inner.sample
+
+        def counted_sample(*a):
+            fresh[0] += 1
+            return inner_sample(*a)
+
+        eng.sampler.inner.sample = counted_sample
+        with monkeypatch.context() as mp:
+            if copy_every_step:
+                mp.setattr(GNSEngine, "_put_batch",
+                           lambda self, mb, meter, hold=False:
+                           mb.device.to(self.device))
+            mp.setattr(DeviceBatch, "to", counted_to)
+            to_calls[0] = 0
+            n = torch.get_num_threads()
+            torch.set_num_threads(1)       # bitwise runs (one_thread's)
+            try:
+                rep = eng.fit(epochs=2, max_batches=5)
+            finally:
+                torch.set_num_threads(n)
+        return rep, eng, fresh[0], to_calls[0]
+
+    rep, eng, fresh, copies = run(copy_every_step=False)
+    rep_all, eng_all, fresh_all, copies_all = run(copy_every_step=True)
+    assert eng.meter.steps == eng_all.meter.steps == 10
+    assert fresh == fresh_all == 4 and copies == fresh
+    assert copies_all == 10
+    assert rep.losses == rep_all.losses and np.isfinite(rep.losses).all()
+    for la, lb in zip(eng.params["layers"], eng_all.params["layers"]):
+        for k in ("w", "b"):
+            assert torch.equal(la[k], lb[k])
+    assert eng.meter.bytes_streamed == eng_all.meter.bytes_streamed
+
+
 def test_model_cfg_overrides_the_declarative_model(ds):
     cfg = EngineConfig.from_dict(json.loads(_cfg_json("ns")))
     mcfg = sage_port.SageConfig(feat_dim=ds.feat_dim, hidden_dim=12,

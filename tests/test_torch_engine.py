@@ -147,14 +147,3 @@ def test_engine_builds_the_stream_replay_preset():
     assert rec["max_pending"] == cfg.stream.max_pending
     assert eng.store.n_shards == 2 and eng.store.stream_cfg == cfg.stream
 
-
-def test_fabric_refuses_the_tcp_transport():
-    """The RPC transport is not ported: ``transport="tcp"`` raises when the
-    fabric is built, rather than serving in process instead."""
-    from repro_torch.gns import FabricConfig
-    eng = GNSEngine(EngineConfig.from_dict(json.loads(_cfg_json())),
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        eng.serve_fabric(FabricConfig(workers=2, transport="tcp",
-                                      endpoints=("127.0.0.1:1",
-                                                 "127.0.0.1:2")))

@@ -15,8 +15,8 @@ pytest.importorskip("torch")
 REPO = Path(__file__).resolve().parents[1]
 
 # every module of the port's serving, training, LM serving, training-
-# surface (baselines, checkpoints, describe, schedules, trainer) and
-# fabric / streaming-ingest (with the runtime lock sanitizer) slices
+# surface (baselines, checkpoints, describe, schedules, trainer), fabric /
+# streaming-ingest (with the runtime lock sanitizer) and RPC slices
 REQUIRED = (
     "repro_torch.device", "repro_torch.core.pipeline",
     "repro_torch.sampling.rng", "repro_torch.sampling.adjacency",
@@ -39,7 +39,9 @@ REQUIRED = (
     "repro_torch.serve.router", "repro_torch.serve.fabric",
     "repro_torch.stream", "repro_torch.stream.delta",
     "repro_torch.stream.merge", "repro_torch.data",
-    "repro_torch.data.temporal",
+    "repro_torch.data.temporal", "repro_torch.rpc", "repro_torch.rpc.wire",
+    "repro_torch.rpc.channel", "repro_torch.rpc.proxy",
+    "repro_torch.rpc.endpoint",
 )
 
 BLOCKER = f"REQUIRED = {REQUIRED!r}\n" + r'''
@@ -60,6 +62,11 @@ for name in mods:
     importlib.import_module(name)
 missing = set(REQUIRED) - set(mods)
 assert not missing, missing
+# imported only when a routing table arrives: unpack one
+import numpy as np
+from repro_torch.rpc import wire
+wire.unpack_table({"has_table": True, "n_shards": 1, "table_version": 0},
+                  {"shard_of_node": np.zeros(2, np.int16)})
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
