@@ -157,7 +157,35 @@ line each on stdout:
                ``decode_step`` logits of one prefill and three
                teacher-forced single-token steps allclose (rtol 1e-4, atol
                1e-5: cuBLAS and the CPU order the f32 sums differently);
-11. times    — each kernel's median time over cold-L2 launches at the
+11. mesh     — the row-sharded cache and DP > 1 over ``torch.distributed``
+               ranks, all on ``cuda:0`` over gloo (one card: NCCL refuses
+               two ranks on one GPU), spawned by
+               ``repro_torch.launch.mesh.run_ranks`` after this process
+               built the kernels (the ranks load them), each spawn with a
+               deadline of 300 s; any rank that fails or outlives it fails
+               the phase.  A 2-rank world runs the cache in 2 shards (mesh
+               (1, 2)) and then DP over 2 groups (mesh (2, 1)); a 4-rank
+               world runs (2, 2).  In the ranks: the sharded K1 at the
+               training (B) shape and at b=512 on integer-valued operands,
+               for its psum, static and per-group (dynamic) paths, bit for
+               bit single-rank K1 on the same operands, with K1 launched
+               only by the owner under the static and per-group paths; K3
+               over each shard's row range at the training (A) shape, bit
+               for bit its plain version, and on exact operands the
+               shards' sum bit for bit the full-range call; the
+               ``all_reduce`` time of a [176,000, 100] f32 output over the
+               cache group.  On the 2 shards, (A) ``fit`` 3 steps, (B) 2
+               steps and ``infer`` of 600 ids with the served config (K1
+               per shard, K2 replicated): step losses within 1e-5 and logits
+               within 1e-4 of the same runs on one rank in this process.
+               DP runs (B) for 2 epochs (a step takes one batch per group):
+               the parameters bit for bit equal on every rank.  The one-rank
+               runs pad the cache to 2 shards (306 rows, not 305), as the
+               mesh's shards do, so both draw the same members.  Logs
+               per rank and run: losses, step ms beside the one-rank step,
+               K1/K2/K3 launches by access path (their sum over the ranks
+               is ``launches_by_path["mesh"]``), ``bytes_cache_upload``;
+12. times    — each kernel's median time over cold-L2 launches at the
                serving and training shapes (K1 also at LADIES's: B = 2,024
                rows of 32 lanes over 2,536 streamed rows, all misses), in
                turns within this call with
@@ -295,17 +323,23 @@ def train_config(path: str, batch_size: int = 1000):
                           input_impl="fused" if path == "fused" else "where"))
 
 
-def build_engine(ds):
-    from repro_torch.gns import EngineConfig, GNSEngine, ModelConfig
+def serve_config():
+    """Preset ``paper_train`` with the fused K1 input layer and the K2
+    aggregation: the served engine's config."""
+    from repro_torch.gns import EngineConfig, ModelConfig
     cfg = EngineConfig.preset(
         "paper_train", seed=SEED,
         model=ModelConfig(hidden_dim=256, aggregate_impl="pallas",
                           input_impl="fused"))
     # a 20 ms coalescing window (default 2 ms) so that each wave below lands
     # in one micro-batch; the buckets stay the default (32, 128, 512)
-    cfg = dataclasses.replace(
+    return dataclasses.replace(
         cfg, serve=dataclasses.replace(cfg.serve, max_wait_ms=20.0))
-    return GNSEngine(cfg, dataset=ds)  # on the GPU: no device= given
+
+
+def build_engine(ds):
+    from repro_torch.gns import GNSEngine
+    return GNSEngine(serve_config(), dataset=ds)  # on the GPU: no device=
 
 
 def serving_shapes(engine, rng):
@@ -383,6 +417,17 @@ def phase_parity(engine, shapes, rng) -> dict:
                 hold("gather_agg", b, li, kind, dtype, gather_agg_cuda,
                      gather_agg_plain, args, blk.nbr_idx)
     return errs
+
+
+def kernel_counters() -> tuple:
+    """K1's, K2's and K3's launch counters and access-path counters."""
+    from repro_torch.kernels import cache_lookup, gather_agg
+    from repro_torch.sampling import kernels as k3
+    return ({"cache_lookup_agg": cache_lookup.launches,
+             "gather_agg": gather_agg.launches,
+             "gns_sample_agg": k3.launches},
+            {"k1": cache_lookup.path_calls, "k2": gather_agg.path_calls,
+             "k3": k3.path_calls})
 
 
 def reset_k12() -> None:
@@ -1060,13 +1105,7 @@ def phase_train(engine, name: str, epochs: int, max_batches, eval_batches: int,
     must equal steps + eval batches.  Returns the counts and the numbers
     printed."""
     import torch
-    from repro_torch.kernels import cache_lookup, gather_agg
-    from repro_torch.sampling import kernels as k3
-    counters = {"cache_lookup_agg": cache_lookup.launches,
-                "gather_agg": gather_agg.launches,
-                "gns_sample_agg": k3.launches}
-    paths = {"k1": cache_lookup.path_calls, "k2": gather_agg.path_calls,
-             "k3": k3.path_calls}
+    counters, paths = kernel_counters()
     meter = engine.meter
     before = {f: getattr(meter, f) for f in METER_TIMES}
     store = engine.store
@@ -2125,6 +2164,348 @@ def phase_kbuild() -> None:
                              f"{over}")
 
 
+# ---------------------------------------------------------------------------
+# mesh: the sharded cache and DP > 1 over torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+MESH_DEADLINE_S = 300.0        # each spawn of ranks must end within this
+MESH_BACKEND = "gloo"          # the ranks share one card: NCCL refuses that
+MESH_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def counted_run(engine, epochs: int = 0, max_batches=None,
+                infer_n: int = 0) -> dict:
+    """``fit`` for ``epochs`` (none: 0), then ``infer`` of the first
+    ``infer_n`` validation ids (none: 0), with every kernel counter zeroed
+    just before and read just after; each step timed with CUDA events."""
+    import torch
+    counters, paths = kernel_counters()
+    step_ms, step_losses, run_batch = [], [], engine.run_batch
+
+    def timed_step(mb):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run_batch(mb)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        step_losses.append(out[0])
+        return out
+
+    engine.run_batch = timed_step
+    for c in (*counters.values(),
+              *(c for v in paths.values() for c in v.values())):
+        c.reset()
+    try:
+        if epochs:
+            engine.fit(epochs=epochs, max_batches=max_batches,
+                       prefetch=False)
+        logits = (engine.infer(engine.ds.val_idx[:infer_n]) if infer_n
+                  else None)
+    finally:
+        del engine.run_batch
+    return {"losses": step_losses, "step_ms": step_ms,
+            "launches": {k: c.value for k, c in counters.items()},
+            "paths": {k: {p: c.value for p, c in v.items()}
+                      for k, v in paths.items()},
+            "upload_bytes": engine.meter.bytes_cache_upload,
+            "uploads": engine.meter.uploads, "logits": logits,
+            "params": [t.detach().cpu().numpy()
+                       for layer in engine.params["layers"]
+                       for t in layer.values()]}
+
+
+def k1_operands(gen, groups: int, b: int, k: int, s0: int, c: int, d: int,
+                shards: int) -> list:
+    """Integer-valued K1 operands of ``groups`` groups on the card, made
+    from ``gen``: a [c, d] table, and per group streamed rows, random
+    slots, slots whose hits all lie on the last shard (the static path's
+    contract), slots on the group's home shard (the dynamic path's), lanes
+    and weights."""
+    import torch
+    dev = "cuda"
+    rps = c // shards
+
+    def ints(lo, hi, shape, dtype=torch.float32):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32).to(dtype)
+
+    def slots_on(lo, hi):
+        hit = torch.rand(s0, generator=gen, device=dev) < 0.5
+        return torch.where(hit, ints(lo, hi, (s0,), torch.int32),
+                           -1).to(torch.int32)
+
+    table = ints(-64, 65, (c, d))
+    out = []
+    for g in range(groups):
+        home = g % shards
+        out.append({
+            "table": table, "streamed": ints(-64, 65, (s0, d)),
+            "slots": slots_on(0, c),
+            "slots_ls": slots_on((shards - 1) * rps, shards * rps),
+            "slots_home": slots_on(home * rps, (home + 1) * rps),
+            "home": home, "idx": ints(0, s0, (b, k), torch.int32),
+            "w": ints(-4, 5, (b, k))})
+    return out
+
+
+def mesh_k1_checks(mesh, shape: str, ops_in: dict) -> dict:
+    """The sharded K1's three forward paths on this rank's group's operands
+    against single-rank K1 (the whole table) on the same: bitwise.  Under
+    the static path only its owner launches K1."""
+    import torch
+    from repro_torch.kernels import cache_lookup as k1
+    from repro_torch.kernels import ops
+    m, n = mesh.index("model"), mesh.shape["model"]
+    rps = ops_in["table"].shape[0] // n
+    local = ops_in["table"][m * rps:(m + 1) * rps].contiguous()
+    args = (ops_in["streamed"], ops_in["idx"], ops_in["w"])
+    homes = np.full(mesh.shape["data"], -1, np.int32)
+    homes[mesh.index("data")] = ops_in["home"]
+    out = {}
+    for path, slots, kw in (
+            ("psum", "slots", {}),
+            ("static", "slots_ls", {"local_shard": n - 1}),
+            ("dynamic", "slots_home", {"local_shards": homes})):
+        st, sl = args[0], ops_in[slots]
+        want = k1.cache_lookup_agg_cuda(ops_in["table"], st, sl, *args[1:])
+        n0 = k1.launches.value
+        got = ops.cache_lookup_agg(local, st, sl, *args[1:], mesh=mesh,
+                                   shard_axis="model", **kw)
+        torch.cuda.synchronize()
+        launched = k1.launches.value - n0
+        out[path] = {"equal": bool(torch.equal(got, want)),
+                     "max_abs_err": float((got - want).abs().max()),
+                     "k1_launches": launched}
+        if not out[path]["equal"]:
+            raise AssertionError(f"mesh K1 {shape} {path}: rank "
+                                 f"{mesh.rank} differs from one rank by "
+                                 f"{out[path]['max_abs_err']}")
+        owner = {"static": n - 1, "dynamic": ops_in["home"]}.get(path, m)
+        expect = 1 if m == owner else 0
+        if launched != expect:
+            raise AssertionError(f"mesh K1 {shape} {path}: rank "
+                                 f"{mesh.rank} launched {launched}, "
+                                 f"expected {expect}")
+    return out
+
+
+def k3_operands(gen, b: int, k: int, c: int, d: int, exact: bool) -> tuple:
+    """K3's operands at the training (A) shape on the card: a CSR over c
+    table rows, dst rows (0.2% cached, as sampled), fallback lanes, a key;
+    ``exact`` caps each row at k neighbours with hit probability and degree
+    1 and integer fallback weights, so every weight and sum is exact."""
+    import torch
+    from repro_torch.sampling.adjacency import DeviceCacheAdj
+    dev = "cuda"
+    n_c = torch.randint(0, k + 1 if exact else 3 * k, (c,), generator=gen,
+                        device=dev)
+    indptr = torch.zeros(c + 1, dtype=torch.int32, device=dev)
+    indptr[1:] = torch.cumsum(n_c, 0)
+    indices = torch.randint(0, c, (max(int(indptr[-1]), 1),), generator=gen,
+                            device=dev, dtype=torch.int32)
+    if exact:
+        deg = torch.ones(c, device=dev)
+        hitp = torch.ones(c, device=dev)
+    else:
+        deg = torch.randint(1, 60, (c,), generator=gen, device=dev).float()
+        hitp = torch.rand(c, generator=gen, device=dev).clamp(min=0.01)
+    dst = torch.where(torch.rand(b, generator=gen, device=dev) < 0.002,
+                      torch.randint(0, c, (b,), generator=gen, device=dev),
+                      -1).to(torch.int32)
+    fb_rows = torch.where(
+        (dst < 0)[:, None],
+        torch.randint(-1, c, (b, k), generator=gen, device=dev),
+        -1).to(torch.int32)
+    fb_w = torch.rand((b, k), generator=gen, device=dev)
+    if exact:
+        fb_w = torch.ceil(fb_w * 3)
+    fb_w = torch.where(fb_rows >= 0, fb_w, 0.0)
+    table = torch.randint(-64, 65, (c, d), generator=gen, device=dev,
+                          dtype=torch.int32).float()
+    return (DeviceCacheAdj(indptr, indices, deg, hitp), table, dst,
+            fb_rows.contiguous(), fb_w.contiguous(),
+            np.array([[11, 13]], np.uint32))
+
+
+def mesh_k3_checks(mesh, gen) -> dict:
+    """K3 over each shard's row range at the training (A) shape: each
+    partial bitwise its plain version; on exact operands the partials sum
+    to the full-range call bit for bit, through the mesh entry point's
+    all_reduce too."""
+    import torch
+    from repro_torch.sampling import kernels as k3
+    m, n = mesh.index("model"), mesh.shape["model"]
+    out = {}
+    for exact in (False, True):
+        adj, table, dst, fb_rows, fb_w, key = k3_operands(
+            gen, 176_000, 5, 306, 100, exact)
+        rps = table.shape[0] // n
+        rng_kw = {"row_lo": m * rps, "row_count": rps}
+        local = table[m * rps:(m + 1) * rps].contiguous()
+        part = k3.gns_sample_agg_cuda(adj, local, dst, fb_rows, fb_w, key,
+                                      **rng_kw)
+        plain = k3.gns_sample_agg_plain(adj, local, dst, fb_rows, fb_w, key,
+                                        **rng_kw)
+        full = k3.gns_sample_agg_cuda(adj, table, dst, fb_rows, fb_w, key)
+        summed = k3.gns_sample_agg(adj, local, dst, fb_rows, fb_w, key,
+                                   mesh=mesh, shard_axis="model")
+        torch.cuda.synchronize()
+        name = "exact" if exact else "rand"
+        out[name] = {"partial_equal_plain": bool(torch.equal(part, plain)),
+                     "sum_max_abs_err": float((summed - full).abs().max()),
+                     "sum_equal_full": bool(torch.equal(summed, full))}
+        if not out[name]["partial_equal_plain"] or (
+                exact and not out[name]["sum_equal_full"]):
+            raise AssertionError(f"mesh K3 {name}: rank {mesh.rank}: "
+                                 f"{out[name]}")
+    return out
+
+
+def allreduce_ms(mesh, reps: int = 5) -> float:
+    """Median ms of one all_reduce of layer 0's [176,000, 100] f32 output
+    over the cache group (gloo stages a CUDA tensor through the host)."""
+    import torch
+    import torch.distributed as dist
+    x = torch.ones((176_000, 100), device="cuda")
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(x, group=mesh.group("model"))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
+
+
+def mesh_rank(world, device, ds, which: str) -> dict:
+    """One rank of the mesh phase (``launch.mesh.run_ranks`` spawns it).
+    ``which="two"``: a 2-rank world runs the cache in 2 shards (mesh (1,
+    2): the kernel checks, (A) and (B) trained, the serving config's
+    ``infer``), then DP over 2 groups (mesh (2, 1), (B) trained);
+    ``"four"``: the (2, 2) mesh (K1's checks per group, (B) trained)."""
+    import torch
+    from repro_torch.gns import GNSEngine
+    from repro_torch.kernels._ext import load_kernels
+    from repro_torch.launch.mesh import make_host_mesh
+    load_kernels()                     # built by the parent: a load
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {"rank": world.rank, "checks": {}, "runs": {}}
+    meshes = ([("model2", make_host_mesh(1, 2)),
+               ("data2", make_host_mesh(2, 1))] if which == "two"
+              else [("2x2", world)])
+    for name, mesh in meshes:
+        shards, groups = mesh.shape["model"], mesh.shape["data"]
+        if shards > 1:
+            for shape, b, s0 in (("train(B)", 176_000, 1_056_000),
+                                 ("b=512", 90_112, 540_672)):
+                ops_in = k1_operands(gen, groups, b, 5, s0, 306, 100, shards)
+                out["checks"][f"{name}/k1/{shape}"] = mesh_k1_checks(
+                    mesh, shape, ops_in[mesh.index("data")])
+                del ops_in
+            out["allreduce_ms"] = allreduce_ms(mesh)
+        if name == "model2":
+            out["checks"][f"{name}/k3"] = mesh_k3_checks(mesh, gen)
+            for run, cfg, kw in mesh_runs():
+                out["runs"][f"{name}/{run}"] = counted_run(
+                    GNSEngine(cfg, dataset=ds, mesh=mesh), **kw)
+        else:
+            out["runs"][f"{name}/B"] = counted_run(
+                GNSEngine(train_config("fused"), dataset=ds, mesh=mesh), 2)
+    return out
+
+
+MESH_INFER = 600               # ids infer()'d on the mesh and on one rank
+
+
+def two_shards(cfg):
+    """``cfg`` with its cache padded to 2 shards (306 rows, not 305): the
+    layout of the mesh's 2 shards, so one rank draws the same members."""
+    return dataclasses.replace(cfg, cache=dataclasses.replace(cfg.cache,
+                                                              shards=2))
+
+
+def mesh_runs() -> list:
+    """The runs held against one rank: (A) 3 steps, (B) 2 steps, and
+    ``infer`` of the serving config (K1 per shard, K2 replicated)."""
+    return [("A", two_shards(train_config("device")),
+             {"epochs": 1, "max_batches": 3}),
+            ("B", two_shards(train_config("fused")),
+             {"epochs": 1, "max_batches": 2}),
+            ("infer", two_shards(serve_config()), {"infer_n": MESH_INFER})]
+
+
+def phase_mesh(ds) -> dict:
+    """The sharded cache and DP > 1 on the card: 2 ranks, then 4, all on
+    ``cuda:0`` over gloo (module docstring, phase 11).  Returns the K1, K2
+    and K3 launches of the ranks' main-path runs, summed over the ranks."""
+    from repro_torch.gns import GNSEngine
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    single = {run: counted_run(GNSEngine(cfg, dataset=ds), **kw)
+              for run, cfg, kw in mesh_runs()}
+    for run, res in single.items():
+        log("mesh-single", run=run, losses=res["losses"],
+            step_ms=res["step_ms"], launches=res["launches"])
+    ranks = []
+    for which, data, model in (("two", 2, 1), ("four", 2, 2)):
+        devices = ["cuda:0"] * (data * model)
+        log("mesh-launch", world=which, ranks=len(devices), devices=devices,
+            backend=MESH_BACKEND, deadline_s=MESH_DEADLINE_S)
+        t1 = time.perf_counter()
+        ranks += run_ranks("chip_smoke:mesh_rank", data=data, model=model,
+                           devices=devices, backend=MESH_BACKEND,
+                           args=(ds, which), timeout_s=MESH_DEADLINE_S)
+        log("mesh-world", world=which,
+            seconds=round(time.perf_counter() - t1, 1))
+    counts = {"cache_lookup_agg": 0, "gather_agg": 0, "gns_sample_agg": 0}
+    for r in ranks:
+        for check, res in r["checks"].items():
+            log("mesh-check", rank=r["rank"], check=check, **res)
+        for run, res in r["runs"].items():
+            for k, v in res["launches"].items():
+                counts[k] += v
+            one = single.get(run.removeprefix("model2/"))
+            log("mesh", rank=r["rank"], run=run, losses=res["losses"],
+                step_ms=res["step_ms"],
+                one_rank_step_ms=one["step_ms"] if one else None,
+                launches=res["launches"], paths=res["paths"],
+                bytes_cache_upload=res["upload_bytes"],
+                uploads=res["uploads"],
+                allreduce_176000x100_ms=r.get("allreduce_ms"))
+            if one is not None:
+                ok = np.allclose(res["losses"], one["losses"], **MESH_TOL)
+                if res["logits"] is not None:
+                    err = float(np.abs(res["logits"] - one["logits"]).max())
+                    log("mesh-infer", rank=r["rank"], ids=MESH_INFER,
+                        max_abs_err=err)
+                    ok = ok and np.allclose(res["logits"], one["logits"],
+                                            rtol=1e-4, atol=1e-4)
+                if not ok:
+                    raise AssertionError(
+                        f"mesh {run} rank {r['rank']}: losses "
+                        f"{res['losses']} vs one rank's {one['losses']}")
+            for k, kernel in (("k1", "cache_lookup_agg"),
+                              ("k2", "gather_agg"),
+                              ("k3", "gns_sample_agg")):
+                if res["paths"][k]["scalar"]:
+                    raise AssertionError(f"mesh {run}: {kernel} left the "
+                                         f"vector path: {res['paths']}")
+    # every rank of a run ends with the same parameters, bit for bit
+    for run in {run for r in ranks for run in r["runs"]}:
+        params = [r["runs"][run]["params"] for r in ranks if run in r["runs"]]
+        for p in params[1:]:
+            if not all(np.array_equal(a, b) for a, b in zip(p, params[0])):
+                raise AssertionError(f"mesh {run}: ranks' parameters differ")
+    for kernel in counts:
+        if counts[kernel] < 1:
+            raise AssertionError(f"mesh: {kernel} was never launched")
+    log("mesh-done", launches=counts,
+        seconds=round(time.perf_counter() - t0, 1))
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2195,6 +2576,7 @@ def main() -> int:
     k4_errs = phase_k4_parity()
     counts["lm_serve"] = phase_lm_serve()
     phase_lm_parity()
+    counts["mesh"] = phase_mesh(ds)
     rows = (phase_times(engine, shapes, errs, counts)
             + phase_train_times(k3_shapes, k3_errs, k1_shapes, counts)
             + phase_k4_times(k4_errs, counts))

@@ -136,7 +136,8 @@ def k3_tiles(adj, table, dst, fb_rows, fb_w, key, rows: int):
     none = torch.empty(0, dtype=torch.int32, device=table.device)
     load_kernels().gns_sample_agg(
         *adj.tensors(), table, dst, fb_rows, fb_w, *key_words(key), out,
-        none, none.float(), False, access_path(table) == "vector", rows)
+        none, none.float(), False, 0, table.shape[0],
+        access_path(table) == "vector", rows)
     return out
 
 

@@ -1,5 +1,5 @@
 """Sampler pipeline: epoch iteration and background prefetch (port of
-``repro.core.pipeline``, one data-parallel group).
+``repro.core.pipeline``).
 
 The paper parallelizes sampling so the GPU never waits for the CPU.  Here
 a bounded-queue thread prefetches: the numpy sampler releases the GIL in
@@ -31,11 +31,26 @@ class EpochLoader:
     """
 
     def __init__(self, sampler, train_idx: np.ndarray, seed: int = 0,
-                 max_batches: Optional[int] = None):
+                 max_batches: Optional[int] = None, dp_groups: int = 1,
+                 group: Optional[int] = None):
+        """``dp_groups`` > 1 is the engine's DP regime: batch ``i`` belongs
+        to DP group ``i % dp_groups`` (the store's per-group histograms and
+        home-shard metering follow), the epoch is truncated to whole group
+        rounds, and generation swaps are only polled at round boundaries so
+        the ``dp_groups`` batches of one step always share one cache
+        generation.  ``group`` (one process per group, the port's mesh)
+        yields only that group's batches; the per-batch RNG stays keyed by
+        the batch index, so every rank of a group samples the same batch
+        and every group the batch the reference's one loader gives it.
+        ``None`` yields every group's, in order, as the reference's."""
         self.sampler = sampler
         self.train_idx = np.asarray(train_idx, dtype=np.int64)
         self.seed = seed
         self.max_batches = max_batches
+        self.dp_groups = max(int(dp_groups), 1)
+        if group is not None and not 0 <= group < self.dp_groups:
+            raise ValueError(f"group {group} not in [0, {self.dp_groups})")
+        self.group = group
 
     def _poll_store(self):
         """Swap point: publish a completed shadow generation, then have the
@@ -56,8 +71,21 @@ class EpochLoader:
         n_batches = len(self.train_idx) // b
         if self.max_batches is not None:
             n_batches = min(n_batches, self.max_batches)
+        rounded = n_batches - n_batches % self.dp_groups   # whole rounds only
+        if n_batches and not rounded:
+            raise ValueError(
+                f"epoch yields {n_batches} minibatch(es) but dp_groups="
+                f"{self.dp_groups} needs at least one full round per step — "
+                f"lower batch_size or raise max_batches")
+        n_batches = rounded
+        store = getattr(self.sampler, "store", None)
         for i in range(n_batches):
-            self._poll_store()
+            if i % self.dp_groups == 0:
+                self._poll_store()
+            if self.group is not None and i % self.dp_groups != self.group:
+                continue
+            if store is not None and self.dp_groups > 1:
+                store.dp_group = i % self.dp_groups
             targets = self.train_idx[perm[i * b:(i + 1) * b]]
             # per-batch seeded generator: batch (epoch, i) draws the same
             # sample however the prefetcher thread interleaves with cache

@@ -69,9 +69,14 @@ void gns_sample_agg(const torch::Tensor& indptr, const torch::Tensor& indices,
                     const torch::Tensor& fb_rows, const torch::Tensor& fb_w,
                     int64_t key_lo, int64_t key_hi, torch::Tensor out,
                     torch::Tensor lane_rows, torch::Tensor lane_w,
-                    bool write_lanes, bool vec, int64_t tile_rows) {
+                    bool write_lanes, int64_t row_lo, int64_t row_count,
+                    bool vec, int64_t tile_rows) {
   check_tiles(table, out, vec, tile_rows);
   TORCH_CHECK(fb_rows.size(1) <= 32, "K3 takes at most 32 lanes");
+  TORCH_CHECK(row_lo >= 0 && row_count == table.size(0) &&
+                  row_lo + row_count <= deg.size(0),
+              "K3's row range [", row_lo, ", ", row_lo + row_count,
+              ") must be the table's rows within the CSR's ", deg.size(0));
   const c10::cuda::CUDAGuard guard(table.device());
   repro_torch::launch_gns_sample_agg(
       indptr.data_ptr<int32_t>(), indices.data_ptr<int32_t>(),
@@ -81,8 +86,10 @@ void gns_sample_agg(const torch::Tensor& indptr, const torch::Tensor& indices,
       fb_w.data_ptr<float>(), static_cast<uint32_t>(key_lo),
       static_cast<uint32_t>(key_hi), out.data_ptr<float>(),
       write_lanes ? lane_rows.data_ptr<int32_t>() : nullptr,
-      write_lanes ? lane_w.data_ptr<float>() : nullptr, dst_rows.size(0),
-      static_cast<int>(fb_rows.size(1)), static_cast<int>(table.size(1)),
+      write_lanes ? lane_w.data_ptr<float>() : nullptr,
+      static_cast<int32_t>(row_lo), static_cast<int32_t>(row_count),
+      dst_rows.size(0), static_cast<int>(fb_rows.size(1)),
+      static_cast<int>(table.size(1)),
       vec, static_cast<int>(tile_rows), at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -160,8 +167,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "(writes out)");
   m.def("gns_sample_agg", &gns_sample_agg,
         "K3: device GNS draw + importance weight + gather-aggregate "
-        "in row tiles (writes out, and lane_rows/lane_w when "
-        "write_lanes)");
+        "in row tiles over the table rows [row_lo, row_lo + row_count) "
+        "(writes out, and lane_rows/lane_w when write_lanes)");
   m.def("flash_attention", &flash_attention,
         "K4: blocked attention with an online softmax; window <= 0 means "
         "none (writes out)");

@@ -12,6 +12,16 @@
 //   out[b, :] = sum_l w_l * table[max(row_l, 0), :]    (l ascending, f32;
 //                                                       dead lanes w = 0)
 //
+// Row range: `table` holds the global rows [row_lo, row_lo + row_count)
+// of the cache (one shard of a row-sharded table, or the whole table with
+// row_lo = 0 and row_count = table_rows, which gives the unsharded result
+// bit for bit).  The draw and the fallback merge run over the whole CSR as
+// above; a lane whose row lies outside the range gets weight 0 and reads
+// nothing of its own (local row 0, as a dead lane), a lane inside reads
+// local row row - row_lo.  So the partials of the shards sum to the
+// unsharded result, with only zero terms added.  row_count = 0 (an empty
+// table) writes zeros and loads no row.
+//
 // Replaces the TPU kernel repro/sampling/kernels.py::slot_gather_agg_pallas
 // and folds in the draw that the reference leaves to XLA (draw_lanes, merged
 // with the fallback lanes in gns_sample_agg).  The Pallas kernel reads the
@@ -85,7 +95,8 @@ gns_sample_agg_kernel(const int32_t* __restrict__ indptr,
                       const float* __restrict__ fb_w, uint32_t key_lo,
                       uint32_t key_hi, float* __restrict__ out,
                       int32_t* __restrict__ lane_rows,
-                      float* __restrict__ lane_w, int64_t B, int K, int D,
+                      float* __restrict__ lane_w, int32_t row_lo,
+                      int32_t row_count, int64_t B, int K, int D,
                       int tile_rows) {
   const tile::Lanes s = tile::tile_lanes(tile_rows, K);
   const int64_t b0 = tile::tile_start(tile_rows);
@@ -130,14 +141,17 @@ gns_sample_agg_kernel(const int32_t* __restrict__ indptr,
       lane_rows[g] = row;
       lane_w[g] = w;
     }
-    s.code[t] = max(row, 0);                 // dead lane: w = 0 times row 0
-    s.w[t] = row < 0 ? 0.0f : w;
+    // dead or outside [row_lo, row_lo + row_count): w = 0 times local row 0
+    const bool mine = row >= row_lo && row - row_lo < row_count;
+    s.code[t] = mine ? row - row_lo : 0;
+    s.w[t] = mine ? w : 0.0f;
   }
   __syncthreads();
 
-  // --- pass 2: the gather, lanes in ascending order ----------------------
-  tile::gather_tile(tile::OneTable<T, kVec>{table}, s, K, true, out, b0,
-                    rows, D);
+  // --- pass 2: the gather, lanes in ascending order (none of an empty
+  // table: the sums stay 0) -----------------------------------------------
+  tile::gather_tile(tile::OneTable<T, kVec>{table}, s, row_count > 0 ? K : 0,
+                    true, out, b0, rows, D);
 }
 
 // K3's units per block (tile_accum.cuh): 40 rows of D = 100 per block.
@@ -149,14 +163,15 @@ void launch_path(const int32_t* indptr, const int32_t* indices,
                  const T* table, const int32_t* dst_rows,
                  const int32_t* fb_rows, const float* fb_w, uint32_t key_lo,
                  uint32_t key_hi, float* out, int32_t* lane_rows,
-                 float* lane_w, int64_t B, int K, int D, int tile_rows,
-                 cudaStream_t stream) {
+                 float* lane_w, int32_t row_lo, int32_t row_count, int64_t B,
+                 int K, int D, int tile_rows, cudaStream_t stream) {
   const tile::Plan p = tile::plan(K, D, kVec, kUnitsPerBlock, tile_rows);
   gns_sample_agg_kernel<T, kVec>
       <<<tile::tile_grid(B, p.rows), p.threads,
          tile::lanes_bytes(p.rows, K), stream>>>(
           indptr, indices, cap, deg, hitp, table, dst_rows, fb_rows, fb_w,
-          key_lo, key_hi, out, lane_rows, lane_w, B, K, D, p.rows);
+          key_lo, key_hi, out, lane_rows, lane_w, row_lo, row_count, B, K, D,
+          p.rows);
 }
 
 template <typename T>
@@ -164,16 +179,18 @@ void launch(const int32_t* indptr, const int32_t* indices, int64_t cap,
             const float* deg, const float* hitp, const T* table,
             const int32_t* dst_rows, const int32_t* fb_rows, const float* fb_w,
             uint32_t key_lo, uint32_t key_hi, float* out, int32_t* lane_rows,
-            float* lane_w, int64_t B, int K, int D, int vec, int tile_rows,
-            cudaStream_t stream) {
+            float* lane_w, int32_t row_lo, int32_t row_count, int64_t B,
+            int K, int D, int vec, int tile_rows, cudaStream_t stream) {
   if (vec) {
     launch_path<T, true>(indptr, indices, cap, deg, hitp, table, dst_rows,
                          fb_rows, fb_w, key_lo, key_hi, out, lane_rows,
-                         lane_w, B, K, D, tile_rows, stream);
+                         lane_w, row_lo, row_count, B, K, D, tile_rows,
+                         stream);
   } else {
     launch_path<T, false>(indptr, indices, cap, deg, hitp, table, dst_rows,
                           fb_rows, fb_w, key_lo, key_hi, out, lane_rows,
-                          lane_w, B, K, D, tile_rows, stream);
+                          lane_w, row_lo, row_count, B, K, D, tile_rows,
+                          stream);
   }
 }
 
@@ -185,17 +202,18 @@ void launch_gns_sample_agg(const int32_t* indptr, const int32_t* indices,
                            const int32_t* dst_rows, const int32_t* fb_rows,
                            const float* fb_w, uint32_t key_lo, uint32_t key_hi,
                            float* out, int32_t* lane_rows, float* lane_w,
-                           int64_t B, int K, int D, int vec, int tile_rows,
+                           int32_t row_lo, int32_t row_count, int64_t B,
+                           int K, int D, int vec, int tile_rows,
                            cudaStream_t stream) {
   if (table_bf16) {
     launch(indptr, indices, cap, deg, hitp,
            static_cast<const __nv_bfloat16*>(table), dst_rows, fb_rows, fb_w,
-           key_lo, key_hi, out, lane_rows, lane_w, B, K, D, vec, tile_rows,
-           stream);
+           key_lo, key_hi, out, lane_rows, lane_w, row_lo, row_count, B, K, D,
+           vec, tile_rows, stream);
   } else {
     launch(indptr, indices, cap, deg, hitp, static_cast<const float*>(table),
-           dst_rows, fb_rows, fb_w, key_lo, key_hi, out, lane_rows, lane_w, B,
-           K, D, vec, tile_rows, stream);
+           dst_rows, fb_rows, fb_w, key_lo, key_hi, out, lane_rows, lane_w,
+           row_lo, row_count, B, K, D, vec, tile_rows, stream);
   }
 }
 

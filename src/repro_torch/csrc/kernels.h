@@ -35,16 +35,19 @@ void launch_cache_lookup_agg(const void* cache, int cache_bf16,
 // The device GNS input layer                           (K3, gns_sample_agg.cu)
 // per row b: draw K lanes from the CSR (indptr, indices[cap], deg, hitp)
 // when dst_rows[b] >= 0, else take the fallback lanes fb_rows/fb_w; then
-// out[b, :] = sum_l w_l * table[max(row_l, 0), :].  table [C, D] float32
-// (table_bf16 == 0) or bfloat16.  lane_rows/lane_w [B, K] receive the
-// merged lanes when not null.  K <= 32; vec and tile_rows as K2's.
+// out[b, :] = sum_l w_l * table[row_l - row_lo, :] over the lanes whose row
+// lies in [row_lo, row_lo + row_count), the rows table [row_count, D]
+// holds (float32 when table_bf16 == 0, else bfloat16; the whole table:
+// row_lo = 0, row_count = C).  lane_rows/lane_w [B, K] receive the merged
+// lanes when not null.  K <= 32; vec and tile_rows as K2's.
 void launch_gns_sample_agg(const int32_t* indptr, const int32_t* indices,
                            int64_t cap, const float* deg, const float* hitp,
                            const void* table, int table_bf16,
                            const int32_t* dst_rows, const int32_t* fb_rows,
                            const float* fb_w, uint32_t key_lo, uint32_t key_hi,
                            float* out, int32_t* lane_rows, float* lane_w,
-                           int64_t B, int K, int D, int vec, int tile_rows,
+                           int32_t row_lo, int32_t row_count, int64_t B,
+                           int K, int D, int vec, int tile_rows,
                            cudaStream_t stream);
 
 // Blocked attention with an online softmax      (K4, flash_attention.cu)

@@ -27,7 +27,30 @@ adjacency — while serving keeps reading the live generation.
 always snapshot ``store.generation`` once per batch, so a batch's cache slots
 and the table they index can never come from different generations.
 
-One device: the table is never sharded across cards here.  A
+**Shard-aware generations** (``mesh`` + ``shard_axis``; one process per
+mesh position, :mod:`repro_torch.launch.mesh`): the table is
+row-partitioned into ``mesh.shape[shard_axis]`` contiguous blocks, and each
+rank uploads only its own shard's rows (``bytes_cache_upload`` is 1/n of
+the replicated upload).  Every rank builds the whole generation on the
+host — the same draw, placement and version from the same seed — so the
+ranks must agree on what they build and when they publish it:
+
+* each rank samples only its own data-parallel group's batches, so its
+  meter and policy see only that group's requests, where the reference's
+  one store sees every group's.  At each refresh kickoff the ranks
+  exchange the requests each group made since the last one (counts per
+  node over the host group), and each rank replays the other groups' into
+  its meter's histograms and its policy, as the reference's store saw
+  them; the build then reads a snapshot of both, taken at the kickoff, so
+  requests arriving during an async build cannot reach one rank's build
+  and not another's;
+* a finished async build is published only when it has finished on every
+  rank (``swap_if_ready`` agrees by a MIN over the host group), and
+  ``refreshing`` reads as true while any rank builds: every rank swaps at
+  the same step, so no step combines shards of two generations.
+
+These agreements run on the thread that drives the store (the loader's),
+on the host group, which no other thread uses.  Without a mesh a
 ``CacheConfig.shards`` above 1 still pads the table and the locality
 placement still permutes rows, exactly as the reference lays them out.
 With ``build_device_adj`` each generation also carries its cached-neighbor
@@ -52,6 +75,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.analysis import guarded_by
 from repro_torch.device import resolve_device
@@ -283,14 +307,23 @@ class FeatureStore:
                  importance_mode: Optional[str] = "ht",
                  build_adjacency: bool = False,
                  dp_group: int = 0,
+                 mesh=None, shard_axis: Optional[str] = None,
                  seed: int = 0):
         """``device`` is where each generation's table lives (``None``: the
         GPU, raising without one); ``dtype`` is its element type (float32,
-        or bfloat16 to halve its bytes)."""
+        or bfloat16 to halve its bytes).  ``mesh`` + ``shard_axis`` (default
+        ``launch.mesh.cache_shard_axis``) turn on shard-aware generations:
+        this rank's table is its shard's rows only."""
         self.features = features
         self.graph = graph
         self.device = resolve_device(device)
-        n_shards = max(cfg.shards, 1)
+        self.mesh = mesh
+        if mesh is not None and shard_axis is None:
+            from repro_torch.launch.mesh import cache_shard_axis
+            shard_axis = cache_shard_axis(mesh)
+        self.shard_axis = shard_axis
+        n_shards = (mesh.shape[shard_axis] if mesh is not None
+                    else max(cfg.shards, 1))
         if n_shards != cfg.shards:
             cfg = dataclasses.replace(cfg, shards=n_shards)
         self.n_shards = n_shards
@@ -355,6 +388,15 @@ class FeatureStore:
                                     # without touching training metrics
         self.refresh_delay = 0.0    # test hook: artificial build latency (s)
         self.upload_delay = 0.0     # test hook: artificial upload latency (s)
+        # on a mesh with several data-parallel groups: this rank's requests
+        # per node since the last refresh kickoff (_merge_group_traffic)
+        self._groups = 1
+        self._observed: Optional[np.ndarray] = None
+        if mesh is not None:
+            from repro_torch.kernels.ops import dp_group_count
+            self._groups = dp_group_count(mesh, shard_axis)
+            if self._groups > 1:
+                self._observed = np.zeros(graph.num_nodes, np.int64)
 
     # ------------------------------------------------------------------
     # generation access (readers snapshot once per batch)
@@ -378,9 +420,18 @@ class FeatureStore:
 
     @property
     def refreshing(self) -> bool:
+        """An async build is running (on a mesh: on any rank)."""
         with self._lock:
             t = self._thread
-        return t is not None and t.is_alive()
+        busy = t is not None and t.is_alive()
+        return busy if self.mesh is None else not self._agree(not busy)
+
+    def _agree(self, flag: bool) -> bool:
+        """True on every rank iff ``flag`` is true on every rank (a MIN
+        over the mesh's host group; every rank must call it)."""
+        t = torch.tensor([int(flag)], dtype=torch.int32)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.mesh.host_group)
+        return bool(t.item())
 
     def routing_table(self) -> Optional["RoutingTable"]:
         """Node -> owning-shard view of the LIVE generation (None pre-build).
@@ -486,6 +537,9 @@ class FeatureStore:
             # become hits, so their scores decay until eviction and they
             # oscillate in and out of the cache (see AdaptivePolicy).
             self.policy.observe(ids_p[:n_in])
+            if self._observed is not None:
+                self._observed += np.bincount(ids_p[:n_in],
+                                              minlength=len(self._observed))
         return (slots, streamed, hits, len(miss_ids) * self._row_bytes,
                 home if all_local else None)
 
@@ -562,7 +616,8 @@ class FeatureStore:
 
     def _solve_placement(self, state: CacheState,
                          rng: np.random.Generator,
-                         graph=None) -> Optional[PlacementMap]:
+                         graph=None, demand: Optional[TrafficMeter] = None
+                         ) -> Optional[PlacementMap]:
         """Locality placement for one generation (None = stay contiguous).
 
         Uses the meter's per-DP-group request histograms restricted to the
@@ -576,17 +631,21 @@ class FeatureStore:
         solve keeps its shard via the solver's pin pass, so only rows the
         ingest actually touched migrate — bounded migration per merge, and
         the serving router's local fraction cannot collapse on a swap.
+
+        ``demand`` is the meter whose histograms are read (default the
+        training meter; a mesh store passes its kickoff snapshot).
         """
         if self.cfg.placement != "locality" or self.n_shards <= 1:
             return None
-        traffic = self.meter.group_slot_traffic(state.node_ids,
-                                                state.table_rows)
+        if demand is None:
+            demand = self.meter
+        traffic = demand.group_slot_traffic(state.node_ids, state.table_rows)
         if traffic is None:
             return None
         if graph is None:
             graph = self.graph
         seed = int(rng.integers(2 ** 31))
-        gids = list(self.meter.group_ids())
+        gids = list(demand.group_ids())
         node_ids = np.asarray(state.node_ids, dtype=np.int64)
         n = len(node_ids)
         # per-slot demand signature: hottest group (-1 when untouched) + degree
@@ -714,20 +773,61 @@ class FeatureStore:
             cb(self, batch)
         return True
 
+    def _merge_group_traffic(self) -> None:
+        """Replay the other data-parallel groups' requests since the last
+        kickoff into this rank's meter and policy (module docstring).  One
+        rank per group (its shard 0) contributes its counts; a request
+        count is replayed as that many requests of the node, which is what
+        the reference's store saw, up to order (every increment is 1)."""
+        from repro_torch.kernels.ops import dp_group_index
+        mesh, axis = self.mesh, self.shard_axis
+        own = dp_group_index(mesh, axis)
+        counts = torch.zeros((self._groups, len(self._observed)),
+                             dtype=torch.int64)
+        if mesh.index(axis) == 0:
+            counts[own] = torch.from_numpy(self._observed)
+        dist.all_reduce(counts, group=mesh.host_group)
+        nodes = np.arange(len(self._observed), dtype=np.int64)
+        for group, row in enumerate(counts.numpy()):
+            if group == own or not row.any():
+                continue
+            ids = np.repeat(nodes, row)
+            if self.cfg.placement == "locality":
+                self.meter.observe_group(group, ids, self.graph.num_nodes)
+            self.policy.observe(ids)
+        self._observed[:] = 0
+
+    def _kickoff(self):
+        """On a mesh, at a refresh's start in the caller's thread: merge the
+        groups' requests, then snapshot what the build reads of them — the
+        policy's probabilities and the placement histograms.  ``None``
+        without a mesh (the build reads both live, as the reference's)."""
+        if self.mesh is None:
+            return None
+        if self._observed is not None:
+            self._merge_group_traffic()
+        demand = TrafficMeter()
+        demand.group_hist = {g: h.copy()
+                             for g, h in self.meter.group_hist.items()}
+        return self._policy_probs(), demand
+
     def _build(self, rng: np.random.Generator, version: int,
-               staged_idx: int) -> Generation:
-        """Build one full generation: score → draw → place → gather → upload."""
+               staged_idx: int, frozen=None) -> Generation:
+        """Build one full generation: score → draw → place → gather →
+        upload.  ``frozen`` is :meth:`_kickoff`'s snapshot, or None."""
         t0 = time.perf_counter()
         self._absorb_deltas()
         g = self.graph      # ONE snapshot: everything this generation carries
                             # (membership, probs, adjacency, routing) must
                             # come from the same structure
-        probs = self._policy_probs()
+        probs, demand = frozen if frozen is not None \
+            else (self._policy_probs(), None)
         state = sample_cache(g, self.cfg, rng,
                              train_idx=self.train_idx, probs=probs,
                              version=version,
                              n_shards=self.n_shards, table_rows=self.size)
-        state.placement = self._solve_placement(state, rng, graph=g)
+        state.placement = self._solve_placement(state, rng, graph=g,
+                                                demand=demand)
         # recycle this staging half: retire its previous owner BEFORE writing
         # so stale snapshots fall back to the host tier instead of reading
         # another generation's rows (see gather_rows)
@@ -780,12 +880,19 @@ class FeatureStore:
         table the host-to-device copy itself).  The copy is synchronised
         before the generation is published, so recycling the staging buffer
         can never mutate this generation's device tier.
+
+        On a mesh only this rank's shard goes up: the rows ``[m·rps,
+        (m+1)·rps)`` of the device-row-ordered table.
         """
         pm = state.placement if state is not None else None
         if pm is not None and not pm.is_identity:
             buf = buf[pm.slot_of_device_row]       # fresh permuted copy
         if self.upload_delay:
             time.sleep(self.upload_delay)          # test hook: slow upload
+        if self.mesh is not None:
+            rps = self.size // self.n_shards
+            lo = self.mesh.index(self.shard_axis) * rps
+            buf = buf[lo:lo + rps]                 # a view; copied below
         tbl = torch.from_numpy(buf).to(device=self.device, dtype=self.dtype,
                                        copy=True)
         if tbl.is_cuda:
@@ -807,11 +914,14 @@ class FeatureStore:
             t = self._thread
             pending = (t is not None and t.is_alive()) \
                 or self._shadow is not None
+        if self.mesh is not None:                  # one answer on every rank
+            pending = not self._agree(not pending)
         if pending:
             # absorb any in-flight async build first — two concurrent builds
             # would interleave writes into the same staging half
             self.wait_refresh()
-        gen = self._build(rng, version, self._free_staging_idx())
+        gen = self._build(rng, version, self._free_staging_idx(),
+                          self._kickoff())
         with self._lock:
             self._live = gen
             self._shadow = None
@@ -824,10 +934,21 @@ class FeatureStore:
         if a refresh is already in flight or awaiting swap."""
         child = None
         staged_idx = 0
+        frozen = None
+        if self.mesh is not None:
+            # start everywhere or nowhere, and merge the groups' requests
+            # here, on the caller's thread, never on the build thread
+            with self._lock:
+                cur = self._thread
+                idle = not ((cur is not None and cur.is_alive())
+                            or self._shadow is not None)
+            if not self._agree(idle):
+                return False
+            frozen = self._kickoff()
 
         def _run():
             try:
-                gen = self._build(child, version, staged_idx)
+                gen = self._build(child, version, staged_idx, frozen)
                 with self._lock:
                     self._shadow = gen
             except BaseException as e:   # surfaced at the next swap point
@@ -859,7 +980,15 @@ class FeatureStore:
 
     def swap_if_ready(self) -> bool:
         """Atomically publish a completed shadow generation.  Called between
-        train steps — never concurrently with a reader holding a snapshot."""
+        train steps — never concurrently with a reader holding a snapshot.
+        On a mesh it publishes only when every rank's build has finished
+        (or failed), so every rank swaps at the same call."""
+        if self.mesh is not None:
+            with self._lock:
+                ready = (self._shadow is not None
+                         or self._refresh_err is not None)
+            if not self._agree(ready):
+                return False
         with self._lock:
             # error take-and-clear inside the lock: a lock-free read could
             # race the build thread's error publish and drop it

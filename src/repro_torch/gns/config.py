@@ -37,10 +37,11 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Declarative host mesh: (data, model) axis sizes over local devices.
+    """Declarative host mesh: (data, model) axis sizes.
 
-    Carried as data: the port runs on one device, and its engine refuses a
-    mesh of more than one.
+    The port runs one process per mesh position: the engine builds its
+    :class:`~repro_torch.launch.mesh.HostMesh` over the process group the
+    caller started, which must have ``data·model`` ranks.
     """
     data: int = 1
     model: int = 1

@@ -2,12 +2,15 @@
 port of ``repro.gns.describe``).
 
 The host-side half of the reference module: :func:`traffic_report` (the
-record ``describe`` returns without a mesh) and the diff mode
-(:func:`diff_records`, :func:`diff`).  The reference's mesh half lowers the
-train step for a TPU mesh (``batch_structs``, ``describe_lowering``,
-``placement_traffic_sim``); it has no counterpart here.
+record ``describe`` returns), :func:`placement_traffic_sim` (the locality
+placement's cross-shard traffic on synthetic skewed demand), the mesh
+record :func:`mesh_report` and the diff mode (:func:`diff_records`,
+:func:`diff`).  The reference's lowering of the train step for a TPU mesh
+(``batch_structs``, ``describe_lowering``) has no counterpart here.
 """
 from __future__ import annotations
+
+import numpy as np
 
 from repro_torch.core.minibatch import block_pad_sizes
 from repro_torch.featurestore import FeatureStore
@@ -40,6 +43,74 @@ def traffic_report(*, num_nodes: int, feat_dim: int, cache_frac: float,
     }
     if meter is not None:
         rec["meter"] = meter.breakdown()
+    return rec
+
+
+def placement_traffic_sim(cache_rows: int, n_shards: int, n_groups: int,
+                          dominant_share: float = 0.8,
+                          seed: int = 0) -> dict:
+    """Cross-shard lookup traffic, contiguous vs locality, at ``cache_rows``.
+
+    Runs the REAL placement solver (``featurestore.placement``) on a
+    synthetic Zipf demand histogram: each cached row's traffic is
+    Zipf-distributed and ``dominant_share`` of it comes from one
+    uniformly-drawn DP group — the skew Data Tiering (arXiv:2111.05894)
+    reports for real access traces.  Reports the fraction of hit traffic
+    served by the requesting group's home shard under both placements.
+    """
+    from repro_torch.featurestore.placement import _assign, home_shard
+
+    rng = np.random.default_rng(seed)
+    rows_per_shard = cache_rows // n_shards
+    total = rng.zipf(1.5, cache_rows).astype(np.float64)
+    dom = rng.integers(0, n_groups, cache_rows)
+    # per-(group, row) traffic without materializing [G, R] for the metric:
+    # dominant group carries dominant_share, the rest spread evenly
+    rest = total * (1.0 - dominant_share) / max(n_groups - 1, 1)
+    pref = np.array([home_shard(g, n_shards) for g in range(n_groups)])[dom]
+
+    # contiguous: shard of a slot is slot // rows_per_shard (membership is
+    # traffic-agnostic, so hot rows land uniformly across shards)
+    def local_traffic(shard_of_slot):
+        local = np.zeros(cache_rows)
+        for g in range(n_groups):
+            mine = dom == g
+            share = np.where(mine, dominant_share * total, rest)
+            local += share * (shard_of_slot == home_shard(g, n_shards))
+        return float(local.sum())
+
+    grand = float(total.sum())
+    contiguous = np.arange(cache_rows) // rows_per_shard
+    # locality: the real greedy solver on (total, preferred shard) — the
+    # code path FeatureStore._solve_placement runs, via the same internal
+    # assignment
+    locality, _ = _assign(total, pref, n_shards, rows_per_shard, seed=seed)
+    frac_cont = local_traffic(contiguous) / grand
+    frac_loc = local_traffic(locality) / grand
+    return {
+        "lookup_local_frac_contiguous": round(frac_cont, 4),
+        "lookup_local_frac_locality": round(frac_loc, 4),
+        "crossshard_rows_frac_contiguous": round(1 - frac_cont, 4),
+        "crossshard_rows_frac_locality": round(1 - frac_loc, 4),
+    }
+
+
+def mesh_report(*, data: int, model: int, cache_rows: int, feat_dim: int,
+                n_groups: int, bytes_per_el: int = 4) -> dict:
+    """The ``"mesh"`` record of an engine on a ``(data, model)`` mesh: the
+    cache's shards (one per ``model`` rank), rows per shard, the bytes each
+    rank uploads per generation against a replicated upload, and
+    :func:`placement_traffic_sim` at this cache's rows."""
+    shards = model
+    rps = cache_rows // shards
+    rec = {"data": data, "model": model, "ranks": data * model,
+           "shards": shards, "rows_per_shard": rps,
+           "upload_bytes_per_rank": rps * feat_dim * bytes_per_el,
+           "upload_bytes_per_rank_replicated":
+               cache_rows * feat_dim * bytes_per_el}
+    if shards > 1:
+        rec["placement_sim"] = placement_traffic_sim(cache_rows, shards,
+                                                     n_groups)
     return rec
 
 

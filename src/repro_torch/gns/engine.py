@@ -1,4 +1,4 @@
-"""GNSEngine (port of ``repro.gns.engine.GNSEngine``, one device).
+"""GNSEngine (port of ``repro.gns.engine.GNSEngine``).
 
 One object owns the wiring
 
@@ -41,30 +41,66 @@ through kernel K1.  Every sampler of the reference trains here: ``gns``,
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU and without ``device=`` it raises rather than run on the
-CPU.  Meshes (DP > 1) are not ported: the engine refuses a config that
-asks for one.
+CPU.
+
+**On a mesh** (``EngineConfig.mesh`` of ``data × model`` > 1, or a
+:class:`~repro_torch.launch.mesh.HostMesh` passed in): one engine per
+process, each rank at position ``(d, m)`` of the mesh; the caller starts
+the process group (``launch.mesh.run_ranks`` in the tests and
+``chip_smoke.py``), and the engine raises without one of ``data·model``
+ranks.  Rank ``(d, m)`` holds cache shard ``m`` and trains data-parallel
+group ``d``:
+
+* the store uploads only shard ``m``'s rows, and every rank builds the
+  same generations and swaps them at the same step (``featurestore
+  .store``);
+* the loader yields group ``d``'s batches only — batch ``i`` belongs to
+  group ``i % data``, sampled with the batch index's RNG, so the ranks of
+  one group sample the same batch — and layer 0 runs per shard (K1 or K3)
+  with its partials combined over the cache group; the per-group home
+  shard (``MiniBatch.local_shard``) drives the locality fast path;
+* the loss is each group's masked NLL sum over the label count of ALL
+  groups (summed over the data group), so the groups' losses and
+  gradients sum to the reference's over the collated batch
+  (:func:`collate_groups`, its single-process form); the gradients are
+  summed over the data group, every rank of a group takes its shard-0
+  rank's sum, and AdamW runs identically on every rank;
+* ``evaluate`` and ``infer`` are SPMD: every rank calls them with the same
+  ids and gets the same answer.
+
+Serving (``serve``, ``serve_fabric``), streaming ingest and checkpoints on
+a mesh are not ported yet (ROADMAP Queue A item 7b): they raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import checkpoint
-from repro_torch.core.minibatch import MiniBatch
+from repro_torch.core.minibatch import DeviceBatch, LayerBlock, MiniBatch
 from repro_torch.core.pipeline import EpochLoader, Prefetcher
 from repro_torch.core.sampler import (GNSSampler, LazyGCNSampler,
                                       make_sampler)
 from repro_torch.device import resolve_device
 from repro_torch.featurestore import FeatureStore, TrafficMeter
 from repro_torch.gns.config import EngineConfig
-from repro_torch.gns.describe import traffic_report
+from repro_torch.gns.describe import mesh_report, traffic_report
 from repro_torch.graph.datasets import get_dataset
+from repro_torch.kernels.ops import (dp_axes, dp_group_count, dp_group_index,
+                                     psum)
+from repro_torch.launch.sharding import use_mesh
 from repro_torch.models import graphsage
 from repro_torch.optim.adam import AdamW
+
+_ON_A_MESH = ("is not ported on a mesh yet (ROADMAP Queue A item 7b: "
+              "serving, the fabric, streaming ingest and checkpoints on a "
+              "mesh)")
 
 
 @dataclasses.dataclass
@@ -78,21 +114,92 @@ class TrainReport:
     isolated_per_batch: float = 0.0
 
 
+def collate_groups(mbs: Sequence[MiniBatch], fused: bool
+                   ) -> tuple[MiniBatch, np.ndarray]:
+    """Collate one MiniBatch per DP group into a single step batch (the
+    single-process form of the DP regime; the port's oracle for a mesh).
+
+    Group-order concatenation of every device array; block pads stay
+    PER-GROUP (``SageConfig.num_groups`` tells the model to gather each
+    group's leading rows instead of slicing a global prefix).  Gather
+    indices are group-local per assembly, so upper-layer blocks — consumed
+    by GLOBAL gathers in the model — are offset by ``g·num_src``; the input
+    block stays group-local when the fused op consumes it per group
+    (``fused``) and is offset otherwise.
+
+    Returns the collated batch plus the int32 home-shard vector (one entry
+    per group, -1 where the group's batch had no locality contract).  All
+    batches must carry the SAME cache generation.
+    """
+    if len(mbs) == 1:
+        mb = mbs[0]
+        ls = mb.local_shard if mb.local_shard is not None else -1
+        return mb, np.array([ls], np.int32)
+    gens = {mb.cache_gen.version if mb.cache_gen is not None else -1
+            for mb in mbs}
+    if len(gens) != 1:
+        raise ValueError(f"step spans cache generations {gens}")
+    blocks = []
+    for li in range(len(mbs[0].device.blocks)):
+        bs = [mb.device.blocks[li] for mb in mbs]
+        s, d = bs[0].num_src, bs[0].num_dst
+        offset = li > 0 or not fused
+        blocks.append(LayerBlock(
+            nbr_idx=np.concatenate(
+                [b.nbr_idx + (g * s if offset else 0)
+                 for g, b in enumerate(bs)]).astype(np.int32),
+            nbr_w=np.concatenate([b.nbr_w for b in bs]),
+            dst_mask=np.concatenate([b.dst_mask for b in bs]),
+            num_src=s, num_dst=d))
+
+    def _cat(field):
+        vals = [getattr(mb.device, field) for mb in mbs]
+        return None if vals[0] is None else np.concatenate(vals)
+
+    dev = DeviceBatch(
+        blocks=tuple(blocks),
+        input_cache_slots=_cat("input_cache_slots"),
+        input_streamed=_cat("input_streamed"),
+        input_mask=_cat("input_mask"),
+        labels=_cat("labels"),
+        label_mask=_cat("label_mask"),
+        # device-backend fields: fallback lanes concat like any row array;
+        # the [1, 2] per-batch keys stack to [G, 2]
+        input_fb_rows=_cat("input_fb_rows"),
+        input_fb_w=_cat("input_fb_w"),
+        sample_key=_cat("sample_key"))
+    home = np.array([mb.local_shard if mb.local_shard is not None else -1
+                     for mb in mbs], np.int32)
+    out = MiniBatch(
+        device=dev,
+        input_node_ids=np.concatenate([mb.input_node_ids for mb in mbs]),
+        num_input=sum(mb.num_input for mb in mbs),
+        num_cached=sum(mb.num_cached for mb in mbs),
+        bytes_streamed=sum(mb.bytes_streamed for mb in mbs),
+        num_isolated=sum(mb.num_isolated for mb in mbs),
+        cache_gen=mbs[0].cache_gen)
+    return out, home
+
+
 class GNSEngine:
     """The wired pipeline for one :class:`EngineConfig`."""
 
     def __init__(self, cfg: EngineConfig, *, device=None, dataset=None,
-                 model_cfg: Optional[graphsage.SageConfig] = None):
+                 model_cfg: Optional[graphsage.SageConfig] = None,
+                 mesh=None, cache_shard_axis: Optional[str] = None):
         """``device`` defaults to ``cuda``; ``dataset`` and ``model_cfg``
         override the declarative ``cfg.data`` and ``cfg.model`` with a
-        built dataset and a :class:`graphsage.SageConfig` (as the
-        reference's do; the ``GNNTrainer`` shim's path)."""
+        built dataset and a :class:`graphsage.SageConfig`, and ``mesh``
+        (a :class:`~repro_torch.launch.mesh.HostMesh`) overrides
+        ``cfg.mesh`` (as the reference's do; the ``GNNTrainer`` shim's
+        path)."""
         self.device = resolve_device(device)
         self.cfg = cfg
-        if cfg.mesh is not None and cfg.mesh.data * cfg.mesh.model > 1:
-            raise NotImplementedError(
-                f"mesh {cfg.mesh} needs the multi-device port; this engine "
-                "runs on one device")
+        if mesh is None and cfg.mesh is not None \
+                and cfg.mesh.data * cfg.mesh.model > 1:
+            from repro_torch.launch.mesh import make_host_mesh
+            mesh = make_host_mesh(cfg.mesh.data, cfg.mesh.model)
+        self.mesh = mesh
         if dataset is None:
             dataset = get_dataset(cfg.data.name, scale=cfg.data.scale,
                                   seed=cfg.data.seed)
@@ -122,9 +229,23 @@ class GNSEngine:
                 self.ds.features, self.ds.graph, self.scfg.cache,
                 device=self.device, train_idx=self.ds.train_idx,
                 meter=self.meter, importance_mode=self.scfg.importance_mode,
-                build_adjacency=True, seed=cfg.seed)
+                build_adjacency=True, mesh=mesh,
+                shard_axis=cache_shard_axis, seed=cfg.seed)
         else:
             self.store = None
+        if self.store is not None and mesh is not None \
+                and self.mcfg.cache_shard_axis is None:
+            # each rank holds its shard only, so every read of the table
+            # (K1, K3, or the rows of h0 itself) goes through the cache axis
+            self.mcfg = dataclasses.replace(
+                self.mcfg, cache_shard_axis=self.store.shard_axis)
+        # DP groups: one minibatch per group per step; on a mesh each rank
+        # trains its own group's, so its model sees one group per batch
+        self.num_groups = dp_group_count(mesh, self.mcfg.cache_shard_axis)
+        self.group = (dp_group_index(mesh, self.mcfg.cache_shard_axis)
+                      if mesh is not None else 0)
+        if self.store is not None:
+            self.store.dp_group = self.group
         self.sampler = make_sampler(cfg.sampler, self.ds.graph, self.scfg,
                                     self.ds.features, self.ds.labels,
                                     train_idx=self.ds.train_idx,
@@ -183,18 +304,54 @@ class GNSEngine:
     # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------
+    def _dp_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum over the data-parallel groups (the data group), in place."""
+        for a in dp_axes(self.mesh, self.mcfg.cache_shard_axis):
+            psum(t, self.mesh, a)
+        return t
+
     def run_batch(self, mb: MiniBatch) -> tuple[float, float]:
         """One optimizer step: forward, backward, AdamW.  Returns (loss,
         accuracy).  ``t_compute`` includes the sync that reading the loss
-        forces, so it is the device time of the step plus its launches."""
+        forces, so it is the device time of the step plus its launches.
+
+        On a mesh ``mb`` is this rank's group's batch, its home shard
+        (``mb.local_shard``) gates the fused input's fast path, and the
+        loss and accuracy returned are the step's over every group."""
         m = self.meter
         dev_batch = self._put_batch(
             mb, m, hold=isinstance(self.sampler, LazyGCNSampler))
         m.add_batch(mb.bytes_streamed)
         t0 = time.perf_counter()
-        loss, acc, grads = graphsage.value_and_grad(
-            self.params, dev_batch, self._cache_table(mb), self.mcfg,
-            device_adj=self._device_adj(mb))
+        count = home_shards = None
+        if self.mesh is not None:
+            home_shards = np.full(self.num_groups, -1, np.int32)
+            if mb.local_shard is not None:
+                home_shards[self.group] = mb.local_shard
+            count = self._dp_sum(dev_batch.label_mask.sum().reshape(1))[0]
+        with use_mesh(self.mesh):
+            loss, acc, grads = graphsage.value_and_grad(
+                self.params, dev_batch, self._cache_table(mb), self.mcfg,
+                device_adj=self._device_adj(mb), local_shard=home_shards,
+                label_count=count)
+        if self.mesh is not None and self.mesh.size > 1:
+            leaves = [g for layer in grads["layers"] for g in layer.values()]
+            flat = self._dp_sum(torch.cat([loss.reshape(1), acc.reshape(1)]
+                                          + [g.reshape(-1) for g in leaves]))
+            # the ranks of one group compute the same step, but the card's
+            # unordered sums (index_add_ in the gather's backward) may
+            # differ in the last bits: every rank applies its group's
+            # shard-0 rank's step, so the parameters stay equal everywhere
+            dp = dp_axes(self.mesh, self.mcfg.cache_shard_axis)
+            for a in self.mesh.axis_names:
+                if a not in dp and self.mesh.shape[a] > 1:
+                    dist.broadcast(flat, src=self.mesh.rank_at(a, 0),
+                                   group=self.mesh.group(a))
+            loss, acc = flat[0], flat[1]
+            parts = flat[2:].split([g.numel() for g in leaves])
+            it = iter(p.view_as(g) for p, g in zip(parts, leaves))
+            grads = {"layers": [{k: next(it) for k in layer}
+                                for layer in grads["layers"]]}
         self.params, self.opt_state = self.opt.update(grads, self.opt_state,
                                                       self.params)
         loss = loss.item()
@@ -205,12 +362,18 @@ class GNSEngine:
             prefetch: Optional[bool] = None,
             eval_every: Optional[int] = None,
             eval_batches: int = 8) -> TrainReport:
-        """The §2.2 training loop; ``max_batches`` bounds steps per
-        epoch."""
+        """The §2.2 training loop; ``max_batches`` bounds steps per epoch
+        (on a mesh of G data-parallel groups a step takes G minibatches, one
+        per group, and this rank trains its own group's)."""
         if prefetch is None:
             prefetch = self.cfg.prefetch
+        G = self.num_groups
         loader = EpochLoader(self.sampler, self.ds.train_idx, seed=self.seed,
-                             max_batches=max_batches)
+                             max_batches=(max_batches * G if max_batches
+                                          is not None else None),
+                             dp_groups=G,
+                             group=self.group if self.mesh is not None
+                             else None)
         report = TrainReport([], [], [], self.meter)
         n_inputs, n_cached, n_iso, n_b = 0, 0, 0, 0
         for ep in range(epochs):
@@ -288,7 +451,7 @@ class GNSEngine:
                 lo = (i * b) % (len(idx) - b + 1)
                 mb = self.sampler.sample(idx[lo:lo + b], rng)
                 dev_batch = self._put_batch(mb, self.meter_eval)
-                with torch.inference_mode():
+                with torch.inference_mode(), use_mesh(self.mesh):
                     _, acc = graphsage.loss_fn(
                         self.params, dev_batch, self._cache_table(mb),
                         self.mcfg, device_adj=self._device_adj(mb))
@@ -359,7 +522,7 @@ class GNSEngine:
         """
         dev_batch = self._put_batch(
             mb, meter if meter is not None else self.meter_infer)
-        with torch.inference_mode():
+        with torch.inference_mode(), use_mesh(self.mesh):
             logits = graphsage.forward(self.params, dev_batch,
                                        self._cache_table(mb), self.mcfg,
                                        device_adj=self._device_adj(mb))
@@ -369,6 +532,8 @@ class GNSEngine:
         """A :class:`repro_torch.serve.GNSServer` over this engine (not
         started); the default config goes through
         :meth:`EngineConfig.serve_config`."""
+        if self.mesh is not None:
+            raise NotImplementedError(f"GNSServer {_ON_A_MESH}")
         from repro_torch.serve import GNSServer
         return GNSServer(self, serve_cfg if serve_cfg is not None
                          else self.cfg.serve_config())
@@ -378,6 +543,8 @@ class GNSEngine:
         (not started).  Defaults come from ``EngineConfig.serve.fabric``
         (through :meth:`EngineConfig.serve_config`, so the unified refresh
         hint applies) — a bare ``FabricConfig()`` when unset."""
+        if self.mesh is not None:
+            raise NotImplementedError(f"ServeFabric {_ON_A_MESH}")
         from repro_torch.serve import ServeFabric
         return ServeFabric(self, cfg=fabric_cfg, serve_cfg=serve_cfg)
 
@@ -416,6 +583,8 @@ class GNSEngine:
         """Attach a :class:`repro_torch.stream.DeltaBuffer` to the store."""
         from repro_torch.gns.config import StreamConfig
         from repro_torch.stream import DeltaBuffer
+        if self.mesh is not None:
+            raise NotImplementedError(f"streaming ingest {_ON_A_MESH}")
         if self.store is None:
             raise ValueError(
                 "streaming ingest rides the GNS feature store's generations; "
@@ -509,6 +678,8 @@ class GNSEngine:
         restores it).  The stream buffer's seq-stamped ops ride the
         checkpoint's ``aux`` side-payload, so a crash between an ingest and
         the next merge loses nothing.  Returns its directory."""
+        if self.mesh is not None:
+            raise NotImplementedError(f"save {_ON_A_MESH}")
         tree = {"params": self.params, "opt_state": self.opt_state}
         aux = {}
         extra: dict = {"seed": self.cfg.seed}
@@ -526,6 +697,8 @@ class GNSEngine:
         The staged delta log, when the checkpoint carries one, is re-staged
         into this engine's buffer with its original seqs (last-op-wins
         makes the replay idempotent).  Returns the restored step."""
+        if self.mesh is not None:
+            raise NotImplementedError(f"restore {_ON_A_MESH}")
         tree_like = {"params": self.params, "opt_state": self.opt_state}
         tree, step, _extra = checkpoint.load_checkpoint(
             directory, tree_like, step=step, device=self.device)
@@ -541,7 +714,9 @@ class GNSEngine:
         """The traffic record of this config: cache rows and table bytes,
         padded input rows and worst-case streamed bytes per batch, the
         sampler backend and the meter's breakdown (the reference's record
-        without a mesh), and with streaming ingest attached its run state
+        without a mesh), on a mesh its shards, rows per shard and upload
+        bytes per rank under ``"mesh"`` (:func:`~repro_torch.gns.describe
+        .mesh_report`), and with streaming ingest attached its run state
         under ``"stream"``."""
         rec = traffic_report(
             num_nodes=self.ds.graph.num_nodes, feat_dim=self.ds.feat_dim,
@@ -549,6 +724,11 @@ class GNSEngine:
             batch=self.scfg.batch_size, fanouts=self.scfg.fanouts,
             n_shards=(self.store.n_shards if self.store else 1),
             meter=self.meter, backend=self.scfg.backend)
+        if self.mesh is not None:
+            rec["mesh"] = mesh_report(
+                data=self.mesh.data, model=self.mesh.model,
+                cache_rows=rec["cache_rows"], feat_dim=self.ds.feat_dim,
+                n_groups=self.num_groups)
         if self._stream is not None and self.store is not None:
             # run-state fields: diff() drops "stream" as volatile, by name
             scfg = self.store.stream_cfg

@@ -22,6 +22,14 @@ shapes) and how its design answers that: the tile's lanes follow
   launches the kernel on the current stream and counts the launch in
   :data:`launches` and its path in :data:`path_calls`.  It never falls
   back.
+
+One shard of a row-sharded cache (``repro.kernels.cache_lookup``'s
+shard-local views): shard ``s`` of ``n`` holds the contiguous global slots
+``[s·rps, (s+1)·rps)``.  :func:`shard_slot_map` maps global slots to its
+local rows, :func:`shard_lane_weights` zeroes the lanes it does not
+contribute, and :func:`cache_lookup_agg_shard_partial` runs K1 on its
+local table (the plain version on the CPU): the partials of all shards sum
+to the single-device result.
 """
 from __future__ import annotations
 
@@ -99,3 +107,65 @@ def cache_lookup_agg_cuda(cache_table: torch.Tensor, streamed: torch.Tensor,
         launches.add()
         path_calls[path].add()
     return out
+
+
+# ---------------------------------------------------------------------------
+# shard-local views (global slot -> (shard, local row), contiguous blocks)
+# ---------------------------------------------------------------------------
+
+def shard_slot_map(slots: torch.Tensor, shard: int,
+                   rows_per_shard: int) -> torch.Tensor:
+    """Global slot map -> this shard's local rows; everything else -> -1.
+
+    Shard ``s`` owns the contiguous global slots ``[s·rps, (s+1)·rps)`` —
+    the rows it holds of a table row-sharded over the cache axis.  int32,
+    ``slots``' shape."""
+    slots = slots.to(torch.int32)
+    lo = shard * rows_per_shard
+    owned = (slots >= lo) & (slots < lo + rows_per_shard)
+    return torch.where(owned, slots - lo, -1).to(torch.int32)
+
+
+def shard_lane_weights(w: torch.Tensor, lane_slots: torch.Tensor, shard: int,
+                       rows_per_shard: int) -> torch.Tensor:
+    """Zero every lane this shard does not contribute (f32).
+
+    A lane is contributed by exactly one shard: cache hits by the shard
+    owning the slot, misses (slot < 0, served from the replicated streamed
+    rows) by shard 0.  Summing the per-shard partials therefore recovers
+    the single-device result — with only zero terms added, so
+    integer-valued inputs reproduce it bitwise."""
+    lo = shard * rows_per_shard
+    owned = (lane_slots >= lo) & (lane_slots < lo + rows_per_shard)
+    contribute = owned | ((lane_slots < 0) & (shard == 0))
+    return torch.where(contribute, w.float(), 0.0)
+
+
+def cache_lookup_agg_shard_partial(local_table: torch.Tensor,
+                                   streamed: torch.Tensor,
+                                   slots: torch.Tensor, idx: torch.Tensor,
+                                   w: torch.Tensor, shard: int,
+                                   rows_per_shard: int,
+                                   claim_all: bool = False) -> torch.Tensor:
+    """One shard's partial of the fused lookup: K1 on the LOCAL table
+    (``local_table`` [rps, D], global ``slots``), its plain version on the
+    CPU.  [B, D] f32.
+
+    ``claim_all=True`` is the local fast path's partial: every lane, hit
+    and miss, is claimed by this shard (weights unmasked), so under the
+    host's contract that all hit slots live here this one partial equals
+    the single-device result bitwise.  Hit slots NOT on this shard map to
+    -1 and would wrongly read their (zeroed) streamed rows — the caller
+    must hold the contract."""
+    local_slots = shard_slot_map(slots, shard, rows_per_shard)
+    if claim_all:
+        w_eff = w.float()
+    else:
+        lane_slots = slots.long()[idx.long()]
+        w_eff = shard_lane_weights(w, lane_slots, shard, rows_per_shard)
+    if not local_table.is_cuda:
+        return cache_lookup_agg_plain(local_table, streamed, local_slots,
+                                      idx, w_eff)
+    return cache_lookup_agg_cuda(local_table, streamed, local_slots,
+                                 idx.to(torch.int32).contiguous(),
+                                 w_eff.contiguous())

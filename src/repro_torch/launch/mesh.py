@@ -1,0 +1,216 @@
+"""Meshes of ``torch.distributed`` ranks (port of ``repro.launch.mesh``,
+its GNS parts), and a launcher that spawns them.
+
+The reference is single-controller: one program sees a ``(data, model)``
+mesh of devices and ``shard_map`` runs a body per device.  The port runs
+one process per mesh position instead, PyTorch's own idiom:
+
+* rank ``r = d·M + m`` sits at mesh position ``(d, m)`` of a
+  ``(data=D, model=M)`` mesh;
+* it holds cache shard ``m`` (the feature-store table's rows
+  ``[m·rps, (m+1)·rps)``) and serves data-parallel group ``d``;
+* its **model group** is the M ranks of its data-parallel group, one per
+  cache shard: the reference's ``psum`` over the cache axis is an
+  ``all_reduce`` over it;
+* its **data group** is the D ranks that hold its shard, one per
+  data-parallel group: gradients and label counts are summed over it.
+
+:func:`make_host_mesh` builds both kinds of group from the process group
+the caller initialised (every rank creates every group, in the same
+order, as ``dist.new_group`` requires), plus a host group of all ranks on
+gloo: the host-side agreements of the feature store (every rank builds
+the same cache generation, and swaps it at the same step) reduce CPU
+tensors, which only gloo carries.
+
+:func:`run_ranks` is the launcher of the tests and of ``chip_smoke.py``:
+it spawns ``data·model`` processes over ``tcp://127.0.0.1``, each on the
+device the caller names for it, with the backend the caller names, runs
+one function in each and returns what each returned.  A rank that raises,
+or a run that outlives its deadline, fails the whole run.
+"""
+from __future__ import annotations
+
+import importlib
+import multiprocessing
+import queue as queue_mod
+import socket
+import time
+import traceback
+from datetime import timedelta
+from typing import Sequence
+
+import torch
+import torch.distributed as dist
+
+AXES = ("data", "model")
+
+
+def cache_shard_axis(mesh) -> str:
+    """Mesh axis carrying the feature-store cache shards.
+
+    The cache table rides the ``model`` axis: the data-parallel groups each
+    consume their own minibatch, so the row shards must live across an
+    axis every group spans.  Falls back to the first axis on meshes without
+    ``model``."""
+    return "model" if "model" in mesh.axis_names else mesh.axis_names[0]
+
+
+class HostMesh:
+    """This rank's view of a ``(data, model)`` mesh of ranks.
+
+    ``shape`` and ``axis_names`` read as a jax mesh's do; ``index(axis)``
+    is this rank's coordinate on an axis, ``group(axis)`` the process group
+    of the ranks that differ from it only there, and ``rank_at(axis, i)``
+    the global rank at coordinate ``i`` of that group."""
+
+    axis_names = AXES
+
+    def __init__(self, data: int, model: int, groups: dict,
+                 host_group) -> None:
+        self.data = data
+        self.model = model
+        self.rank = dist.get_rank()
+        self.shape = {"data": data, "model": model}
+        self.size = data * model
+        self._coord = {"data": self.rank // model, "model": self.rank % model}
+        self._groups = groups
+        self.host_group = host_group
+
+    def __repr__(self) -> str:
+        return (f"HostMesh(data={self.data}, model={self.model}, "
+                f"rank={self.rank})")
+
+    def index(self, axis: str) -> int:
+        return self._coord[axis]
+
+    def group(self, axis: str):
+        return self._groups[axis]
+
+    def rank_at(self, axis: str, i: int) -> int:
+        d, m = self._coord["data"], self._coord["model"]
+        return i * self.model + m if axis == "data" else d * self.model + i
+
+
+def make_host_mesh(data: int = 1, model: int = 1) -> HostMesh:
+    """The ``(data, model)`` mesh over the ranks of the initialised process
+    group; raises unless there is one of exactly ``data·model`` ranks."""
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            f"a ({data}, {model}) mesh needs an initialised torch.distributed "
+            "process group of data·model ranks (run_ranks starts one)")
+    world = dist.get_world_size()
+    if data * model != world:
+        raise ValueError(f"mesh data={data} x model={model} needs "
+                         f"{data * model} ranks; the process group has "
+                         f"{world}")
+    rank = dist.get_rank()
+    mine = {}
+    # every rank creates every group, in one order
+    for d in range(data):
+        g = dist.new_group([d * model + m for m in range(model)])
+        if rank // model == d:
+            mine["model"] = g
+    for m in range(model):
+        g = dist.new_group([d * model + m for d in range(data)])
+        if rank % model == m:
+            mine["data"] = g
+    host = dist.new_group(list(range(world)), backend="gloo")
+    return HostMesh(data, model, mine, host)
+
+
+# ---------------------------------------------------------------------------
+# the launcher
+# ---------------------------------------------------------------------------
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _resolve(target: str):
+    module, _, name = target.partition(":")
+    return getattr(importlib.import_module(module), name)
+
+
+def _rank_main(rank, world, port, data, model, device, backend, target, args,
+               timeout_s, results) -> None:
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=world, rank=rank,
+                                timeout=timedelta(seconds=timeout_s))
+        try:
+            mesh = make_host_mesh(data, model)
+            out = _resolve(target)(mesh, dev, *args)
+            dist.barrier(group=mesh.host_group)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+        raise SystemExit(1)
+
+
+def run_ranks(target: str, *, data: int, model: int, devices: Sequence,
+              backend: str, args: tuple = (), timeout_s: float = 300.0
+              ) -> list:
+    """Run ``target`` (``"module:function"``) as ``fn(mesh, device,
+    *args)`` on each rank of a ``(data, model)`` mesh; returns the ranks'
+    results in rank order.
+
+    ``devices`` names one device per rank (``["cuda:0"] * n`` puts every
+    rank on one card); ``backend`` is the process group's.  The ranks are
+    spawned processes that rendezvous over ``tcp://127.0.0.1`` on a free
+    port.  A rank that raises fails the run with its traceback; a run past
+    ``timeout_s`` seconds is killed and raises ``TimeoutError``.  Every
+    process is stopped before this returns or raises."""
+    world = data * model
+    if len(devices) != world:
+        raise ValueError(f"{len(devices)} devices for {world} ranks")
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_rank_main, daemon=True, args=(
+        r, world, port, data, model, str(devices[r]), backend, target, args,
+        timeout_s, results)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout_s
+    out: dict = {}
+    try:
+        while len(out) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(
+                    f"{target}: {world - len(out)} of {world} ranks still "
+                    f"running after {timeout_s} s")
+            try:
+                rank, ok, val = results.get(timeout=min(left, 1.0))
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and r not in out]
+                if dead:
+                    # a rank died without reporting: give its message a
+                    # moment to arrive, then fail
+                    try:
+                        rank, ok, val = results.get(timeout=5.0)
+                    except queue_mod.Empty:
+                        raise RuntimeError(
+                            f"{target}: rank {dead[0]} exited with "
+                            f"{procs[dead[0]].exitcode}") from None
+                else:
+                    continue
+            if not ok:
+                raise RuntimeError(f"{target}: rank {rank} failed:\n{val}")
+            out[rank] = val
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5.0)
+    return [out[r] for r in range(world)]

@@ -21,7 +21,7 @@ reads a position back from the card.
 Not ported yet (each raises ``NotImplementedError``): MLA (deepseek-v2)
 and the sliding-window ring cache, both with the decoder-only LM
 (``ROADMAP.md`` Queue A item 9); the reference's mesh branches of
-``sharded_attention`` wait for multi-GPU (Queue A item 7).
+``sharded_attention`` wait for the LM zoo on a mesh (Queue A item 9).
 """
 from __future__ import annotations
 

@@ -22,6 +22,22 @@ A device-backend batch (``sample_key`` set) with its generation's
 does not depend on the parameters; its operands are passed detached, the
 counterpart of the reference's ``stop_gradient``.
 
+**On a mesh** (a :class:`~repro_torch.launch.mesh.HostMesh` in scope,
+``launch.sharding.use_mesh``, and ``cache_shard_axis`` naming its cache
+axis) ``cache_table`` is this rank's shard of the row-sharded table, and
+layer 0 routes to the sharded kernels: K1 per shard with its partials
+combined (``ops.cache_lookup_agg(mesh=...)``; ``local_shard`` carries the
+locality fast path's gate, an int or one home shard per data-parallel
+group), or K3 over the shard's row range and an ``all_reduce``.  The rows
+read straight from the table (the destinations' own features, or all of
+h0 with ``input_impl="where"``) are gathered the same way: each shard
+gives the rows it owns (shard 0 the misses), the cache group sums them.
+``num_groups`` > 1 is a batch of several data-parallel groups collated
+into one (``gns.engine.collate_groups``, the single-process form of the
+reference's DP regime): each group's destinations are its own leading
+rows (:func:`_dst_rows`), and the device draw runs per group with its own
+key.
+
 :func:`loss_fn` is the reference's masked log-softmax NLL plus accuracy;
 :func:`value_and_grad` differentiates it with respect to the parameters
 (``torch.autograd.grad``), the counterpart of ``jax.value_and_grad``.
@@ -46,9 +62,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.minibatch import DeviceBatch
+from repro_torch.core.minibatch import DeviceBatch, LayerBlock
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.cache_lookup import shard_slot_map
+from repro_torch.launch.sharding import current_mesh
 from repro_torch.sampling.kernels import gns_sample_agg
 
 
@@ -64,6 +82,14 @@ class SageConfig:
                                        # layer runs K3 on a CUDA device and
                                        # its plain version on the CPU,
                                        # whatever this names
+    cache_shard_axis: Optional[str] = None
+                                       # mesh axis the cache table is row-
+                                       # sharded over; with a mesh in scope
+                                       # layer 0 runs per shard + all_reduce
+    num_groups: int = 1                # DP groups collated into one batch
+                                       # (group-order concat, block pads per
+                                       # group): dst rows are each group's
+                                       # leading rows, not a global prefix
 
 
 def full_fp32_matmul() -> None:
@@ -119,52 +145,119 @@ def params_from_numpy(tree: dict, device=None) -> dict:
 
 
 def assemble_input(batch: DeviceBatch, cache_table: torch.Tensor,
-                   prefix: Optional[int] = None) -> torch.Tensor:
+                   prefix: Optional[int] = None,
+                   rows: Optional[np.ndarray] = None, mesh=None,
+                   shard_axis: Optional[str] = None) -> torch.Tensor:
     """h0 from cache hits + streamed misses (the GNS data path).
 
     ``prefix`` truncates to the first N rows — the fused input path only
-    needs the destination self-rows, not the full padded h0.
+    needs the destination self-rows, not the full padded h0.  ``rows`` (an
+    index vector) generalises the prefix to non-leading selections: a
+    group-collated batch's destination self-rows are each group's leading
+    block (:func:`_dst_rows`).  With ``mesh`` (a cache axis of several
+    shards), ``cache_table`` is this rank's shard: each shard gives the hit
+    rows it owns and shard 0 the misses, and the cache group sums them —
+    each row comes from one shard, so the sum is exact.
     """
     slots = batch.input_cache_slots
     streamed = batch.input_streamed
     mask = batch.input_mask
-    if prefix is not None:
+    if rows is not None:
+        sel = torch.as_tensor(rows, dtype=torch.long, device=slots.device)
+        slots, streamed, mask = (slots.index_select(0, sel),
+                                 streamed.index_select(0, sel),
+                                 mask.index_select(0, sel))
+    elif prefix is not None:
         slots, streamed, mask = slots[:prefix], streamed[:prefix], mask[:prefix]
-    hit = slots >= 0
-    cached_rows = cache_table.index_select(0, slots.clamp(min=0))
-    h0 = torch.where(hit[:, None], cached_rows, streamed)
-    return h0 * mask[:, None]
+    if mesh is None or mesh.shape[shard_axis] == 1:
+        hit = slots >= 0
+        cached_rows = cache_table.index_select(0, slots.clamp(min=0))
+        h0 = torch.where(hit[:, None], cached_rows, streamed)
+        return h0 * mask[:, None]
+    shard = mesh.index(shard_axis)
+    local = shard_slot_map(slots, shard, cache_table.shape[0])
+    cached_rows = cache_table.index_select(0, local.clamp(min=0))
+    other = streamed if shard == 0 else torch.zeros((), device=slots.device)
+    h0 = torch.where((local >= 0)[:, None], cached_rows,
+                     torch.where((slots < 0)[:, None], other, 0.0))
+    return ops.psum((h0 * mask[:, None]).contiguous(), mesh, shard_axis)
+
+
+def _dst_rows(num_groups: int, blk: LayerBlock) -> Optional[np.ndarray]:
+    """Global rows of the destination self-representations, group-collated.
+
+    With one group the destinations are the array's leading ``num_dst`` rows
+    (slice, no gather).  A collated batch concatenates G groups' per-group-
+    padded arrays, so group g's destinations live at ``g·num_src + [0,
+    num_dst)`` of the layer's global source array — a static index vector.
+    """
+    if num_groups <= 1:
+        return None
+    return np.concatenate([g * blk.num_src + np.arange(blk.num_dst)
+                           for g in range(num_groups)]).astype(np.int32)
+
+
+def _drawn_layer0(device_adj, cache_table, batch, num_groups, mesh, axis):
+    """Layer 0's device draw: per group with its own key when several are
+    collated (each group's draw counters are its own rows), sharded on a
+    mesh."""
+    table = cache_table.detach()
+    lanes = (batch.input_cache_slots, batch.input_fb_rows,
+             batch.input_fb_w.detach())
+    if num_groups <= 1:
+        return gns_sample_agg(device_adj, table, *lanes, batch.sample_key,
+                              mesh=mesh, shard_axis=axis)
+    keys = np.asarray(batch.sample_key).reshape(num_groups, 2)
+    chunks = [t.chunk(num_groups) for t in lanes]
+    return torch.cat([gns_sample_agg(device_adj, table,
+                                     *(c[g] for c in chunks), keys[g:g + 1],
+                                     mesh=mesh, shard_axis=axis)
+                      for g in range(num_groups)])
 
 
 def forward(params: dict, batch: DeviceBatch, cache_table: torch.Tensor,
-            cfg: SageConfig, device_adj=None) -> torch.Tensor:
+            cfg: SageConfig, device_adj=None, local_shard=None
+            ) -> torch.Tensor:
     """Returns logits [B_padded, num_classes] on the batch's device.
 
     ``device_adj`` (the batch's generation's ``DeviceCacheAdj``, paired with
     a device-backend batch that carries ``sample_key``) switches layer 0 to
-    the device draw.
+    the device draw.  ``local_shard`` is the fused input's locality gate on
+    a mesh: an int (static) or one home shard per data-parallel group (-1:
+    none), as the reference's.
     """
     if cache_table.is_cuda:
         full_fp32_matmul()
     agg = _get_aggregate(cfg.aggregate_impl)
+    mesh, axis = current_mesh(), cfg.cache_shard_axis
+    if mesh is None or axis not in mesh.axis_names:
+        mesh = axis = None
     drawn = device_adj is not None and batch.sample_key is not None
     fused = cfg.input_impl == "fused" and not drawn
-    h = None if (fused or drawn) else assemble_input(batch, cache_table)
+    h = None if (fused or drawn) else assemble_input(
+        batch, cache_table, mesh=mesh, shard_axis=axis)
     n_layers = len(batch.blocks)
     for i, (blk, layer) in enumerate(zip(batch.blocks, params["layers"])):
-        if i == 0 and drawn:
-            a = gns_sample_agg(
-                device_adj, cache_table.detach(),
-                batch.input_cache_slots, batch.input_fb_rows,
-                batch.input_fb_w.detach(), batch.sample_key)
-            h_dst = assemble_input(batch, cache_table, prefix=blk.num_dst)
-        elif i == 0 and fused:
-            a = ops.cache_lookup_agg(cache_table, batch.input_streamed,
-                                     batch.input_cache_slots, blk.nbr_idx,
-                                     blk.nbr_w)
-            h_dst = assemble_input(batch, cache_table, prefix=blk.num_dst)
+        dst_rows = _dst_rows(cfg.num_groups, blk)
+        if i == 0 and (drawn or fused):
+            if drawn:
+                a = _drawn_layer0(device_adj, cache_table, batch,
+                                  cfg.num_groups, mesh, axis)
+            else:
+                static = local_shard is None or isinstance(
+                    local_shard, (int, np.integer))
+                a = ops.cache_lookup_agg(
+                    cache_table, batch.input_streamed,
+                    batch.input_cache_slots, blk.nbr_idx, blk.nbr_w,
+                    mesh=mesh, shard_axis=axis,
+                    local_shard=local_shard if static else None,
+                    local_shards=None if static else local_shard)
+            h_dst = assemble_input(batch, cache_table, prefix=blk.num_dst,
+                                   rows=dst_rows, mesh=mesh, shard_axis=axis)
         else:
-            h_dst = h[: blk.num_dst]
+            h_dst = h[: blk.num_dst] if dst_rows is None else h.index_select(
+                0, torch.as_tensor(dst_rows, dtype=torch.long,
+                                   device=h.device))
             a = agg(h, blk.nbr_idx, blk.nbr_w)
         z = torch.matmul(torch.cat([h_dst, a], dim=-1), layer["w"]) + layer["b"]
         h = torch.relu(z) if i < n_layers - 1 else z
@@ -173,15 +266,21 @@ def forward(params: dict, batch: DeviceBatch, cache_table: torch.Tensor,
 
 
 def loss_fn(params: dict, batch: DeviceBatch, cache_table: torch.Tensor,
-            cfg: SageConfig, device_adj=None
+            cfg: SageConfig, device_adj=None, local_shard=None,
+            label_count: Optional[torch.Tensor] = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Masked mean log-softmax NLL over ``label_mask``, and accuracy.
+    """Masked log-softmax NLL and accuracy, each summed over ``label_mask``
+    and divided by the label count (at least 1): this batch's, or
+    ``label_count`` — the count over every data-parallel group, so that the
+    groups' losses sum to the reference's loss over the collated batch.
     Two f32 scalars on the batch's device."""
-    logits = forward(params, batch, cache_table, cfg, device_adj=device_adj)
+    logits = forward(params, batch, cache_table, cfg, device_adj=device_adj,
+                     local_shard=local_shard)
     logp = torch.log_softmax(logits, dim=-1)
     labels = batch.labels.long()
     nll = -logp.gather(1, labels[:, None])[:, 0]
-    denom = batch.label_mask.sum().clamp(min=1.0)
+    denom = (batch.label_mask.sum() if label_count is None
+             else label_count).clamp(min=1.0)
     loss = (nll * batch.label_mask).sum() / denom
     acc = ((logits.argmax(-1) == labels) * batch.label_mask).sum() / denom
     return loss, acc
@@ -189,7 +288,8 @@ def loss_fn(params: dict, batch: DeviceBatch, cache_table: torch.Tensor,
 
 def value_and_grad(params: dict, batch: DeviceBatch,
                    cache_table: torch.Tensor, cfg: SageConfig,
-                   device_adj=None) -> tuple:
+                   device_adj=None, local_shard=None,
+                   label_count: Optional[torch.Tensor] = None) -> tuple:
     """``(loss, acc, grads)``: :func:`loss_fn` and its gradient with respect
     to every parameter, ``grads`` in the params' layout.  The parameters
     themselves are left as they are (the graph runs over detached leaves
@@ -199,7 +299,8 @@ def value_and_grad(params: dict, batch: DeviceBatch,
               for name, t in layer.items()}
     tree = {"layers": [{name: leaves[(i, name)] for name in layer}
                        for i, layer in enumerate(params["layers"])]}
-    loss, acc = loss_fn(tree, batch, cache_table, cfg, device_adj=device_adj)
+    loss, acc = loss_fn(tree, batch, cache_table, cfg, device_adj=device_adj,
+                        local_shard=local_shard, label_count=label_count)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     by_key = dict(zip(leaves, grads))
     gtree = {"layers": [{name: by_key[(i, name)] for name in layer}

@@ -22,6 +22,21 @@
   dispatches by device alone (the plain version on the CPU, K3 on the
   card, never a fallback from one to the other).
 
+**Row range** (``row_lo``, ``row_count``): the plain version and K3 gather
+only from a table holding the global rows ``[row_lo, row_lo +
+row_count)`` — one shard of a row-sharded cache.  The draw and the
+fallback merge run over the whole (replicated) CSR as before; a lane
+outside the range gets weight 0, a lane inside reads local row ``row -
+row_lo``.  The default, the whole table, is the unsharded op bit for bit,
+and the shards' partials sum to it.  The reference draws globally, gathers
+per shard with foreign lanes at weight 0 and psums
+(``repro.sampling.kernels.gns_sample_agg``'s mesh branch); K3 fuses the
+draw with the gather, so each shard draws all lanes and keeps its own.
+With ``mesh=`` and ``shard_axis=`` (:mod:`repro_torch.launch.mesh`, one
+process per mesh position, ``cache_table`` this rank's shard)
+:func:`gns_sample_agg` runs its shard's partial and all-reduces it over
+the cache group.
+
 The op is forward only, as the reference's is: the layer-0 aggregate does
 not depend on the parameters, and the reference wraps every operand in
 ``stop_gradient``.  Here the model passes detached tensors, and the op
@@ -36,6 +51,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.kernels._ext import LaunchCounter, load_kernels
 from repro_torch.kernels.gather_agg import (TABLE_DTYPES, access_path,
                                            check_rows)
@@ -56,7 +72,8 @@ def key_words(key) -> tuple[int, int]:
     k = np.asarray(key, dtype=np.uint32).reshape(-1, 2)
     if k.shape[0] != 1:
         raise ValueError(f"one key per batch expected, got {k.shape[0]} "
-                         "(DP groups > 1 are not ported)")
+                         "(a group-collated batch draws per group: "
+                         "models.graphsage splits it)")
     return int(k[0, 0]), int(k[0, 1])
 
 
@@ -115,22 +132,36 @@ def sample_lanes_plain(adj: DeviceCacheAdj, dst_rows: torch.Tensor,
 
 def gns_sample_agg_plain(adj: DeviceCacheAdj, cache_table: torch.Tensor,
                          dst_rows: torch.Tensor, fb_rows: torch.Tensor,
-                         fb_w: torch.Tensor, key) -> torch.Tensor:
-    """Draw, merge and gather in plain PyTorch.  [B, D] f32."""
+                         fb_w: torch.Tensor, key, row_lo: int = 0,
+                         row_count: int | None = None) -> torch.Tensor:
+    """Draw, merge and gather in plain PyTorch, from the table rows
+    ``[row_lo, row_lo + row_count)`` that ``cache_table`` holds (default:
+    all of them).  [B, D] f32."""
     lane_rows, lane_w = sample_lanes_plain(adj, dst_rows, fb_rows, fb_w, key)
-    return slot_gather_agg_plain(cache_table, lane_rows, lane_w)
+    if row_count is None:
+        row_count = adj.table_rows
+    if row_count == 0:               # an empty shard: nothing to gather
+        return torch.zeros((dst_rows.shape[0], cache_table.shape[1]),
+                           dtype=torch.float32, device=cache_table.device)
+    mine = (lane_rows >= row_lo) & (lane_rows < row_lo + row_count)
+    return slot_gather_agg_plain(cache_table,
+                                 torch.where(mine, lane_rows - row_lo, -1),
+                                 torch.where(mine, lane_w, 0.0))
 
 
 def gns_sample_agg_cuda(adj: DeviceCacheAdj, cache_table: torch.Tensor,
                         dst_rows: torch.Tensor, fb_rows: torch.Tensor,
                         fb_w: torch.Tensor, key,
                         lane_rows: torch.Tensor | None = None,
-                        lane_w: torch.Tensor | None = None) -> torch.Tensor:
+                        lane_w: torch.Tensor | None = None, row_lo: int = 0,
+                        row_count: int | None = None) -> torch.Tensor:
     """Launch K3.  adj on the table's CUDA device (indptr/indices int32,
-    deg/hitp f32), table [C, D] f32/bf16 with C = adj.table_rows, dst_rows
-    [B] int32, fb_rows/fb_w [B, k] int32/f32 with 1 <= k <= 32, all
-    contiguous -> [B, D] f32.  ``lane_rows``/``lane_w`` ([B, k] int32/f32),
-    when given, receive the merged lanes."""
+    deg/hitp f32), table [row_count, D] f32/bf16 holding the rows
+    ``[row_lo, row_lo + row_count)`` of the CSR's ``adj.table_rows``
+    (default: all of them), dst_rows [B] int32, fb_rows/fb_w [B, k]
+    int32/f32 with 1 <= k <= 32, all contiguous -> [B, D] f32.
+    ``lane_rows``/``lane_w`` ([B, k] int32/f32), when given, receive the
+    merged lanes (global rows, whatever the range)."""
     if not cache_table.is_cuda:
         raise ValueError(f"gns_sample_agg_cuda needs CUDA tensors, got "
                          f"{cache_table.device}")
@@ -147,11 +178,16 @@ def gns_sample_agg_cuda(adj: DeviceCacheAdj, cache_table: torch.Tensor,
     if not 1 <= k <= MAX_LANES:
         raise ValueError(f"K3 draws 1..{MAX_LANES} lanes per row, got {k}")
     rows = adj.table_rows
-    if cache_table.shape[0] != rows or adj.deg.shape[0] != rows \
-            or adj.hitp.shape[0] != rows:
-        raise ValueError(f"table {cache_table.shape[0]} rows, deg "
-                         f"{adj.deg.shape[0]}, hitp {adj.hitp.shape[0]}: "
-                         f"expected the CSR's {rows}")
+    if row_count is None:
+        row_count = rows
+    if adj.deg.shape[0] != rows or adj.hitp.shape[0] != rows:
+        raise ValueError(f"deg {adj.deg.shape[0]}, hitp "
+                         f"{adj.hitp.shape[0]}: expected the CSR's {rows}")
+    if cache_table.shape[0] != row_count or not (
+            0 <= row_lo and row_lo + row_count <= rows):
+        raise ValueError(f"table {cache_table.shape[0]} rows for the range "
+                         f"[{row_lo}, {row_lo + row_count}) of the CSR's "
+                         f"{rows}")
     if dst_rows.shape[0] != bsz or fb_w.shape != fb_rows.shape:
         raise ValueError(f"dst_rows {tuple(dst_rows.shape)}, fb_rows "
                          f"{tuple(fb_rows.shape)}, fb_w {tuple(fb_w.shape)}")
@@ -171,8 +207,8 @@ def gns_sample_agg_cuda(adj: DeviceCacheAdj, cache_table: torch.Tensor,
         path = access_path(cache_table)
         load_kernels().gns_sample_agg(
             *adj.tensors(), cache_table, dst_rows, fb_rows, fb_w, key_lo,
-            key_hi, out, lane_rows, lane_w, write_lanes, path == "vector",
-            0)                       # 0: the kernel's own tile plan
+            key_hi, out, lane_rows, lane_w, write_lanes, row_lo, row_count,
+            path == "vector", 0)     # 0: the kernel's own tile plan
         launches.add()
         path_calls[path].add()
     return out
@@ -180,22 +216,28 @@ def gns_sample_agg_cuda(adj: DeviceCacheAdj, cache_table: torch.Tensor,
 
 def gns_sample_agg(adj: DeviceCacheAdj, cache_table: torch.Tensor,
                    dst_rows: torch.Tensor, fb_rows: torch.Tensor,
-                   fb_w: torch.Tensor, key) -> torch.Tensor:
+                   fb_w: torch.Tensor, key, *, mesh=None,
+                   shard_axis: str | None = None) -> torch.Tensor:
     """The device GNS input layer: draw + weight + gather.  [B, D] f32.
 
     ``dst_rows`` is the batch's ``input_cache_slots`` (device rows of the
     destinations, -1 for uncached rows and padding); ``fb_rows``/``fb_w``
     are the host-sampled fallback lanes of uncached real destinations.
-    Forward only: raises ``NotImplementedError`` if an operand requires
-    grad.
+    With ``mesh`` and ``shard_axis``, ``cache_table`` is this rank's shard
+    and its partial is all-reduced over the cache group.  Forward only:
+    raises ``NotImplementedError`` if an operand requires grad.
     """
     operands = (cache_table, dst_rows, fb_rows, fb_w) + adj.tensors()
     if any(t.requires_grad for t in operands):
         raise NotImplementedError(
             "gns_sample_agg is forward only (the reference stops the "
             "gradient at every operand): pass detached tensors")
-    if not cache_table.is_cuda:
-        return gns_sample_agg_plain(adj, cache_table, dst_rows, fb_rows,
-                                    fb_w, key)
-    return gns_sample_agg_cuda(adj, cache_table, dst_rows, fb_rows, fb_w,
-                               key)
+    rng = {}
+    sharded = (mesh is not None and shard_axis in mesh.axis_names
+               and mesh.shape[shard_axis] > 1)
+    if sharded:
+        rps = cache_table.shape[0]
+        rng = {"row_lo": mesh.index(shard_axis) * rps, "row_count": rps}
+    run = gns_sample_agg_cuda if cache_table.is_cuda else gns_sample_agg_plain
+    out = run(adj, cache_table, dst_rows, fb_rows, fb_w, key, **rng)
+    return ops.psum(out, mesh, shard_axis) if sharded else out

@@ -10,8 +10,9 @@ equivalent ``EngineConfig`` and delegating; its state (``params`` /
 so trainer-driven and engine-driven runs are the same run.  New code
 should use the engine directly.
 
-The engine runs on one device, ``device`` (``None``: the GPU); a mesh or a
-cache shard axis is refused.
+The engine runs on ``device`` (``None``: the GPU); ``mesh`` (a
+:class:`~repro_torch.launch.mesh.HostMesh`, one process per mesh position)
+and ``cache_shard_axis`` pass through to it, as the reference's do.
 """
 from __future__ import annotations
 
@@ -38,18 +39,14 @@ class GNNTrainer:
                  adam_cfg: Optional[AdamConfig] = None,
                  mesh=None, cache_shard_axis: Optional[str] = None,
                  seed: int = 0, device=None):
-        if mesh is not None or cache_shard_axis is not None:
-            raise NotImplementedError(
-                "mesh / cache_shard_axis need the multi-device port "
-                "(ROADMAP.md Queue A item 7); this trainer runs on one "
-                "device")
         scfg = sampler_cfg or SamplerConfig(batch_size=256)
         cfg = EngineConfig(sampler=sampler_name, sampling=scfg,
                            cache=scfg.cache,
                            optim=adam_cfg or AdamConfig(lr=3e-3),
                            seed=seed)
         self.engine = GNSEngine(cfg, device=device, dataset=ds,
-                                model_cfg=model_cfg)
+                                model_cfg=model_cfg, mesh=mesh,
+                                cache_shard_axis=cache_shard_axis)
         self.sampler_name = sampler_name
 
     # -- state aliases (read/write flows through to the engine) ------------
@@ -76,6 +73,10 @@ class GNNTrainer:
     @property
     def store(self):
         return self.engine.store
+
+    @property
+    def mesh(self):
+        return self.engine.mesh
 
     @property
     def sampler(self):

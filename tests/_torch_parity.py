@@ -2,9 +2,11 @@
 
 Inputs are made with numpy from fixed seeds and handed to both packages;
 results come back as numpy arrays.  Nothing here changes process-wide
-state.
+state, except :func:`one_rank_group` for the span of its ``with``.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -19,6 +21,21 @@ def requires_cuda():
         pytest.skip("needs a CUDA card (runs under `python3 chip_smoke.py` "
                     "and `pytest -m gpu` on the GPU host)")
     return torch.device("cuda")
+
+
+@contextlib.contextmanager
+def one_rank_group():
+    """A gloo ``torch.distributed`` process group of this process alone
+    (a 1x1 mesh, or a world of the wrong size), destroyed on exit."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import free_port
+    dist.init_process_group("gloo",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def jax_params_to_numpy(params) -> dict:
@@ -144,3 +161,23 @@ def sample_case(seed, rows, b, k, uncached=0.3):
     fb_w[miss] = np.where(lanes >= 0, rng.random(lanes.shape), 0.0)
     key = rng.integers(0, 2 ** 32, size=(1, 2), dtype=np.uint32)
     return dst, fb_rows, fb_w, key
+
+
+def exact_k3(indptr, indices, fb_w, k):
+    """K3's operands made exact: every row keeps at most ``k`` cached
+    neighbors (all taken, so the draw's coefficient is 1), hit probability
+    and degree 1 (every drawn weight is 1), and the fallback weights
+    rounded up to integers.  With an integer-valued table every product
+    and sum is exact, so the partials of any row ranges sum to the full
+    call bit for bit.  Returns (indptr, indices, deg, hitp, fb_w)."""
+    n_c = np.minimum(np.diff(indptr), k)
+    new_ptr = np.zeros_like(indptr)
+    np.cumsum(n_c, out=new_ptr[1:])
+    take = np.concatenate([np.arange(s, s + n) for s, n in
+                           zip(indptr[:-1], n_c)]).astype(np.int64)
+    new_idx = np.zeros_like(indices)
+    new_idx[:len(take)] = indices[take]
+    rows = len(indptr) - 1
+    ones = np.ones(rows, np.float32)
+    return new_ptr, new_idx, ones, ones.copy(), np.ceil(fb_w * 3).astype(
+        np.float32)

@@ -503,7 +503,25 @@ def test_trainer_shim_bitwise_parity(ds, name, one_thread):
     assert 0.0 <= tr.evaluate(ds.val_idx, num_batches=1) <= 1.0
 
 
-def test_trainer_refuses_a_mesh(ds):
-    for kw in ({"mesh": object()}, {"cache_shard_axis": "model"}):
-        with pytest.raises(NotImplementedError, match="one device"):
-            GNNTrainer(ds, "ns", device="cpu", **kw)
+def test_trainer_with_a_mesh_runs_the_sharded_path(ds):
+    """``GNNTrainer(mesh=...)`` with ``input_impl="fused"``: the model
+    inherits the store's shard axis, so layer 0 goes through the sharded
+    K1 (on a 1x1 mesh the layout degenerates, but the mesh-scoped path runs
+    end to end), as the reference's
+    ``test_trainer_with_mesh_runs_fused_sharded_path``."""
+    from _torch_parity import one_rank_group
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import graphsage
+    scfg = samp_port.SamplerConfig(fanouts=(3, 4), batch_size=16,
+                                   cache=CachePort(fraction=0.2))
+    mcfg = graphsage.SageConfig(feat_dim=ds.feat_dim, hidden_dim=16,
+                                num_classes=ds.num_classes, num_layers=2,
+                                input_impl="fused")
+    with one_rank_group():
+        tr = GNNTrainer(ds, "gns", sampler_cfg=scfg, model_cfg=mcfg,
+                        mesh=make_host_mesh(1, 1), device="cpu")
+        assert tr.mesh is tr.engine.mesh
+        assert tr.mcfg.cache_shard_axis == tr.store.shard_axis == "model"
+        rep = tr.train(1, max_batches=2)
+    assert np.isfinite(rep.losses).all(), rep.losses
+    assert tr.meter.uploads >= 1 and tr.meter.bytes_cache_upload > 0

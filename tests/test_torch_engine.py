@@ -127,12 +127,26 @@ def test_engine_refuses_to_run_silently_on_the_cpu():
         GNSEngine(cfg, device="cuda")
 
 
-def test_engine_refuses_a_mesh():
+def test_engine_mesh_raises_without_a_process_group():
+    """A mesh of several ranks runs one engine per rank over the caller's
+    process group; with none the engine raises before building anything."""
     import dataclasses
     cfg = EngineConfig.from_dict(json.loads(_cfg_json()))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="process group"):
         GNSEngine(dataclasses.replace(cfg, mesh=MeshConfig(data=2)),
                   device="cpu")
+
+
+def test_engine_mesh_raises_on_a_world_size_mismatch():
+    """The process group must have exactly data·model ranks."""
+    import dataclasses
+    from _torch_parity import one_rank_group
+    cfg = EngineConfig.from_dict(json.loads(_cfg_json()))
+    with one_rank_group():
+        for mesh in (MeshConfig(data=2), MeshConfig(model=2),
+                     MeshConfig(data=2, model=2)):
+            with pytest.raises(ValueError, match="ranks"):
+                GNSEngine(dataclasses.replace(cfg, mesh=mesh), device="cpu")
 
 
 def test_engine_builds_the_stream_replay_preset():

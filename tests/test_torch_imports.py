@@ -16,7 +16,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 # every module of the port's serving, training, LM serving, training-
 # surface (baselines, checkpoints, describe, schedules, trainer), fabric /
-# streaming-ingest (with the runtime lock sanitizer) and RPC slices
+# streaming-ingest (with the runtime lock sanitizer), RPC and mesh slices
 REQUIRED = (
     "repro_torch.device", "repro_torch.core.pipeline",
     "repro_torch.sampling.rng", "repro_torch.sampling.adjacency",
@@ -41,7 +41,8 @@ REQUIRED = (
     "repro_torch.stream.merge", "repro_torch.data",
     "repro_torch.data.temporal", "repro_torch.rpc", "repro_torch.rpc.wire",
     "repro_torch.rpc.channel", "repro_torch.rpc.proxy",
-    "repro_torch.rpc.endpoint",
+    "repro_torch.rpc.endpoint", "repro_torch.graph.partition",
+    "repro_torch.launch.mesh", "repro_torch.launch.sharding",
 )
 
 BLOCKER = f"REQUIRED = {REQUIRED!r}\n" + r'''

@@ -331,6 +331,53 @@ def test_gns_sample_agg_unaligned_table_on_card(offset, path, table_dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rows,d,b,k", [(305, 100, 4096, 5),
+                                        (60, 30, 200, 5), (40, 48, 70, 32)])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+def test_gns_sample_agg_row_range_on_card(rows, d, b, k, table_dtype):
+    """K3 over a row range (one shard of a row-sharded table) against its
+    plain version, bit for bit: the whole range given explicitly is
+    today's call, an empty range writes zeros, a one-row range and each
+    of 4 shards match the plain version; on exact operands the shards'
+    partials sum to the full call bit for bit."""
+    from _torch_parity import adj_case, exact_k3
+    dev = requires_cuda()
+    adj, dst, fb_rows, fb_w, key = k3_case(dev, rows, b, k)
+    table = torch.from_numpy(np.random.default_rng(d).integers(
+        -64, 65, (rows, d)).astype(np.float32)).to(dev, dtype=table_dtype)
+    full = k3.gns_sample_agg_cuda(adj, table, dst, fb_rows, fb_w, key)
+    assert torch.equal(full, k3.gns_sample_agg_cuda(
+        adj, table, dst, fb_rows, fb_w, key, row_lo=0, row_count=rows))
+    n0 = k3.launches.value
+    empty = k3.gns_sample_agg_cuda(adj, table[:0], dst, fb_rows, fb_w, key,
+                                   row_lo=rows // 2, row_count=0)
+    torch.cuda.synchronize()
+    assert k3.launches.value == n0 + 1
+    assert torch.equal(empty, torch.zeros_like(full))
+    rps = -(-rows // 4)
+    ranges = [(lo, min(rps, rows - lo)) for lo in range(0, rows, rps)]
+    for lo, n in [(rows - 1, 1)] + ranges:
+        part = table[lo:lo + n].contiguous()
+        got = k3.gns_sample_agg_cuda(adj, part, dst, fb_rows, fb_w, key,
+                                     row_lo=lo, row_count=n)
+        want = k3.gns_sample_agg_plain(adj, part, dst, fb_rows, fb_w, key,
+                                       row_lo=lo, row_count=n)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (lo, n)
+    ptr, idx, _, _ = adj_case(rows, rows, 3 * k)
+    ptr, idx, deg, hitp, w_int = exact_k3(ptr, idx, fb_w.cpu().numpy(), k)
+    adj_x = DeviceCacheAdj(*(torch.from_numpy(a).to(dev)
+                             for a in (ptr, idx, deg, hitp)))
+    w_int = torch.from_numpy(w_int).to(dev)
+    full = k3.gns_sample_agg_cuda(adj_x, table, dst, fb_rows, w_int, key)
+    total = sum(k3.gns_sample_agg_cuda(
+        adj_x, table[lo:lo + n].contiguous(), dst, fb_rows, w_int, key,
+        row_lo=lo, row_count=n) for lo, n in ranges)
+    torch.cuda.synchronize()
+    assert torch.equal(total, full)
+
+
+@pytest.mark.gpu
 def test_gns_sample_agg_wrapper_checks_its_operands_on_card():
     dev = requires_cuda()
     adj = DeviceCacheAdj(*(torch.from_numpy(a).to(dev)
@@ -345,6 +392,11 @@ def test_gns_sample_agg_wrapper_checks_its_operands_on_card():
         k3.gns_sample_agg_cuda(adj, table[:29].contiguous(), dst,
                                fb_rows[:, :4].contiguous(),
                                fb_w[:, :4].contiguous(), key)
+    with pytest.raises(ValueError, match="range"):
+        k3.gns_sample_agg_cuda(adj, table[:10].contiguous(), dst,
+                               fb_rows[:, :4].contiguous(),
+                               fb_w[:, :4].contiguous(), key, row_lo=25,
+                               row_count=10)
     with pytest.raises(TypeError):
         k3.gns_sample_agg_cuda(adj, table, dst.long(),
                                fb_rows[:, :4].contiguous(),
