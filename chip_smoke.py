@@ -185,7 +185,34 @@ line each on stdout:
                per rank and run: losses, step ms beside the one-rank step,
                K1/K2/K3 launches by access path (their sum over the ranks
                is ``launches_by_path["mesh"]``), ``bytes_cache_upload``;
-12. times    — each kernel's median time over cold-L2 launches at the
+12. mesh-serve — serving, the fabric, streaming ingest and checkpoints
+               on a mesh, ranks on ``cuda:0`` over gloo as in 11.  A
+               2-rank world, mesh (1, 2): (a) the served ``paper_train``
+               config (hidden 256, fanouts (5, 10, 15), buckets
+               32/128/512), its cache padded to 2 shards, behind
+               ``GNSServer``: 24 requests one at a time, the same as a
+               one-rank server in this process gets (bucket and generation
+               equal, logits within rtol 1e-4, atol 1e-4; whether the
+               ranks' logits agree bit for bit is logged), then 64 requests
+               in waves over all three buckets; (c) preset
+               ``stream_replay`` at its own width behind a 2-worker fabric
+               while the leader ingests 4 temporal event batches: every
+               rank ends merged at one generation with the same members,
+               new nodes served; then a fresh mesh engine merges the same
+               events and ``infer``s the new nodes and 200 others, within
+               rtol 1e-4, atol 1e-4 of a one-rank card engine that did the
+               same; (d) that engine, with 4 staged deltas, ``save``s on
+               the mesh and a one-rank card engine restores it: parameters
+               bit for bit, the delta log equal.  A 4-rank world, mesh (2,
+               2): (b) the fabric phase's tenants, 4 waves and mid-wave
+               kill (108 requests, a failover and a retry at least, 0
+               errors; the killed worker dies on every rank).  On every
+               rank K1's and K2's counters, zeroed just before each main
+               path, must be above 0 and all on the vector path; their sum
+               over the ranks is ``launches_by_path["mesh_serve"]``.  Logs
+               p50/p99, each rank's all_reduce ms per batch (timed with a
+               card sync on both sides) and the phase's wall time;
+13. times    — each kernel's median time over cold-L2 launches at the
                serving and training shapes (K1 also at LADIES's: B = 2,024
                rows of 32 lanes over 2,536 streamed rows, all misses), in
                turns within this call with
@@ -2506,6 +2533,413 @@ def phase_mesh(ds) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# mesh-serve: serving, the fabric, ingest and checkpoints on a mesh of ranks
+# ---------------------------------------------------------------------------
+
+MESH_SERVE_ONE_AT_A_TIME = 24  # requests held against one rank's server
+
+
+def one_at_a_time_requests(num_nodes: int) -> list:
+    """The requests sent one at a time to the mesh's server and to one
+    rank's: 1-48 ids each, so they ride buckets 32 and 128."""
+    rng = np.random.default_rng(SEED + 3)
+    return [rng.choice(num_nodes, int(n), replace=False)
+            for n in rng.integers(1, 49, MESH_SERVE_ONE_AT_A_TIME)]
+
+
+def serve_waves(rng) -> list:
+    """Request sizes of the serve phase's 3 waves (64 requests; buckets 32,
+    128 and 512)."""
+    waves = [[int(rng.integers(1, 17))],
+             [int(rng.integers(5, 17)) for _ in range(7)],
+             [int(rng.integers(1, 17)) for _ in range(56)]]
+    waves[1][:3] = [16, 16, 16]       # >= 48 ids: never fits bucket 32
+    return waves
+
+
+class PsumTimer:
+    """Wraps ``kernels.ops.psum`` (every all_reduce of the sharded K1 and of
+    layer 0's own rows) with a card sync on both sides; ``ms`` is the
+    total."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.orig, self.ms, self.calls = ops, ops.psum, 0.0, 0
+
+        def timed(t, mesh, axis):
+            import torch
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.orig(t, mesh, axis)
+            torch.cuda.synchronize()
+            self.ms += (time.perf_counter() - t0) * 1e3
+            self.calls += 1
+            return out
+
+        ops.psum = timed
+
+    def close(self) -> None:
+        self.ops.psum = self.orig
+
+
+def served_one_at_a_time(server, reqs, leader: bool) -> list:
+    """(bucket, version, logits) of each request, sent one at a time."""
+    if not leader:
+        return []
+    out = []
+    for ids in reqs:
+        r = server.submit(ids).result(timeout=FABRIC_WAIT_S)
+        if r.status != "ok":
+            raise AssertionError(f"mesh-serve: request status {r.status}")
+        out.append((r.bucket, r.cache_version, r.logits))
+    return out
+
+
+def record_logits(engine) -> list:
+    """Log (pinned version, logits) of every batch this rank computes."""
+    log_ = []
+    compute = engine.infer_compute
+
+    def recorded(mb, meter=None, mesh=None):
+        out = compute(mb, meter=meter, mesh=mesh)
+        log_.append((mb.cache_version, out))
+        return out
+
+    engine.infer_compute = recorded
+    return log_
+
+
+def mesh_serve_rank(mesh, device, ds, which: str) -> dict:
+    """One rank of the mesh-serve phase (``run_ranks`` spawns it).
+    ``"two"`` ((1, 2)): (a) the served config on 2 shards through
+    ``GNSServer`` (24 requests one at a time, then 64 in 3 waves); (c)
+    ``stream_replay`` through a 2-worker fabric while the leader ingests 4
+    event batches, then a fresh engine that merges the same events and
+    ``infer``s; (d) ``save`` with 8 staged deltas.  ``"four"`` ((2, 2)):
+    (b) the fabric phase's tenants, waves and kill."""
+    import torch
+    from repro_torch.data import temporal_event_stream
+    from repro_torch.gns import FabricConfig, GNSEngine, TenantConfig
+    from repro_torch.kernels._ext import load_kernels
+    load_kernels()                     # built by the parent: a load
+    out = {"rank": mesh.rank, "leader": mesh.leader, "runs": {}}
+    leader = mesh.leader
+
+    def counted(name, fn):
+        reset_k12()
+        timer = PsumTimer()
+        t0 = time.perf_counter()
+        try:
+            res = fn()
+        finally:
+            timer.close()
+        torch.cuda.synchronize()
+        k12 = read_k12(engine, f"mesh-serve {name} rank {mesh.rank}")
+        res.update(k12=k12, wall_s=time.perf_counter() - t0,
+                   psum_ms=timer.ms, psum_calls=timer.calls)
+        out["runs"][name] = res
+        return res
+
+    if which == "four":                              # (b)
+        engine = GNSEngine(two_shards(serve_config()), dataset=ds,
+                           mesh=mesh)
+        rng = np.random.default_rng(SEED + 4)
+        n_cls, num_nodes = engine.mcfg.num_classes, engine.ds.graph.num_nodes
+
+        def fabric_run():
+            fab = engine.serve_fabric(FabricConfig(workers=2, tenants=(
+                TenantConfig("mobile", weight=2.0, max_queue=16),
+                TenantConfig("batch", weight=1.0, max_queue=64)),
+                stall_timeout_ms=10_000.0))
+            res = {}
+            with fab:
+                if leader:
+                    results = []
+                    for _ in range(4):
+                        futs = []
+                        for i in range(24):
+                            tenant = "mobile" if i % 2 == 0 else "batch"
+                            n = int(rng.integers(1, 9) if tenant == "mobile"
+                                    else rng.integers(4, 17))
+                            futs.append((n, fab.submit(
+                                rng.integers(0, num_nodes, n),
+                                tenant=tenant)))
+                        results += check_results(futs, n_cls, "mesh-serve")
+                    w0 = fab.workers[0]
+                    w0.kill()
+                    futs = [(8, fab.submit(rng.integers(0, num_nodes, 8),
+                                           tenant="mobile", worker=0))]
+                    futs += [(n, fab.submit(rng.integers(0, num_nodes, n),
+                                            tenant=("mobile", "batch")[i % 2]))
+                             for i, n in enumerate(rng.integers(1, 17, 11))]
+                    wait_for(lambda: not w0.alive(), "worker 0 ends")
+                    results += check_results(futs, n_cls, "mesh-serve")
+                    wait_for(lambda: fab.healthy() == [1],
+                             "worker 0 leaves rotation")
+                    res["requests"] = len(results)
+            res["alive"] = [w.alive() for w in fab.workers]
+            res["batches"] = fab.meter.batch_count()
+            if leader:
+                snap = check_fabric(fab, "mesh-serve (b)")
+                res["snapshot"] = {k: snap[k] for k in (
+                    "total_p50_ms", "total_p99_ms", "errors", "batches")}
+                res["routing"] = snap["routing"]
+            return res
+
+        counted("b", fabric_run)
+        return out
+
+    # (a) the served config on 2 shards
+    engine = GNSEngine(two_shards(serve_config()), dataset=ds, mesh=mesh)
+    reqs = one_at_a_time_requests(engine.ds.graph.num_nodes)
+    rng = np.random.default_rng(SEED + 5)
+    n_cls, num_nodes = engine.mcfg.num_classes, engine.ds.graph.num_nodes
+    batches = record_logits(engine)
+
+    def serve_run():
+        res = {}
+        with engine.serve() as server:
+            res["one_at_a_time"] = served_one_at_a_time(server, reqs, leader)
+            if leader:
+                res["one_snapshot"] = server.meter.snapshot()
+                results = []
+                for sizes in serve_waves(rng):
+                    futs = [(n, server.submit(rng.integers(0, num_nodes, n)))
+                            for n in sizes]
+                    results += check_results(futs, n_cls, "mesh-serve")
+                res["wave_buckets"] = sorted({r.bucket for r in results})
+                res["wave_requests"] = len(results)
+        res["batches"] = server.meter.batch_count()
+        if leader:
+            snap = server.meter.snapshot()
+            res["snapshot"] = {k: snap[k] for k in (
+                "total_p50_ms", "total_p99_ms", "errors", "served",
+                "batches")}
+        res["versions"] = [v for v, _ in batches]
+        res["logits"] = [x for _, x in batches[:MESH_SERVE_ONE_AT_A_TIME]]
+        return res
+
+    counted("a", serve_run)
+    del engine, batches
+
+    # (c) stream_replay through a fabric while the leader ingests
+    engine = GNSEngine(stream_config(), mesh=mesh)
+    v0 = engine.ds.graph.num_nodes
+    n_cls = engine.mcfg.num_classes
+    val = engine.ds.val_idx.astype(np.int64)
+    hot = (val[: len(val) // 2][:64], val[len(val) // 2:][:64])
+    events = temporal_event_stream(engine.ds, num_batches=4,
+                                   events_per_batch=64, new_node_frac=0.1,
+                                   seed=SEED)
+    v1 = v0 + events.total_new_nodes
+    rng = np.random.default_rng(SEED + 6)
+
+    def stream_run():
+        fab = engine.serve_fabric(FabricConfig(workers=2,
+                                               stall_timeout_ms=10_000.0))
+        res = {}
+
+        def burst(n):
+            futs = []
+            for i in range(n):
+                k = int(rng.integers(2, 9))
+                futs.append((k, fab.submit(rng.choice(hot[i % 2], k,
+                                                      replace=False))))
+            return len(check_results(futs, n_cls, "mesh-serve (c)"))
+
+        with fab:
+            if leader:
+                served = burst(16)
+                for ev in events:
+                    engine.ingest_events(ev)
+                    served += burst(8)
+            wait_for(lambda: engine.store.generation.graph.num_nodes == v1
+                     and engine.pending_deltas == 0,
+                     "every merge live on this rank")
+            if leader:
+                new = np.arange(v0, v1, dtype=np.int64)[:8]
+                got = fab.infer(new, timeout=FABRIC_WAIT_S)
+                if got.shape != (len(new), n_cls) or \
+                        not np.isfinite(got).all():
+                    raise AssertionError("mesh-serve (c): new nodes' logits")
+                res["requests"] = served + 1
+        engine.store.wait_refresh(timeout=FABRIC_WAIT_S)
+        res["batches"] = fab.meter.batch_count()
+        res["merged"] = {"version": engine.store.version,
+                         "merges": engine.store.merges_applied,
+                         "nodes": engine.ds.graph.num_nodes,
+                         "members": engine.store.state.node_ids.copy()}
+        if leader:
+            snap = check_fabric(fab, "mesh-serve (c)")
+            res["snapshot"] = {k: snap[k] for k in (
+                "total_p50_ms", "total_p99_ms", "errors", "batches",
+                "swaps_observed")}
+        return res
+
+    counted("c", stream_run)
+    del engine
+
+    # (c) parity and (d) the checkpoint: a fresh engine merges the events
+    engine = GNSEngine(stream_config(), mesh=mesh)
+    if leader:
+        for ev in events:
+            engine.ingest_events(ev)
+    engine.merge_deltas()
+    ids = np.concatenate([np.arange(v0, v1),
+                          np.random.default_rng(SEED + 7).choice(v0, 200,
+                                                                 False)])
+    out["stream_infer"] = engine.infer(ids)
+    if leader:                          # a delta log rides the checkpoint
+        new = engine.ingest_nodes(np.ones((2, engine.ds.feat_dim),
+                                          np.float32))
+        engine.ingest(new, [0, 1])
+    (ROOT / "build").mkdir(exist_ok=True)
+    path = engine.save(ROOT / "build" / "chip_smoke_mesh_ckpt", step=3)
+    out["ckpt"] = {"path": str(path),
+                   "params": [t.detach().cpu().numpy()
+                              for layer in engine.params["layers"]
+                              for t in layer.values()],
+                   "stream": engine.stream.state() if leader else None}
+    return out
+
+
+def phase_mesh_serve(ds) -> dict:
+    """Serving, the fabric, ingest and checkpoints on a mesh (module
+    docstring, phase 12).  Returns K1's and K2's launches on the ranks'
+    main paths, summed over the ranks."""
+    import shutil
+    import torch
+    from repro_torch.data import temporal_event_stream
+    from repro_torch.gns import GNSEngine
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    # one rank: the same 24 requests one at a time
+    one = GNSEngine(two_shards(serve_config()), dataset=ds)
+    reqs = one_at_a_time_requests(one.ds.graph.num_nodes)
+    with one.serve() as server:
+        want = served_one_at_a_time(server, reqs, True)
+        one_snap = server.meter.snapshot()
+    del one
+    shutil.rmtree(ROOT / "build" / "chip_smoke_mesh_ckpt",
+                  ignore_errors=True)
+    ranks = []
+    for which, data, model in (("two", 1, 2), ("four", 2, 2)):
+        devices = ["cuda:0"] * (data * model)
+        log("mesh-serve-launch", world=which, mesh=(data, model),
+            devices=devices, backend=MESH_BACKEND, deadline_s=MESH_DEADLINE_S)
+        t1 = time.perf_counter()
+        ranks += run_ranks("chip_smoke:mesh_serve_rank", data=data,
+                           model=model, devices=devices, backend=MESH_BACKEND,
+                           args=(ds, which), timeout_s=MESH_DEADLINE_S)
+        log("mesh-serve-world", world=which,
+            seconds=round(time.perf_counter() - t1, 1))
+    counts = {"cache_lookup_agg": 0, "gather_agg": 0}
+    two = [r for r in ranks if "a" in r["runs"]]
+    for r in ranks:
+        for name, res in r["runs"].items():
+            for k, v in res["k12"]["counts"].items():
+                counts[k] += v
+            log("mesh-serve", rank=r["rank"], run=name,
+                launches=res["k12"]["counts"], k1_paths=res["k12"]["k1_paths"],
+                k2_paths=res["k12"]["k2_paths"], batches=res["batches"],
+                allreduce_ms_per_batch=round(
+                    res["psum_ms"] / max(res["batches"], 1), 3),
+                allreduce_calls=res["psum_calls"],
+                wall_s=round(res["wall_s"], 2),
+                **{k: res[k] for k in ("snapshot", "routing", "alive",
+                                       "wave_buckets", "requests")
+                   if k in res})
+    # (a) against one rank: bucket, version, logits
+    lead = two[0]["runs"]["a"]
+    got = lead["one_at_a_time"]
+    errs = [float(np.abs(g[2] - w[2]).max()) for g, w in zip(got, want)]
+    same = [(g[0], g[1]) == (w[0], w[1]) for g, w in zip(got, want)]
+    close = [np.allclose(g[2], w[2], rtol=1e-4, atol=1e-4)
+             for g, w in zip(got, want)]
+    bitwise = all(all(np.array_equal(a, b) for a, b in zip(
+        r["runs"]["a"]["logits"], lead["logits"])) for r in two[1:])
+    log("mesh-serve-a", requests=len(got), max_abs_err=max(errs),
+        buckets=sorted({g[0] for g in got}), same_bucket_and_version=all(same),
+        ranks_bitwise=bitwise,
+        mesh_p50_ms=lead["one_snapshot"]["total_p50_ms"],
+        one_rank_p50_ms=one_snap["total_p50_ms"],
+        mesh_p99_ms=lead["one_snapshot"]["total_p99_ms"],
+        one_rank_p99_ms=one_snap["total_p99_ms"],
+        wave_buckets=lead["wave_buckets"])
+    if len(got) != MESH_SERVE_ONE_AT_A_TIME or not all(same) \
+            or not all(close):
+        raise AssertionError(f"mesh-serve (a): the mesh's server differs "
+                             f"from one rank's: {same} {errs}")
+    if lead["wave_buckets"] != [32, 128, 512] or lead["wave_requests"] != 64:
+        raise AssertionError(f"mesh-serve (a): waves {lead['wave_buckets']}")
+    if any(r["runs"]["a"]["versions"] != lead["versions"] for r in two):
+        raise AssertionError("mesh-serve (a): ranks pinned other versions")
+    # (b) the fabric's kill
+    four = [r for r in ranks if "b" in r["runs"]]
+    fb = four[0]["runs"]["b"]
+    rt = fb["routing"]
+    if fb["requests"] != 108 or fb["snapshot"]["errors"] != 0 \
+            or rt["failovers"] < 1 or rt["retries"] < 1:
+        raise AssertionError(f"mesh-serve (b): {fb['requests']} served, "
+                             f"{fb['snapshot']}, {rt}")
+    if any(r["runs"]["b"]["alive"] != [False, False] for r in four):
+        raise AssertionError("mesh-serve (b): a worker outlived the stop")
+    # (c) every rank merged at one version; the mesh's infer vs one rank's
+    merged = [r["runs"]["c"]["merged"] for r in two]
+    if any(m["version"] != merged[0]["version"]
+           or m["merges"] != merged[0]["merges"] or merged[0]["merges"] < 1
+           or not np.array_equal(m["members"], merged[0]["members"])
+           for m in merged):
+        raise AssertionError(f"mesh-serve (c): ranks merged apart: "
+                             f"{[(m['version'], m['merges']) for m in merged]}")
+    single = GNSEngine(stream_config())
+    v0 = single.ds.graph.num_nodes
+    events = temporal_event_stream(single.ds, num_batches=4,
+                                   events_per_batch=64, new_node_frac=0.1,
+                                   seed=SEED)
+    for ev in events:
+        single.ingest_events(ev)
+    single.merge_deltas()
+    ids = np.concatenate([np.arange(v0, v0 + events.total_new_nodes),
+                          np.random.default_rng(SEED + 7).choice(v0, 200,
+                                                                 False)])
+    # the mesh's parameters: the same seed on every rank and on one rank
+    want_c = single.infer(ids)
+    got_c = two[0]["stream_infer"]
+    err_c = float(np.abs(got_c - want_c).max())
+    log("mesh-serve-c", merges=merged[0]["merges"],
+        version=merged[0]["version"], nodes=merged[0]["nodes"], ids=len(ids),
+        max_abs_err=err_c)
+    if not np.allclose(got_c, want_c, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"mesh-serve (c): infer differs by {err_c}")
+    # (d) the mesh's checkpoint into one rank on the card
+    ck = two[0]["ckpt"]
+    fresh = GNSEngine(stream_config())
+    step = fresh.restore(Path(ck["path"]).parent)
+    params = [t.detach().cpu().numpy() for layer in fresh.params["layers"]
+              for t in layer.values()]
+    ok_p = all(np.array_equal(a, b) for a, b in zip(params, ck["params"]))
+    st = fresh.stream.state()
+    ok_s = all(np.array_equal(st[k], v) for k, v in ck["stream"].items())
+    log("mesh-serve-d", step=step, tensors=len(params), params_bitwise=ok_p,
+        delta_log_equal=ok_s, pending=fresh.pending_deltas,
+        on=str(fresh.params["layers"][0]["w"].device))
+    if step != 3 or not ok_p or not ok_s or fresh.pending_deltas != 4 \
+            or any(r["ckpt"]["path"] != ck["path"] for r in two):
+        raise AssertionError("mesh-serve (d): the checkpoint did not round "
+                             "trip")
+    shutil.rmtree(ROOT / "build" / "chip_smoke_mesh_ckpt",
+                  ignore_errors=True)
+    torch.cuda.synchronize()
+    log("mesh-serve-done", launches=counts,
+        seconds=round(time.perf_counter() - t0, 1))
+    for kernel, n in counts.items():
+        if n < 1:
+            raise AssertionError(f"mesh-serve: {kernel} never launched")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2577,6 +3011,7 @@ def main() -> int:
     counts["lm_serve"] = phase_lm_serve()
     phase_lm_parity()
     counts["mesh"] = phase_mesh(ds)
+    counts["mesh_serve"] = phase_mesh_serve(ds)
     rows = (phase_times(engine, shapes, errs, counts)
             + phase_train_times(k3_shapes, k3_errs, k1_shapes, counts)
             + phase_k4_times(k4_errs, counts))

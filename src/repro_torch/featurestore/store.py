@@ -49,8 +49,22 @@ ranks must agree on what they build and when they publish it:
   ``refreshing`` reads as true while any rank builds: every rank swaps at
   the same step, so no step combines shards of two generations.
 
-These agreements run on the thread that drives the store (the loader's),
-on the host group, which no other thread uses.  Without a mesh a
+* a build that failed on any rank is published on none: every rank
+  drops its shadow and raises at the same ``swap_if_ready``;
+* every rank builds from the leader's snapshot (global rank 0): at the
+  kickoff the leader drains its streaming buffer, and its delta batch,
+  its policy scores and its placement histograms are broadcast, so every
+  rank merges the same deltas at the same generation and draws the same
+  generation from the same inputs, even where its own threads booked the
+  requests in another order (a serving fabric's concurrent workers).
+
+Serving on a mesh samples every batch on every rank (``repro_torch.serve``),
+so inside the ``serving()`` scope a request is already in every rank's
+store and is not exchanged at the kickoff.
+
+These agreements run on the thread that drives the store (the loader's,
+a server's loop, a fabric's watchdog), on the host group, which no other
+thread uses.  Without a mesh a
 ``CacheConfig.shards`` above 1 still pads the table and the locality
 placement still permutes rows, exactly as the reference lays them out.
 With ``build_device_adj`` each generation also carries its cached-neighbor
@@ -86,6 +100,7 @@ from repro_torch.featurestore.placement import (PlacementMap, RoutingTable,
                                                 solve_placement,
                                                 solve_placement_incremental)
 from repro_torch.featurestore.policies import CachePolicy, make_policy
+from repro_torch.launch.mesh import LEADER, broadcast_object
 
 
 @dataclasses.dataclass(frozen=True)
@@ -391,6 +406,8 @@ class FeatureStore:
         # on a mesh with several data-parallel groups: this rank's requests
         # per node since the last refresh kickoff (_merge_group_traffic)
         self._groups = 1
+        self._replicated = False    # inside serving(): every rank samples
+                                    # this batch, so nothing to exchange
         self._observed: Optional[np.ndarray] = None
         if mesh is not None:
             from repro_torch.kernels.ops import dp_group_count
@@ -451,7 +468,7 @@ class FeatureStore:
     # accounting modes
     # ------------------------------------------------------------------
     @contextlib.contextmanager
-    def serving(self, meter: TrafficMeter):
+    def serving(self, meter: TrafficMeter, group: Optional[int] = None):
         """Serving-mode accounting scope (the GNSServer's sampling window).
 
         Inside the scope, ``assemble_input`` routes its tier/time/locality
@@ -465,13 +482,20 @@ class FeatureStore:
         Not safe to interleave with a concurrent ``fit``/``evaluate`` on the
         same store — one accounting mode at a time (the serving loop holds
         the scope only while it samples, on its single worker thread).
+
+        ``group`` stamps the data-parallel group the scope's requests book
+        under (restored after); None leaves ``dp_group`` as it is.
         """
-        prev_record, prev_meter = self.record, self.serve_meter
-        self.record, self.serve_meter = False, meter
+        prev = (self.record, self.serve_meter, self._replicated,
+                self.dp_group)
+        self.record, self.serve_meter, self._replicated = False, meter, True
+        if group is not None:
+            self.dp_group = group
         try:
             yield self
         finally:
-            self.record, self.serve_meter = prev_record, prev_meter
+            (self.record, self.serve_meter, self._replicated,
+             self.dp_group) = prev
 
     # ------------------------------------------------------------------
     # tier reads
@@ -537,7 +561,7 @@ class FeatureStore:
             # become hits, so their scores decay until eviction and they
             # oscillate in and out of the cache (see AdaptivePolicy).
             self.policy.observe(ids_p[:n_in])
-            if self._observed is not None:
+            if self._observed is not None and not self._replicated:
                 self._observed += np.bincount(ids_p[:n_in],
                                               minlength=len(self._observed))
         return (slots, streamed, hits, len(miss_ids) * self._row_bytes,
@@ -721,16 +745,24 @@ class FeatureStore:
 
     def stream_merge_due(self) -> bool:
         """True when enough deltas are staged to justify kicking a refresh
-        (the fabric watchdog's drain trigger)."""
+        (the fabric watchdog's drain trigger).  On a mesh it is the
+        leader's answer on every rank (every rank must call it)."""
         cfg = self.stream_cfg
-        if self._stream is None or cfg is None:
-            return False
-        return self.pending_deltas() >= max(int(cfg.merge_min_pending), 1)
+        due = (self._stream is not None and cfg is not None
+               and self.pending_deltas() >= max(int(cfg.merge_min_pending),
+                                                1))
+        if self.mesh is not None:
+            t = torch.tensor([int(due)], dtype=torch.int32)
+            dist.broadcast(t, src=LEADER, group=self.mesh.host_group)
+            due = bool(t.item())
+        return due
 
-    def _absorb_deltas(self) -> bool:
-        """Drain the stream buffer and fold it into the host tiers.
+    def _absorb_deltas(self, batch=None) -> bool:
+        """Fold a drained :class:`DeltaBatch` into the host tiers (default:
+        drain the stream buffer now).
 
-        Runs at the top of ``_build`` — generation builds are serialized
+        Runs at the top of ``_build`` — on a mesh at the kickoff, with the
+        leader's batch — and generation builds are serialized
         (``begin_refresh`` single-flight + ``refresh`` absorbing in-flight
         builds), so this is the ONLY writer of ``graph``/``features``/
         ``labels``, and each is republished by a single reference swap
@@ -738,12 +770,13 @@ class FeatureStore:
         node ids must also see their feature rows).  Pre-merge readers keep
         their own refs via the pinned generation and never observe the swap.
         """
-        buf = self._stream
-        if buf is None or buf.pending() == 0:
-            return False
-        batch = buf.drain()
         if batch is None:
-            return False
+            buf = self._stream
+            if buf is None or buf.pending() == 0:
+                return False
+            batch = buf.drain()
+            if batch is None:
+                return False
         # imported here: keeps featurestore <-> stream from importing
         # cyclically
         from repro_torch.stream.merge import merge_delta_csr
@@ -799,24 +832,42 @@ class FeatureStore:
 
     def _kickoff(self):
         """On a mesh, at a refresh's start in the caller's thread: merge the
-        groups' requests, then snapshot what the build reads of them — the
-        policy's probabilities and the placement histograms.  ``None``
-        without a mesh (the build reads both live, as the reference's)."""
+        groups' requests, merge the leader's staged deltas on every rank,
+        then snapshot what the build reads — the policy's probabilities and
+        the placement histograms — and take the leader's on every rank (the
+        module docstring).  ``None`` without a mesh (the build drains and
+        reads all of them live, as the reference's)."""
         if self.mesh is None:
             return None
         if self._observed is not None:
             self._merge_group_traffic()
+        buf = self._stream
+        lead = self.mesh.rank == LEADER
+        batch = buf.drain() if lead and buf is not None else None
+        clocks = ((buf.next_node, buf.next_seq) if lead and buf is not None
+                  else None)
+        batch, clocks = broadcast_object((batch, clocks),
+                                         self.mesh.host_group)
+        if batch is not None:
+            self._absorb_deltas(batch)
+        if clocks is not None and buf is not None:
+            buf.follow(*clocks)
+        # every rank scores (the adaptive policy decays its EMA as it
+        # scores), then builds from the leader's scores and histograms
+        probs = self._policy_probs()
+        hist = {g: h.copy() for g, h in self.meter.group_hist.items()}
+        probs, hist = broadcast_object((probs, hist), self.mesh.host_group)
         demand = TrafficMeter()
-        demand.group_hist = {g: h.copy()
-                             for g, h in self.meter.group_hist.items()}
-        return self._policy_probs(), demand
+        demand.group_hist = hist
+        return probs, demand
 
     def _build(self, rng: np.random.Generator, version: int,
                staged_idx: int, frozen=None) -> Generation:
         """Build one full generation: score → draw → place → gather →
         upload.  ``frozen`` is :meth:`_kickoff`'s snapshot, or None."""
         t0 = time.perf_counter()
-        self._absorb_deltas()
+        if frozen is None:                 # a mesh merged at the kickoff
+            self._absorb_deltas()
         g = self.graph      # ONE snapshot: everything this generation carries
                             # (membership, probs, adjacency, routing) must
                             # come from the same structure
@@ -978,17 +1029,33 @@ class FeatureStore:
             t.start()
         return True
 
-    def swap_if_ready(self) -> bool:
+    def swap_if_ready(self, gate=None) -> bool:
         """Atomically publish a completed shadow generation.  Called between
         train steps — never concurrently with a reader holding a snapshot.
-        On a mesh it publishes only when every rank's build has finished
-        (or failed), so every rank swaps at the same call."""
+        On a mesh it publishes only when every rank's build has finished,
+        so every rank swaps at the same call, and publishes on no rank when
+        a build failed on any (each raises).  ``gate`` (mesh only: a
+        context-manager factory) is entered around the publish itself: a
+        serving fabric orders it against its workers' sampling there."""
         if self.mesh is not None:
             with self._lock:
                 ready = (self._shadow is not None
                          or self._refresh_err is not None)
+                ok = self._refresh_err is None
             if not self._agree(ready):
                 return False
+            if not self._agree(ok):
+                with self._lock:
+                    err, self._refresh_err = self._refresh_err, None
+                    self._shadow = None
+                raise err if err is not None else RuntimeError(
+                    "the generation build failed on another rank of the "
+                    "mesh; no rank publishes it")
+            with (gate() if gate is not None else contextlib.nullcontext()):
+                with self._lock:
+                    self._live, self._shadow = self._shadow, None
+                    self.swaps += 1
+            return True
         with self._lock:
             # error take-and-clear inside the lock: a lock-free read could
             # race the build thread's error publish and drop it

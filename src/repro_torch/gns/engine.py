@@ -66,11 +66,22 @@ group ``d``:
   summed over the data group, every rank of a group takes its shard-0
   rank's sum, and AdamW runs identically on every rank;
 * ``evaluate`` and ``infer`` are SPMD: every rank calls them with the same
-  ids and gets the same answer.
+  ids and gets the same answer;
+* ``serve`` and ``serve_fabric`` are built, started and stopped on every
+  rank; the leader (global rank 0) takes the requests and every rank runs
+  every batch (``repro_torch.serve``);
+* ``ingest``, ``ingest_nodes`` and ``ingest_events`` stage on the leader
+  only (:class:`~repro_torch.launch.mesh.NotLeader` elsewhere); every
+  rank merges the leader's deltas at the same generation
+  (``featurestore.store``), and ``merge_deltas`` is SPMD;
+* ``save`` is called on every rank: the leader writes the reference's
+  format (parameters, moments, its delta log; nothing of the cache, which
+  is rebuilt from the seed) and every rank returns its directory;
+  ``restore`` reads the same files on every rank, and the leader re-stages
+  the delta log.
 
-Serving (``serve``, ``serve_fabric``), streaming ingest and checkpoints on
-a mesh are not ported yet (ROADMAP Queue A item 7b): they raise
-``NotImplementedError``.
+Over ``FabricConfig(transport="tcp")`` each endpoint holds its own engine
+replica, and a mesh engine refuses it.
 """
 from __future__ import annotations
 
@@ -94,13 +105,10 @@ from repro_torch.gns.describe import mesh_report, traffic_report
 from repro_torch.graph.datasets import get_dataset
 from repro_torch.kernels.ops import (dp_axes, dp_group_count, dp_group_index,
                                      psum)
+from repro_torch.launch.mesh import NotLeader, broadcast_object
 from repro_torch.launch.sharding import use_mesh
 from repro_torch.models import graphsage
 from repro_torch.optim.adam import AdamW
-
-_ON_A_MESH = ("is not ported on a mesh yet (ROADMAP Queue A item 7b: "
-              "serving, the fabric, streaming ingest and checkpoints on a "
-              "mesh)")
 
 
 @dataclasses.dataclass
@@ -513,16 +521,20 @@ class GNSEngine:
         return sampler.sample(ids, rng)
 
     def infer_compute(self, mb: MiniBatch,
-                      meter: Optional[TrafficMeter] = None) -> np.ndarray:
+                      meter: Optional[TrafficMeter] = None,
+                      mesh=None) -> np.ndarray:
         """Run the forward on a prepared batch.
 
         Returns logits ``[bucket, classes]`` (padded rows included — slice
         the leading real rows off).  ``meter`` receives the host->device
-        copy time (default: the engine's inference side meter).
+        copy time (default: the engine's inference side meter).  On a mesh
+        ``mesh`` is the calling thread's fork of the engine's (its own
+        process groups; a serving loop's), default the engine's own.
         """
         dev_batch = self._put_batch(
             mb, meter if meter is not None else self.meter_infer)
-        with torch.inference_mode(), use_mesh(self.mesh):
+        with torch.inference_mode(), use_mesh(
+                mesh if mesh is not None else self.mesh):
             logits = graphsage.forward(self.params, dev_batch,
                                        self._cache_table(mb), self.mcfg,
                                        device_adj=self._device_adj(mb))
@@ -531,9 +543,8 @@ class GNSEngine:
     def serve(self, serve_cfg=None):
         """A :class:`repro_torch.serve.GNSServer` over this engine (not
         started); the default config goes through
-        :meth:`EngineConfig.serve_config`."""
-        if self.mesh is not None:
-            raise NotImplementedError(f"GNSServer {_ON_A_MESH}")
+        :meth:`EngineConfig.serve_config`.  On a mesh every rank calls it,
+        in the same order (the server makes process groups of its own)."""
         from repro_torch.serve import GNSServer
         return GNSServer(self, serve_cfg if serve_cfg is not None
                          else self.cfg.serve_config())
@@ -542,9 +553,8 @@ class GNSEngine:
         """A :class:`repro_torch.serve.ServeFabric` fleet over this engine
         (not started).  Defaults come from ``EngineConfig.serve.fabric``
         (through :meth:`EngineConfig.serve_config`, so the unified refresh
-        hint applies) — a bare ``FabricConfig()`` when unset."""
-        if self.mesh is not None:
-            raise NotImplementedError(f"ServeFabric {_ON_A_MESH}")
+        hint applies) — a bare ``FabricConfig()`` when unset.  On a mesh
+        every rank calls it, in the same order."""
         from repro_torch.serve import ServeFabric
         return ServeFabric(self, cfg=fabric_cfg, serve_cfg=serve_cfg)
 
@@ -583,8 +593,6 @@ class GNSEngine:
         """Attach a :class:`repro_torch.stream.DeltaBuffer` to the store."""
         from repro_torch.gns.config import StreamConfig
         from repro_torch.stream import DeltaBuffer
-        if self.mesh is not None:
-            raise NotImplementedError(f"streaming ingest {_ON_A_MESH}")
         if self.store is None:
             raise ValueError(
                 "streaming ingest rides the GNS feature store's generations; "
@@ -615,6 +623,13 @@ class GNSEngine:
         return self._stream if self._stream is not None \
             else self._init_stream()
 
+    def _staging_buffer(self):
+        """The stream buffer, on the mesh's leader only."""
+        if self.mesh is not None and not self.mesh.leader:
+            raise NotLeader("ingest on a mesh goes to the leader (global "
+                            "rank 0); every rank merges its deltas")
+        return self.stream
+
     @property
     def pending_deltas(self) -> int:
         """Staged mutations awaiting the next generation merge."""
@@ -630,7 +645,7 @@ class GNSEngine:
         replay bitwise-identically against their pinned pre-merge
         generation.  Returns the first assigned sequence number.
         """
-        buf = self.stream
+        buf = self._staging_buffer()
         if op == "insert":
             return buf.add_edges(src, dst)
         if op != "delete":
@@ -642,12 +657,12 @@ class GNSEngine:
         """Stage new nodes (+feature rows); returns their assigned ids,
         allocated contiguously above the current id space, so staged edges
         may reference them at once."""
-        return self.stream.add_nodes(features, labels)
+        return self._staging_buffer().add_nodes(features, labels)
 
     def ingest_events(self, ev) -> int:
         """Stage one :class:`repro_torch.data.temporal.EventBatch` (nodes
         first, then the edges that may reference them)."""
-        buf = self.stream
+        buf = self._staging_buffer()
         if ev.node_feats is not None and len(ev.node_feats):
             ids = buf.add_nodes(ev.node_feats, ev.node_labels)
             if int(ids[0]) != ev.node_base:
@@ -677,9 +692,25 @@ class GNSEngine:
         .save_checkpoint`; the reference's format, so either package
         restores it).  The stream buffer's seq-stamped ops ride the
         checkpoint's ``aux`` side-payload, so a crash between an ingest and
-        the next merge loses nothing.  Returns its directory."""
-        if self.mesh is not None:
-            raise NotImplementedError(f"save {_ON_A_MESH}")
+        the next merge loses nothing.  Returns its directory.
+
+        On a mesh every rank calls it: the leader writes (the parameters
+        and moments are the same on every rank) and every rank returns its
+        directory, or raises its error, once it is written."""
+        if self.mesh is None:
+            return self._write_checkpoint(directory, step, keep)
+        out = None
+        if self.mesh.leader:
+            try:
+                out = self._write_checkpoint(directory, step, keep)
+            except Exception as e:        # raised on every rank below
+                out = e
+        out = broadcast_object(out, self.mesh.host_group)
+        if isinstance(out, Exception):
+            raise out
+        return out
+
+    def _write_checkpoint(self, directory, step: int, keep: int):
         tree = {"params": self.params, "opt_state": self.opt_state}
         aux = {}
         extra: dict = {"seed": self.cfg.seed}
@@ -696,9 +727,9 @@ class GNSEngine:
         None): parameters and moments go back onto this engine's device.
         The staged delta log, when the checkpoint carries one, is re-staged
         into this engine's buffer with its original seqs (last-op-wins
-        makes the replay idempotent).  Returns the restored step."""
-        if self.mesh is not None:
-            raise NotImplementedError(f"restore {_ON_A_MESH}")
+        makes the replay idempotent).  Returns the restored step.  On a
+        mesh every rank reads the same files; the leader re-stages the log
+        and the other ranks take its id and seq clocks."""
         tree_like = {"params": self.params, "opt_state": self.opt_state}
         tree, step, _extra = checkpoint.load_checkpoint(
             directory, tree_like, step=step, device=self.device)
@@ -707,7 +738,11 @@ class GNSEngine:
         stream_state = {k.split("/", 1)[1]: v for k, v in aux.items()
                         if k.startswith("stream/")}
         if stream_state:
-            self.stream.restore(stream_state)
+            if self.mesh is None or self.mesh.leader:
+                self.stream.restore(stream_state)
+            else:
+                self.stream.follow(stream_state["next_node"],
+                                   stream_state["next_seq"])
         return step
 
     def describe(self) -> dict:

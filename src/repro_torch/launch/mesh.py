@@ -22,6 +22,14 @@ gloo: the host-side agreements of the feature store (every rank builds
 the same cache generation, and swaps it at the same step) reduce CPU
 tensors, which only gloo carries.
 
+Serving on a mesh runs several threads per rank that each issue
+collectives (a server's loop, a fabric's workers and its watchdog), and
+two threads must never share a process group.  :meth:`HostMesh.fork`
+gives a thread its own model groups and host group (every rank forks in
+the same order), and a :class:`Channel` carries the leader's commands to
+the other ranks over such a host group.  Global rank 0 is the *leader*:
+clients submit to it, and the other ranks follow its commands.
+
 :func:`run_ranks` is the launcher of the tests and of ``chip_smoke.py``:
 it spawns ``data·model`` processes over ``tcp://127.0.0.1``, each on the
 device the caller names for it, with the backend the caller names, runs
@@ -37,12 +45,25 @@ import socket
 import time
 import traceback
 from datetime import timedelta
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 AXES = ("data", "model")
+LEADER = 0                     # the global rank that takes client calls
+
+
+class NotLeader(RuntimeError):
+    """A client call (``submit``, ``ingest``) on a rank other than the
+    mesh's leader, global rank 0: on a mesh only the leader takes
+    requests and deltas, and the other ranks follow its commands."""
+
+
+class MeshDesync(RuntimeError):
+    """The ranks of a mesh disagree on what they serve: a follower was
+    sent a batch pinned to a generation it cannot reach, or waited past
+    its bound for the leader's next step."""
 
 
 def cache_shard_axis(mesh) -> str:
@@ -66,7 +87,7 @@ class HostMesh:
     axis_names = AXES
 
     def __init__(self, data: int, model: int, groups: dict,
-                 host_group) -> None:
+                 host_group, timeout: Optional[timedelta] = None) -> None:
         self.data = data
         self.model = model
         self.rank = dist.get_rank()
@@ -75,6 +96,22 @@ class HostMesh:
         self._coord = {"data": self.rank // model, "model": self.rank % model}
         self._groups = groups
         self.host_group = host_group
+        self.timeout = timeout
+
+    @property
+    def leader(self) -> bool:
+        """This rank is the mesh's leader (global rank 0)."""
+        return self.rank == LEADER
+
+    def fork(self) -> "HostMesh":
+        """A view of this mesh with process groups of its own, for one
+        thread: new model groups (the sharded K1's ``all_reduce``) and a
+        new gloo host group; its data groups are not made (serving never
+        sums over the data axis).  Every rank must fork, in one order."""
+        groups = {"model": _model_groups(self.data, self.model,
+                                         self.timeout)}
+        return HostMesh(self.data, self.model, groups,
+                        new_host_group(self.timeout), self.timeout)
 
     def __repr__(self) -> str:
         return (f"HostMesh(data={self.data}, model={self.model}, "
@@ -91,9 +128,30 @@ class HostMesh:
         return i * self.model + m if axis == "data" else d * self.model + i
 
 
-def make_host_mesh(data: int = 1, model: int = 1) -> HostMesh:
+def new_host_group(timeout: Optional[timedelta] = None):
+    """A new gloo group of every rank (every rank must call it)."""
+    return dist.new_group(list(range(dist.get_world_size())),
+                          backend="gloo", timeout=timeout)
+
+
+def _model_groups(data: int, model: int, timeout):
+    """One new group per data index (its ``model`` ranks); returns this
+    rank's.  Every rank creates every group, in one order."""
+    mine = None
+    for d in range(data):
+        g = dist.new_group([d * model + m for m in range(model)],
+                           timeout=timeout)
+        if dist.get_rank() // model == d:
+            mine = g
+    return mine
+
+
+def make_host_mesh(data: int = 1, model: int = 1,
+                   timeout: Optional[timedelta] = None) -> HostMesh:
     """The ``(data, model)`` mesh over the ranks of the initialised process
-    group; raises unless there is one of exactly ``data·model`` ranks."""
+    group; raises unless there is one of exactly ``data·model`` ranks.
+    ``timeout`` bounds every collective of the groups it makes (and of
+    their forks); None is ``torch.distributed``'s default."""
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError(
             f"a ({data}, {model}) mesh needs an initialised torch.distributed "
@@ -104,18 +162,67 @@ def make_host_mesh(data: int = 1, model: int = 1) -> HostMesh:
                          f"{data * model} ranks; the process group has "
                          f"{world}")
     rank = dist.get_rank()
-    mine = {}
     # every rank creates every group, in one order
-    for d in range(data):
-        g = dist.new_group([d * model + m for m in range(model)])
-        if rank // model == d:
-            mine["model"] = g
+    mine = {"model": _model_groups(data, model, timeout)}
     for m in range(model):
-        g = dist.new_group([d * model + m for d in range(data)])
+        g = dist.new_group([d * model + m for d in range(data)],
+                           timeout=timeout)
         if rank % model == m:
             mine["data"] = g
-    host = dist.new_group(list(range(world)), backend="gloo")
-    return HostMesh(data, model, mine, host)
+    return HostMesh(data, model, mine, new_host_group(timeout), timeout)
+
+
+class Channel:
+    """The leader's commands to the other ranks, over one gloo group that
+    only the calling thread uses.
+
+    A command is a kind, ``HEADER`` int64 fields and up to ``width`` int64
+    ids, broadcast from the leader in one fixed-size message: the leader
+    calls :meth:`send`, every other rank :meth:`recv`, in the same order.
+    A follower's ``recv`` is bounded by the group's timeout, and a leader
+    with nothing to send sends ``HEARTBEAT`` at its poll interval."""
+
+    HEARTBEAT, STOP = 0, 1
+    HEADER = 4
+
+    def __init__(self, group, width: int) -> None:
+        self.group = group
+        self.width = int(width)
+        self._buf = torch.zeros(2 + self.HEADER + self.width,
+                                dtype=torch.int64)
+
+    def send(self, kind: int, fields: Sequence[int] = (),
+             ids=None) -> None:
+        buf = self._buf
+        buf.zero_()
+        n = 0 if ids is None else len(ids)
+        if n > self.width or len(fields) > self.HEADER:
+            raise ValueError(f"command of {n} ids and {len(fields)} fields "
+                             f"exceeds {self.width} / {self.HEADER}")
+        buf[0], buf[1] = int(kind), n
+        if len(fields):
+            buf[2:2 + len(fields)] = torch.as_tensor(
+                [int(f) for f in fields], dtype=torch.int64)
+        if n:
+            buf[2 + self.HEADER:2 + self.HEADER + n] = torch.as_tensor(
+                ids, dtype=torch.int64)
+        dist.broadcast(buf, src=LEADER, group=self.group)
+
+    def recv(self) -> tuple:
+        """``(kind, fields, ids)`` of the leader's next command."""
+        buf = self._buf
+        dist.broadcast(buf, src=LEADER, group=self.group)
+        n = int(buf[1])
+        fields = [int(v) for v in buf[2:2 + self.HEADER]]
+        ids = buf[2 + self.HEADER:2 + self.HEADER + n].numpy().copy()
+        return int(buf[0]), fields, ids
+
+
+def broadcast_object(obj, group):
+    """The leader's ``obj`` on every rank (pickled over ``group``)."""
+    box = [obj if dist.get_rank() == LEADER else None]
+    dist.broadcast_object_list(box, src=LEADER, group=group)
+    return box[0]
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +250,8 @@ def _rank_main(rank, world, port, data, model, device, backend, target, args,
                                 world_size=world, rank=rank,
                                 timeout=timedelta(seconds=timeout_s))
         try:
-            mesh = make_host_mesh(data, model)
+            mesh = make_host_mesh(data, model,
+                                  timedelta(seconds=timeout_s))
             out = _resolve(target)(mesh, dev, *args)
             dist.barrier(group=mesh.host_group)
         finally:

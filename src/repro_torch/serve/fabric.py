@@ -48,6 +48,28 @@ first batch stalls the others behind the build.  Under
 replica and cache generations: the coordinator then computes nothing (no
 generation 0, no kernel build) and only drives the refresh cadence.
 
+**On a mesh** (an engine over a :class:`~repro_torch.launch.mesh.HostMesh`
+of ``torch.distributed`` ranks; in-process transport only) every rank
+builds, starts and stops the fabric, in the same order.  The leader
+(global rank 0) runs ``submit``, tenancy, the router, every worker's
+scheduler and batcher, and the watchdog's health, failover and refresh
+decisions; ``submit`` elsewhere raises
+:class:`~repro_torch.launch.mesh.NotLeader`.  Worker ``w`` runs on every
+rank: its leader thread sends each batch it samples (ids, bucket, pinned
+generation, the kill flag) over a gloo channel of its own, and worker
+``w`` on every other rank samples it with the same rng and group stamp
+and runs the same forward, whose sharded K1 sums over process groups of
+worker ``w``'s own (each thread that issues collectives has its own
+groups, made here in one order on every rank).  The watchdog alone drives
+the store's agreements: the leader's tells the others' when, with its
+decisions (stop flag, refresh due).  A swap is ordered against the
+workers' sampling: the leader publishes under its sample lock and sends
+how many batches it had sampled; every other rank publishes once it has
+sampled those same batches, and a batch pinned to a generation a rank has
+not published yet waits for it — so every rank samples every batch
+against the same generation.  A killed worker dies on every rank after
+sampling its batch, and the failover stays on the leader.
+
 Lock order (enforced by the runtime sanitizer of
 :mod:`repro_torch.analysis`): every lock in the fabric is leaf-held — no
 code path acquires a second fabric lock while holding one, and
@@ -55,6 +77,7 @@ meter/scheduler/router internals take only their own.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -64,6 +87,8 @@ import numpy as np
 
 from repro_torch.analysis import TrackedLock, guarded_by, sanitizer_enabled
 from repro_torch.featurestore.meter import TrafficMeter
+from repro_torch.launch.mesh import (Channel, MeshDesync, NotLeader,
+                                     new_host_group)
 from repro_torch.serve.batcher import MicroBatcher
 from repro_torch.serve.metrics import BatchRecord, ServeMeter
 from repro_torch.serve.router import Router
@@ -72,6 +97,10 @@ from repro_torch.serve.server import (QueueFull, ServeFuture, ServeResult,
 from repro_torch.serve.tenancy import FairScheduler
 
 DEFAULT_TENANT = "default"
+# Channel command kinds on a mesh (beside HEARTBEAT and STOP)
+_BATCH, _POLL, _SWAP = 2, 3, 4
+_FOLLOW_BOUND_S = 300.0     # a follower's longest wait for the leader's
+                            # next step, where the mesh sets no timeout
 
 
 class WorkerDown(RuntimeError):
@@ -130,12 +159,16 @@ class FabricWorker:
         self.stall_s = 0.0                  # chaos hook: sleep mid-batch
         self._die = False                   # chaos hook: abort mid-batch
         self._thread: Optional[threading.Thread] = None
+        # on a mesh: this worker's own process groups and command channel
+        self.mesh = None
+        self.channel: Optional[Channel] = None
 
     # ------------------------------------------------------------------
     def start(self) -> None:
         assert self._thread is None, "worker already started"
         self._thread = threading.Thread(
-            target=self._run, daemon=True, name=f"gns-fabric-{self.index}")
+            target=self._run if self.fabric.leader else self._follow,
+            daemon=True, name=f"gns-fabric-{self.index}")
         self._thread.start()
 
     def alive(self) -> bool:
@@ -148,7 +181,8 @@ class FabricWorker:
             t.join(timeout)
 
     def kill(self) -> None:
-        """Chaos hook: the next batch aborts the worker thread mid-flight."""
+        """Chaos hook: the next batch aborts the worker thread mid-flight
+        (on a mesh the leader's call kills the worker on every rank)."""
         self._die = True
 
     def beat_age(self, now: float) -> float:
@@ -186,47 +220,55 @@ class FabricWorker:
 
     def _run(self) -> None:
         fab = self.fabric
-        while True:
-            self._beat()
-            self._pump()
-            batch = self.batcher.next_batch(timeout=0.002)
-            if batch is None:
+        killed = False
+        try:
+            while True:
+                self._beat()
+                self._pump()
+                batch = self.batcher.next_batch(timeout=0.002)
+                if batch is None:
+                    if fab.stopping and (not fab.drain_on_stop
+                                         or self.backlog() == 0):
+                        return
+                    if self.channel is not None:
+                        self.channel.send(Channel.HEARTBEAT)
+                    self.scheduler.work_ev.wait(timeout=0.02)
+                    continue
+                self._fed_ids -= sum(len(p.node_ids) for p in batch)
+                t_start = time.monotonic()
+                live, expired = [], []
+                for p in batch:
+                    (expired if p.deadline is not None
+                     and p.deadline < t_start else live).append(p)
+                for p in expired:
+                    fab.meter.observe_expired(t_start - p.t_submit,
+                                              tenant=p.tenant)
+                    p.future._complete(ServeResult(
+                        logits=None, status="expired",
+                        queue_wait_s=t_start - p.t_submit,
+                        total_s=t_start - p.t_submit))
+                if not live:
+                    continue
+                with self._wlock:
+                    self._inflight = list(live)
+                try:
+                    self._serve_batch(live, t_start)
+                except WorkerKilled:
+                    killed = True  # chaos: die with the batch in flight —
+                    return         # the watchdog reclaims _inflight and
+                                   # re-routes
+                except BaseException as e:
+                    fab.meter.observe_error(len(live))
+                    for p in live:
+                        p.future._fail(e)
+                with self._wlock:
+                    self._inflight = []
                 if fab.stopping and (not fab.drain_on_stop
                                      or self.backlog() == 0):
                     return
-                self.scheduler.work_ev.wait(timeout=0.02)
-                continue
-            self._fed_ids -= sum(len(p.node_ids) for p in batch)
-            t_start = time.monotonic()
-            live, expired = [], []
-            for p in batch:
-                (expired if p.deadline is not None and p.deadline < t_start
-                 else live).append(p)
-            for p in expired:
-                fab.meter.observe_expired(t_start - p.t_submit,
-                                          tenant=p.tenant)
-                p.future._complete(ServeResult(
-                    logits=None, status="expired",
-                    queue_wait_s=t_start - p.t_submit,
-                    total_s=t_start - p.t_submit))
-            if not live:
-                continue
-            with self._wlock:
-                self._inflight = list(live)
-            try:
-                self._serve_batch(live, t_start)
-            except WorkerKilled:
-                return         # chaos: die with the batch in flight — the
-                               # watchdog reclaims _inflight and re-routes
-            except BaseException as e:
-                fab.meter.observe_error(len(live))
-                for p in live:
-                    p.future._fail(e)
-            with self._wlock:
-                self._inflight = []
-            if fab.stopping and (not fab.drain_on_stop
-                                 or self.backlog() == 0):
-                return
+        finally:
+            if self.channel is not None and not killed:
+                self.channel.send(Channel.STOP)
 
     def _serve_batch(self, live: Sequence[_FabPending],
                      t_start: float) -> None:
@@ -238,9 +280,13 @@ class FabricWorker:
         mb = fab._prepare(self, ids, bucket)
         if self.stall_s:
             time.sleep(self.stall_s)      # chaos hook: in-flight stall
-        if self._die:
+        die = self._die
+        if self.channel is not None:      # the batch, on every rank
+            self.channel.send(_BATCH, (bucket, mb.cache_version, die,
+                                       len(live)), ids)
+        if die:
             raise WorkerKilled(f"worker {self.index} killed (chaos hook)")
-        logits = eng.infer_compute(mb, meter=self.copy_meter)
+        logits = eng.infer_compute(mb, meter=self.copy_meter, mesh=self.mesh)
         compute_s = time.perf_counter() - t0
         t_done = time.monotonic()
         version = mb.cache_version
@@ -264,6 +310,46 @@ class FabricWorker:
                 tenant=p.tenant,
                 late=p.deadline is not None and t_done > p.deadline)
             p.future._complete(res)
+
+    def _follow(self) -> None:
+        """Worker ``index`` on a rank other than the leader: sample and run
+        the leader's batches in its order, against the generation each
+        pins.  A batch this rank cannot run as the leader did ends the
+        loop, and the fabric's ``stop()`` raises it."""
+        fab = self.fabric
+        eng = fab.engine
+        try:
+            while True:
+                kind, fields, ids = self.channel.recv()
+                if kind == Channel.STOP:
+                    return
+                if kind != _BATCH:
+                    continue
+                bucket, version, die, n_requests = fields[:4]
+                fab._await_version(version)
+                t0 = time.perf_counter()
+                mb = fab._prepare(self, ids, bucket)
+                if mb.cache_version != version:
+                    raise MeshDesync(
+                        f"worker {self.index} on rank {self.mesh.rank} "
+                        f"sampled generation {mb.cache_version}, the "
+                        f"leader {version}")
+                if die:
+                    return            # killed on the leader, after sampling
+                try:
+                    eng.infer_compute(mb, meter=self.copy_meter,
+                                      mesh=self.mesh)
+                except Exception:     # the leader fails the same batch
+                    fab.meter.observe_error(n_requests)
+                    continue
+                fab.meter.observe_batch(BatchRecord(
+                    bucket=bucket, n_requests=n_requests, n_ids=len(ids),
+                    compute_s=time.perf_counter() - t0,
+                    cache_version=version,
+                    hit_fraction=mb.num_cached / max(mb.num_input, 1)),
+                    worker=self.index)
+        except Exception as e:        # raised by this rank's stop()
+            fab._follow_errors.append(e)
 
 
 @guarded_by("_flock", "_healthy", writes_only=("_fab_accepting",
@@ -315,6 +401,13 @@ class ServeFabric:
         self._stop = threading.Event()
         self._refresh_rng = np.random.default_rng(engine.cfg.seed + 0x5E12)
         self._last_refresh_batches = 0
+        mesh = engine.mesh
+        self.leader = mesh is None or mesh.leader
+        if mesh is not None and cfg.transport == "tcp":
+            raise NotImplementedError(
+                "ServeFabric(transport='tcp') over a mesh engine: each "
+                "endpoint holds its own engine replica; serve a mesh with "
+                "transport='inproc'")
         if cfg.transport == "tcp":
             # cross-host fleet: each worker is a proxy over a TCP channel
             # to a WorkerEndpoint process holding its own cache replica
@@ -331,6 +424,23 @@ class ServeFabric:
                 raise ValueError(f"unknown transport {cfg.transport!r}")
             self.workers = [FabricWorker(self, i) for i in range(cfg.workers)]
         self._watchdog: Optional[threading.Thread] = None
+        # on a mesh: every thread that issues collectives gets groups of
+        # its own (made in one order on every rank); the sampling windows
+        # are counted, so a follower publishes a swap after the same ones
+        self._watch_channel: Optional[Channel] = None
+        self._windows = 0                 # sampling windows, under the
+                                          # sample lock
+        self._follow_cv = threading.Condition()
+        self._follow_errors: list = []
+        self._bound_s = _FOLLOW_BOUND_S
+        if mesh is not None:
+            if mesh.timeout is not None:
+                self._bound_s = mesh.timeout.total_seconds()
+            width = self.workers[0].batcher.capacity
+            for w in self.workers:
+                w.mesh = mesh.fork()
+                w.channel = Channel(w.mesh.host_group, width)
+            self._watch_channel = Channel(new_host_group(mesh.timeout), 0)
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -354,21 +464,37 @@ class ServeFabric:
             # cold-start the cache before any worker runs, and give the
             # router its first table (generation 0's layout)
             self.engine.ensure_cache(self._refresh_rng)
-            if self.engine.store is not None:
+            if self.engine.store is not None and self.leader:
                 self.router.adopt(self.engine.store.routing_table())
             for w in self.workers:
                 w.start()
         self._stop.clear()
         self._watchdog = threading.Thread(
-            target=self._watch, daemon=True, name="gns-fabric-watchdog")
+            target=self._watch if self.leader else self._follow_watch,
+            daemon=True, name="gns-fabric-watchdog")
         self._watchdog.start()
         with self._flock:
-            self._fab_accepting = True
+            self._fab_accepting = self.leader
         return self
 
     def stop(self, drain: bool = True, timeout: float = 30.0) -> None:
         """Stop accepting, serve out queues (``drain=True``), join, cancel
-        leftovers (never concurrently with a live worker)."""
+        leftovers (never concurrently with a live worker).
+
+        On a mesh the leader's ``stop`` ends every rank's threads; another
+        rank's waits for that, then raises what ended a thread of its own
+        otherwise."""
+        if not self.leader:
+            threads = [t for t in [self._watchdog]
+                       + [w._thread for w in self.workers] if t is not None]
+            while not self._follow_errors and any(t.is_alive()
+                                                  for t in threads):
+                for t in threads:
+                    t.join(0.05)
+            self._watchdog = None
+            if self._follow_errors:       # at once: the leader is waiting
+                raise self._follow_errors[0]   # on this rank
+            return
         with self._flock:
             self._fab_accepting = False
         self.drain_on_stop = drain
@@ -414,8 +540,12 @@ class ServeFabric:
         :class:`WorkerDown` when no healthy worker exists,
         :class:`ServerClosed` outside start()/stop().  ``worker`` pins the
         request to one worker, bypassing routing AND health (test/ops
-        escape hatch).
+        escape hatch).  On a mesh only the leader takes requests
+        (:class:`NotLeader` elsewhere).
         """
+        if not self.leader:
+            raise NotLeader("submit on a mesh goes to the leader (global "
+                            "rank 0); the other ranks follow its batches")
         if not self._fab_accepting:
             raise ServerClosed("fabric is not accepting requests")
         ids = np.asarray(node_ids, dtype=np.int64).ravel()
@@ -476,14 +606,83 @@ class ServeFabric:
             if eng.store is not None:
                 eng.store.dp_group = worker.group
                 with eng.store.serving(self.meter.traffic):
-                    return eng.infer_prepare(ids, bucket=bucket,
-                                             rng=worker._rng)
-            return eng.infer_prepare(ids, bucket=bucket, rng=worker._rng)
+                    mb = eng.infer_prepare(ids, bucket=bucket,
+                                           rng=worker._rng)
+            else:
+                mb = eng.infer_prepare(ids, bucket=bucket, rng=worker._rng)
+            self._windows += 1
+        if not self.leader:
+            with self._follow_cv:
+                self._follow_cv.notify_all()
+        return mb
+
+    # ------------------------------------------------------------------
+    # on a mesh: the order of swaps and sampling on every rank
+    # ------------------------------------------------------------------
+    def _wait(self, pred, what: str) -> None:
+        with self._follow_cv:
+            if not self._follow_cv.wait_for(pred, timeout=self._bound_s):
+                raise MeshDesync(f"waited {self._bound_s} s for {what}")
+
+    def _await_version(self, version: int) -> None:
+        """A follower's batch pinned to ``version`` waits until this rank
+        has published it."""
+        store = self.engine.store
+        if store is None:
+            return
+        self._wait(lambda: store.version >= version,
+                   f"generation {version}")
+        if store.version != version:
+            raise MeshDesync(f"the leader's batch pins generation "
+                             f"{version}; this rank holds {store.version}")
+
+    @contextlib.contextmanager
+    def _swap_gate(self):
+        """Around a swap's publish (``swap_if_ready(gate=)``): the leader
+        publishes under its sample lock and sends its count of sampling
+        windows; another rank publishes once it has sampled as many."""
+        if self.leader:
+            with self._sample_lock:
+                yield
+                n = self._windows
+            self._watch_channel.send(_SWAP, (n,))
+            return
+        kind, (n, *_), _ = self._watch_channel.recv()
+        if kind != _SWAP:
+            raise MeshDesync(f"the leader's watchdog sent {kind}, not a "
+                             f"swap")
+        self._wait(lambda: self._windows >= n,
+                   f"the {n} batches sampled before a swap")
+        with self._sample_lock:
+            yield
+        with self._follow_cv:
+            self._follow_cv.notify_all()
 
     # ------------------------------------------------------------------
     # watchdog: health, failover, generation maintenance
     # ------------------------------------------------------------------
     def _watch(self) -> None:
+        try:
+            self._watch_loop()
+        finally:
+            if self._watch_channel is not None:
+                self._watch_channel.send(Channel.STOP)
+
+    def _follow_watch(self) -> None:
+        """The watchdog on a rank other than the leader: the store's
+        agreements when the leader's watchdog says, with its decisions."""
+        try:
+            while True:
+                kind, (stopping, due, *_), _ = self._watch_channel.recv()
+                if kind == Channel.STOP:
+                    return
+                if kind == _POLL:
+                    self._maintain(self.engine.store, bool(stopping),
+                                   bool(due))
+        except Exception as e:        # raised by this rank's stop()
+            self._follow_errors.append(e)
+
+    def _watch_loop(self) -> None:
         interval = self.cfg.watch_interval_ms * 1e-3
         stall_s = self.cfg.stall_timeout_ms * 1e-3
         while not self._stop.wait(interval):
@@ -574,22 +773,35 @@ class ServeFabric:
         store = self.engine.store
         if store is None:
             return
+        stopping = self._stop.is_set()
+        every = self.serve_cfg.refresh_every
+        n = self.meter.batch_count()
+        due = (every is not None and not stopping and n > 0
+               and n - self._last_refresh_batches >= every)
+        if self._watch_channel is not None:     # the others' watchdogs
+            self._watch_channel.send(_POLL, (stopping, due))
+        self._maintain(store, stopping, due, n)
+
+    def _maintain(self, store, stopping: bool, due: bool,
+                  n: Optional[int] = None) -> None:
+        """The store's side of a watchdog poll, on every rank alike:
+        ``stopping`` and ``due`` (the refresh cadence) are the leader's."""
+        mesh = self.engine.mesh
         try:
-            if store.swap_if_ready():
+            if store.swap_if_ready(
+                    gate=self._swap_gate if mesh is not None else None):
                 self.meter.observe_swap()
-                self.router.adopt(store.routing_table())
-            every = self.serve_cfg.refresh_every
-            if every is not None and not self._stop.is_set():
-                n = self.meter.batch_count()
-                if (n > 0 and n - self._last_refresh_batches >= every
-                        and not store.refreshing):
+                if self.leader:
+                    self.router.adopt(store.routing_table())
+            if due and not store.refreshing:
+                if n is not None:
                     self._last_refresh_batches = n
-                    store.begin_refresh(self._refresh_rng,
-                                        version=store.version + 1)
+                store.begin_refresh(self._refresh_rng,
+                                    version=store.version + 1)
             # streaming ingest: staged deltas past the merge threshold kick
             # an ASYNC build (which drains the buffer at its boundary) —
             # serving never pauses, the swap above publishes the merge
-            if (not self._stop.is_set() and store.stream_merge_due()
+            if (not stopping and store.stream_merge_due()
                     and not store.refreshing):
                 store.begin_refresh(self._refresh_rng,
                                     version=store.version + 1)

@@ -24,6 +24,22 @@ The worker polls ``swap_if_ready`` between batches and the bucket samplers
 adopt monotonically — never while a batch is being assembled or computed.
 The same seed and the same sequence of requests give the reference's
 batches, array for array.
+
+**On a mesh** (an engine over a :class:`~repro_torch.launch.mesh.HostMesh`
+of ``torch.distributed`` ranks) every rank builds the server, starts it and
+stops it, in the same order.  The leader (global rank 0) owns the queue,
+the batcher, the deadlines and the meter's latencies; ``submit`` on any
+other rank raises :class:`~repro_torch.launch.mesh.NotLeader`.  Each batch
+the leader forms is broadcast to every rank over a gloo group of the
+server's own (its ids, bucket, live generation and the stop flag its swap
+point reads), so every rank samples it with the same ``_rng``, runs the
+same forward (the sharded K1 ``all_reduce``s over the server's own model
+groups) and passes the same swap point, where ``swap_if_ready``,
+``refreshing`` and ``begin_refresh`` are agreements of the store.  Every
+batch books once, under data-parallel group 0, as the reference's one
+store books it.  An idle leader sends a heartbeat at the batcher's poll
+interval; its ``stop()`` ends every rank's loop, and a follower's
+``stop()`` waits for that and re-raises what ended its loop otherwise.
 """
 from __future__ import annotations
 
@@ -35,8 +51,11 @@ from typing import Optional, Sequence
 import numpy as np
 
 from repro_torch.analysis import guarded_by
+from repro_torch.launch.mesh import Channel, MeshDesync, NotLeader
 from repro_torch.serve.batcher import MicroBatcher
 from repro_torch.serve.metrics import BatchRecord, ServeMeter
+
+_BATCH = 2          # a Channel command kind: one micro-batch to serve
 
 
 class QueueFull(RuntimeError):
@@ -146,6 +165,15 @@ class GNSServer:
         self.refresh_error: Optional[BaseException] = None
                               # last failed serving-driven generation build
                               # (serving continues on the live generation)
+        # on a mesh: the loop's own process groups and the leader's command
+        # channel (collective: every rank builds its server in one order)
+        mesh = engine.mesh
+        self.leader = mesh is None or mesh.leader
+        self._mesh = mesh.fork() if mesh is not None else None
+        self._channel = (Channel(self._mesh.host_group,
+                                 self.batcher.capacity)
+                         if mesh is not None else None)
+        self._loop_error: Optional[BaseException] = None
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -157,9 +185,10 @@ class GNSServer:
         self.engine.ensure_cache(self._rng)
         self._stop.clear()
         with self._state_lock:
-            self._accepting = True
-        self._thread = threading.Thread(target=self._run, daemon=True,
-                                        name="gns-serve")
+            self._accepting = self.leader
+        self._thread = threading.Thread(
+            target=self._run if self.leader else self._follow, daemon=True,
+            name="gns-serve")
         self._thread.start()
         return self
 
@@ -169,7 +198,20 @@ class GNSServer:
         ``drain=False`` makes the worker exit at the next batch boundary
         instead; queued requests are cancelled AFTER the join (never
         concurrently with the worker — a request must not be served and
-        failed at the same time)."""
+        failed at the same time).
+
+        On a mesh a follower's ``stop`` waits (up to ``timeout``) for the
+        leader's to end its loop, and re-raises whatever else ended it."""
+        if not self.leader:
+            t = self._thread
+            if t is not None:
+                t.join(timeout)
+                if t.is_alive():
+                    return
+            self._thread = None
+            if self._loop_error is not None:
+                raise self._loop_error
+            return
         with self._state_lock:
             self._accepting = False
         self._drain = drain
@@ -207,8 +249,12 @@ class GNSServer:
         (backpressure — the caller sheds or retries), :class:`ServerClosed`
         after ``stop()``.  ``deadline_ms`` (default from the config) is
         measured from submission; a request still queued past it completes
-        with ``status="expired"`` and never touches the device.
+        with ``status="expired"`` and never touches the device.  On a mesh
+        only the leader takes requests (:class:`NotLeader` elsewhere).
         """
+        if not self.leader:
+            raise NotLeader("submit on a mesh goes to the leader (global "
+                            "rank 0); the other ranks follow its batches")
         if not self._accepting:
             raise ServerClosed("server is not accepting requests")
         ids = np.asarray(node_ids, dtype=np.int64).ravel()
@@ -250,81 +296,106 @@ class GNSServer:
     # worker loop
     # ------------------------------------------------------------------
     def _run(self) -> None:
-        eng = self.engine
-        store = eng.store
-        while True:
-            batch = self.batcher.next_batch(timeout=0.05)
-            if batch is None:
-                if self._stop.is_set():
-                    return
-                continue
-            t_start = time.monotonic()
-            live, expired = [], []
-            for p in batch:
-                (expired if p.deadline is not None and p.deadline < t_start
-                 else live).append(p)
-            for p in expired:
-                self.meter.observe_expired(t_start - p.t_submit)
-                p.future._complete(ServeResult(
-                    logits=None, status="expired",
-                    queue_wait_s=t_start - p.t_submit,
-                    total_s=t_start - p.t_submit))
-            if not live:
-                continue
-            try:
-                self._serve_batch(live, t_start)
-            except BaseException as e:    # keep the loop alive; fail the batch
-                self.meter.observe_error(len(live))
-                for p in live:
-                    p.future._fail(e)
-            # swap point: publish a completed async refresh BETWEEN batches
-            # (never mid-assembly), and
-            # kick the next serving-driven refresh when due.  A FAILED
-            # background build (swap_if_ready re-raises it here) must not
-            # kill the loop: keep serving the live generation and surface
-            # the error on the meter/server instead.
-            if store is not None:
+        store = self.engine.store
+        ch = self._channel
+        try:
+            while True:
+                batch = self.batcher.next_batch(timeout=0.05)
+                if batch is None:
+                    if self._stop.is_set():
+                        return
+                    if ch is not None:      # followers wait with a bound
+                        ch.send(Channel.HEARTBEAT)
+                    continue
+                t_start = time.monotonic()
+                live, expired = [], []
+                for p in batch:
+                    (expired if p.deadline is not None
+                     and p.deadline < t_start else live).append(p)
+                for p in expired:
+                    self.meter.observe_expired(t_start - p.t_submit)
+                    p.future._complete(ServeResult(
+                        logits=None, status="expired",
+                        queue_wait_s=t_start - p.t_submit,
+                        total_s=t_start - p.t_submit))
+                if not live:
+                    continue
+                # the swap point's stop flag: on a mesh it rides the batch,
+                # so every rank's swap point decides alike
+                stopping = self._stop.is_set()
                 try:
-                    if store.swap_if_ready():
-                        self.meter.observe_swap()
-                    n_batches = self.meter.batch_count()
-                    due = (self.cfg.refresh_every is not None
-                           and n_batches > 0
-                           and n_batches % self.cfg.refresh_every == 0)
-                    if due and not store.refreshing and not self._stop.is_set():
-                        store.begin_refresh(self._rng,
-                                            version=store.version + 1)
-                except BaseException as e:
-                    with self._state_lock:   # publish to client threads
-                        self.refresh_error = e
-                    self.meter.observe_refresh_failure()
-            if self._stop.is_set() and (not self._drain
-                                        or self.batcher.qsize() == 0):
-                return
+                    self._serve_batch(live, t_start, stopping)
+                except BaseException as e:   # keep the loop alive; fail
+                    self.meter.observe_error(len(live))  # the batch
+                    for p in live:
+                        p.future._fail(e)
+                self._swap_point(store, stopping if ch is not None
+                                 else self._stop.is_set())
+                if self._stop.is_set() and (not self._drain
+                                            or self.batcher.qsize() == 0):
+                    return
+        finally:
+            if ch is not None:
+                ch.send(Channel.STOP)
 
-    def _serve_batch(self, live: Sequence[_Pending], t_start: float) -> None:
-        eng = self.engine
+    def _follow(self) -> None:
+        """A follower's loop on a mesh: serve the leader's batches in its
+        order, with the same rng, through the same swap points."""
+        store = self.engine.store
+        try:
+            while True:
+                kind, fields, ids = self._channel.recv()
+                if kind == Channel.STOP:
+                    return
+                if kind != _BATCH:
+                    continue
+                bucket, version, stopping, n_requests = fields[:4]
+                if store is not None and store.version != version:
+                    raise MeshDesync(
+                        f"rank {self._mesh.rank} holds generation "
+                        f"{store.version}; the leader's batch pins "
+                        f"{version}")
+                try:
+                    self._compute(ids, bucket, n_requests)
+                except Exception:        # the leader fails the same batch
+                    self.meter.observe_error(n_requests)
+                self._swap_point(store, bool(stopping))
+        except Exception as e:        # raised by this rank's stop()
+            self._loop_error = e
+
+    def _swap_point(self, store, stopping: bool) -> None:
+        """Publish a completed async refresh BETWEEN batches (never
+        mid-assembly), and kick the next serving-driven refresh when due.
+        A FAILED background build (swap_if_ready re-raises it here) must
+        not kill the loop: keep serving the live generation and surface
+        the error on the meter/server instead."""
+        if store is None:
+            return
+        try:
+            if store.swap_if_ready():
+                self.meter.observe_swap()
+            n_batches = self.meter.batch_count()
+            due = (self.cfg.refresh_every is not None
+                   and n_batches > 0
+                   and n_batches % self.cfg.refresh_every == 0)
+            if due and not store.refreshing and not stopping:
+                store.begin_refresh(self._rng, version=store.version + 1)
+        except BaseException as e:
+            with self._state_lock:   # publish to client threads
+                self.refresh_error = e
+            self.meter.observe_refresh_failure()
+
+    def _serve_batch(self, live: Sequence[_Pending], t_start: float,
+                     stopping: bool = False) -> None:
         ids = np.concatenate([p.node_ids for p in live])
         bucket = self.batcher.bucket_for(len(ids))
-        t0 = time.perf_counter()
-        if eng.store is not None:
-            # serving-mode accounting: tier traffic -> the serve meter,
-            # policy EMA keeps observing
-            with eng.store.serving(self.meter.traffic):
-                mb = eng.infer_prepare(ids, bucket=bucket, rng=self._rng)
-        else:
-            mb = eng.infer_prepare(ids, bucket=bucket, rng=self._rng)
-        # the forward at this bucket's shapes; its host->device copy books
-        # to the serving traffic meter alongside the tier accounting above
-        logits = eng.infer_compute(mb, meter=self.meter.traffic)
-        compute_s = time.perf_counter() - t0
+        if self._channel is not None:
+            store = self.engine.store
+            version = store.version if store is not None else -1
+            self._channel.send(_BATCH, (bucket, version, stopping,
+                                        len(live)), ids)
+        logits, version, compute_s = self._compute(ids, bucket, len(live))
         t_done = time.monotonic()
-        version = mb.cache_version
-        self._last_version = version
-        self.meter.observe_batch(BatchRecord(
-            bucket=bucket, n_requests=len(live), n_ids=len(ids),
-            compute_s=compute_s, cache_version=version,
-            hit_fraction=mb.num_cached / max(mb.num_input, 1)))
         lo = 0
         for p in live:
             n = len(p.node_ids)
@@ -340,6 +411,35 @@ class GNSServer:
                 res.queue_wait_s, res.compute_s, res.total_s,
                 late=p.deadline is not None and t_done > p.deadline)
             p.future._complete(res)
+
+    def _compute(self, ids: np.ndarray, bucket: int,
+                 n_requests: int) -> tuple:
+        """Sample and run one batch, and book it.  Returns ``(logits,
+        pinned version, compute seconds)``."""
+        eng = self.engine
+        t0 = time.perf_counter()
+        if eng.store is not None:
+            # serving-mode accounting: tier traffic -> the serve meter,
+            # policy EMA keeps observing (on a mesh under group 0, the
+            # reference's store's default)
+            with eng.store.serving(self.meter.traffic,
+                                   group=0 if self._mesh is not None
+                                   else None):
+                mb = eng.infer_prepare(ids, bucket=bucket, rng=self._rng)
+        else:
+            mb = eng.infer_prepare(ids, bucket=bucket, rng=self._rng)
+        # the forward at this bucket's shapes; its host->device copy books
+        # to the serving traffic meter alongside the tier accounting above
+        logits = eng.infer_compute(mb, meter=self.meter.traffic,
+                                   mesh=self._mesh)
+        compute_s = time.perf_counter() - t0
+        version = mb.cache_version
+        self._last_version = version
+        self.meter.observe_batch(BatchRecord(
+            bucket=bucket, n_requests=n_requests, n_ids=len(ids),
+            compute_s=compute_s, cache_version=version,
+            hit_fraction=mb.num_cached / max(mb.num_input, 1)))
+        return logits, version, compute_s
 
     def _cancel_queued(self) -> None:
         for p in self.batcher.drain():

@@ -187,6 +187,20 @@ class DeltaBuffer:
         with self._lock:
             return self._next_node
 
+    @property
+    def next_seq(self) -> int:
+        """The next edge op's seq."""
+        with self._lock:
+            return self._next_seq
+
+    def follow(self, next_node: int, next_seq: int) -> None:
+        """Take another buffer's id and seq clocks (never rewinding): on a
+        mesh the ranks that stage nothing follow the leader's, so every
+        rank's clocks agree after a merge or a restore."""
+        with self._lock:
+            self._next_node = max(self._next_node, int(next_node))
+            self._next_seq = max(self._next_seq, int(next_seq))
+
     # ------------------------------------------------------------------
     # checkpoint surface (repro_torch.checkpoint aux payload)
     # ------------------------------------------------------------------

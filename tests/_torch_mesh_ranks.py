@@ -173,3 +173,431 @@ def raise_on_rank_1(mesh, device) -> None:
     """The launcher's failure path: rank 1 raises, rank 0 returns."""
     if mesh.rank == 1:
         raise ValueError("rank 1 raises on purpose")
+
+
+# ---------------------------------------------------------------------------
+# serving, the fabric, ingest and checkpoints on a mesh
+# (test_torch_mesh_{serve,fabric,stream}.py)
+# ---------------------------------------------------------------------------
+
+WAIT_S = 120.0         # bound of every wait in a rank
+
+
+def wait_until(pred, what: str, timeout: float = WAIT_S) -> None:
+    import time
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out after {timeout} s: {what}")
+        time.sleep(0.01)
+
+
+def mesh_engine(text: str, mesh, device, params=None):
+    """The port's engine of a reference config (JSON) on ``mesh``, with
+    the reference's parameters (a numpy tree) when given."""
+    import json
+    from repro_torch.gns import EngineConfig, GNSEngine
+    from repro_torch.models.graphsage import params_from_numpy
+    eng = GNSEngine(EngineConfig.from_dict(json.loads(text)), device=device,
+                    mesh=mesh)
+    if params is not None:
+        eng.params = params_from_numpy(params, device=device)
+    return eng
+
+
+def record_batches(engine) -> list:
+    """Wrap ``engine.infer_compute`` to log ``(thread name, pinned version,
+    logits)`` of every batch this rank computes."""
+    import threading
+    log = []
+    compute = engine.infer_compute
+
+    def recorded(mb, meter=None, mesh=None):
+        out = compute(mb, meter=meter, mesh=mesh)
+        log.append((threading.current_thread().name, mb.cache_version,
+                    out.copy()))
+        return out
+
+    engine.infer_compute = recorded
+    return log
+
+
+def refuses(call, error) -> bool:
+    try:
+        call()
+    except error:
+        return True
+    return False
+
+
+def store_state(engine) -> dict:
+    """The store's live generation and what the next build reads."""
+    store = engine.store
+    out = generation_numpy(engine)
+    out["ema"] = getattr(store.policy, "_ema", None)
+    out["ema"] = None if out["ema"] is None else out["ema"].copy()
+    out["group_hist"] = {g: h.copy()
+                         for g, h in store.meter.group_hist.items()}
+    return out
+
+
+def serve_ranks(mesh, device, spec: dict) -> dict:
+    """GNSServer on this mesh: (1) ``spec["requests"]`` one at a time on
+    the leader, every rank's batches logged, a follower's ``submit``
+    refused; the store's counts, then a synchronous refresh; (2) the
+    reference's serve smoke: a skewed stream with serving-driven
+    refreshes."""
+    from repro_torch.launch.mesh import NotLeader
+    torch.set_num_threads(1)
+    out = {"rank": mesh.rank}
+    eng = mesh_engine(spec["cfg"], mesh, device, spec["params"])
+    log = record_batches(eng)
+    results = []
+    with eng.serve() as srv:
+        if mesh.leader:
+            for ids in spec["requests"]:
+                r = srv.submit(ids).result(timeout=WAIT_S)
+                results.append((r.status, r.bucket, r.cache_version,
+                                r.logits))
+            out["served"] = srv.meter.snapshot()["served"]
+        else:
+            out["refused"] = refuses(lambda: srv.submit(np.arange(3)),
+                                     NotLeader)
+    out["results"] = results
+    out["log"] = [(v, x) for _, v, x in log]
+    out["counted"] = store_state(eng)
+    eng.store.refresh(np.random.default_rng(5), version=1)
+    out["refreshed"] = store_state(eng)
+
+    # (2) the smoke
+    eng = mesh_engine(spec["smoke_cfg"], mesh, device)
+    log = record_batches(eng)
+    rng = np.random.default_rng(7)
+    hot = rng.choice(eng.ds.val_idx, size=40, replace=False)
+    with eng.serve() as srv:
+        if mesh.leader:
+            for _ in range(60):
+                pool = hot if rng.random() < 0.85 else eng.ds.val_idx
+                ids = rng.choice(pool, size=int(rng.integers(2, 8)),
+                                 replace=False)
+                srv.infer(ids, timeout=WAIT_S)
+    eng.store.wait_refresh(timeout=WAIT_S)     # every rank: an agreement
+    m = srv.meter
+    out["smoke"] = {"snapshot": m.snapshot(), "trail": m.generation_trail(),
+                    "traj": m.hit_trajectory(),
+                    "swaps": m.swaps_observed,
+                    "versions": [v for _, v, _ in log],
+                    "logits": [x for _, _, x in log],
+                    "generation": generation_numpy(eng)}
+    return out
+
+
+def fabric_ranks(mesh, device, spec: dict) -> dict:
+    """ServeFabric on this mesh: (1) ``spec["pinned"]`` requests, each
+    pinned to a worker, one at a time; (2) concurrent traffic with a
+    refresh every 2 batches, then every rank's generation; (3) the
+    reference's fabric smoke: two tenants, a killed worker."""
+    import time
+    from repro_torch.gns import FabricConfig, TenantConfig
+    from repro_torch.launch.mesh import NotLeader
+    torch.set_num_threads(1)
+    out = {"rank": mesh.rank}
+
+    def worker_logs(log):
+        by = {}
+        for name, v, x in log:
+            by.setdefault(name, []).append((v, x))
+        return by
+
+    # (1) pinned requests against the reference fabric
+    eng = mesh_engine(spec["cfg"], mesh, device, spec["params"])
+    log = record_batches(eng)
+    fab = eng.serve_fabric(FabricConfig(workers=2, stall_timeout_ms=600_000.0,
+                                        watch_interval_ms=50.0))
+    results = []
+    with fab:
+        if mesh.leader:
+            for w, ids in spec["pinned"]:
+                r = fab.submit(ids, worker=w).result(timeout=WAIT_S)
+                results.append((r.status, r.bucket, r.cache_version,
+                                r.logits))
+            snap = fab.meter.snapshot()
+            out["pinned_errors"] = (snap["errors"], fab.fabric_error)
+        else:
+            out["refused"] = refuses(lambda: fab.submit(np.arange(3)),
+                                     NotLeader)
+    out["pinned"] = results
+    out["pinned_log"] = worker_logs(log)
+
+    # (2) two workers under concurrent traffic, a refresh every 2 batches
+    eng = mesh_engine(spec["refresh_cfg"], mesh, device)
+    log = record_batches(eng)
+    fab = eng.serve_fabric(FabricConfig(workers=2, stall_timeout_ms=600_000.0,
+                                        watch_interval_ms=50.0))
+    rng = np.random.default_rng(11)
+    with fab:
+        if mesh.leader:
+            # a stream of requests, so that swaps land while batches are in
+            # flight on the workers
+            futs = []
+            for _ in range(16):
+                futs += [fab.submit(rng.choice(eng.ds.val_idx,
+                                               int(rng.integers(2, 12)),
+                                               replace=False))
+                         for _ in range(3)]
+                time.sleep(0.03)
+            out["refresh_status"] = [f.result(timeout=WAIT_S).status
+                                     for f in futs]
+            wait_until(lambda: fab.meter.snapshot()["swaps_observed"] >= 2,
+                       "two serving-driven swaps")
+            out["refresh_snapshot"] = fab.meter.snapshot()
+    eng.store.wait_refresh(timeout=WAIT_S)
+    out["refresh_log"] = worker_logs(log)
+    out["refresh_generation"] = generation_numpy(eng)
+    out["refresh_errors"] = fab.fabric_error
+
+    # (2b) a swap while a batch is in flight: worker 0 stalls between
+    # sampling its batch and sending it, and the refresh that the batch
+    # before it made due swaps in meanwhile
+    eng = mesh_engine(spec["refresh_cfg"].replace('"refresh_every": 2',
+                                                  '"refresh_every": 1'),
+                      mesh, device)
+    log = record_batches(eng)
+    fab = eng.serve_fabric(FabricConfig(workers=2, stall_timeout_ms=600_000.0,
+                                        watch_interval_ms=20.0))
+    with fab:
+        if mesh.leader:
+            ids = eng.ds.val_idx[:6]
+            first = fab.submit(ids, worker=1).result(timeout=WAIT_S)
+            fab.workers[0].stall_s = 0.6
+            stalled = fab.submit(ids, worker=0).result(timeout=WAIT_S)
+            fab.workers[0].stall_s = 0.0
+            out["stall"] = {"first": first.cache_version,
+                            "stalled": stalled.cache_version,
+                            "swaps": fab.meter.snapshot()["swaps_observed"],
+                            "live": eng.store.version}
+    eng.store.wait_refresh(timeout=WAIT_S)
+    out["stall_log"] = worker_logs(log)
+    out["stall_errors"] = fab.fabric_error
+
+    # (3) the reference's fabric smoke
+    eng = mesh_engine(spec["smoke_cfg"], mesh, device)
+    ds = eng.ds
+    fab = eng.serve_fabric(FabricConfig(
+        workers=2,
+        tenants=(TenantConfig("mobile", weight=2.0, max_queue=64),
+                 TenantConfig("batch", weight=1.0, max_queue=64)),
+        stall_timeout_ms=10_000.0, watch_interval_ms=50.0))
+    rng = np.random.default_rng(7)
+    half = len(ds.val_idx) // 2
+    hot_a = rng.choice(ds.val_idx[:half], size=30, replace=False)
+    hot_b = rng.choice(ds.val_idx[half:], size=30, replace=False)
+    with fab:
+        if mesh.leader:
+            futs = []
+            for i in range(60):
+                tenant, hot = (("mobile", hot_a) if i % 2 == 0
+                               else ("batch", hot_b))
+                ids = rng.choice(hot, size=int(rng.integers(2, 8)),
+                                 replace=False)
+                futs.append(fab.submit(ids, tenant=tenant))
+            status = [f.result(timeout=WAIT_S).status for f in futs]
+            fab.workers[0].kill()
+            fut = fab.submit(rng.choice(hot_a, size=4, replace=False),
+                             tenant="mobile", worker=0)
+            wait_until(lambda: not fab.workers[0].alive(),
+                       "the killed worker's thread ends")
+            status.append(fut.result(timeout=WAIT_S).status)
+            tail = [fab.submit(rng.choice(hot_b, size=4, replace=False),
+                               tenant="batch") for _ in range(6)]
+            status += [f.result(timeout=WAIT_S).status for f in tail]
+            out["smoke_status"] = status
+            out["smoke_healthy"] = fab.healthy()
+    out["smoke_alive"] = [w.alive() for w in fab.workers]
+    if mesh.leader:
+        out["smoke_snapshot"] = fab.meter.snapshot()
+    return out
+
+
+def stage_mixed(eng) -> None:
+    """Inserts, a conflicting delete, new nodes and edges to them (as
+    ``test_torch_stream._stage_mixed``)."""
+    eng.ingest([1, 2, 3], [4, 5, 6])
+    eng.ingest([1], [4], op="delete")
+    new = eng.ingest_nodes(np.arange(2 * eng.ds.feat_dim, dtype=np.float32)
+                           .reshape(2, eng.ds.feat_dim),
+                           labels=np.array([3, 1]))
+    eng.ingest(new, [0, 7])
+
+
+def store_traffic(store, rng_seed, rounds=3) -> None:
+    """Per-group requests through ``assemble_input`` (as
+    ``test_torch_stream._traffic``)."""
+    rng = np.random.default_rng(rng_seed)
+    gen = store.generation
+    v = store.graph.num_nodes
+    for _ in range(rounds):
+        for group in (0, 1):
+            lo = 0 if group == 0 else v // 2
+            ids = rng.integers(lo, lo + v // 2, 64).astype(np.int64)
+            store.assemble_input(gen, ids, len(ids) - 8, group=group)
+
+
+def store_numpy(store) -> dict:
+    gen = store.generation
+    pm = gen.state.placement
+    buf = store._stream
+    return {"indptr": store.graph.indptr.copy(),
+            "indices": store.graph.indices.copy(),
+            "features": np.asarray(store.features).copy(),
+            "labels": np.asarray(store.labels).copy(),
+            "version": gen.version, "node_ids": gen.state.node_ids.copy(),
+            "slot_of": gen.state.slot_of.copy(),
+            "placement": (None if pm is None
+                          else np.asarray(pm.device_row_of_slot).copy()),
+            "table": gen.table.cpu().numpy(),
+            "gen_nodes": gen.graph.num_nodes,
+            "counters": (store.merges_applied, store.rows_migrated,
+                         store.pending_deltas()),
+            "delta_bytes": store.meter.bytes_delta_upload,
+            "clocks": (buf.next_node, buf.next_seq)}
+
+
+def _ckpt_state(eng) -> dict:
+    out = {"params": params_numpy(eng),
+           "pending": eng.pending_deltas,
+           "clocks": (eng.stream.next_node, eng.stream.next_seq)}
+    if eng.mesh.leader:
+        out["stream"] = eng.stream.state()
+    return out
+
+
+def _merged(eng) -> dict:
+    eng.merge_deltas()
+    return {"indptr": eng.ds.graph.indptr.copy(),
+            "indices": eng.ds.graph.indices.copy(),
+            "labels": np.asarray(eng.ds.labels).copy(),
+            "version": eng.store.version,
+            "clocks": (eng.stream.next_node, eng.stream.next_seq)}
+
+
+def stream_ranks(mesh, device, spec: dict) -> dict:
+    """Streaming ingest and checkpoints on this mesh: (1) a store's
+    generations across three merges of the leader's deltas; (2) the
+    reference's stream smoke through a fabric; (3) save on the mesh, and
+    restore the given checkpoints; (4) a follower's ingest refused."""
+    from repro_torch.data import temporal_event_stream
+    from repro_torch.featurestore import CacheConfig, FeatureStore
+    from repro_torch.gns import FabricConfig
+    from repro_torch.gns.config import StreamConfig
+    from repro_torch.graph.datasets import get_dataset
+    from repro_torch.launch.mesh import NotLeader
+    from repro_torch.stream import DeltaBuffer
+    torch.set_num_threads(1)
+    out = {"rank": mesh.rank}
+
+    # (1) the store's generations across merges
+    ds = get_dataset("tiny", seed=0)
+    store = FeatureStore(ds.features, ds.graph,
+                         CacheConfig(fraction=0.1, strategy="adaptive",
+                                     placement="locality"),
+                         device=device, train_idx=ds.train_idx,
+                         build_adjacency=True, seed=0, mesh=mesh)
+    store.labels = ds.labels
+    store.attach_stream(DeltaBuffer(ds.graph.num_nodes, ds.feat_dim),
+                        StreamConfig(merge_min_pending=1))
+    store.refresh(version=0)
+    gens = [store_numpy(store)]
+    events = temporal_event_stream(ds, num_batches=3, events_per_batch=40,
+                                   new_node_frac=0.1, seed=5)
+    due = []
+    for k, ev in enumerate(events, start=1):
+        store_traffic(store, 100 + k)
+        if mesh.leader:
+            if ev.node_feats is not None:
+                store._stream.add_nodes(ev.node_feats, ev.node_labels)
+            store._stream.add_edges(ev.src, ev.dst)
+            if k == 2:               # a delete of an edge that exists
+                u = int(np.flatnonzero(store.graph.degrees)[0])
+                store._stream.delete_edges(
+                    [u], [int(store.graph.neighbors(u)[0])])
+        due.append(store.stream_merge_due())
+        store.refresh(version=k)
+        gens.append(store_numpy(store))
+    due.append(store.stream_merge_due())
+    out["generations"], out["due"] = gens, due
+
+    # (2) the reference's stream smoke, through a 2-worker fabric
+    eng = mesh_engine(spec["smoke_cfg"], mesh, device)
+    v0 = eng.ds.graph.num_nodes
+    fab = eng.serve_fabric(FabricConfig(workers=2, stall_timeout_ms=10_000.0,
+                                        watch_interval_ms=50.0))
+    rng = np.random.default_rng(7)
+    hot = rng.choice(eng.ds.val_idx, size=24, replace=False).astype(np.int64)
+    stream = temporal_event_stream(eng.ds, num_batches=2,
+                                   events_per_batch=24, new_node_frac=0.1,
+                                   seed=3)
+    v1 = v0 + stream.total_new_nodes
+    smoke = {}
+    with fab:
+        if mesh.leader:
+            fab.infer(hot[:4], timeout=WAIT_S)
+            fab.infer(hot[:20], timeout=WAIT_S)
+        # a pre-merge batch pinned on every rank (the engine's own sampler:
+        # the fabric's bucket samplers belong to its workers)
+        mb0 = eng.infer_prepare(hot[:8], bucket=32,
+                                rng=np.random.default_rng(123),
+                                sampler=eng.sampler)
+        out0 = eng.infer_compute(mb0)
+        if mesh.leader:
+            futs = []
+            for ev in stream:
+                eng.ingest_events(ev)
+                for _ in range(8):
+                    ids = rng.choice(hot, size=int(rng.integers(2, 8)),
+                                     replace=False)
+                    futs.append(fab.submit(ids))
+            smoke["status"] = [f.result(timeout=WAIT_S).status
+                               for f in futs]
+            wait_until(lambda: eng.store.merges_applied >= 1,
+                       "a merge applied")
+            wait_until(lambda: eng.pending_deltas == 0, "deltas drained")
+            wait_until(lambda: fab.meter.snapshot()["swaps_observed"] >= 1,
+                       "the merged generation swapped in")
+        else:
+            smoke["refused"] = refuses(
+                lambda: eng.ingest_nodes(np.zeros((1, eng.ds.feat_dim),
+                                                  np.float32)), NotLeader)
+        wait_until(lambda: eng.store.generation.graph.num_nodes == v1,
+                   "every merge live on this rank")
+        smoke["pin_nodes"] = mb0.cache_gen.graph.num_nodes
+        smoke["replay_equal"] = bool(np.array_equal(
+            out0, eng.infer_compute(mb0)))
+        smoke["nodes"] = (v0, v1, eng.ds.graph.num_nodes)
+        if mesh.leader:
+            smoke["new"] = fab.infer(np.array([v0], np.int64),
+                                     timeout=WAIT_S)
+    eng.store.wait_refresh(timeout=WAIT_S)
+    if mesh.leader:
+        smoke["snapshot"] = fab.meter.snapshot()
+    smoke["fabric_error"] = fab.fabric_error
+    smoke["generation"] = generation_numpy(eng)
+    smoke["merges"] = eng.store.merges_applied
+    smoke["pending"] = eng.pending_deltas
+    out["smoke"] = smoke
+
+    # (3) checkpoints: save on the mesh with pending deltas ...
+    eng = mesh_engine(spec["ckpt_cfg"], mesh, device)
+    if mesh.leader:
+        stage_mixed(eng)
+    out["saved_path"] = str(eng.save(spec["dir_mesh"], step=4))
+    out["saved"] = _ckpt_state(eng)
+    out["saved_merged"] = _merged(eng)
+    # ... and restore the reference's and a one-rank engine's
+    out["restored"] = {}
+    for name, d in spec["restore"].items():
+        eng = mesh_engine(spec["ckpt_cfg"], mesh, device)
+        step = eng.restore(d)
+        out["restored"][name] = dict(_ckpt_state(eng), step=step,
+                                     merged=_merged(eng))
+    return out

@@ -20,7 +20,7 @@ pytest.importorskip("jax")
 
 from _torch_mesh_ranks import engine_config, generation_numpy  # noqa: E402
 from _torch_mesh_ranks import params_numpy  # noqa: E402
-from _torch_parity import assert_batches_equal, one_rank_group  # noqa: E402
+from _torch_parity import assert_batches_equal  # noqa: E402
 from repro.core import sampler as samp_ref  # noqa: E402
 from repro.core.pipeline import EpochLoader as LoaderRef  # noqa: E402
 from repro.featurestore import CacheConfig as CacheRef  # noqa: E402
@@ -286,18 +286,3 @@ def test_async_refresh_swaps_at_one_step_on_every_rank(two_ranks):
     assert outs[0]["generation"]["version"] == \
         outs[1]["generation"]["version"]
     assert np.isfinite(outs[0]["losses"]).all()
-
-
-def test_serving_ingest_and_checkpoints_on_a_mesh_raise(tmp_path):
-    """Not ported on a mesh yet: each raises, naming ROADMAP item 7b."""
-    from repro_torch.launch.mesh import make_host_mesh
-    with one_rank_group():
-        eng = GNSEngine(engine_config({"steps": 1}), device="cpu",
-                        mesh=make_host_mesh(1, 1))
-        calls = (eng.serve, eng.serve_fabric, lambda: eng.save(tmp_path),
-                 lambda: eng.restore(tmp_path),
-                 lambda: eng.ingest_nodes(np.zeros((1, eng.ds.feat_dim),
-                                                   np.float32)))
-        for call in calls:
-            with pytest.raises(NotImplementedError, match="item 7b"):
-                call()
