@@ -6,6 +6,16 @@
 Run from the root of a checkout, on a host with one CUDA card.  Phases, one
 line each on stdout:
 
+0. analysis  — the port's static analyzer, ``python -m repro_torch.analysis
+               --baseline .github/gnscheck-torch-baseline.txt --json`` with
+               ``PYTHONPATH=src`` in a subprocess (it imports neither
+               ``jax`` nor ``repro``, so it runs where they are missing):
+               exit 0, no finding, no new and no stale baseline entry;
+               then the same CLI over ``tests/analysis_fixtures_torch``:
+               exit 1, with every ported rule firing.  Prints what the passes walked
+               (modules, ``@guarded_by`` classes, thread entry points,
+               host→device transfer sites, all paired) and the wall
+               seconds of each run;
 1. build     — compile the port's CUDA kernels (K1 ``cache_lookup_agg``, K2
                ``gather_agg`` and K3 ``gns_sample_agg`` on row tiles, K4
                ``flash_attention`` in three routes) from
@@ -235,6 +245,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -252,6 +263,10 @@ REPS = 30                      # timed launches per measurement
 SEED = 0
 PARITY_BATCH = 250             # train-parity batch (the CPU runs it too)
 METER_TIMES = ("t_sample", "t_slice", "t_copy", "t_compute", "t_refresh")
+ANALYSIS_RULES = {"lock-unguarded-write", "lock-unguarded-read",
+                  "lock-external-access", "gen-chained-read",
+                  "gen-multi-read", "gen-direct-private",
+                  "meter-unpaired-transfer", "retrace-pad-registry"}
 
 
 def log(phase: str, **fields) -> None:
@@ -265,6 +280,49 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def gnscheck(*args: str) -> tuple[subprocess.CompletedProcess, float]:
+    """``python -m repro_torch.analysis --json *args`` with
+    ``PYTHONPATH=src``, and its wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--json", *args],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=300)
+    return proc, time.perf_counter() - t0
+
+
+def phase_analysis() -> None:
+    """The port's tree clean against its empty baseline; every ported rule
+    firing on the fixtures."""
+    proc, s = gnscheck("--baseline",
+                       str(ROOT / ".github" / "gnscheck-torch-baseline.txt"))
+    if proc.returncode != 0:
+        raise RuntimeError(f"analysis: exit {proc.returncode} on "
+                           f"src/repro_torch\n{proc.stdout[-4000:]}"
+                           f"{proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout)
+    if out["violations"] or out["new"] or out["stale_baseline"]:
+        raise RuntimeError(f"analysis: findings on src/repro_torch: {out}")
+    fx, fx_s = gnscheck("--root",
+                        str(ROOT / "tests" / "analysis_fixtures_torch"))
+    if fx.returncode != 1:
+        raise RuntimeError(f"analysis: exit {fx.returncode} on the "
+                           f"fixtures, expected 1\n{fx.stderr[-4000:]}")
+    fired = {v["rule"] for v in json.loads(fx.stdout)["violations"]}
+    if fired != ANALYSIS_RULES:
+        raise RuntimeError(f"analysis: rules not firing on the fixtures: "
+                           f"{sorted(ANALYSIS_RULES - fired)}, unknown: "
+                           f"{sorted(fired - ANALYSIS_RULES)}")
+    st = out["stats"]
+    if st["transfers"] < 3 or st["paired_transfers"] != st["transfers"]:
+        raise RuntimeError(f"analysis: transfer sites {st}")
+    log("analysis", modules=st["modules"],
+        guarded_classes=st["guarded_classes"],
+        thread_entries=st["thread_entries"], transfers=st["transfers"],
+        paired=st["paired_transfers"], findings=len(out["violations"]),
+        s=round(s, 3), fixture_rules=len(fired), fixture_s=round(fx_s, 3))
 
 
 # ---------------------------------------------------------------------------
@@ -2956,6 +3014,7 @@ def main() -> int:
     log("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
+    phase_analysis()
     t0 = time.perf_counter()
     load_kernels()
     log("build", seconds=round(time.perf_counter() - t0, 1))

@@ -1,6 +1,10 @@
-"""Lock-discipline annotations and the runtime lock sanitizer (port of the
-runtime half of ``repro.analysis``; stdlib only, so every threaded module of
-the port can import it).  The reference's static passes are not ported."""
+"""The port's ``gnscheck``: lock-discipline annotations, the runtime lock
+sanitizer and (``python -m repro_torch.analysis``) the static passes: lock
+discipline, generation pinning, the pad registry and TrafficMeter pairing.
+
+Only the runtime symbols are re-exported here — every threaded module of
+the port imports this at module load, so it must stay stdlib-only and must
+NOT pull the AST passes in."""
 from .runtime import (LockDisciplineError, LockOrderError, TrackedLock,
                       enable_sanitizer, guarded_by, holds_lock,
                       reset_lock_order, sanitizer_enabled)

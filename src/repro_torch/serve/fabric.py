@@ -485,12 +485,14 @@ class ServeFabric:
         rank's waits for that, then raises what ended a thread of its own
         otherwise."""
         if not self.leader:
-            threads = [t for t in [self._watchdog]
-                       + [w._thread for w in self.workers] if t is not None]
-            while not self._follow_errors and any(t.is_alive()
-                                                  for t in threads):
-                for t in threads:
-                    t.join(0.05)
+            wd = self._watchdog
+            while not self._follow_errors and (
+                    (wd is not None and wd.is_alive())
+                    or any(w.alive() for w in self.workers)):
+                if wd is not None:
+                    wd.join(0.05)
+                for w in self.workers:
+                    w.join(0.05)
             self._watchdog = None
             if self._follow_errors:       # at once: the leader is waiting
                 raise self._follow_errors[0]   # on this rank

@@ -16,7 +16,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 # every module of the port's serving, training, LM serving, training-
 # surface (baselines, checkpoints, describe, schedules, trainer), fabric /
-# streaming-ingest (with the runtime lock sanitizer), RPC and mesh slices
+# streaming-ingest (with the runtime lock sanitizer), RPC, mesh and static
+# analysis slices
 REQUIRED = (
     "repro_torch.device", "repro_torch.core.pipeline",
     "repro_torch.sampling.rng", "repro_torch.sampling.adjacency",
@@ -43,7 +44,16 @@ REQUIRED = (
     "repro_torch.rpc.channel", "repro_torch.rpc.proxy",
     "repro_torch.rpc.endpoint", "repro_torch.graph.partition",
     "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+    "repro_torch.analysis.common", "repro_torch.analysis.baseline",
+    "repro_torch.analysis.locks", "repro_torch.analysis.generation",
+    "repro_torch.analysis.meterlint", "repro_torch.analysis.retrace",
+    "repro_torch.analysis.__main__",
 )
+
+# the static passes: `import repro_torch.analysis` (which every threaded
+# module of the port does) must not load them
+PASSES = tuple(m for m in REQUIRED if m.startswith("repro_torch.analysis.")
+               and m != "repro_torch.analysis.runtime")
 
 BLOCKER = f"REQUIRED = {REQUIRED!r}\n" + r'''
 import importlib, importlib.util, pkgutil, sys
@@ -94,6 +104,21 @@ def _run_smoke(cwd: Path):
     env["CUDA_VISIBLE_DEVICES"] = ""        # this child sees no card
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=300)
+
+
+def test_importing_the_analysis_package_does_not_load_the_passes():
+    code = (f"PASSES = {PASSES!r}\n"
+            "import sys, repro_torch.analysis\n"
+            "from repro_torch.analysis import guarded_by, holds_lock\n"
+            "loaded = [m for m in PASSES if m in sys.modules]\n"
+            "assert not loaded, loaded\n"
+            "assert 'torch' not in sys.modules\n"
+            "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "ok"
 
 
 def test_smoke_script_fails_without_a_card():
