@@ -167,6 +167,44 @@ line each on stdout:
                ``decode_step`` logits of one prefill and three
                teacher-forced single-token steps allclose (rtol 1e-4, atol
                1e-5: cuBLAS and the CPU order the f32 sums differently);
+    lm-train — ``seamless-m4t-medium`` at its published width (bf16,
+               ``remat=True``, ``attn_impl="pallas"``) through
+               ``launch.train.train_loop``: 8 steps at batch 8, seq 256 (64
+               stub frames + 192 tokens), a checkpoint every 4 steps (under
+               ``build/``, removed after); every loss finite, the first
+               within 1.0 of ln V, the last below the first.  Then 6 steps
+               into a fresh directory and a resume to 8: resumed from step
+               4, steps 5-8 within rtol 2e-3 of the uninterrupted run's
+               (whether bit for bit is logged).  Logs ms per step after the
+               first, positions and decoder tokens per second, the
+               checkpoint's size;
+    lm-train-dec — ``gemma-2b`` at its published width (tied 256,000-entry
+               embedding, MQA, head_dim 256): 2 ``make_train_step`` steps
+               at batch 2, seq 1,024, ``remat=True``; then the plain-CE loss
+               and one step with ``chunked_ce=512, bf16_grad_stream=True``
+               from the same parameters and batch: the losses within rtol
+               5e-3; then one more step with its loss-and-gradients and its
+               AdamW update timed apart (CUDA events); losses finite, no
+               NaN parameter, peak memory under 80 GB;
+    lm-serve-dec — ``h2o-danube-3-4b`` at its published width (SWA window
+               4,096, ``attn_impl="pallas"``): ``ServeEngine(max_batch=2)``
+               serves 2 requests of 4,032 prompt tokens and 128 new tokens,
+               so the ring cache wraps at decode step 64: tokens in the
+               vocabulary, logits finite, every layer's ``slot_pos`` the
+               last 4,096 absolute positions, and ``lm_forward`` over the
+               4,159 tokens without a cache within 2^-5 of the largest
+               logit of the last decode step's logits.  Logs prefill ms
+               and ms per token beside the step's bound (weights and ring
+               over the HBM rate), then profiles 3 more decode steps as
+               ``lm-profile`` does;
+    lm-train-parity — reduced seamless, gemma and danube (f32, remat) with
+               the same parameters and batch on the card and on the CPU:
+               loss and every gradient allclose (rtol 1e-4, atol 1e-5).
+    Each of these four phases zeroes the kernels' launch counters and the
+    peak-memory mark first, logs its wall time and
+    ``torch.cuda.max_memory_allocated()``, fails if any kernel (K4
+    included) was launched (the reference runs ``mha_ref`` in training and
+    in decoder-only decode), and frees what it allocated;
 11. mesh     — the row-sharded cache and DP > 1 over ``torch.distributed``
                ranks, all on ``cuda:0`` over gloo (one card: NCCL refuses
                two ranks on one GPU), spawned by
@@ -1767,22 +1805,16 @@ def phase_lm_serve() -> dict:
     returns the launch counts of this run (every counter zeroed just
     before, read just after)."""
     import torch
-    from repro_torch.kernels import cache_lookup, gather_agg
     from repro_torch.kernels import flash_attention as k4
     from repro_torch.launch.serve import Request, ServeEngine
     from repro_torch.models.lm import get_model
-    from repro_torch.models.scan_util import tree_map
-    from repro_torch.sampling import kernels as k3
     cfg = lm_config(reduced=False)
     t0 = time.perf_counter()
     params = get_model(cfg).init(SEED)          # on the GPU: no device= given
     torch.cuda.synchronize()
-    leaves = []
-    tree_map(leaves.append, params)
-    n_params = sum(t.numel() for t in leaves)
+    n_params, p_bytes = tree_size(params)
     log("lm-init", arch=cfg.name, params=n_params,
-        param_gb=round(sum(t.numel() * t.element_size() for t in leaves)
-                       / 1e9, 3),
+        param_gb=round(p_bytes / 1e9, 3),
         layers=f"{cfg.encoder_layers}+{cfg.num_layers}", d_model=cfg.d_model,
         heads=cfg.num_heads, vocab=cfg.vocab_size, dtype=cfg.dtype,
         seconds=round(time.perf_counter() - t0, 2))
@@ -1807,9 +1839,7 @@ def phase_lm_serve() -> dict:
         frames = rng.standard_normal((LM_BATCH, LM_FRAMES, cfg.d_model),
                                      dtype=np.float32)
         batches.append((reqs, frames))
-    counters = {"cache_lookup_agg": cache_lookup.launches,
-                "gather_agg": gather_agg.launches,
-                "gns_sample_agg": k3.launches, "flash_attention": k4.launches}
+    counters = lm_counters()
     torch.cuda.reset_peak_memory_stats()
     for c in (*counters.values(), *k4.route_calls.values()):
         c.reset()
@@ -1933,14 +1963,19 @@ def phase_lm_check(engine, reqs, frames) -> None:
 
 def phase_lm_profile(engine, reqs, frames, steps: int = 3) -> None:
     """After the counted run: ``steps`` single-token decode steps of one
-    batch under ``torch.profiler`` (no readback between them): the
-    device's busy time per step against the step's time by CUDA events,
-    the kernel launches per step, and the largest device and host
+    batch under ``torch.profiler`` (``profile_decode``)."""
+    nxt, state = lm_state(engine, reqs, frames)
+    profile_decode(engine, nxt, state, "lm-profile", steps)
+
+
+def profile_decode(engine, nxt, state, name: str, steps: int = 3) -> None:
+    """``steps`` single-token decode steps of ``engine`` from ``state``
+    under ``torch.profiler`` (no readback between them): the device's busy
+    time per step against the step's time by CUDA events, the kernel
+    launches per step, K4's share, and the largest device and host
     entries."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import encdec
-    nxt, state = lm_state(engine, reqs, frames)
     with torch.inference_mode():
         nxt, state = engine._step(nxt, state)          # one warm step
         start = torch.cuda.Event(enable_timing=True)
@@ -1964,7 +1999,7 @@ def phase_lm_profile(engine, reqs, frames, steps: int = 3) -> None:
                   reverse=True)[:8]
     k4 = [e for e in on_card if any(n in e.key for n in K4_KERNEL_NAMES)]
     k4_ms = sum(e.self_device_time_total for e in k4) / 1e3 / steps
-    log("lm-profile", batch=len(reqs), steps=steps,
+    log(name, batch=nxt.shape[0], steps=steps,
         step_ms=round(step_ms, 3), device_busy_ms=round(busy_ms, 3),
         idle_share=round(1.0 - busy_ms / step_ms, 4),
         device_launches_per_step=sum(e.count for e in on_card) / steps,
@@ -2020,6 +2055,371 @@ def phase_lm_parity() -> None:
     if not ok:
         raise AssertionError(f"card vs CPU logits differ: {err} "
                              f"(K4 launched {launched})")
+
+
+# ---------------------------------------------------------------------------
+# the LM training slice and decoder-only serving
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_EVERY = 8, 8, 256, 4
+LM_TRAIN_CUT = 6                  # the interrupted run's steps
+LM_RESUME_RTOL = 2e-3             # resumed steps against the uninterrupted
+DEC_TRAIN_ARCH, DEC_TRAIN_BATCH, DEC_TRAIN_SEQ = "gemma-2b", 2, 1024
+DEC_CHUNK = 512                   # chunked_ce of the third step
+DEC_CE_RTOL = 5e-3                # chunked against plain CE, bf16 logits
+DEC_SERVE_ARCH, DEC_SERVE_BATCH = "h2o-danube-3-4b", 2
+DEC_PROMPT, DEC_NEW = 4032, 128   # the 4,096-slot ring wraps at step 64
+TRAIN_PARITY_ARCHS = ("seamless-m4t-medium", DEC_TRAIN_ARCH, DEC_SERVE_ARCH)
+TRAIN_PARITY_TOL = dict(rtol=1e-4, atol=1e-5)
+CARD_BYTES = 80e9                 # one H100's HBM
+
+
+def lm_counters() -> dict:
+    """K1's to K4's launch counters."""
+    from repro_torch.kernels import flash_attention as k4
+    return {**kernel_counters()[0], "flash_attention": k4.launches}
+
+
+def lm_phase_start() -> tuple:
+    """Zero the launch counters and the peak-memory mark; (counters, t0)."""
+    import torch
+    counters = lm_counters()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return counters, time.perf_counter()
+
+
+def lm_phase_end(name: str, counters: dict, t0: float) -> tuple:
+    """Read the counters, log the phase's wall time and peak memory, and
+    fail if K4 (or any other kernel) was launched: none is on these paths
+    (the reference sends training and decoder-only decode to ``mha_ref``)."""
+    import torch
+    torch.cuda.synchronize()
+    counts = {k: c.value for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{name}-done", seconds=round(time.perf_counter() - t0, 2),
+        peak_mem_gb=round(peak / 1e9, 3), launches=counts)
+    if any(counts.values()):
+        raise AssertionError(f"{name}: kernels launched {counts}, expected "
+                             f"none on this path")
+    return counts, peak
+
+
+def free_card() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tree_size(tree) -> tuple[int, int]:
+    """(elements, bytes) of a tree's tensors."""
+    from repro_torch.models.scan_util import tree_leaves
+    leaves = tree_leaves(tree)
+    return (sum(t.numel() for t in leaves),
+            sum(t.numel() * t.element_size() for t in leaves))
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def phase_lm_train() -> dict:
+    """``seamless-m4t-medium`` at its published width, ``remat=True``,
+    through ``launch.train.train_loop``: 8 steps at batch 8, seq 256 (64
+    frames + 192 tokens) with a checkpoint every 4 steps; then 6 steps
+    into a fresh directory and a resume to 8."""
+    import math
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="pallas",
+                              remat=True)
+    ck = ROOT / "build" / "lm_train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    kw = dict(batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+              ckpt_every=LM_TRAIN_EVERY, log_every=0, seed=SEED)
+    counters, t0 = lm_phase_start()
+    try:
+        full = train_loop(cfg, steps=LM_TRAIN_STEPS, ckpt_dir=ck / "full",
+                          **kw)
+        full_s = time.perf_counter() - t0
+        ck_bytes = dir_bytes(ck / "full" / f"step_{LM_TRAIN_STEPS:08d}")
+        free_at = shutil.disk_usage(ck).free
+        shutil.rmtree(ck / "full")
+        t1 = time.perf_counter()
+        cut = train_loop(cfg, steps=LM_TRAIN_CUT, ckpt_dir=ck / "cut", **kw)
+        resumed = train_loop(cfg, steps=LM_TRAIN_STEPS, ckpt_dir=ck / "cut",
+                             resume=True, **kw)
+        resume_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    counts, peak = lm_phase_end("lm-train", counters, t0)
+    losses = full.losses
+    step_s = float(np.mean(full.step_times[1:]))
+    tail = losses[LM_TRAIN_EVERY:]
+    resumed_err = float(np.max(np.abs(np.subtract(resumed.losses, tail))
+                               / np.abs(tail)))
+    ln_v = math.log(cfg.vocab_size)
+    log("lm-train", arch=cfg.name, layers=f"{cfg.encoder_layers}+"
+        f"{cfg.num_layers}", d_model=cfg.d_model, vocab=cfg.vocab_size,
+        dtype=cfg.dtype, remat=cfg.remat, steps=LM_TRAIN_STEPS,
+        batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+        losses=[round(x, 5) for x in losses], ln_vocab=round(ln_v, 4),
+        ms_per_step=round(step_s * 1e3, 2),
+        step_ms=[round(s * 1e3, 1) for s in full.step_times],
+        positions_per_s=round(LM_TRAIN_BATCH * LM_TRAIN_SEQ / step_s, 1),
+        decoder_tokens_per_s=round(LM_TRAIN_BATCH * (LM_TRAIN_SEQ * 3 // 4)
+                                   / step_s, 1),
+        checkpoints=full.checkpoints, checkpoint_gb=round(ck_bytes / 1e9, 3),
+        run_s=round(full_s, 2),
+        init_and_saves_s=round(full_s - sum(full.step_times), 2),
+        disk_free_gb=round(free_at / 1e9, 1), k4=counts["flash_attention"],
+        peak_mem_gb=round(peak / 1e9, 3))
+    log("lm-train-resume", cut_steps=LM_TRAIN_CUT, cut_losses_equal=(
+        cut.losses == losses[:LM_TRAIN_CUT]),
+        resumed_from=resumed.resumed_from,
+        resumed_losses=[round(x, 5) for x in resumed.losses],
+        max_rel_err=resumed_err, rtol=LM_RESUME_RTOL,
+        bit_for_bit=resumed.losses == tail, seconds=round(resume_s, 2))
+    if not all(math.isfinite(x) for x in losses + resumed.losses):
+        raise AssertionError(f"lm-train: non-finite loss {losses}")
+    if abs(losses[0] - ln_v) > 1.0 or not losses[-1] < losses[0]:
+        raise AssertionError(f"lm-train: losses {losses} (first must be "
+                             f"within 1.0 of ln V = {ln_v:.3f}, last below)")
+    if resumed.resumed_from != LM_TRAIN_EVERY or resumed_err > LM_RESUME_RTOL:
+        raise AssertionError(f"lm-train: resumed from "
+                             f"{resumed.resumed_from}, losses "
+                             f"{resumed.losses} vs {tail}")
+    del full, cut, resumed
+    free_card()
+    return counts
+
+
+def step_split(model, opt, params, state, batch) -> dict:
+    """One more train step, its halves timed apart with CUDA events: the
+    loss and gradients (forward, remat recompute, backward) and the AdamW
+    update (clipping included), beside the update's bound: parameters and
+    moments read and written once, gradients read once, over the HBM
+    rate."""
+    import torch
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.scan_util import tree_leaves
+    update_bytes = sum(2 * p.numel() * p.element_size()
+                       + p.numel() * p.element_size()
+                       + 2 * (m.numel() * m.element_size()
+                              + v.numel() * v.element_size())
+                       for p, m, v in zip(tree_leaves(params),
+                                          tree_leaves(state["m"]),
+                                          tree_leaves(state["v"])))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    _, grads = value_and_grad(model.loss, params,
+                              {k: v[0] for k, v in batch.items()})
+    ev[1].record()
+    opt.update(grads, state, params)
+    ev[2].record()
+    ev[2].synchronize()
+    return {"loss_and_grads": round(ev[0].elapsed_time(ev[1]), 2),
+            "adamw": round(ev[1].elapsed_time(ev[2]), 2),
+            "adamw_bound": round(update_bytes / HBM_MS, 2)}
+
+
+def phase_lm_train_dec() -> dict:
+    """``gemma-2b`` at its published width: 2 ``make_train_step`` steps at
+    batch 2, seq 1,024, ``remat=True``; then, from the same parameters and
+    batch, the plain-CE loss and one step with ``chunked_ce=512`` and
+    ``bf16_grad_stream=True``: the two losses within rtol 5e-3."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import add_accum_dim, make_train_step
+    from repro_torch.models.common import make_generator
+    from repro_torch.models.lm import get_model, make_batch
+    from repro_torch.models.scan_util import tree_leaves
+    from repro_torch.optim.adam import AdamConfig, AdamW
+    cfg = dataclasses.replace(get_config(DEC_TRAIN_ARCH), attn_impl="pallas",
+                              remat=True)
+    counters, t0 = lm_phase_start()
+    model = get_model(cfg)
+    params = model.init(SEED)
+    n_params, p_bytes = tree_size(params)
+    opt = AdamW(AdamConfig(lr=3e-4, clip_norm=1.0))
+    state = opt.init(params)
+    step = make_train_step(model, opt)
+    batches = [add_accum_dim(cfg, make_batch(
+        cfg, DEC_TRAIN_SEQ, DEC_TRAIN_BATCH, make_generator(SEED + i)))
+        for i in range(3)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses, times = [], []
+    for batch in batches[:2]:
+        t1 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t1)
+    with torch.no_grad():
+        plain = float(model.loss(params, {k: v[0] for k, v in
+                                          batches[2].items()}))
+    ccfg = dataclasses.replace(cfg, chunked_ce=DEC_CHUNK,
+                               bf16_grad_stream=True)
+    t1 = time.perf_counter()
+    params, state, loss = make_train_step(get_model(ccfg), opt)(
+        params, state, batches[2])
+    chunked = float(loss)
+    chunk_s = time.perf_counter() - t1
+    split = step_split(model, opt, params, state, batches[0])
+    nan_leaves = sum(int(torch.isnan(p).any()) for p in tree_leaves(params))
+    counts, peak = lm_phase_end("lm-train-dec", counters, t0)
+    rel = abs(chunked - plain) / abs(plain)
+    log("lm-train-dec", arch=cfg.name, layers=cfg.num_layers,
+        d_model=cfg.d_model, heads=f"{cfg.num_heads}/{cfg.num_kv_heads}",
+        head_dim=cfg.head_dim_eff, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        tied=cfg.tie_embeddings, params=n_params,
+        param_gb=round(p_bytes / 1e9, 3),
+        state_gb=round((p_bytes + tree_size(state["m"])[1]
+                        + tree_size(state["v"])[1]) / 1e9, 3),
+        init_s=round(init_s, 2), batch=DEC_TRAIN_BATCH, seq_len=DEC_TRAIN_SEQ,
+        losses=[round(x, 5) for x in losses],
+        step_ms=[round(t * 1e3, 1) for t in times],
+        chunked_step_ms=round(chunk_s * 1e3, 1), split_step_ms=split,
+        tokens_per_s=round(DEC_TRAIN_BATCH * DEC_TRAIN_SEQ / times[-1], 1),
+        plain_ce=plain, chunked_ce=chunked, ce_rel_err=rel,
+        ce_rtol=DEC_CE_RTOL, nan_leaves=nan_leaves,
+        peak_mem_gb=round(peak / 1e9, 3))
+    if not all(np.isfinite(losses + [plain, chunked])) or nan_leaves:
+        raise AssertionError(f"lm-train-dec: losses {losses}, {plain}, "
+                             f"{chunked}; {nan_leaves} NaN leaves")
+    if rel > DEC_CE_RTOL:
+        raise AssertionError(f"lm-train-dec: chunked CE {chunked} vs plain "
+                             f"{plain}")
+    if peak >= CARD_BYTES:
+        raise AssertionError(f"lm-train-dec: peak memory {peak / 1e9} GB")
+    del params, state, batches, model, step
+    free_card()
+    return counts
+
+
+def phase_lm_serve_dec() -> dict:
+    """``h2o-danube-3-4b`` at its published width (``attn_impl="pallas"``)
+    through ``ServeEngine(max_batch=2).generate_batch``: 2 requests of
+    4,032 prompt tokens and 128 new tokens, so the 4,096-slot ring cache
+    wraps at decode step 64.  Then ``lm_forward`` over the 4,159 tokens
+    without a cache against the last decode step's logits."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.models import transformer
+    from repro_torch.models.lm import get_model
+    cfg = dataclasses.replace(get_config(DEC_SERVE_ARCH), attn_impl="pallas")
+    counters, t0 = lm_phase_start()
+    params = get_model(cfg).init(SEED)
+    n_params, p_bytes = tree_size(params)
+    engine = ServeEngine(cfg, params, max_batch=DEC_SERVE_BATCH)
+    dev = engine.device
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    last = {}
+    decode = engine.model.decode_step
+
+    def checked(p, tokens, state):
+        logits, state = decode(p, tokens, state)
+        finite.logical_and_(torch.isfinite(logits).all())
+        last.update(logits=logits, state=state)
+        return logits, state
+
+    engine.model = dataclasses.replace(engine.model, decode_step=checked)
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (DEC_SERVE_BATCH, DEC_PROMPT)
+                           ).astype(np.int32)
+    reqs = [Request(p, max_new_tokens=DEC_NEW) for p in prompts]
+    comp = engine.generate_batch(reqs)
+    tokens = np.stack([c.tokens for c in comp])
+    steps = comp[0].steps - 1
+    ring = last["state"]["caches"]["layers"]
+    seen = DEC_PROMPT + steps                        # positions fed
+    window = cfg.sliding_window
+    want_pos = torch.arange(seen - window, seen, dtype=torch.int32,
+                            device=dev)
+    ring_ok = bool(torch.equal(ring["slot_pos"].sort(dim=1).values,
+                               want_pos.expand(cfg.num_layers, -1)))
+    fed = np.concatenate([prompts, tokens[:, :steps]], axis=1)
+    with torch.inference_mode():
+        full = transformer.lm_forward(params, cfg,
+                                      torch.from_numpy(fed).to(dev))[:, -1]
+    got = last["logits"].float()
+    scale = float(got.abs().max())
+    err = float((full.float() - got).abs().max())
+    tol = 2.0 ** -5 * scale
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in (ring["k"], ring["v"]))
+    bound_ms = (p_bytes + cache_bytes) / HBM_MS
+    engine.model = dataclasses.replace(engine.model, decode_step=decode)
+    profile_decode(engine, torch.from_numpy(tokens[:, -1:]).to(dev),
+                   last["state"], "lm-serve-dec-profile")
+    counts, peak = lm_phase_end("lm-serve-dec", counters, t0)
+    c = comp[0]
+    ok_tokens = tokens.shape == (DEC_SERVE_BATCH, DEC_NEW) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+    log("lm-serve-dec", arch=cfg.name, layers=cfg.num_layers,
+        d_model=cfg.d_model, heads=f"{cfg.num_heads}/{cfg.num_kv_heads}",
+        window=window, params=n_params, param_gb=round(p_bytes / 1e9, 3),
+        requests=len(comp), prompt=DEC_PROMPT, new_tokens=DEC_NEW,
+        decode_steps=steps, prefill_ms=round(c.prefill_s * 1e3, 2),
+        ms_per_token=round(c.decode_s * 1e3 / steps, 3),
+        step_bound_ms=round(bound_ms, 3),
+        step_bound_weights_ms=round(p_bytes / HBM_MS, 3),
+        ring_gb=round(cache_bytes / 1e9, 3),
+        decode_tokens_per_s=round(len(comp) * steps / c.decode_s, 1),
+        tokens_ok=ok_tokens, logits_finite=bool(finite),
+        ring_holds_last_window=ring_ok, wrapped_at_step=window - DEC_PROMPT,
+        full_forward_max_abs_err=err, logits_max_abs=scale, tol=tol,
+        k4=counts["flash_attention"], peak_mem_gb=round(peak / 1e9, 3))
+    if not (ok_tokens and bool(finite) and ring_ok and err <= tol):
+        raise AssertionError(
+            f"lm-serve-dec: tokens ok {ok_tokens}, finite {bool(finite)}, "
+            f"ring {ring_ok}, full-forward err {err} > {tol}")
+    del engine, params, last, full, got
+    free_card()
+    return counts
+
+
+def phase_lm_train_parity() -> None:
+    """Reduced seamless, gemma and danube (f32) with the same parameters
+    and batch on the card and on the CPU: the loss and every gradient
+    allclose (rtol 1e-4, atol 1e-5: cuBLAS and the CPU order the f32 sums
+    differently; TF32 off)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.common import make_generator
+    from repro_torch.models.lm import get_model, make_batch
+    from repro_torch.models.scan_util import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters, t0 = lm_phase_start()
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  attn_impl="pallas", remat=True)
+        model = get_model(cfg)
+        params = model.init(SEED, device="cpu")
+        batch = make_batch(cfg, 32, 2, make_generator(SEED, "cpu"))
+        (lc, gc_), (lg, gg) = (value_and_grad(
+            model.loss, tree_map(lambda t: t.to(dev), params),
+            {k: v.to(dev) for k, v in batch.items()})
+            for dev in ("cpu", "cuda"))
+        pairs = list(zip(tree_leaves(gc_), tree_leaves(gg)))
+        err = max(float((a - b.cpu()).abs().max()) for a, b in pairs)
+        ok = bool(torch.allclose(lg.cpu(), lc, **TRAIN_PARITY_TOL)) and all(
+            torch.allclose(b.cpu(), a, **TRAIN_PARITY_TOL) for a, b in pairs)
+        log("lm-train-parity", arch=cfg.name + " (reduced)", dtype=cfg.dtype,
+            loss_cpu=float(lc), loss_card=float(lg), grads=len(pairs),
+            grad_max_abs_err=err, ok=ok)
+        if not ok:
+            raise AssertionError(f"lm-train-parity {arch}: card vs CPU "
+                                 f"loss {float(lg)} / {float(lc)}, grad err "
+                                 f"{err}")
+    lm_phase_end("lm-train-parity", counters, t0)
+    free_card()
 
 
 def k4_work(q, k, kw) -> tuple[int, int]:
@@ -3069,6 +3469,10 @@ def main() -> int:
     k4_errs = phase_k4_parity()
     counts["lm_serve"] = phase_lm_serve()
     phase_lm_parity()
+    counts["lm_train"] = phase_lm_train()
+    counts["lm_train_dec"] = phase_lm_train_dec()
+    counts["lm_serve_dec"] = phase_lm_serve_dec()
+    phase_lm_train_parity()
     counts["mesh"] = phase_mesh(ds)
     counts["mesh_serve"] = phase_mesh_serve(ds)
     rows = (phase_times(engine, shapes, errs, counts)

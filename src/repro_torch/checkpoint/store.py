@@ -12,14 +12,19 @@
   name in sorted order, list and tuple items by index, joined by ``/`` —
   so a checkpoint either package writes loads into the other.
 
-Leaves: tensors are written through ``.detach().cpu().numpy()``; a tensor
-whose dtype numpy cannot hold (bfloat16, float8) raises ``TypeError``
-naming the leaf rather than being widened.  A Python int (the AdamW
-``step``) is written as an int32 scalar, the reference's own step dtype;
-other leaves go through ``np.asarray``.  Loading puts each tensor leaf on
-``device`` (``None``: the device of that leaf of ``tree_like``) and gives
-a Python int back where ``tree_like`` holds one; other leaves come back as
-numpy arrays, as the reference's do.
+Leaves: tensors are written through ``.detach().cpu().numpy()``.  A
+bfloat16 tensor is written as the reference writes a bfloat16 leaf: its raw
+2-byte patterns as a ``V2`` array, with ``"bfloat16"`` as its manifest
+dtype; a leaf whose manifest says ``"bfloat16"`` is read back by viewing
+those bytes as ``torch.bfloat16``, so a bf16 checkpoint of either package
+loads into the port bit for bit (the reference's own loader hands such a
+leaf back as raw ``V2`` bytes).  Any other dtype numpy cannot hold
+(float8) raises ``TypeError`` naming the leaf rather than being widened.
+A Python int (the AdamW ``step``) is written as an int32 scalar, the
+reference's own step dtype; other leaves go through ``np.asarray``.
+Loading puts each tensor leaf on ``device`` (``None``: the device of that
+leaf of ``tree_like``) and gives a Python int back where ``tree_like``
+holds one; other leaves come back as numpy arrays, as the reference's do.
 """
 from __future__ import annotations
 
@@ -46,8 +51,13 @@ def _walk(tree, prefix: tuple = ()):
         yield "/".join(prefix), tree
 
 
+_BF16 = "bfloat16"             # the manifest dtype of a raw 2-byte leaf
+
+
 def _to_numpy(path: str, x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            return x.detach().view(torch.int16).cpu().numpy().view("V2")
         try:
             return x.detach().cpu().numpy()
         except TypeError as e:
@@ -62,13 +72,26 @@ def _flatten(tree) -> dict[str, np.ndarray]:
     return {path: _to_numpy(path, x) for path, x in _walk(tree)}
 
 
-def _unflatten_into(tree_like, flat: dict, device=None, prefix: tuple = ()):
+def _manifest_dtype(arr: np.ndarray) -> str:
+    """A raw 2-byte leaf is a bfloat16 one (the reference's name for it)."""
+    return _BF16 if arr.dtype == np.dtype("V2") else str(arr.dtype)
+
+
+def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    if dtype == _BF16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _unflatten_into(tree_like, flat: dict, dtypes: dict, device=None,
+                    prefix: tuple = ()):
     if isinstance(tree_like, dict):
-        return {k: _unflatten_into(v, flat, device, prefix + (str(k),))
+        return {k: _unflatten_into(v, flat, dtypes, device,
+                                   prefix + (str(k),))
                 for k, v in tree_like.items()}
     if isinstance(tree_like, (list, tuple)):
         return type(tree_like)(
-            _unflatten_into(v, flat, device, prefix + (str(i),))
+            _unflatten_into(v, flat, dtypes, device, prefix + (str(i),))
             for i, v in enumerate(tree_like))
     if tree_like is None:
         return None
@@ -78,7 +101,7 @@ def _unflatten_into(tree_like, flat: dict, device=None, prefix: tuple = ()):
         path, arr.shape, np.shape(tree_like))
     if isinstance(tree_like, torch.Tensor):
         dev = device if device is not None else tree_like.device
-        return torch.from_numpy(arr).to(dev)
+        return _tensor(arr, dtypes[path]).to(dev)
     if isinstance(tree_like, int):
         return int(arr)
     return arr
@@ -114,7 +137,8 @@ def save_checkpoint(directory: str | Path, step: int, tree,
         manifest = {
             "step": step,
             "extra": extra or {},
-            "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+            "leaves": {k: {"shape": list(v.shape),
+                           "dtype": _manifest_dtype(v)}
                        for k, v in flat.items()},
             "aux": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
                     for k, v in aux.items()},
@@ -165,7 +189,8 @@ def load_checkpoint(directory: str | Path, tree_like,
         manifest = json.load(f)
     with np.load(path / "arrays.npz") as z:
         flat = {k: z[k] for k in z.files}
-    tree = _unflatten_into(tree_like, flat, device)
+    dtypes = {k: v["dtype"] for k, v in manifest["leaves"].items()}
+    tree = _unflatten_into(tree_like, flat, dtypes, device)
     return tree, manifest["step"], manifest.get("extra", {})
 
 

@@ -1,8 +1,11 @@
-"""Data substrate of the port: temporal event streams (the
-serve-while-mutating ingest workload).  The reference's token corpus and
-vocabulary cache (``repro.data.tokens``, ``repro.data.vocab_cache``) are
-not ported yet."""
+"""Data substrate of the port: the synthetic token corpus and its
+prefetched loader (the LM trainers), temporal event streams (the
+serve-while-mutating ingest workload).  The reference's vocabulary cache
+(``repro.data.vocab_cache``) is not ported yet (``ROADMAP.md`` Queue A item
+9.5)."""
 from repro_torch.data.temporal import (EventBatch, TemporalEventStream,
                                        temporal_event_stream)
+from repro_torch.data.tokens import SyntheticCorpus, TokenPipeline
 
-__all__ = ["EventBatch", "TemporalEventStream", "temporal_event_stream"]
+__all__ = ["SyntheticCorpus", "TokenPipeline",
+           "EventBatch", "TemporalEventStream", "temporal_event_stream"]

@@ -1,5 +1,7 @@
 """Batched decode engine, the LM zoo's serving path (port of
-``repro.launch.serve``; the encoder-decoder family for now).
+``repro.launch.serve``): the encoder-decoder family and the dense / VLM
+decoder-only family (a sliding-window config decodes through its ring
+cache).
 
 Lockstep batched decoding, as in the reference:
 
@@ -70,6 +72,12 @@ class ServeEngine:
             nxt = torch.argmax(logits, dim=-1)
         return nxt.to(torch.int32)[:, None], state
 
+    def _init_state(self, batch: int, cache_len: int, enc_len: int = 0):
+        if self.cfg.encoder_layers > 0:
+            return self.model.decode_init(batch, cache_len, enc_len,
+                                          device=self.device)
+        return self.model.decode_init(batch, cache_len, device=self.device)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -93,7 +101,7 @@ class ServeEngine:
 
         with torch.inference_mode():
             enc_len = frame_embeds.shape[1] if frame_embeds is not None else 0
-            state = self.model.decode_init(b, cache_len, enc_len, device=dev)
+            state = self._init_state(b, cache_len, enc_len)
             if self.cfg.encoder_layers > 0:
                 if frame_embeds is None:
                     raise ValueError("enc-dec serving needs frame_embeds")

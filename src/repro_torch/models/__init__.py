@@ -1,2 +1,3 @@
 """Models: GraphSAGE on static padded blocks; the LM zoo's encoder-decoder
-family (seamless-m4t) and its building blocks."""
+family (seamless-m4t), its dense / VLM decoder-only family and their
+building blocks."""

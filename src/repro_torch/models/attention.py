@@ -18,10 +18,16 @@ Here the new K/V rows are written into the given cache tensors in place
 a decode step copies no cache.  ``cache_pos`` is a Python int, so no step
 reads a position back from the card.
 
-Not ported yet (each raises ``NotImplementedError``): MLA (deepseek-v2)
-and the sliding-window ring cache, both with the decoder-only LM
-(``ROADMAP.md`` Queue A item 9); the reference's mesh branches of
-``sharded_attention`` wait for the LM zoo on a mesh (Queue A item 9).
+A sliding-window config decodes through the reference's ring cache: a
+window-sized cache whose slot ``p % window`` holds absolute position ``p``,
+and ``slot_pos`` (on the device) the position each slot holds (-1:
+unwritten), which drives the mask.  The new tokens attend over [old ring ++
+themselves], and then the last ``window`` of them are written into the
+ring in place, as at most two slice writes whose bounds are host ints.
+
+Not ported yet: MLA (deepseek-v2, raises ``NotImplementedError``; its only
+user is a MoE model, ``ROADMAP.md`` Queue A item 9.3); the reference's mesh
+branches of ``sharded_attention`` wait for the LM zoo on a mesh (item 9.8).
 """
 from __future__ import annotations
 
@@ -34,8 +40,8 @@ from repro_torch.kernels.ref import mha_ref
 from repro_torch.models.common import (apply_rope, dense_init, model_dtype,
                                        zeros)
 
-_LATER = ("is not ported yet: it comes with the decoder-only LM "
-          "(ROADMAP.md Queue A item 9)")
+_MLA = ("MLA attention is not ported yet: it comes with its only user, "
+        "the MoE LM (ROADMAP.md Queue A item 9.3)")
 
 
 # ---------------------------------------------------------------------------
@@ -45,7 +51,7 @@ _LATER = ("is not ported yet: it comes with the decoder-only LM "
 def init_attn(gen: torch.Generator, cfg: ArchConfig,
               cross: bool = False) -> dict:
     if cfg.mla is not None and not cross:
-        raise NotImplementedError(f"MLA attention {_LATER}")
+        raise NotImplementedError(_MLA)
     d, h, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     dh = cfg.head_dim_eff
     dt = model_dtype(cfg)
@@ -102,10 +108,11 @@ def attn_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
 
     Train/prefill: kv_cache None.  Decode: kv_cache holds [B,Hkv,S_max,Dh];
     the S new tokens are written at ``cache_pos`` (in place) and attention
-    runs over the cache with kv_len = cache_pos + S.
+    runs over the cache with kv_len = cache_pos + S; a ring cache
+    (``slot_pos``) takes :func:`_ring_step` instead.
     """
     if cfg.mla is not None and cross_kv is None:
-        raise NotImplementedError(f"MLA attention {_LATER}")
+        raise NotImplementedError(_MLA)
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_eff
     q = x @ p["wq"]
     if "bq" in p:
@@ -137,7 +144,10 @@ def attn_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     kv_len = None
     q_pos = kv_pos = None
     s_new = x.shape[1]
-    if kv_cache is not None:
+    if kv_cache is not None and "slot_pos" in kv_cache:
+        q_pos, kv_pos, k, v = _ring_step(kv_cache, k, v, cache_pos)
+        new_cache = kv_cache
+    elif kv_cache is not None:
         ck, cv = kv_cache["k"], kv_cache["v"]
         ck[:, :, cache_pos:cache_pos + s_new] = k.to(ck.dtype)
         cv[:, :, cache_pos:cache_pos + s_new] = v.to(cv.dtype)
@@ -165,6 +175,41 @@ def attn_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     return out @ p["wo"], new_cache
 
 
+def _ring_segments(start: int, n: int, size: int) -> list:
+    """(slot, offset, length) runs that put positions start..start+n-1
+    into slots ``p % size``: at most two, with host-int bounds."""
+    out, off = [], 0
+    while off < n:
+        slot = (start + off) % size
+        length = min(n - off, size - slot)
+        out.append((slot, off, length))
+        off += length
+    return out
+
+
+def _ring_step(cache: dict, k: torch.Tensor, v: torch.Tensor,
+               cache_pos: int) -> tuple:
+    """The reference's ring branch: the S new tokens attend over [old ring
+    contents ++ themselves] (so a multi-token prefill sees its own
+    in-window keys that the ring is about to evict), then the last
+    ``window`` of them are written into the ring in place.  Returns
+    (q_pos, kv_pos, k, v) for the attention."""
+    ck, cv, spos = cache["k"], cache["v"], cache["slot_pos"]
+    size, s_new = ck.shape[2], k.shape[2]
+    q_pos = torch.arange(cache_pos, cache_pos + s_new, dtype=torch.int32,
+                         device=k.device)
+    kv_pos = torch.cat([spos, q_pos])
+    k_att = torch.cat([ck.to(k.dtype), k], dim=2)
+    v_att = torch.cat([cv.to(v.dtype), v], dim=2)
+    skip = max(s_new - size, 0)              # only the last `size` are kept
+    for slot, off, n in _ring_segments(cache_pos + skip, s_new - skip, size):
+        src = slice(skip + off, skip + off + n)
+        ck[:, :, slot:slot + n] = k[:, :, src].to(ck.dtype)
+        cv[:, :, slot:slot + n] = v[:, :, src].to(cv.dtype)
+        spos[slot:slot + n] = q_pos[src]
+    return q_pos, kv_pos, k_att, v_att
+
+
 def make_cross_kv(p: dict, cfg: ArchConfig, enc_out: torch.Tensor):
     """Encoder K/V for the decoder's cross-attention."""
     hkv, dh = cfg.num_kv_heads, cfg.head_dim_eff
@@ -179,11 +224,13 @@ def cache_dtype(cfg: ArchConfig) -> torch.dtype:
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                   device) -> dict:
-    """The dense cache.  A sliding-window config takes the reference's ring
-    cache instead, which is not ported yet."""
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(f"the sliding-window ring cache {_LATER}")
+    """Zero K/V of ``max_len`` rows; a sliding-window config's cache is the
+    ring (module docstring), with ``slot_pos`` all -1."""
     hkv, dh = cfg.num_kv_heads, cfg.head_dim_eff
     shape = (batch, hkv, max_len, dh)
-    return {"k": torch.zeros(shape, dtype=cache_dtype(cfg), device=device),
-            "v": torch.zeros(shape, dtype=cache_dtype(cfg), device=device)}
+    cache = {"k": torch.zeros(shape, dtype=cache_dtype(cfg), device=device),
+             "v": torch.zeros(shape, dtype=cache_dtype(cfg), device=device)}
+    if cfg.sliding_window is not None:
+        cache["slot_pos"] = torch.full((max_len,), -1, dtype=torch.int32,
+                                       device=device)
+    return cache

@@ -14,6 +14,7 @@ from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.scan_util import tree_map
@@ -56,6 +57,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, unbiased=False, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps) * scale + bias
     return out.to(x.dtype)
 
 
@@ -109,6 +119,48 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         return nll.mean()
     mask = mask.float()
     return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def grad_cast(x: torch.Tensor) -> torch.Tensor:
+    """The reference's ``custom_vjp`` that casts the cotangent to ``x``'s
+    dtype.  Autograd already casts every gradient to the dtype of the
+    tensor it flows into, so here it is the identity."""
+    return x
+
+
+def _block_nll(h_b: torch.Tensor, w: torch.Tensor, l_b: torch.Tensor,
+               m_b: torch.Tensor) -> torch.Tensor:
+    logits = (h_b @ w).float()                            # [B,C,V] one block
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, l_b[..., None].long())[..., 0]
+    return ((logz - gold) * m_b).sum()
+
+
+def chunked_unembed_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Block-wise unembed + cross-entropy (the reference's fused form).
+
+    h [B,S,d] post-final-norm hiddens; w [d,V] unembedding; labels/mask
+    [B,S].  Loops over S-blocks so the [B,S,V] logits never exist at once:
+    under autograd each block runs under ``torch.utils.checkpoint`` (the
+    port's ``jax.checkpoint``), which keeps only its inputs and recomputes
+    its logits in backward.
+    """
+    s = h.shape[1]
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    mask = mask.float()
+    grad = torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lo in range(0, s, chunk):
+        blk = (h[:, lo:lo + chunk], w, labels[:, lo:lo + chunk],
+               mask[:, lo:lo + chunk])
+        nll = (checkpoint(_block_nll, *blk, use_reentrant=False) if grad
+               else _block_nll(*blk))
+        tot = tot + nll
+        cnt = cnt + blk[3].sum()
+    return tot / cnt.clamp(min=1.0)
 
 
 def stack_init(gen: torch.Generator, n: int, init_fn) -> dict:

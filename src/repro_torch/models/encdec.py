@@ -1,12 +1,13 @@
 """Encoder-decoder assembly (seamless-m4t): bidirectional encoder over stub
 frame embeddings + causal decoder with cross-attention (port of
-``repro.models.encdec``; ``encdec_loss`` waits for the training slice,
-``ROADMAP.md`` Queue A item 9).
+``repro.models.encdec``).
 
 The modality frontend is a stub, as in the reference: the encoder takes
 precomputed frame embeddings [B, S_enc, d_model].  Encoder and decoder
 stacks keep the reference's stacked layout ([L, ...] leaves) and run as a
-loop over layers (``scan_util.scan``).
+loop over layers (``scan_util.scan``); in training ``cfg.remat`` runs each
+layer under ``torch.utils.checkpoint``, as the reference's
+``jax.checkpoint`` of its scan body.
 
 Decode: per-layer self-attention KV caches + per-layer precomputed cross
 K/V ([L, B, Hkv, S_enc, Dh], from :func:`prefill_encoder`), so each decode
@@ -23,9 +24,11 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import scan_util
-from repro_torch.models.common import (embed_init, model_dtype, rms_norm,
-                                       stack_init, zeros)
-from repro_torch.models.transformer import embed_tokens, unembed
+from repro_torch.models.common import (cross_entropy, embed_init,
+                                       model_dtype, rms_norm, stack_init,
+                                       zeros)
+from repro_torch.models.transformer import (embed_tokens, token_positions,
+                                            unembed)
 
 
 # ---------------------------------------------------------------------------
@@ -77,8 +80,7 @@ def encode(params: dict, cfg: ArchConfig,
     """frame_embeds [B, S_enc, d] -> encoder output [B, S_enc, d]."""
     h = frame_embeds.to(model_dtype(cfg))
     b, s, _ = h.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=h.device)[None].expand(b, s)
+    positions = token_positions(b, s, 0, h.device)
 
     def body(x, bp):
         a, _ = attn.attn_forward(bp["attn"], cfg, rms_norm(x, bp["norm1"]),
@@ -88,7 +90,7 @@ def encode(params: dict, cfg: ArchConfig,
                                     rms_norm(x, bp["norm2"]), cfg.gated_ffn)
         return x, None
 
-    h, _ = scan_util.scan(body, h, params["encoder"])
+    h, _ = scan_util.scan(body, h, params["encoder"], remat=cfg.remat)
     return h
 
 
@@ -128,6 +130,23 @@ def _dec_block(bp, cfg: ArchConfig, h, positions, enc_out=None,
     return h, new_cache
 
 
+def encdec_loss(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """batch: frame_embeds [B, S_enc, d] + tokens [B, S_dec] -> next-token
+    CE of the decoder."""
+    enc_out = encode(params, cfg, batch["frame_embeds"])
+    tokens = batch["tokens"]
+    h = embed_tokens(params, cfg, tokens)
+    b, s, _ = h.shape
+    positions = token_positions(b, s, 0, h.device)
+
+    def body(carry, bp):
+        return _dec_block(bp, cfg, carry, positions, enc_out=enc_out)[0], None
+
+    h, _ = scan_util.scan(body, h, params["decoder"], remat=cfg.remat)
+    logits = unembed(params, cfg, h)
+    return cross_entropy(logits[:, :-1], tokens[:, 1:])
+
+
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
@@ -154,8 +173,7 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     h = embed_tokens(params, cfg, tokens)
     b, s, _ = h.shape
     pos = state["pos"]
-    positions = (pos + torch.arange(s, dtype=torch.int32,
-                                    device=h.device))[None].expand(b, s)
+    positions = token_positions(b, s, pos, h.device)
 
     def body(carry, xs):
         bp, cache, cross = xs

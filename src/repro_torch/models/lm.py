@@ -1,32 +1,36 @@
-"""Unified LM model API (port of ``repro.models.lm``; the enc-dec family).
+"""Unified LM model API (port of ``repro.models.lm``): the encoder-decoder
+family and the dense / VLM decoder-only family.
 
 ``get_model(cfg)`` returns a :class:`ModelAPI` whose members are plain
 functions:
 
   init(seed=0, device=None)     -> params dict (random, on the device;
                                    None: the GPU)
-  loss(params, batch)           -> not ported yet (raises)
-  decode_init(batch, cache_len, enc_len, device=None) -> decode state
+  loss(params, batch)           -> scalar CE (f32)
+  decode_init(batch, cache_len[, enc_len], device=None) -> decode state
+                                   (enc-dec takes ``enc_len``)
   decode_step(params, tok, st)  -> (logits [B, V], st')
   prefill(params, tok, st)      -> decode_step over the S prompt tokens
 
-Only the encoder-decoder family (``encoder_layers > 0``, seamless-m4t) is
-ported; every other family raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item.
+Batch layouts by family (the reference's):
+  decoder       {"tokens": [B, S]}
+  vlm           {"tokens": [B, S - P], "patch_embeds": [B, P, d]}
+  audio enc-dec {"frame_embeds": [B, S/4, d], "tokens": [B, 3S/4]}
+
+The xLSTM and SSM / hybrid families (``ROADMAP.md`` Queue A item 9.4) and
+the MoE family (item 9.3) raise ``NotImplementedError`` naming their item.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import encdec
+from repro_torch.models import encdec, transformer
 from repro_torch.models.common import make_generator
-
-_TODO = "ROADMAP.md Queue A item 9"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,9 +49,19 @@ def enc_dec_split(cfg: ArchConfig, seq_len: int) -> tuple[int, int]:
     return s_enc, seq_len - s_enc
 
 
-def _encdec_loss(params, batch):
+def _refuse(cfg: ArchConfig) -> None:
+    if cfg.xlstm is not None:
+        family, item = "the xLSTM LM", "9.4"
+    elif cfg.ssm is not None:
+        family, item = "the SSM / hybrid LM", "9.4"
+    elif cfg.moe is not None:
+        family, item = "the MoE decoder-only LM", "9.3"
+    else:
+        return
     raise NotImplementedError(
-        f"encdec_loss (enc-dec training) is not ported yet ({_TODO})")
+        f"{cfg.name}: {family} is not ported yet (ROADMAP.md Queue A item "
+        f"{item}); the port runs the encoder-decoder and the dense / VLM "
+        f"decoder-only families")
 
 
 def get_model(cfg: ArchConfig) -> ModelAPI:
@@ -57,21 +71,49 @@ def get_model(cfg: ArchConfig) -> ModelAPI:
             cfg=cfg,
             init=lambda seed=0, device=None: encdec.init_encdec(
                 make_generator(seed, device), cfg),
-            loss=_encdec_loss,
+            loss=lambda p, b: encdec.encdec_loss(p, cfg, b),
             decode_init=lambda batch, cache_len, enc_len, device=None: (
                 encdec.init_decode_state(cfg, batch, cache_len, enc_len,
                                          device=resolve_device(device))),
             decode_step=dec,
             prefill=dec,
         )
-    if cfg.xlstm is not None:
-        family = "the xLSTM LM"
-    elif cfg.ssm is not None:
-        family = "the SSM / hybrid LM"
-    elif cfg.moe is not None:
-        family = "the MoE decoder-only LM"
-    else:
-        family = "the decoder-only LM"
-    raise NotImplementedError(
-        f"{cfg.name}: {family} is not ported yet ({_TODO}); only the "
-        f"encoder-decoder family (seamless-m4t) runs in the port")
+    _refuse(cfg)
+    dec = lambda p, t, s: transformer.lm_decode_step(p, cfg, t, s)  # noqa: E731
+    return ModelAPI(
+        cfg=cfg,
+        init=lambda seed=0, device=None: transformer.init_lm(
+            make_generator(seed, device), cfg),
+        loss=lambda p, b: transformer.lm_loss(p, cfg, b),
+        decode_init=lambda batch, cache_len, device=None: (
+            transformer.init_decode_state(cfg, batch, cache_len,
+                                          device=resolve_device(device))),
+        decode_step=dec,
+        prefill=dec,
+    )
+
+
+def make_batch(cfg: ArchConfig, seq_len: int, batch: int,
+               gen: Optional[torch.Generator] = None, device=None) -> dict:
+    """A random batch of the family's layout (smoke tests, examples), drawn
+    from ``gen`` (default: seed 0) on its device (``device``; None: the
+    GPU)."""
+    gen = gen if gen is not None else make_generator(0, device)
+    dev = gen.device
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def tokens(*shape):
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    if cfg.encoder_layers > 0:
+        s_enc, s_dec = enc_dec_split(cfg, seq_len)
+        return {"frame_embeds": normal(batch, s_enc, cfg.d_model),
+                "tokens": tokens(batch, s_dec)}
+    if cfg.frontend == "vision":
+        p = min(cfg.frontend_tokens, max(seq_len - 1, 1))
+        return {"patch_embeds": normal(batch, p, cfg.d_model),
+                "tokens": tokens(batch, seq_len - p)}
+    return {"tokens": tokens(batch, seq_len)}

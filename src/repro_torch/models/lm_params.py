@@ -4,7 +4,10 @@ The reference's LM parameters are nested dicts of arrays, stacked on a
 leading ``[L, ...]`` axis per layer group.  :func:`params_from_numpy` turns
 them, given as numpy arrays (``np.asarray`` of each JAX leaf), into the
 port's dict of tensors with the same keys and shapes, so both packages
-compute the same thing in the tests.
+compute the same thing in the tests: the enc-dec tree, and the decoder-only
+one with its tied ``embed`` or untied ``embed_in`` / ``unembed``.  The
+reference's AdamW state of such a tree carries over through
+:func:`adam_state_from_numpy` (the optimizer's, over any nested tree).
 """
 from __future__ import annotations
 
@@ -12,6 +15,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.optim.adam import adam_state_from_numpy
+
+__all__ = ["params_from_numpy", "adam_state_from_numpy"]
 
 
 def _leaf_to_torch(path: str, a, device, dtype) -> torch.Tensor:
@@ -28,11 +34,14 @@ def _leaf_to_torch(path: str, a, device, dtype) -> torch.Tensor:
 def _walk(tree, path, fn):
     if isinstance(tree, dict):
         return {k: _walk(v, f"{path}/{k}", fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk(v, f"{path}/{i}", fn)
+                          for i, v in enumerate(tree))
     return fn(path, tree)
 
 
 def params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
-    """Nested dicts of numpy arrays -> the same dicts of tensors on
+    """Nested dicts (and lists) of numpy arrays -> the same of tensors on
     ``device`` (None: the GPU; raises without one).  ``dtype`` None keeps
     each leaf's type (bfloat16 numpy arrays become ``torch.bfloat16``);
     otherwise every floating leaf but the norm scales (kept float32, as the

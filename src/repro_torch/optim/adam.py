@@ -5,7 +5,10 @@ The reference folds weight decay into the update (``delta + wd·p``, then
 and stores the moments in ``moment_dtype`` (the update math runs in f32;
 bfloat16 moments are rounded on store).  The optimizer here keeps that
 interface: ``state = init(params)``, ``params, state = update(grads, state,
-params)``, over the params' ``{"layers": [{"w", "b"}]}`` dict of tensors.
+params)``, over any nested dict / list of tensors (GraphSAGE's ``{"layers":
+[{"w", "b"}]}``, an LM's stacked tree), leaf by leaf in ``jax.tree_util``'s
+flatten order (dict keys sorted).  Clipping scales each f32 gradient leaf
+as the update reaches it, so no clipped copy of the whole tree is made.
 
 One difference from the functional reference: :meth:`AdamW.update` writes
 the new parameters and moments into the existing tensors, under
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.scan_util import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,25 +40,23 @@ class AdamConfig:
     moment_dtype: Any = torch.float32  # torch.bfloat16 halves moment memory
 
 
-def tree_leaves(tree: dict) -> list:
-    """The tensors of a ``{"layers": [{name: tensor}]}`` tree, in layer
-    order and, within a layer, in sorted name order (as jax flattens a
-    dict, so trees whose dicts were built in another order still match)."""
-    return [layer[name] for layer in tree["layers"] for name in sorted(layer)]
+def global_norm(grads) -> torch.Tensor:
+    """The L2 norm of every leaf of ``grads`` together, in f32."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in tree_leaves(grads)))
 
 
-def tree_map(fn, tree: dict) -> dict:
-    return {"layers": [{name: fn(t) for name, t in layer.items()}
-                       for layer in tree["layers"]]}
+def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
 
 
-def clip_by_global_norm(grads: dict, max_norm: float) -> tuple:
+def clip_by_global_norm(grads, max_norm: float) -> tuple:
     """Scale ``grads`` so their global L2 norm is at most ``max_norm``.
-    Returns ``(clipped grads, norm before clipping)``."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in tree_leaves(grads)))
-    scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
-    return tree_map(lambda g: g * scale, grads), gnorm
+    Returns ``(clipped grads, norm before clipping)``.  The clipped leaves
+    are f32, as the reference's (a bf16 leaf times its f32 scale)."""
+    gnorm = global_norm(grads)
+    scale = _clip_scale(gnorm, max_norm)
+    return tree_map(lambda g: g.float() * scale, grads), gnorm
 
 
 class AdamW:
@@ -80,8 +82,9 @@ class AdamW:
         """One step, in place (module docstring).  Returns ``(params,
         state)``."""
         cfg = self.cfg
+        scale = None                 # clipping, applied leaf by leaf below
         if cfg.clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, cfg.clip_norm)
+            scale = _clip_scale(global_norm(grads), cfg.clip_norm)
         step = state["step"] + 1
         lr, b1, b2 = cfg.lr, cfg.b1, cfg.b2
         if self.lr_schedule is not None:      # f32, as the reference's jnp
@@ -92,7 +95,7 @@ class AdamW:
         for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                               tree_leaves(state["m"]),
                               tree_leaves(state["v"])):
-            g32 = g.float()
+            g32 = g.float() if scale is None else g.float() * scale
             m32 = m.float() * b1 + (1 - b1) * g32
             v32 = v.float() * b2 + (1 - b2) * torch.square(g32)
             delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)

@@ -172,11 +172,93 @@ def test_aux_payload_roundtrip(tmp_path):
 
 
 def test_bf16_leaf_is_refused_by_name(tmp_path):
-    t = {"layers": [{"w": torch.zeros((2, 2), dtype=torch.bfloat16)}]}
+    """A leaf numpy cannot hold is refused, naming the leaf, and nothing
+    is published.  A bf16 leaf is no longer such a leaf: it is written as
+    its raw bytes (the bf16 tests below), so the case is a float8 leaf."""
+    t = {"layers": [{"w": torch.zeros((2, 2), dtype=torch.float8_e4m3fn)}]}
     with pytest.raises(TypeError, match="layers/0/w"):
         ckpt.save_checkpoint(tmp_path, 1, t)
     assert ckpt.latest_step(tmp_path) is None
     assert list(tmp_path.iterdir()) == []
+
+
+def _bf16_ref_tree(seed=0):
+    """An LM-like (params, opt_state) tree: bf16 stacked and tied leaves,
+    f32 norms and moments, the int32 step, as the reference holds it."""
+    rng = np.random.default_rng(seed)
+    p = {"embed": jnp.asarray(rng.standard_normal((7, 4)), jnp.bfloat16),
+         "final_norm": jnp.asarray(rng.standard_normal(4), jnp.float32),
+         "layers": {"wq": jnp.asarray(rng.standard_normal((2, 4, 4)),
+                                      jnp.bfloat16)}}
+    m = jax.tree_util.tree_map(lambda a: a.astype(jnp.float32) * 0.5, p)
+    return (p, {"m": m, "v": m, "step": jnp.asarray(3, jnp.int32)})
+
+
+def _as_port(tree):
+    """The same tree as the port holds it: bf16 tensors, step an int."""
+    def leaf(a):
+        if a.ndim == 0:
+            return int(a)
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.int16).copy()).view(
+                torch.bfloat16)
+        return torch.from_numpy(np.array(a))
+    return jax.tree_util.tree_map(leaf, tree)
+
+
+def _bits(x) -> np.ndarray:
+    """A leaf's raw bits: a 2-byte leaf (a bf16 tensor, a bfloat16 or V2
+    array) as int16."""
+    if isinstance(x, torch.Tensor):
+        x = x.view(torch.int16) if x.dtype == torch.bfloat16 else x
+        return x.numpy()
+    a = np.asarray(x)
+    return a.view(np.int16) if a.dtype.itemsize == 2 else a
+
+
+def test_reference_bf16_checkpoint_loads_into_the_port_bit_for_bit(tmp_path):
+    """A bf16 tree saved by the reference loads into the port's bf16
+    tensors bit for bit (the reference's own loader hands those leaves
+    back as raw V2 bytes)."""
+    tree = _bf16_ref_tree()
+    ckpt_ref.save_checkpoint(tmp_path, 3, tree)
+    like = jax.tree_util.tree_map(lambda x: torch.zeros_like(x)
+                                  if isinstance(x, torch.Tensor) else 0,
+                                  _as_port(tree))
+    got, step, _ = ckpt.load_checkpoint(tmp_path, like)
+    assert step == 3 and got[1]["step"] == 3
+    assert got[0]["embed"].dtype == torch.bfloat16
+    for g, w in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(tree)):
+        np.testing.assert_array_equal(_bits(g), _bits(w))
+    raw, _, _ = ckpt_ref.load_checkpoint(tmp_path, tree)
+    assert raw[0]["embed"].dtype == np.dtype("V2")
+
+
+def test_port_bf16_checkpoint_has_the_reference_layout(tmp_path):
+    """The port writes a bf16 tensor as the reference writes a bf16 leaf:
+    the same manifest (dtype "bfloat16") and the same 2-byte patterns in
+    ``arrays.npz``; the port reads its own back bit for bit, on the
+    device asked for."""
+    tree = _bf16_ref_tree(1)
+    a = ckpt_ref.save_checkpoint(tmp_path / "ref", 3, tree)
+    b = ckpt.save_checkpoint(tmp_path / "port", 3, _as_port(tree))
+    assert _manifest(a) == _manifest(b)
+    assert _manifest(b)["leaves"]["0/embed"]["dtype"] == "bfloat16"
+    with np.load(a / "arrays.npz") as za, np.load(b / "arrays.npz") as zb:
+        assert sorted(za.files) == sorted(zb.files)
+        for k in za.files:
+            assert za[k].dtype.itemsize == zb[k].dtype.itemsize
+            assert za[k].tobytes() == zb[k].tobytes(), k
+    port = _as_port(tree)
+    got, _, _ = ckpt.load_checkpoint(tmp_path / "port", port, device="meta")
+    assert got[0]["layers"]["wq"].device.type == "meta"
+    assert got[0]["layers"]["wq"].dtype == torch.bfloat16
+    got, _, _ = ckpt.load_checkpoint(tmp_path / "port", port)
+    for g, w in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(port)):
+        np.testing.assert_array_equal(_bits(g), _bits(w))
 
 
 def test_load_places_leaves_on_the_given_device(tmp_path):

@@ -196,14 +196,6 @@ def test_temperature_sampling_follows_the_engines_generator(both):
     np.testing.assert_array_equal(tokens(3, 1e-4), tokens(0, 0.0))
 
 
-def test_sliding_window_cache_is_refused_by_name():
-    from repro_torch.models import attention
-    cfg = configs.get_config("h2o-danube-3-4b").reduced()
-    assert cfg.sliding_window is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        attention.init_kv_cache(cfg, 1, 8, device="cpu")
-
-
 def test_k4_dispatch_only_in_single_token_cross_attention(both, monkeypatch):
     """With attn_impl="pallas", the prefill (self- and cross-attention over
     the prompt) and every self-attention never call the K4 op; each
@@ -254,12 +246,31 @@ def test_config_registry_equal_reference():
         {k: dataclasses.asdict(v) for k, v in jconfigs.SHAPES.items()}
 
 
-@pytest.mark.parametrize("name", ["qwen2-7b", "xlstm-125m", "zamba2-2.7b",
+@pytest.mark.parametrize("name", ["arctic-480b", "xlstm-125m", "zamba2-2.7b",
                                   "deepseek-v2-236b"])
 def test_other_families_are_refused_by_name(name):
     cfg = configs.get_config(name).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    item = "9.4" if cfg.xlstm is not None or cfg.ssm is not None else "9.3"
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md Queue A item {item}"):
         get_model(cfg)
+
+
+@pytest.mark.parametrize("part", ["mla", "moe_block"])
+def test_mla_and_the_moe_block_are_refused_by_name(part):
+    """MLA attention and the MoE block kind raise, naming item 9.3 (MoE,
+    MLA's only user), wherever they are reached."""
+    from repro_torch.models import attention, transformer
+    from repro_torch.models.common import make_generator
+    gen = make_generator(0, "cpu")
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue A item 9.3"):
+        if part == "mla":
+            attention.init_attn(
+                gen, configs.get_config("deepseek-v2-236b").reduced())
+        else:
+            transformer.init_block(
+                gen, configs.get_config("gemma-2b").reduced(), "moe")
 
 
 def test_entry_points_default_to_the_card(both):

@@ -16,8 +16,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 # every module of the port's serving, training, LM serving, training-
 # surface (baselines, checkpoints, describe, schedules, trainer), fabric /
-# streaming-ingest (with the runtime lock sanitizer), RPC, mesh and static
-# analysis slices
+# streaming-ingest (with the runtime lock sanitizer), RPC, mesh, static
+# analysis and LM training slices
 REQUIRED = (
     "repro_torch.device", "repro_torch.core.pipeline",
     "repro_torch.sampling.rng", "repro_torch.sampling.adjacency",
@@ -47,7 +47,8 @@ REQUIRED = (
     "repro_torch.analysis.common", "repro_torch.analysis.baseline",
     "repro_torch.analysis.locks", "repro_torch.analysis.generation",
     "repro_torch.analysis.meterlint", "repro_torch.analysis.retrace",
-    "repro_torch.analysis.__main__",
+    "repro_torch.analysis.__main__", "repro_torch.launch.steps",
+    "repro_torch.launch.train", "repro_torch.data.tokens",
 )
 
 # the static passes: `import repro_torch.analysis` (which every threaded

@@ -1,0 +1,103 @@
+"""The port's LM training slice on a CUDA card only (``-m gpu``; every test
+skips without a card).  Needs torch and no jax, so it runs on the GPU host:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_lm_gpu.py
+
+The unbind layer loop's gradients on the card against the CPU's (rtol
+1e-4, atol 1e-5, the tolerance of ``chip_smoke.py``'s card-vs-CPU
+phases: cuBLAS and the CPU sum the f32 matmuls in other orders, through
+six layers; TF32 off), a bf16 checkpoint round trip of card tensors (bit for bit), and
+a reduced ``train_loop`` on the card against the CPU (losses rtol 1e-4).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from _torch_parity import requires_cuda  # noqa: E402
+from repro_torch import checkpoint as ckpt  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.models import scan_util  # noqa: E402
+from repro_torch.models.lm import get_model  # noqa: E402
+
+
+@pytest.fixture
+def no_tf32():
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.gpu
+def test_unbind_loop_gradients_on_card_match_cpu(no_tf32):
+    dev = requires_cuda()
+    rng = np.random.default_rng(0)
+    stack = {"w": rng.standard_normal((6, 32, 32)).astype(np.float32) / 6,
+             "s": rng.standard_normal((6, 32)).astype(np.float32)}
+    x0 = rng.standard_normal((4, 32)).astype(np.float32)
+
+    def body(h, bp):
+        return torch.tanh(h @ bp["w"]) * (1 + bp["s"]), None
+
+    grads = []
+    for device in ("cpu", dev):
+        leaves = {k: torch.from_numpy(v).to(device).requires_grad_(True)
+                  for k, v in stack.items()}
+        out, _ = scan_util.scan(body, torch.from_numpy(x0).to(device), leaves)
+        g = torch.autograd.grad(out.square().sum(), [leaves["s"],
+                                                     leaves["w"]])
+        grads.append([t.cpu() for t in g])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_bf16_checkpoint_round_trip_of_card_tensors(tmp_path):
+    dev = requires_cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    tree = ({"w": torch.randn((3, 5), generator=g, device=dev).to(
+        torch.bfloat16)}, {"step": 7})
+    ckpt.save_checkpoint(tmp_path, 1, tree)
+    got, step, _ = ckpt.load_checkpoint(tmp_path, tree)
+    assert step == 1 and got[1]["step"] == 7
+    assert got[0]["w"].device == tree[0]["w"].device
+    assert got[0]["w"].dtype == torch.bfloat16
+    assert torch.equal(got[0]["w"].view(torch.int16),
+                       tree[0]["w"].view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_reduced_train_loop_on_card_matches_cpu(tmp_path, no_tf32,
+                                                monkeypatch):
+    """A reduced gemma (f32) ``train_loop`` of 3 steps on the card and on
+    the CPU from the same seed: the same losses within rtol 1e-4; then a
+    bf16 run on the card resumes from its step-2 checkpoint."""
+    requires_cuda()
+    cfg = configs.get_config("gemma-2b").reduced()
+    kw = dict(steps=3, batch=2, seq_len=16, log_every=0)
+    losses = {}
+    params = get_model(cfg).init(0, device="cpu")
+    model = dataclasses.replace(
+        get_model(cfg), init=lambda seed=0, device=None: scan_util.tree_map(
+            lambda t: t.to(device, copy=True), params))    # updated in place
+    with monkeypatch.context() as m:
+        m.setattr(train_mod, "get_model", lambda c: model)
+        for device in ("cpu", "cuda"):
+            losses[device] = train_mod.train_loop(cfg, device=device,
+                                                  **kw).losses
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    bf16 = dataclasses.replace(cfg, dtype="bfloat16")
+    full = train_mod.train_loop(bf16, ckpt_dir=tmp_path / "a", ckpt_every=2,
+                                **kw)
+    train_mod.train_loop(bf16, ckpt_dir=tmp_path / "b", ckpt_every=2,
+                         **dict(kw, steps=2))
+    resumed = train_mod.train_loop(bf16, ckpt_dir=tmp_path / "b",
+                                   ckpt_every=2, resume=True, **kw)
+    assert resumed.resumed_from == 2
+    np.testing.assert_allclose(resumed.losses, full.losses[2:], rtol=2e-3)
