@@ -1,17 +1,19 @@
 """Batched decode engine, the LM zoo's serving path (port of
-``repro.launch.serve``): the encoder-decoder family and the dense / VLM
+``repro.launch.serve``): the encoder-decoder family, the dense / VLM
 decoder-only family (a sliding-window config decodes through its ring
-cache).
+cache), the xLSTM family and the SSM / hybrid family (O(1) recurrent
+state; zamba2's shared block also a KV cache per invocation).
 
 Lockstep batched decoding, as in the reference:
 
 * Requests are grouped into batches of ``max_batch`` by exact prompt
   length (the decode state keeps one position for the whole batch).
 * One prefill call (``decode_step`` over the S prompt tokens, which fills
-  the KV caches; an enc-dec model first runs its encoder through
-  ``prefill_encoder``), then token-by-token greedy (``argmax``) or
-  temperature sampling (``torch.multinomial`` with the engine's own
-  ``torch.Generator``); per-slot EOS tracking.
+  the KV caches or runs the recurrences over the prompt; an enc-dec model
+  first runs its encoder through ``prefill_encoder``), then
+  token-by-token greedy (``argmax``) or temperature sampling
+  (``torch.multinomial`` with the engine's own ``torch.Generator``);
+  per-slot EOS tracking.
 * The reference jits one step; PyTorch runs the step eagerly, under
   ``torch.inference_mode``.  Prefill and decode times are taken after
   ``torch.cuda.synchronize()`` on a card.
@@ -76,6 +78,8 @@ class ServeEngine:
         if self.cfg.encoder_layers > 0:
             return self.model.decode_init(batch, cache_len, enc_len,
                                           device=self.device)
+        if self.cfg.xlstm is not None:
+            return self.model.decode_init(batch, device=self.device)
         return self.model.decode_init(batch, cache_len, device=self.device)
 
     def _sync(self) -> None:

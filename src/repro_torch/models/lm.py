@@ -1,5 +1,6 @@
 """Unified LM model API (port of ``repro.models.lm``): the encoder-decoder
-family and the dense / VLM decoder-only family.
+family, the dense / VLM decoder-only family, the xLSTM family and the
+SSM / hybrid family.
 
 ``get_model(cfg)`` returns a :class:`ModelAPI` whose members are plain
 functions:
@@ -8,17 +9,22 @@ functions:
                                    None: the GPU)
   loss(params, batch)           -> scalar CE (f32)
   decode_init(batch, cache_len[, enc_len], device=None) -> decode state
-                                   (enc-dec takes ``enc_len``)
+                                   (enc-dec takes ``enc_len``; xLSTM's
+                                   ``cache_len`` defaults to 0, unused)
   decode_step(params, tok, st)  -> (logits [B, V], st')
-  prefill(params, tok, st)      -> decode_step over the S prompt tokens
+  prefill(params, tok, st)      -> attention families: decode_step over the
+                                   S prompt tokens; recurrent families: the
+                                   parallel forward's last logits, ``st``
+                                   handed back unchanged (the reference's)
 
 Batch layouts by family (the reference's):
   decoder       {"tokens": [B, S]}
   vlm           {"tokens": [B, S - P], "patch_embeds": [B, P, d]}
   audio enc-dec {"frame_embeds": [B, S/4, d], "tokens": [B, 3S/4]}
+  ssm/hybrid    {"tokens": [B, S]}
 
-The xLSTM and SSM / hybrid families (``ROADMAP.md`` Queue A item 9.4) and
-the MoE family (item 9.3) raise ``NotImplementedError`` naming their item.
+The MoE family raises ``NotImplementedError`` naming its item
+(``ROADMAP.md`` Queue A item 9.3).
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import encdec, transformer
+from repro_torch.models import encdec, hybrid, transformer, xlstm_lm
 from repro_torch.models.common import make_generator
 
 
@@ -50,18 +56,12 @@ def enc_dec_split(cfg: ArchConfig, seq_len: int) -> tuple[int, int]:
 
 
 def _refuse(cfg: ArchConfig) -> None:
-    if cfg.xlstm is not None:
-        family, item = "the xLSTM LM", "9.4"
-    elif cfg.ssm is not None:
-        family, item = "the SSM / hybrid LM", "9.4"
-    elif cfg.moe is not None:
-        family, item = "the MoE decoder-only LM", "9.3"
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: {family} is not ported yet (ROADMAP.md Queue A item "
-        f"{item}); the port runs the encoder-decoder and the dense / VLM "
-        f"decoder-only families")
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE decoder-only LM is not ported yet "
+            f"(ROADMAP.md Queue A item 9.3); the port runs the "
+            f"encoder-decoder, the dense / VLM decoder-only, the xLSTM and "
+            f"the SSM / hybrid families")
 
 
 def get_model(cfg: ArchConfig) -> ModelAPI:
@@ -77,6 +77,34 @@ def get_model(cfg: ArchConfig) -> ModelAPI:
                                          device=resolve_device(device))),
             decode_step=dec,
             prefill=dec,
+        )
+    if cfg.xlstm is not None:
+        def xl_prefill(p, t, s):
+            return xlstm_lm.xlstm_forward(p, cfg, t)[:, -1], s
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda seed=0, device=None: xlstm_lm.init_xlstm_lm(
+                make_generator(seed, device), cfg),
+            loss=lambda p, b: xlstm_lm.xlstm_loss(p, cfg, b),
+            decode_init=lambda batch, cache_len=0, device=None: (
+                xlstm_lm.init_decode_state(cfg, batch,
+                                           device=resolve_device(device))),
+            decode_step=lambda p, t, s: xlstm_lm.decode_step(p, cfg, t, s),
+            prefill=xl_prefill,
+        )
+    if cfg.ssm is not None:
+        def hy_prefill(p, t, s):
+            return hybrid.hybrid_forward(p, cfg, t)[:, -1], s
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda seed=0, device=None: hybrid.init_hybrid(
+                make_generator(seed, device), cfg),
+            loss=lambda p, b: hybrid.hybrid_loss(p, cfg, b),
+            decode_init=lambda batch, cache_len, device=None: (
+                hybrid.init_decode_state(cfg, batch, cache_len,
+                                         device=resolve_device(device))),
+            decode_step=lambda p, t, s: hybrid.decode_step(p, cfg, t, s),
+            prefill=hy_prefill,
         )
     _refuse(cfg)
     dec = lambda p, t, s: transformer.lm_decode_step(p, cfg, t, s)  # noqa: E731

@@ -1,0 +1,223 @@
+"""Mamba2 (SSD) block, chunked and matmul-dominant (port of
+``repro.models.ssm``).
+
+The zamba2 backbone.  The State-Space Dual form computes, per head h with
+scalar decay a_t = exp(dt_t · A_h):
+
+    y_t = C_t · h_t,   h_t = a_t · h_{t-1} + dt_t · B_t ⊗ x_t
+
+Training and the parallel forward take the chunked algorithm (Mamba2 paper
+§6): S splits into chunks of Q; inside a chunk a (Q×Q) masked-decay
+product, across chunks a loop over per-chunk states [H, N, P], as the
+reference's einsums and ``lax.scan``; the decay matrix is masked before
+its ``exp`` (:func:`_intra_decay`: the reference's values, and a finite
+gradient where the reference's overflows).
+
+Decode (``state`` given) is the recurrent update over the S new tokens on
+the [B, H, P, N] state and the conv buffer of the last K-1 inputs.  The
+state is written in place: ``state["conv"]`` and ``state["ssd"]`` receive
+the new values and the same dict is returned, as the port's KV caches are
+(``models/attention.py``).  The buffers are f32; the conv buffer holds the
+activation dtype's values, which the reference's state takes after its
+first step, so every step reads the reference's values.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.common import dense_init, model_dtype, rms_norm, zeros
+
+
+def _dims(cfg: ArchConfig):
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    n_heads = d_inner // s.head_dim
+    return d_inner, n_heads
+
+
+def init_ssm(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    s = cfg.ssm
+    d = cfg.d_model
+    d_inner, n_heads = _dims(cfg)
+    conv_dim = d_inner + 2 * s.n_groups * s.d_state
+    dt = model_dtype(cfg)
+    dev = gen.device
+    in_proj = dense_init(gen, d, 2 * d_inner + 2 * s.n_groups * s.d_state
+                         + n_heads, dt)
+    conv_w = dense_init(gen, s.d_conv, conv_dim, dt, scale=s.d_conv ** -0.5)
+    out_proj = dense_init(gen, d_inner, d, dt)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        # in_proj -> [z (gate), x, B, C, dt]
+        "in_proj": in_proj,
+        "conv_w": conv_w,
+        "conv_b": zeros(gen, (conv_dim,), dt),
+        "a_log": torch.log(torch.linspace(1.0, 16.0, n_heads, **f32)),
+        "ssm_d": torch.ones((n_heads,), **f32),
+        "dt_bias": torch.log(torch.expm1(torch.full((n_heads,), 1e-2,
+                                                    **f32))),
+        "norm_scale": zeros(gen, (d_inner,)),
+        "out_proj": out_proj,
+    }
+
+
+def _split_proj(cfg: ArchConfig, proj: torch.Tensor):
+    s = cfg.ssm
+    d_inner, n_heads = _dims(cfg)
+    gn = s.n_groups * s.d_state
+    return torch.split(proj, [d_inner, d_inner, gn, gn, n_heads], dim=-1)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv1d.  x: [B,S,C]; w: [K,C].  Returns (y,
+    new_state): ``state`` is the last K-1 inputs of the previous call,
+    ``new_state`` the last K-1 of [state ++ x] (a new tensor, in x's
+    dtype)."""
+    k = w.shape[0]
+    if state is None:
+        pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                  # [B, S+K-1, C]
+    s = x.shape[1]
+    y = sum(xp[:, i:i + s, :] * w[i] for i in range(k)) + b
+    new_state = xp[:, -(k - 1):, :] if k > 1 else pad[:, :0]
+    return F.silu(y), new_state
+
+
+def ssm_forward(p: dict, cfg: ArchConfig, x_in: torch.Tensor,
+                state: Optional[dict] = None):
+    """x_in: [B, S, d].  Returns (y, state | None).
+
+    Train / prefill: state None (chunked SSD).  Decode: state holds
+    {"conv": [B,K-1,convdim], "ssd": [B,H,P,N]}, updated in place over the
+    S tokens (module docstring)."""
+    s_cfg = cfg.ssm
+    d_inner, n_heads = _dims(cfg)
+    b, seq, _ = x_in.shape
+    hd, n = s_cfg.head_dim, s_cfg.d_state
+    gn = s_cfg.n_groups * n
+
+    proj = x_in @ p["in_proj"]
+    z, x, bb, cc, dt_raw = _split_proj(cfg, proj)
+    conv_in = torch.cat([x, bb, cc], dim=-1)
+    conv_state = state["conv"] if state is not None else None
+    conv_out, new_conv = _causal_conv(conv_in, p["conv_w"], p["conv_b"],
+                                      conv_state)
+    x, bb, cc = torch.split(conv_out, [d_inner, gn, gn], dim=-1)
+
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])                    # [B,S,H]
+    a = -torch.exp(p["a_log"])                                        # [H]
+    decay = torch.exp(dt * a)                                         # (0,1)
+
+    xh = x.reshape(b, seq, n_heads, hd).float()
+    # group -> head broadcast (n_groups = 1 for zamba2)
+    rep = n_heads // s_cfg.n_groups
+    bbh = bb.reshape(b, seq, s_cfg.n_groups, n).repeat_interleave(
+        rep, dim=2).float()
+    cch = cc.reshape(b, seq, s_cfg.n_groups, n).repeat_interleave(
+        rep, dim=2).float()
+    dx = xh * dt[..., None]                                           # dt·x
+
+    if state is not None:
+        # recurrent decode: h' = a h + dx ⊗ B ; y = h'·C
+        h = state["ssd"].float()                               # [B,H,P,N]
+        ys = []
+        for t in range(seq):
+            h = (h * decay[:, t, :, None, None]
+                 + dx[:, t, :, :, None] * bbh[:, t, :, None, :])
+            ys.append(torch.matmul(h, cch[:, t, :, :, None])[..., 0])
+        y = torch.stack(ys, dim=1)                             # [B,S,H,P]
+        y = y + xh * p["ssm_d"][None, None, :, None]
+        state["conv"].copy_(new_conv)
+        state["ssd"].copy_(h)
+        new_state = state
+    else:
+        y = _ssd_chunked(decay, bbh, cch, dx, s_cfg.chunk)
+        y = y + xh * p["ssm_d"][None, None, :, None]
+        new_state = None
+
+    y = y.reshape(b, seq, d_inner).to(x_in.dtype)
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm_scale"])
+    return y @ p["out_proj"], new_state
+
+
+def _intra_decay(cum: torch.Tensor) -> torch.Tensor:
+    """L[t,s] = exp(cum[t] - cum[s]) for s <= t (the decay between s and
+    t), 0 above the diagonal.  cum [B,NC,Q,H] -> [B,NC,Q,Q,H].
+
+    The reference takes ``exp`` of every entry and then masks
+    (``src/repro/models/ssm.py:160-162``); above the diagonal cum[t] -
+    cum[s] is a sum of -log a_r, which overflows ``exp`` once a chunk's
+    decay passes e^-88, and the masked inf then makes the gradient NaN
+    (0 · inf).  Masking first (-inf, whose ``exp`` is 0) gives the same
+    values bit for bit and a finite gradient."""
+    q = cum.shape[2]
+    lt = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    mask = torch.ones((q, q), dtype=torch.bool,
+                      device=cum.device).tril()[None, None, ..., None]
+    return torch.exp(torch.where(mask, lt, -torch.inf))
+
+
+def _ssd_chunked(decay, bbh, cch, dx, chunk: int):
+    """Chunked SSD.  decay [B,S,H]; bbh/cch [B,S,H,N]; dx [B,S,H,P] ->
+    [B,S,H,P].  A chunk that does not divide S shrinks until it does."""
+    b, s, h = decay.shape
+    n = bbh.shape[-1]
+    p = dx.shape[-1]
+    q = min(chunk, s)
+    while s % q:
+        q -= 1
+    nc = s // q
+
+    def rs(t):
+        return t.reshape(b, nc, q, *t.shape[2:])
+
+    decay_c, b_c, c_c, dx_c = rs(decay), rs(bbh), rs(cch), rs(dx)
+
+    logd = torch.log(decay_c.clamp_min(1e-20))                 # [B,NC,Q,H]
+    cum = torch.cumsum(logd, dim=2)                      # Σ_{r<=t} log a_r
+    total = cum[:, :, -1]                                      # [B,NC,H]
+
+    lmat = _intra_decay(cum)                                   # [B,NC,Q,Q,H]
+    scores = torch.einsum("bcthn,bcshn->bctsh", c_c, b_c) * lmat
+    y_intra = torch.einsum("bctsh,bcshp->bcthp", scores, dx_c)
+
+    # chunk-final states: S_c = Σ_s (a_{s+1..Q}) B_s ⊗ dx_s
+    decay_after = torch.exp(total[:, :, None, :] - cum)        # [B,NC,Q,H]
+    chunk_state = torch.einsum("bcsh,bcshn,bcshp->bchnp",
+                               decay_after, b_c, dx_c)         # [B,NC,H,N,P]
+
+    # inter-chunk loop over chunk states; chunk c reads the state before it
+    carry = torch.zeros((b, h, n, p), dtype=torch.float32,
+                        device=decay.device)
+    prev = []
+    for c in range(nc):
+        prev.append(carry)
+        carry = carry * torch.exp(total[:, c])[..., None, None] \
+            + chunk_state[:, c]
+    prev_states = torch.stack(prev, dim=1)                     # [B,NC,H,N,P]
+
+    # inter-chunk contribution: y_t += (a_{1..t}) C_t · h_prev
+    decay_into = torch.exp(cum)                                # [B,NC,Q,H]
+    y_inter = torch.einsum("bcthn,bchnp->bcthp", c_c, prev_states) \
+        * decay_into[..., None]
+    return (y_intra + y_inter).reshape(b, s, h, p)
+
+
+def init_ssm_state(cfg: ArchConfig, batch: int, *, device) -> dict:
+    """Zero conv buffer and SSD state (f32; module docstring)."""
+    s = cfg.ssm
+    d_inner, n_heads = _dims(cfg)
+    conv_dim = d_inner + 2 * s.n_groups * s.d_state
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "conv": torch.zeros((batch, s.d_conv - 1, conv_dim), **f32),
+        "ssd": torch.zeros((batch, n_heads, s.head_dim, s.d_state), **f32),
+    }

@@ -246,14 +246,41 @@ def test_config_registry_equal_reference():
         {k: dataclasses.asdict(v) for k, v in jconfigs.SHAPES.items()}
 
 
-@pytest.mark.parametrize("name", ["arctic-480b", "xlstm-125m", "zamba2-2.7b",
-                                  "deepseek-v2-236b"])
+@pytest.mark.parametrize("name", ["arctic-480b", "deepseek-v2-236b"])
 def test_other_families_are_refused_by_name(name):
     cfg = configs.get_config(name).reduced()
-    item = "9.4" if cfg.xlstm is not None or cfg.ssm is not None else "9.3"
     with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue A item {item}"):
+                       match="ROADMAP.md Queue A item 9.3"):
         get_model(cfg)
+
+
+@pytest.mark.parametrize("name", ["xlstm-125m", "zamba2-2.7b"])
+def test_recurrent_families_give_the_reference_api(name):
+    """``get_model`` of the xLSTM and hybrid configs: the reference's
+    ``ModelAPI`` members (``prefill`` included), and a decode state of the
+    reference's structure and shapes (``decode_init`` called as the
+    reference's serving engine calls it; ``pos`` a Python int)."""
+    jcfg, tcfg = jconfigs.get_config(name).reduced(), \
+        configs.get_config(name).reduced()
+    jm, tm = jget_model(jcfg), get_model(tcfg)
+    members = [f.name for f in dataclasses.fields(jm)]
+    assert [f.name for f in dataclasses.fields(tm)] == members
+    assert all(getattr(tm, m) is not None for m in members)
+    if tcfg.xlstm is not None:
+        jstate = jm.decode_init(2)
+        tstate = tm.decode_init(2, device="cpu")
+        assert tm.decode_init(2, 99, device="cpu").keys() == tstate.keys()
+    else:
+        jstate = jm.decode_init(2, 12)
+        tstate = tm.decode_init(2, 12, device="cpu")
+    assert tstate["pos"] == 0 and isinstance(tstate["pos"], int)
+    want = jax.tree_util.tree_map(
+        np.shape, {k: v for k, v in jstate.items() if k != "pos"})
+    got = {k: v for k, v in tstate.items() if k != "pos"}
+    from repro_torch.models.scan_util import tree_leaves, tree_map
+    assert tree_map(lambda t: tuple(t.shape), got) == want
+    assert all(t.dtype == torch.float32 or t.dtype == torch.bfloat16
+               for t in tree_leaves(got))
 
 
 @pytest.mark.parametrize("part", ["mla", "moe_block"])

@@ -17,7 +17,7 @@ REPO = Path(__file__).resolve().parents[1]
 # every module of the port's serving, training, LM serving, training-
 # surface (baselines, checkpoints, describe, schedules, trainer), fabric /
 # streaming-ingest (with the runtime lock sanitizer), RPC, mesh, static
-# analysis and LM training slices
+# analysis, LM training and recurrent LM slices
 REQUIRED = (
     "repro_torch.device", "repro_torch.core.pipeline",
     "repro_torch.sampling.rng", "repro_torch.sampling.adjacency",
@@ -49,6 +49,8 @@ REQUIRED = (
     "repro_torch.analysis.meterlint", "repro_torch.analysis.retrace",
     "repro_torch.analysis.__main__", "repro_torch.launch.steps",
     "repro_torch.launch.train", "repro_torch.data.tokens",
+    "repro_torch.models.ssm", "repro_torch.models.hybrid",
+    "repro_torch.models.xlstm", "repro_torch.models.xlstm_lm",
 )
 
 # the static passes: `import repro_torch.analysis` (which every threaded

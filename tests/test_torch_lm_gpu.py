@@ -6,8 +6,13 @@ skips without a card).  Needs torch and no jax, so it runs on the GPU host:
 The unbind layer loop's gradients on the card against the CPU's (rtol
 1e-4, atol 1e-5, the tolerance of ``chip_smoke.py``'s card-vs-CPU
 phases: cuBLAS and the CPU sum the f32 matmuls in other orders, through
-six layers; TF32 off), a bf16 checkpoint round trip of card tensors (bit for bit), and
-a reduced ``train_loop`` on the card against the CPU (losses rtol 1e-4).
+six layers; TF32 off), a bf16 checkpoint round trip of card tensors (bit for bit),
+a reduced ``train_loop`` on the card against the CPU (losses rtol 1e-4),
+and the reduced recurrent families (xlstm-125m, zamba2-2.7b) on the card
+against the CPU: loss rtol 1e-4, gradients rtol 1e-4 and atol 1e-5
+(xLSTM's atol 1e-4: on the CPU alone, f32 gradients of its tied embedding
+sit up to 4.7e-5 from an f64 evaluation), decode logits over a prompt and
+three tokens rtol 1e-4, atol 1e-5.
 """
 import dataclasses
 
@@ -101,3 +106,39 @@ def test_reduced_train_loop_on_card_matches_cpu(tmp_path, no_tf32,
                                    ckpt_every=2, resume=True, **kw)
     assert resumed.resumed_from == 2
     np.testing.assert_allclose(resumed.losses, full.losses[2:], rtol=2e-3)
+
+
+RECURRENT_GRAD_TOL = {"xlstm-125m": dict(rtol=1e-4, atol=1e-4),
+                      "zamba2-2.7b": dict(rtol=1e-4, atol=1e-5)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", list(RECURRENT_GRAD_TOL))
+def test_recurrent_loss_grads_and_decode_on_card_match_cpu(arch, no_tf32):
+    dev = requires_cuda()
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.scan_util import tree_leaves, tree_map
+    cfg = dataclasses.replace(configs.get_config(arch).reduced(), remat=True)
+    model = get_model(cfg)
+    params = model.init(0, device="cpu")
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 19)).astype(np.int32)
+    out = {}
+    for device in ("cpu", dev):
+        p = tree_map(lambda t: t.to(device), params)
+        t = torch.from_numpy(toks).to(device)
+        loss, grads = value_and_grad(model.loss, p, {"tokens": t[:, :16]})
+        state = (model.decode_init(2, device=device) if cfg.xlstm
+                 else model.decode_init(2, 24, device=device))
+        logits = []
+        with torch.inference_mode():
+            for feed in (t[:, :16], t[:, 16:17], t[:, 17:18], t[:, 18:]):
+                lg, state = model.decode_step(p, feed, state)
+                logits.append(lg.cpu())
+        out[str(device)] = (loss.cpu(), [g.cpu() for g in tree_leaves(grads)],
+                            torch.stack(logits))
+    (lc, gc, dc), (lg_, gg, dg) = out["cpu"], out[str(dev)]
+    torch.testing.assert_close(lg_, lc, rtol=1e-4, atol=0)
+    for a, b in zip(gc, gg):
+        torch.testing.assert_close(b, a, **RECURRENT_GRAD_TOL[arch])
+    torch.testing.assert_close(dg, dc, rtol=1e-4, atol=1e-5)
