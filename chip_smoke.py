@@ -227,13 +227,40 @@ line each on stdout:
                zamba2's 9 KV groups distinct.  Logs prefill ms, ms a token
                beside the step's bound (weights and state read, state
                written, over the HBM rate), then profiles 3 decode steps;
-    lm-train-parity — reduced seamless, gemma, danube, xlstm and zamba2
-               (f32, remat) with the same parameters and batch on the card
-               and on the CPU: loss and every gradient allclose (rtol 1e-4,
-               atol 1e-5; xlstm atol 1e-4, its tied embedding's f32
-               gradients sit up to 4.7e-5 from an f64 evaluation on the CPU
-               alone).
-    Each of these seven phases zeroes the kernels' launch counters and the
+    lm-serve-moe — the MoE family at its published widths, bf16, depth
+               cut: deepseek-v2-236b at 3 layers (its dense first layer
+               and 2 MoE layers, MLA attention; 9.33 B parameters) and
+               arctic-480b at 1 layer (14.07 B), each through
+               ``ServeEngine(max_batch=4).generate_batch``: 4 requests of
+               512 prompt and 64 new tokens, served twice: tokens in the
+               vocabulary, logits finite, and the second run's tokens and
+               last logits bit for bit the first's (the combine has no
+               atomics).  The second run records each MoE layer's
+               capacity and the share of token-expert choices dropped at
+               prefill and at the first decode step.  Then the first MoE
+               layer's weights on 2 x 128 random activations through
+               ``moe_forward`` on a dropless copy of the config (capacity
+               factor E / k, so C = T) against the plain form (each
+               token's top-k experts' FFNs weighted and summed in f32),
+               within 2^-5 of its largest output; and (deepseek) the
+               first attention layer in f32, TF32 off: a 128-token
+               prefill into the compressed cache and one absorbed decode
+               step against the expand form over the 129 tokens without a
+               cache, within 1e-4 of its largest output.  Logs parameters,
+               init time and peak, prefill ms, ms a token beside the
+               step's bound (all weights and the cache over the HBM rate:
+               every expert gets at least one slot a step), the cache's
+               bytes a token a layer (MLA: beside a per-head K/V cache of
+               128 heads), the second (recorded) run's times too (warm,
+               with one read-back a MoE layer a step), then profiles 3
+               decode steps;
+    lm-train-parity — reduced seamless, gemma, danube, xlstm, zamba2,
+               deepseek and arctic (f32, remat) with the same parameters
+               and batch on the card and on the CPU: loss and every
+               gradient allclose (rtol 1e-4, atol 1e-5; xlstm atol 1e-4,
+               its tied embedding's f32 gradients sit up to 4.7e-5 from an
+               f64 evaluation on the CPU alone).
+    Each of these eight phases zeroes the kernels' launch counters and the
     peak-memory mark first, logs its wall time and
     ``torch.cuda.max_memory_allocated()``, fails if any kernel (K4
     included) was launched (the reference runs ``mha_ref`` in training and
@@ -2108,8 +2135,14 @@ XL_TRAIN_CUT = 3                  # the interrupted run's steps
 XL_CHUNK, XL_CHUNK_RTOL = 256, 2e-3   # chunked against parallel mLSTM, bf16
 ZA_TRAIN_STEPS, ZA_TRAIN_BATCH, ZA_TRAIN_SEQ = 3, 2, 1024
 REC_SERVE = ((XL_ARCH, 4, 512, 128), (ZA_ARCH, 2, 512, 64))
+MOE_SERVE = (("deepseek-v2-236b", 3), ("arctic-480b", 1))  # (arch, layers)
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 4, 512, 64
+MOE_CHECK_SHAPE = (2, 128)        # tokens of the full-width MoE layer check
+MOE_CHECK_TOL = 2.0 ** -5         # of the plain form's largest |output|
+MLA_CHECK_PROMPT = 128            # cached tokens before the absorbed step
+MLA_CHECK_TOL = 1e-4              # of the expand form's largest |output|
 TRAIN_PARITY_ARCHS = ("seamless-m4t-medium", DEC_TRAIN_ARCH, DEC_SERVE_ARCH,
-                      XL_ARCH, ZA_ARCH)
+                      XL_ARCH, ZA_ARCH, "deepseek-v2-236b", "arctic-480b")
 TRAIN_PARITY_TOL = dict(rtol=1e-4, atol=1e-5)
 # xLSTM's tied embedding: on the CPU alone its f32 gradients sit up to
 # 4.7e-5 from an f64 evaluation of the same loss (exponential gates)
@@ -2748,6 +2781,228 @@ def phase_lm_serve_rec() -> dict:
     return counts
 
 
+def routing_recorder(stats: list):
+    """Wrap ``models.moe.route`` (which ``_routed_experts`` calls) so that
+    each call appends (tokens, capacity, kept choices, choices); undo with
+    the returned function.  Reads the kept count back: for an untimed run
+    only."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def recorded(xt, router, cfg, num_local_experts, expert_offset):
+        top_aff, top_idx = route(xt, router, cfg, num_local_experts,
+                                 expert_offset)
+        stats.append((xt.shape[0], top_idx.shape[1],
+                      int((top_aff != 0).sum()), xt.shape[0] * cfg.moe.top_k))
+        return top_aff, top_idx
+
+    moe.route = recorded
+    return lambda: setattr(moe, "route", route)
+
+
+def plain_moe(mp: dict, cfg, x):
+    """The MoE layer's plain form, dropless: for each token, its top-k
+    experts' FFNs (the model dtype's products) weighted and summed in f32,
+    plus the shared experts or the dense residual; [B, S, d] f32."""
+    import torch
+    from repro_torch.models.common import activation
+    from repro_torch.models.ffn import ffn_forward
+    m = cfg.moe
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    probs = torch.softmax(xt.float() @ mp["router"], dim=-1)
+    gv, gi = torch.topk(probs, m.top_k, dim=-1)
+    gv = gv / gv.sum(-1, keepdim=True).clamp(min=1e-9)
+    act = activation(cfg.ffn_act)
+    out = torch.zeros((b * s, d), dtype=torch.float32, device=x.device)
+    for e in gi.unique().tolist():
+        tok, slot = (gi == e).nonzero(as_tuple=True)
+        xe = xt[tok]
+        y = (act(xe @ mp["experts_w1"][e]) * (xe @ mp["experts_w3"][e])
+             ) @ mp["experts_w2"][e]
+        out.index_add_(0, tok, y.float() * gv[tok, slot, None])
+    for name in ("shared", "dense"):
+        if name in mp:
+            out += ffn_forward(mp[name], cfg.ffn_act, xt, gated=True).float()
+    return out.reshape(b, s, d)
+
+
+def moe_layer_check(params: dict, cfg, gen) -> dict:
+    """Check 3 of ``lm-serve-moe``: the served config's first MoE layer
+    (bf16) through ``moe_forward`` on a dropless copy of the config
+    (``capacity_factor = E / k``, so C = T) against :func:`plain_moe` on
+    the same random activations."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.scan_util import tree_map
+    m = cfg.moe
+    dropless = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+    mp = tree_map(lambda t: t[0], params["layers_moe"]["moe"])
+    x = torch.randn((*MOE_CHECK_SHAPE, cfg.d_model), generator=gen,
+                    device=gen.device).to(torch.bfloat16)
+    t = x.shape[0] * x.shape[1]
+    with torch.inference_mode():
+        got = moe.moe_forward(mp, dropless, x).float()
+        want = plain_moe(mp, dropless, x)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    return {"tokens": t, "capacity": moe.capacity(dropless, t),
+            "max_abs_err": err, "max_abs": scale,
+            "tol": MOE_CHECK_TOL * scale, "ok": err <= MOE_CHECK_TOL * scale}
+
+
+def mla_forms_check(params: dict, cfg, gen) -> dict:
+    """Check 4 of ``lm-serve-moe``: deepseek's first attention layer cast
+    to f32 (TF32 off): a ``MLA_CHECK_PROMPT``-token prefill into the
+    compressed cache, then one absorbed decode step, against the expand
+    form over the same tokens without a cache, at the last position."""
+    import torch
+    from repro_torch.models import attention
+    from repro_torch.models.scan_util import tree_map
+    from repro_torch.models.transformer import token_positions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    ap = tree_map(lambda t: t[0].float(), params["layers_dense"]["attn"])
+    b, s = 2, MLA_CHECK_PROMPT
+    x = torch.randn((b, s + 1, cfg.d_model), generator=gen,
+                    device=gen.device)
+    dev = x.device
+    with torch.inference_mode():
+        cache = attention.init_mla_cache(cfg32, b, s + 1, device=dev)
+        attention.mla_forward(ap, cfg32, x[:, :s], token_positions(
+            b, s, 0, dev), kv_cache=cache, cache_pos=0)
+        got, _ = attention.mla_forward(ap, cfg32, x[:, s:], token_positions(
+            b, 1, s, dev), kv_cache=cache, cache_pos=s)
+        full, _ = attention.mla_forward(ap, cfg32, x, token_positions(
+            b, s + 1, 0, dev))
+    want = full[:, -1]
+    scale = float(want.abs().max())
+    err = float((got[:, 0] - want).abs().max())
+    return {"prompt": s, "max_abs_err": err, "max_abs": scale,
+            "tol": MLA_CHECK_TOL * scale, "ok": err <= MLA_CHECK_TOL * scale}
+
+
+def phase_lm_serve_moe() -> dict:
+    """``ServeEngine(max_batch=4)`` over deepseek-v2-236b (3 layers: the
+    dense one and 2 MoE) and arctic-480b (1 layer) at their published
+    widths, bf16: 4 requests of 512 + 64 tokens, served twice (tokens and
+    last logits bit for bit); the capacity and the dropped share of
+    token-expert choices at prefill and at a decode step; one MoE layer
+    against its plain form and (deepseek) MLA's absorbed step against
+    its expand form, both at full width; a profiled decode step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import CACHE_MARGIN, Request, ServeEngine
+    from repro_torch.models.common import make_generator
+    from repro_torch.models.lm import get_model
+    from repro_torch.models.scan_util import tree_leaves
+    from repro_torch.models.transformer import layer_groups
+    counters, t0 = lm_phase_start()
+    for arch, layers in MOE_SERVE:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        torch.cuda.reset_peak_memory_stats()
+        t_init = time.perf_counter()
+        params = get_model(cfg).init(SEED)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t_init
+        init_peak = torch.cuda.max_memory_allocated()
+        n_params, p_bytes = tree_size(params)
+        engine = ServeEngine(cfg, params, max_batch=MOE_BATCH)
+        dev = engine.device
+        finite = torch.ones((), dtype=torch.bool, device=dev)
+        last = {}
+        decode = engine.model.decode_step
+
+        def checked(p, tokens, state):
+            logits, state = decode(p, tokens, state)
+            finite.logical_and_(torch.isfinite(logits).all())
+            last.update(logits=logits, state=state)
+            return logits, state
+
+        engine.model = dataclasses.replace(engine.model, decode_step=checked)
+        rng = np.random.default_rng(SEED)
+        prompts = rng.integers(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT)
+                               ).astype(np.int32)
+        reqs = [Request(p, max_new_tokens=MOE_NEW) for p in prompts]
+        comp = engine.generate_batch(reqs)
+        tokens = np.stack([c.tokens for c in comp])
+        logits_1 = last["logits"].clone()
+        stats = []
+        undo = routing_recorder(stats)
+        try:
+            again = engine.generate_batch(reqs)      # untimed, recorded
+        finally:
+            undo()
+        same_tokens = all(np.array_equal(a.tokens, c.tokens)
+                          for a, c in zip(again, comp))
+        same_logits = bool(torch.equal(last["logits"], logits_1))
+        t_pre = MOE_BATCH * MOE_PROMPT
+        pre = [st for st in stats if st[0] == t_pre]
+        step = [st for st in stats if st[0] == MOE_BATCH][:len(pre)]
+        dropped = {name: 1.0 - sum(st[2] for st in sts) / sum(
+            st[3] for st in sts) for name, sts in (("prefill", pre),
+                                                   ("decode", step))}
+        state = last["state"]
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(state["caches"]))
+        per_token = cache_bytes // (MOE_BATCH * cfg.num_layers * (
+            MOE_PROMPT + MOE_NEW + CACHE_MARGIN))
+        steps = comp[0].steps - 1
+        bound_ms = (p_bytes + cache_bytes) / HBM_MS
+        engine.model = dataclasses.replace(engine.model, decode_step=decode)
+        profile_decode(engine, torch.from_numpy(tokens[:, -1:]).to(dev),
+                       state, f"lm-serve-moe-profile-{arch}")
+        gen = make_generator(SEED + 1)
+        layer = moe_layer_check(params, cfg, gen)
+        mla = mla_forms_check(params, cfg, gen) if cfg.mla else None
+        ok_tokens = tokens.shape == (MOE_BATCH, MOE_NEW) and bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+        c = comp[0]
+        fields = {}
+        if cfg.mla is not None:        # a per-head K/V cache of its heads
+            m = cfg.mla
+            per_head = cfg.num_heads * (m.qk_nope + m.qk_rope + m.v_head) * 2
+            fields = dict(per_head_kv_bytes_per_token_layer=per_head,
+                          per_head_kv_cache_gb=round(
+                              cache_bytes / per_token * per_head / 1e9, 4))
+        log("lm-serve-moe", arch=cfg.name, layers=cfg.num_layers,
+            groups=[(g, n) for g, n, _ in layer_groups(cfg)],
+            d_model=cfg.d_model, experts=cfg.moe.num_experts,
+            top_k=cfg.moe.top_k, params=n_params,
+            param_gb=round(p_bytes / 1e9, 3), init_s=round(init_s, 2),
+            init_peak_gb=round(init_peak / 1e9, 3), requests=len(comp),
+            prompt=MOE_PROMPT, new_tokens=MOE_NEW, decode_steps=steps,
+            prefill_ms=round(c.prefill_s * 1e3, 2),
+            ms_per_token=round(c.decode_s * 1e3 / steps, 3),
+            recorded_prefill_ms=round(again[0].prefill_s * 1e3, 2),
+            recorded_ms_per_token=round(again[0].decode_s * 1e3 / steps, 3),
+            step_bound_ms=round(bound_ms, 3),
+            step_bound_weights_ms=round(p_bytes / HBM_MS, 3),
+            cache_gb=round(cache_bytes / 1e9, 4),
+            cache_bytes_per_token_layer=per_token,
+            **fields,
+            decode_tokens_per_s=round(len(comp) * steps / c.decode_s, 1),
+            capacity_prefill=pre[0][1], capacity_decode=step[0][1],
+            dropped_share_prefill=round(dropped["prefill"], 5),
+            dropped_share_decode=round(dropped["decode"], 5),
+            tokens_ok=ok_tokens, logits_finite=bool(finite),
+            served_twice_same_tokens=same_tokens,
+            served_twice_same_logits=same_logits, moe_layer=layer,
+            mla_forms=mla,
+            peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+        if not (ok_tokens and bool(finite) and same_tokens and same_logits
+                and layer["ok"] and (mla is None or mla["ok"])):
+            raise AssertionError(
+                f"lm-serve-moe {arch}: tokens ok {ok_tokens}, finite "
+                f"{bool(finite)}, served twice: tokens {same_tokens}, "
+                f"logits {same_logits}; MoE layer {layer}; MLA {mla}")
+        del engine, params, last, state, logits_1
+        free_card()
+    counts, _ = lm_phase_end("lm-serve-moe", counters, t0)
+    return counts
+
+
 def prefill_vs_parallel_f32(cfg, params, toks, fwd) -> tuple[float, float]:
     """The served weights cast to f32 (TF32 off): the last logits of
     ``decode_step`` over the prompt (the recurrences) against ``fwd``, the
@@ -2772,8 +3027,8 @@ def prefill_vs_parallel_f32(cfg, params, toks, fwd) -> tuple[float, float]:
 
 
 def phase_lm_train_parity() -> None:
-    """Reduced seamless, gemma, danube, xlstm and zamba2 (f32) with the
-    same parameters and batch on the card and on the CPU: the loss and
+    """Reduced seamless, gemma, danube, xlstm, zamba2, deepseek and arctic
+    (f32) with the same parameters and batch on the card and on the CPU: the loss and
     every gradient allclose (rtol 1e-4, atol 1e-5: cuBLAS and the CPU order
     the f32 sums differently; TF32 off; xlstm's atol 1e-4,
     ``TRAIN_PARITY_TOL_BY_ARCH``)."""
@@ -3864,6 +4119,7 @@ def main() -> int:
     counts["lm_train_xlstm"] = phase_lm_train_xlstm()
     counts["lm_train_zamba2"] = phase_lm_train_zamba2()
     counts["lm_serve_rec"] = phase_lm_serve_rec()
+    counts["lm_serve_moe"] = phase_lm_serve_moe()
     phase_lm_train_parity()
     counts["mesh"] = phase_mesh(ds)
     counts["mesh_serve"] = phase_mesh_serve(ds)

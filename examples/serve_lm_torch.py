@@ -4,10 +4,11 @@ ported archs.
 The twin of ``examples/serve_lm.py`` over ``repro_torch``: exact-length
 request batching, prefill + token-by-token decode with per-slot EOS, and
 the per-family decode state (KV cache, SSM state and conv buffer, mLSTM
-matrix memory, sLSTM cells).  Enc-dec archs get stub audio frames; the MoE
-archs raise, naming their ROADMAP item.  It runs on the GPU unless
-``--device cpu`` is given; ``--reduced`` takes the same family at smoke
-scale (random weights either way).
+matrix memory, sLSTM cells, MLA's compressed cache).  Enc-dec archs get
+stub audio frames.  It runs on the GPU unless ``--device cpu`` is given;
+``--reduced`` takes the same family at smoke scale (random weights either
+way).  The MoE archs (deepseek-v2-236b, arctic-480b) exceed one card at
+their published depth: serve them ``--reduced``.
 
 Run:  PYTHONPATH=src python examples/serve_lm_torch.py --arch zamba2-2.7b \
           --reduced --device cpu [--requests 6] [--temperature 0.8]

@@ -1,8 +1,11 @@
 """Batched decode engine, the LM zoo's serving path (port of
-``repro.launch.serve``): the encoder-decoder family, the dense / VLM
-decoder-only family (a sliding-window config decodes through its ring
-cache), the xLSTM family and the SSM / hybrid family (O(1) recurrent
-state; zamba2's shared block also a KV cache per invocation).
+``repro.launch.serve``): the encoder-decoder family, the decoder-only
+family (dense, VLM, and MoE with MLA's compressed cache or GQA; a
+sliding-window config decodes through its ring cache), the xLSTM family
+and the SSM / hybrid family (O(1) recurrent state; zamba2's shared block
+also a KV cache per invocation).  An MoE expert's capacity is shared by
+the batch's tokens, so a request's tokens depend on the batch it is
+served in, as in the reference.
 
 Lockstep batched decoding, as in the reference:
 

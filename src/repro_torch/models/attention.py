@@ -1,10 +1,14 @@
-"""Attention, the GQA family: MHA/GQA/MQA (+bias, +sliding-window mask),
-dense KV cache, cross-attention (port of ``repro.models.attention``).
+"""Attention: MHA/GQA/MQA (+bias, +sliding-window mask), dense KV cache,
+cross-attention, and MLA (deepseek-v2) with its compressed cache (port of
+``repro.models.attention``).
 
 Layout conventions, the reference's:
   activations x: [B, S, d_model]
   q/k/v heads:   [B, H, S, Dh]
-  KV cache:      {"k": [B, Hkv, S_max, Dh], "v": ...}
+  KV cache:      {"k": [B, Hkv, S_max, Dh], "v": ...}; MLA caches the
+                 compressed {"c_kv": [B, S_max, kv_lora], "k_rope":
+                 [B, S_max, qk_rope]} (576 values a token a layer at
+                 deepseek's width, whatever the head count)
 
 ``cfg.attn_impl`` picks the path exactly as the reference's ``_attend``
 does: ``"pallas"`` routes to the K4 op (``kernels.ops.flash_attention``)
@@ -25,9 +29,13 @@ unwritten), which drives the mask.  The new tokens attend over [old ring ++
 themselves], and then the last ``window`` of them are written into the
 ring in place, as at most two slice writes whose bounds are host ints.
 
-Not ported yet: MLA (deepseek-v2, raises ``NotImplementedError``; its only
-user is a MoE model, ``ROADMAP.md`` Queue A item 9.3); the reference's mesh
-branches of ``sharded_attention`` wait for the LM zoo on a mesh (item 9.8).
+MLA runs the reference's three branches: the expand form (per-head K/V
+from the latent) in training and in a multi-token prefill over the written
+cache, and the absorbed form (attention in the latent space, f32) in a
+single-token decode step.  The MLA cache is written in place too.
+
+Not ported yet: the reference's mesh branches of ``sharded_attention``
+wait for the LM zoo on a mesh (``ROADMAP.md`` Queue A item 9.8).
 """
 from __future__ import annotations
 
@@ -38,10 +46,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ref import mha_ref
 from repro_torch.models.common import (apply_rope, dense_init, model_dtype,
-                                       zeros)
-
-_MLA = ("MLA attention is not ported yet: it comes with its only user, "
-        "the MoE LM (ROADMAP.md Queue A item 9.3)")
+                                       rms_norm, zeros)
 
 
 # ---------------------------------------------------------------------------
@@ -51,7 +56,7 @@ _MLA = ("MLA attention is not ported yet: it comes with its only user, "
 def init_attn(gen: torch.Generator, cfg: ArchConfig,
               cross: bool = False) -> dict:
     if cfg.mla is not None and not cross:
-        raise NotImplementedError(_MLA)
+        return _init_mla(gen, cfg)
     d, h, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     dh = cfg.head_dim_eff
     dt = model_dtype(cfg)
@@ -66,6 +71,22 @@ def init_attn(gen: torch.Generator, cfg: ArchConfig,
         p["bk"] = zeros(gen, (hkv * dh,), dt)
         p["bv"] = zeros(gen, (hkv * dh,), dt)
     return p
+
+
+def _init_mla(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    dt = model_dtype(cfg)
+    return {
+        "q_down": dense_init(gen, d, m.q_lora, dt),
+        "q_norm": zeros(gen, (m.q_lora,)),
+        "q_up": dense_init(gen, m.q_lora, h * (m.qk_nope + m.qk_rope), dt),
+        "kv_down": dense_init(gen, d, m.kv_lora + m.qk_rope, dt),
+        "kv_norm": zeros(gen, (m.kv_lora,)),
+        "k_up": dense_init(gen, m.kv_lora, h * m.qk_nope, dt),
+        "v_up": dense_init(gen, m.kv_lora, h * m.v_head, dt),
+        "wo": dense_init(gen, h * m.v_head, d, dt),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -112,7 +133,8 @@ def attn_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     (``slot_pos``) takes :func:`_ring_step` instead.
     """
     if cfg.mla is not None and cross_kv is None:
-        raise NotImplementedError(_MLA)
+        return mla_forward(p, cfg, x, positions, causal=causal,
+                           kv_cache=kv_cache, cache_pos=cache_pos)
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_eff
     q = x @ p["wq"]
     if "bq" in p:
@@ -234,3 +256,112 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, *,
         cache["slot_pos"] = torch.full((max_len,), -1, dtype=torch.int32,
                                        device=device)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2)
+# ---------------------------------------------------------------------------
+
+def mla_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                positions: torch.Tensor, *, causal: bool = True,
+                kv_cache: Optional[dict] = None,
+                cache_pos: Optional[int] = None):
+    """Returns (out [B,S,d], kv_cache | None).  With a cache, the S new
+    tokens' ``c_kv`` and ``k_rope`` are written at ``cache_pos`` in place;
+    a single token then attends in the absorbed form, a prompt in the
+    expand form over the cache (positional mask, unwritten rows -1)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    dev = x.device
+
+    ql = rms_norm(x @ p["q_down"], p["q_norm"])
+    q = (ql @ p["q_up"]).reshape(b, s, h, m.qk_nope + m.qk_rope).transpose(
+        1, 2)
+    q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
+    q_rope = apply_rope(q_rope, positions[:, None, :], cfg.rope_theta)
+
+    kvd = x @ p["kv_down"]
+    c_kv = rms_norm(kvd[..., :m.kv_lora], p["kv_norm"])       # [B,S,kv_lora]
+    k_rope = apply_rope(kvd[..., None, m.kv_lora:].transpose(1, 2),
+                        positions[:, None, :], cfg.rope_theta)  # [B,1,S,rope]
+
+    if kv_cache is not None:
+        c_all, r_all = kv_cache["c_kv"], kv_cache["k_rope"]
+        c_all[:, cache_pos:cache_pos + s] = c_kv.to(c_all.dtype)
+        r_all[:, cache_pos:cache_pos + s] = k_rope[:, 0].to(r_all.dtype)
+        kv_len = cache_pos + s
+        if s == 1:
+            # single-token decode: absorbed projections, attention in the
+            # compressed c_kv space
+            return _mla_absorbed_attend(p, cfg, q_nope, q_rope, c_all, r_all,
+                                        kv_len, b, s), kv_cache
+        # multi-token prefill: the expand form over the written cache
+        q_pos = cache_pos + torch.arange(s, dtype=torch.int32, device=dev)
+        sk = c_all.shape[1]
+        idx = torch.arange(sk, dtype=torch.int32, device=dev)
+        kv_pos = torch.where(idx < kv_len, idx, -1)
+        c_src, r_src, s_kv = c_all, r_all[:, None], sk
+    else:
+        q_pos = kv_pos = None
+        c_src, r_src, s_kv = c_kv, k_rope, s
+
+    # train / prefill: per-head keys and values expanded from the latent
+    k_nope = (c_src @ p["k_up"]).reshape(b, s_kv, h, m.qk_nope).transpose(
+        1, 2)
+    v = (c_src @ p["v_up"]).reshape(b, s_kv, h, m.v_head).transpose(1, 2)
+    k = torch.cat([k_nope, r_src.to(k_nope.dtype).expand(
+        b, h, s_kv, m.qk_rope)], dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    scale = (m.qk_nope + m.qk_rope) ** -0.5
+    out = _mla_attend(qf, k, v, scale, causal, q_pos, kv_pos)
+    out = out.transpose(1, 2).reshape(b, s, h * m.v_head)
+    return out @ p["wo"], kv_cache
+
+
+def _mla_attend(qf, k, v, scale, causal, q_pos, kv_pos):
+    """The expand form: the scale folded into q (``mha_ref`` rescales by
+    dh^-1/2, dh = qk_nope + qk_rope, while V's head is v_head), then the
+    shared multi-token wrapper."""
+    dh = qf.shape[-1]
+    qs = qf * (scale * dh ** 0.5)
+    return sharded_attention(qs, k, v, causal=causal, window=None,
+                             impl="reference", q_pos=q_pos, kv_pos=kv_pos)
+
+
+def _mla_absorbed_attend(p, cfg, q_nope, q_rope, c_all, r_all, kv_len, b, s):
+    """Decode with absorbed projections, in f32: k_up folded into q
+    (q_c = q_nope · W_kup, [B,H,S,kv_lora]), v_up applied to the context
+    per head; the mask (-1e30) covers the whole [S_max] cache."""
+    m = cfg.mla
+    h = cfg.num_heads
+    w_kup = p["k_up"].reshape(m.kv_lora, h, m.qk_nope).float()
+    q_c = torch.einsum("bhsn,lhn->bhsl", q_nope.float(), w_kup)
+    c32 = c_all.float()
+    s_kv = c_all.shape[1]
+    logits = torch.einsum("bhsl,btl->bhst", q_c, c32)
+    logits = logits + torch.einsum("bhsr,btr->bhst", q_rope.float(),
+                                   r_all.float())
+    logits = logits * (m.qk_nope + m.qk_rope) ** -0.5
+    dev = c_all.device
+    t_idx = torch.arange(s_kv, device=dev)[None, None, None, :]
+    q_idx = (kv_len - s) + torch.arange(s, device=dev)[None, None, :, None]
+    logits = torch.where(t_idx <= q_idx, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bhst,btl->bhsl", probs, c32)
+    w_vup = p["v_up"].reshape(m.kv_lora, h, m.v_head).float()
+    out = torch.einsum("bhsl,lhv->bhsv", ctx, w_vup)
+    out = out.transpose(1, 2).reshape(b, s, h * m.v_head).to(q_nope.dtype)
+    return out @ p["wo"]
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, *,
+                   device) -> dict:
+    """Zero compressed cache of ``max_len`` rows: ``c_kv`` [B, S, kv_lora]
+    and the shared ``k_rope`` [B, S, qk_rope]."""
+    m = cfg.mla
+    dt = cache_dtype(cfg)
+    return {"c_kv": torch.zeros((batch, max_len, m.kv_lora), dtype=dt,
+                                device=device),
+            "k_rope": torch.zeros((batch, max_len, m.qk_rope), dtype=dt,
+                                  device=device)}

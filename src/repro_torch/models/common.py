@@ -165,6 +165,16 @@ def chunked_unembed_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
 
 def stack_init(gen: torch.Generator, n: int, init_fn) -> dict:
     """Initialise n copies of a param tree and stack leaves on axis 0 (the
-    reference's layout, so its stacked parameters load as they are)."""
-    trees = [init_fn(gen) for _ in range(n)]
-    return tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)
+    reference's layout, so its stacked parameters load as they are).  Each
+    copy is written into the preallocated stack as soon as it is drawn, so
+    init holds the stack and one layer's tree, never n trees beside their
+    stack; a single layer is its own tree, unsqueezed."""
+    first = init_fn(gen)
+    if n == 1:
+        return tree_map(lambda x: x.unsqueeze(0), first)
+    out = tree_map(lambda x: x.new_empty((n, *x.shape)), first)
+    tree_map(lambda o, x: o[0].copy_(x), out, first)
+    del first
+    for i in range(1, n):
+        tree_map(lambda o, x, i=i: o[i].copy_(x), out, init_fn(gen))
+    return out

@@ -1,6 +1,6 @@
 """Unified LM model API (port of ``repro.models.lm``): the encoder-decoder
-family, the dense / VLM decoder-only family, the xLSTM family and the
-SSM / hybrid family.
+family, the decoder-only family (dense, VLM, and MoE with MLA or GQA
+attention), the xLSTM family and the SSM / hybrid family.
 
 ``get_model(cfg)`` returns a :class:`ModelAPI` whose members are plain
 functions:
@@ -22,9 +22,6 @@ Batch layouts by family (the reference's):
   vlm           {"tokens": [B, S - P], "patch_embeds": [B, P, d]}
   audio enc-dec {"frame_embeds": [B, S/4, d], "tokens": [B, 3S/4]}
   ssm/hybrid    {"tokens": [B, S]}
-
-The MoE family raises ``NotImplementedError`` naming its item
-(``ROADMAP.md`` Queue A item 9.3).
 """
 from __future__ import annotations
 
@@ -53,15 +50,6 @@ def enc_dec_split(cfg: ArchConfig, seq_len: int) -> tuple[int, int]:
     """(S_enc, S_dec) with S_enc + S_dec == seq_len (audio enc-dec)."""
     s_enc = max(seq_len // 4, 1)
     return s_enc, seq_len - s_enc
-
-
-def _refuse(cfg: ArchConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE decoder-only LM is not ported yet "
-            f"(ROADMAP.md Queue A item 9.3); the port runs the "
-            f"encoder-decoder, the dense / VLM decoder-only, the xLSTM and "
-            f"the SSM / hybrid families")
 
 
 def get_model(cfg: ArchConfig) -> ModelAPI:
@@ -106,7 +94,6 @@ def get_model(cfg: ArchConfig) -> ModelAPI:
             decode_step=lambda p, t, s: hybrid.decode_step(p, cfg, t, s),
             prefill=hy_prefill,
         )
-    _refuse(cfg)
     dec = lambda p, t, s: transformer.lm_decode_step(p, cfg, t, s)  # noqa: E731
     return ModelAPI(
         cfg=cfg,

@@ -5,10 +5,10 @@ leading ``[L, ...]`` axis per layer group.  :func:`params_from_numpy` turns
 them, given as numpy arrays (``np.asarray`` of each JAX leaf), into the
 port's dict of tensors with the same keys and shapes, so both packages
 compute the same thing in the tests: the enc-dec tree, the decoder-only
-one with its tied ``embed`` or untied ``embed_in`` / ``unembed``, and the
-xLSTM and hybrid trees.  The reference's AdamW state of such a tree
-carries over through :func:`adam_state_from_numpy` (the optimizer's, over
-any nested tree).
+one with its tied ``embed`` or untied ``embed_in`` / ``unembed`` (MoE and
+MLA layers included), and the xLSTM and hybrid trees.  The reference's
+AdamW state of such a tree carries over through
+:func:`adam_state_from_numpy` (the optimizer's, over any nested tree).
 """
 from __future__ import annotations
 
@@ -22,9 +22,10 @@ __all__ = ["params_from_numpy", "adam_state_from_numpy"]
 
 
 # leaves the reference keeps in f32 in a bf16 model: the SSD's decay,
-# skip and step bias (``models/ssm.py``) and the sLSTM's gate biases
-# (``models/xlstm.py``); the norm scales are matched by "norm" in the path
-F32_LEAVES = frozenset({"a_log", "ssm_d", "dt_bias", "b_gates"})
+# skip and step bias (``models/ssm.py``), the sLSTM's gate biases
+# (``models/xlstm.py``) and the MoE router (``models/moe.py``); the norm
+# scales are matched by "norm" in the path
+F32_LEAVES = frozenset({"a_log", "ssm_d", "dt_bias", "b_gates", "router"})
 
 
 def _keeps_f32(path: str) -> bool:

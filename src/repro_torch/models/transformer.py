@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly: the dense and VLM backbones (port of
-``repro.models.transformer``).
+"""Decoder-only LM assembly: the dense, MoE, MLA and VLM backbones (port
+of ``repro.models.transformer``).
 
 Layers are stacked (parameters carry a leading ``[L, ...]`` axis per layer
 group, the reference's layout) and run as a loop over layers
@@ -7,10 +7,12 @@ group, the reference's layout) and run as a loop over layers
 under ``torch.utils.checkpoint`` (save nothing inside the block, recompute
 it in backward), the port's ``jax.checkpoint``.
 
-Decode: stacked per-layer KV caches written in place (dense, or the
-sliding-window ring of ``models/attention.py``); the state's ``pos`` is a
-Python int.  The MoE block kind raises ``NotImplementedError`` (``ROADMAP.md``
-Queue A item 9.3).
+Heterogeneous stacks (deepseek's leading dense layers before its MoE
+layers) are consecutive layer groups, as in the reference.
+
+Decode: stacked per-layer caches written in place (dense KV, the
+sliding-window ring of ``models/attention.py``, or MLA's compressed
+cache); the state's ``pos`` is a Python int.
 """
 from __future__ import annotations
 
@@ -21,42 +23,43 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import scan_util
 from repro_torch.models.common import (chunked_unembed_ce, cross_entropy,
                                        embed_init, grad_cast, model_dtype,
                                        rms_norm, stack_init, zeros)
-
-_MOE = ("the MoE block is not ported yet (models/moe.py, ROADMAP.md Queue A "
-        "item 9.3)")
-
 
 # ---------------------------------------------------------------------------
 # one transformer block
 # ---------------------------------------------------------------------------
 
 def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str) -> dict:
-    if kind == "moe":
-        raise NotImplementedError(_MOE)
-    return {
+    p = {
         "norm1": zeros(gen, (cfg.d_model,)),
         "norm2": zeros(gen, (cfg.d_model,)),
         "attn": attn.init_attn(gen, cfg),
-        "ffn": ffn_mod.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.gated_ffn,
-                                model_dtype(cfg)),
     }
+    if kind == "moe":
+        p["moe"] = moe_mod.init_moe(gen, cfg)
+    else:
+        p["ffn"] = ffn_mod.init_ffn(gen, cfg.d_model, cfg.d_ff,
+                                    cfg.gated_ffn, model_dtype(cfg))
+    return p
 
 
 def block_forward(bp: dict, cfg: ArchConfig, h: torch.Tensor,
                   positions: torch.Tensor, kind: str,
                   cache: Optional[dict] = None, cache_pos=None):
-    if kind == "moe":
-        raise NotImplementedError(_MOE)
     a, new_cache = attn.attn_forward(bp["attn"], cfg, rms_norm(h, bp["norm1"]),
                                      positions, kv_cache=cache,
                                      cache_pos=cache_pos)
     h = h + a
     x2 = rms_norm(h, bp["norm2"])
-    h = h + ffn_mod.ffn_forward(bp["ffn"], cfg.ffn_act, x2, cfg.gated_ffn)
+    if kind == "moe":
+        h = h + moe_mod.moe_forward(bp["moe"], cfg, x2)
+    else:
+        h = h + ffn_mod.ffn_forward(bp["ffn"], cfg.ffn_act, x2,
+                                    cfg.gated_ffn)
     if cfg.bf16_grad_stream:
         h = grad_cast(h)          # backward cotangent pinned to h.dtype
     return h, new_cache
@@ -185,11 +188,15 @@ def lm_loss(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
 
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int, *,
                       device) -> dict:
-    """Stacked per-layer KV caches and ``pos`` 0.  A sliding-window config
-    allocates a ring of window size (``min(cache_len, window)`` rows)."""
+    """Stacked per-layer caches and ``pos`` 0: KV, or MLA's compressed
+    cache.  A sliding-window config allocates a ring of window size
+    (``min(cache_len, window)`` rows)."""
     eff_len = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
                else cache_len)
-    one = attn.init_kv_cache(cfg, batch, eff_len, device=device)
+    if cfg.mla is not None:
+        one = attn.init_mla_cache(cfg, batch, eff_len, device=device)
+    else:
+        one = attn.init_kv_cache(cfg, batch, eff_len, device=device)
     groups = {name: scan_util.tree_map(
         lambda x, n=n: x[None].repeat(n, *([1] * x.dim())), one)
         for name, n, _ in layer_groups(cfg)}

@@ -247,11 +247,26 @@ def test_config_registry_equal_reference():
 
 
 @pytest.mark.parametrize("name", ["arctic-480b", "deepseek-v2-236b"])
-def test_other_families_are_refused_by_name(name):
-    cfg = configs.get_config(name).reduced()
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue A item 9.3"):
-        get_model(cfg)
+def test_moe_families_give_the_reference_api(name):
+    """``get_model`` of the MoE configs: the reference's ``ModelAPI``
+    members, and a decode state whose leaves have the reference's shapes
+    and dtypes (MLA's compressed cache for deepseek; ``pos`` a Python
+    int)."""
+    jcfg, tcfg = jconfigs.get_config(name).reduced(), \
+        configs.get_config(name).reduced()
+    jm, tm = jget_model(jcfg), get_model(tcfg)
+    members = [f.name for f in dataclasses.fields(jm)]
+    assert [f.name for f in dataclasses.fields(tm)] == members
+    assert all(getattr(tm, m) is not None for m in members)
+    jstate = jm.decode_init(2, 12)
+    tstate = tm.decode_init(2, 12, device="cpu")
+    assert tstate["pos"] == 0 and isinstance(tstate["pos"], int)
+    want = [(x.shape, str(x.dtype))
+            for x in jax.tree_util.tree_leaves(jstate["caches"])]
+    from repro_torch.models.scan_util import tree_leaves
+    got = [(tuple(t.shape), str(t.dtype).split(".")[-1])
+           for t in tree_leaves(tstate["caches"])]
+    assert got == want and tstate["caches"].keys() == jstate["caches"].keys()
 
 
 @pytest.mark.parametrize("name", ["xlstm-125m", "zamba2-2.7b"])
@@ -284,20 +299,31 @@ def test_recurrent_families_give_the_reference_api(name):
 
 
 @pytest.mark.parametrize("part", ["mla", "moe_block"])
-def test_mla_and_the_moe_block_are_refused_by_name(part):
-    """MLA attention and the MoE block kind raise, naming item 9.3 (MoE,
-    MLA's only user), wherever they are reached."""
+def test_mla_and_the_moe_block_init_like_the_reference(part):
+    """MLA attention and the MoE block kind, once refused, now init with
+    the reference's keys, shapes and dtypes (reduced deepseek, bf16)."""
+    from repro.models import attention as jattention
+    from repro.models import transformer as jtransformer
     from repro_torch.models import attention, transformer
     from repro_torch.models.common import make_generator
+    from repro_torch.models.scan_util import tree_leaves
+    jcfg = dataclasses.replace(
+        jconfigs.get_config("deepseek-v2-236b").reduced(), dtype="bfloat16")
+    tcfg = dataclasses.replace(
+        configs.get_config("deepseek-v2-236b").reduced(), dtype="bfloat16")
     gen = make_generator(0, "cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue A item 9.3"):
-        if part == "mla":
-            attention.init_attn(
-                gen, configs.get_config("deepseek-v2-236b").reduced())
-        else:
-            transformer.init_block(
-                gen, configs.get_config("gemma-2b").reduced(), "moe")
+    if part == "mla":
+        want = jax.eval_shape(lambda k: jattention.init_attn(k, jcfg),
+                              jax.random.PRNGKey(0))
+        got = attention.init_attn(gen, tcfg)
+    else:
+        want = jax.eval_shape(lambda k: jtransformer.init_block(k, jcfg,
+                                                                "moe"),
+                              jax.random.PRNGKey(0))
+        got = transformer.init_block(gen, tcfg, "moe")
+    assert [(tuple(t.shape), str(t.dtype).split(".")[-1])
+            for t in tree_leaves(got)] == [
+        (x.shape, str(x.dtype)) for x in jax.tree_util.tree_leaves(want)]
 
 
 def test_entry_points_default_to_the_card(both):

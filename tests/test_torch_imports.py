@@ -51,6 +51,7 @@ REQUIRED = (
     "repro_torch.launch.train", "repro_torch.data.tokens",
     "repro_torch.models.ssm", "repro_torch.models.hybrid",
     "repro_torch.models.xlstm", "repro_torch.models.xlstm_lm",
+    "repro_torch.models.moe",
 )
 
 # the static passes: `import repro_torch.analysis` (which every threaded

@@ -12,7 +12,9 @@ and the reduced recurrent families (xlstm-125m, zamba2-2.7b) on the card
 against the CPU: loss rtol 1e-4, gradients rtol 1e-4 and atol 1e-5
 (xLSTM's atol 1e-4: on the CPU alone, f32 gradients of its tied embedding
 sit up to 4.7e-5 from an f64 evaluation), decode logits over a prompt and
-three tokens rtol 1e-4, atol 1e-5.
+three tokens rtol 1e-4, atol 1e-5; the same for the reduced MoE configs
+(deepseek-v2-236b with MLA, arctic-480b), and a bf16 MoE layer served
+twice on the card bit for bit, its combine equal to the CPU's.
 """
 import dataclasses
 
@@ -115,6 +117,53 @@ RECURRENT_GRAD_TOL = {"xlstm-125m": dict(rtol=1e-4, atol=1e-4),
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", list(RECURRENT_GRAD_TOL))
 def test_recurrent_loss_grads_and_decode_on_card_match_cpu(arch, no_tf32):
+    _loss_grads_and_decode_card_vs_cpu(arch, RECURRENT_GRAD_TOL[arch])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "arctic-480b"])
+def test_moe_loss_grads_and_decode_on_card_match_cpu(arch, no_tf32):
+    """Reduced deepseek (MLA, shared experts) and arctic (dense residual):
+    the capacity routing keeps the same tokens on both devices."""
+    _loss_grads_and_decode_card_vs_cpu(arch, dict(rtol=1e-4, atol=1e-5))
+
+
+@pytest.mark.gpu
+def test_moe_forward_on_card_is_deterministic():
+    """A bf16 MoE layer (reduced deepseek widened to 32 experts, top 6, so
+    a token's sum has up to 6 terms) over 512 tokens, twice on the card:
+    bit for bit, and the combine equals the CPU's scatter order (the
+    CPU's combine on the card's expert outputs)."""
+    dev = requires_cuda()
+    from repro_torch.models import moe
+    from repro_torch.models.common import make_generator
+    base = configs.get_config("deepseek-v2-236b").reduced()
+    cfg = dataclasses.replace(base, dtype="bfloat16", moe=dataclasses.replace(
+        base.moe, num_experts=32, top_k=6))
+    p = moe.init_moe(make_generator(0, dev), cfg)
+    gen = make_generator(1, dev)
+    x = torch.randn((4, 128, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        a = moe.moe_forward(p, cfg, x)
+        b = moe.moe_forward(p, cfg, x)
+        xt = x.reshape(-1, cfg.d_model)
+        top_aff, top_idx = moe.route(xt, p["router"], cfg, 32, 0)
+        y_e = torch.randn((*top_idx.shape, cfg.d_model), generator=gen,
+                          device=dev)
+        y_e = (y_e * top_aff[..., None]).to(torch.bfloat16)
+        card = moe.combine(y_e, top_aff, top_idx, xt.shape[0], 6)
+        cpu = moe.combine(y_e.cpu(), top_aff.cpu(), top_idx.cpu(),
+                          xt.shape[0], 6)
+    assert torch.equal(a, b)
+    assert torch.equal(card.cpu(), cpu)
+
+
+def _loss_grads_and_decode_card_vs_cpu(arch: str, grad_tol: dict) -> None:
+    """The reduced ``arch`` (remat) on the card against the CPU from the
+    same parameters: loss rtol 1e-4, every gradient within ``grad_tol``,
+    decode logits over a 16-token prompt and three tokens rtol 1e-4,
+    atol 1e-5."""
     dev = requires_cuda()
     from repro_torch.launch.steps import value_and_grad
     from repro_torch.models.scan_util import tree_leaves, tree_map
@@ -140,5 +189,5 @@ def test_recurrent_loss_grads_and_decode_on_card_match_cpu(arch, no_tf32):
     (lc, gc, dc), (lg_, gg, dg) = out["cpu"], out[str(dev)]
     torch.testing.assert_close(lg_, lc, rtol=1e-4, atol=0)
     for a, b in zip(gc, gg):
-        torch.testing.assert_close(b, a, **RECURRENT_GRAD_TOL[arch])
+        torch.testing.assert_close(b, a, **grad_tol)
     torch.testing.assert_close(dg, dc, rtol=1e-4, atol=1e-5)
