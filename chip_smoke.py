@@ -320,7 +320,39 @@ line each on stdout:
                over the ranks is ``launches_by_path["mesh_serve"]``.  Logs
                p50/p99, each rank's all_reduce ms per batch (timed with a
                card sync on both sides) and the phase's wall time;
-13. times    — each kernel's median time over cold-L2 launches at the
+13. lm-train-mesh — the LM zoo trained on a mesh of ranks
+               (``train_loop(mesh=)``: tensor parallelism over ``model``,
+               expert parallelism, data parallelism, ZeRO-3), ranks on
+               ``cuda:0`` over gloo as in 11, random weights.  First, in
+               this process: one rank's ``train_loop`` of (a) and (b) and
+               one rank's MoE layer of (c), then ``free_card``.  (a)
+               ``gemma-2b`` at its published width (bf16, remat, tied
+               256,000 vocab split over the ranks, MQA: its one K/V head
+               gathered, ``chunked_ce=512``) on (1, 2), 3 steps at 2 x
+               1,024: losses within 2^-7 relative at step 0 and 2^-5
+               after of one rank's on the same seed and batches, the
+               replicated leaves (norms) equal on both ranks bit for bit;
+               (b) ``seamless-m4t-medium`` at its width on (2, 1), 2 steps
+               at 8 x 256 (4 rows a rank), the same bounds against one
+               rank at batch 8, the parameters equal on both ranks bit
+               for bit; each logs per rank ms a step, the last step
+               profiled (device busy ms beside its wall ms), collectives a
+               step (calls and MB by kind), peak GB, and (a) one 8 MB
+               all_reduce's ms, (b) the step's gradient all_reduce timed
+               alone; (c) ``deepseek-v2-236b``'s MoE layer at its width
+               (160 experts, 80 a rank, 2 shared; bf16) expert parallel on
+               (1, 2) over 4 x 64 tokens, within 2^-5 of one rank's
+               largest output (each rank's combine rounds to bf16 before
+               the sum over the ranks, as the reference's psum: a few
+               ulps); (d) reduced gemma-2b, qwen2-7b, and
+               deepseek and arctic with ``fsdp=True`` in f32 (TF32 off) on
+               (1, 2), (2, 1) and (2, 2), card ranks against the same runs
+               on CPU gloo ranks, parameters drawn on the CPU: losses
+               within 1e-5 relative, parameters within 1e-5 but for at
+               most 1 element in 10,000 of the tree and within 2·lr a
+               step everywhere (the key bias to that bound alone: its
+               true gradient is 0).  The ranks' K1-K4 counters stay 0;
+14. times    — each kernel's median time over cold-L2 launches at the
                serving and training shapes (K1 also at LADIES's: B = 2,024
                rows of 32 lanes over 2,536 streamed rows, all misses), in
                turns within this call with
@@ -4042,6 +4074,381 @@ def phase_mesh_serve(ds) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# lm-train-mesh: the LM zoo trained on a mesh of ranks
+# ---------------------------------------------------------------------------
+
+MESH_LM_ARCH, MESH_LM_BATCH, MESH_LM_SEQ = "gemma-2b", 2, 1024
+MESH_LM_STEPS = 3
+MESH_DP_ARCH, MESH_DP_BATCH, MESH_DP_SEQ, MESH_DP_STEPS = (
+    "seamless-m4t-medium", 8, 256, 2)
+MESH_MOE_ARCH, MESH_MOE_SHAPE = "deepseek-v2-236b", (4, 64)
+MESH_BF16_RTOL = (2.0 ** -7, 2.0 ** -5)   # step 0's loss, the later ones'
+# of the one-rank layer's largest |output|: each rank's combine rounds to
+# bf16 before the sum over the ranks (the reference's psum, in bf16), so
+# an output can sit a few bf16 ulps (2^-8 to 2^-7 of its own size each)
+# from one rank's
+MESH_MOE_TOL = 2.0 ** -5
+MESH_REDUCED = (("gemma-2b", {}), ("qwen2-7b", {}),
+                ("deepseek-v2-236b", {"fsdp": True}),
+                ("arctic-480b", {"fsdp": True}))
+MESH_REDUCED_TOL = 1e-5       # cuda ranks against CPU ranks, f32, TF32 off
+# AdamW moves an element by about lr·sign(g) where its gradient g is near
+# zero, so a rounding-sized change there moves it by up to 2·lr a step:
+# every element is held to that bound, all but this share of the tree's
+# to MESH_REDUCED_TOL, and the key bias (true gradient 0: softmax does not
+# see a shift of all of a query's logits) to the bound alone
+MESH_REDUCED_OFF_SHARE = 1e-4
+MESH_REDUCED_LR = 3e-4        # train_loop's default
+MESH_REDUCED_BATCH, MESH_REDUCED_SEQ, MESH_REDUCED_STEPS = 4, 32, 2
+
+
+class CollectiveMeter:
+    """Counts this process's collectives (calls and bytes of the tensor
+    each rank contributes, by kind) by wrapping ``torch.distributed``'s
+    functions, which the port calls through the module; ``close`` undoes
+    it."""
+
+    KINDS = ("all_reduce", "all_gather", "broadcast")
+
+    def __init__(self) -> None:
+        import torch.distributed as dist
+        self.counts = {k: [0, 0] for k in self.KINDS}
+        self._saved = {k: getattr(dist, k) for k in self.KINDS}
+        for kind, fn in self._saved.items():
+            setattr(dist, kind, self._wrap(kind, fn))
+
+    def _wrap(self, kind, fn):
+        def counted(*args, **kw):
+            t = args[1] if kind == "all_gather" else args[0]
+            self.counts[kind][0] += 1
+            self.counts[kind][1] += t.numel() * t.element_size()
+            return fn(*args, **kw)
+        return counted
+
+    def close(self) -> dict:
+        import torch.distributed as dist
+        for kind, fn in self._saved.items():
+            setattr(dist, kind, fn)
+        return {k: {"calls": c, "bytes": b} for k, (c, b) in
+                self.counts.items()}
+
+
+def train_capturing(cfg, mesh, device, *, steps, batch, seq_len,
+                    cpu_init=False, profile_last=False) -> dict:
+    """``launch.train.train_loop`` on this rank, with its train step
+    wrapped to keep the final parameters and their plans (and, with
+    ``profile_last``, the last step under ``torch.profiler``: the card's
+    busy ms beside the step's wall ms).  ``cpu_init``: the parameters are
+    drawn on the CPU and moved (so CPU and card ranks start alike)."""
+    import torch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.lm import get_model
+    from repro_torch.models.scan_util import tree_map
+    kept = {"calls": 0}
+    make_step = train_mod.make_train_step
+
+    def capture(model, opt, plans=None):
+        step = make_step(model, opt, plans)
+
+        def run(params, state, b):
+            kept["calls"] += 1
+            if profile_last and kept["calls"] == steps:
+                t0 = time.perf_counter()
+                busy, launches = profile_device(
+                    lambda: kept.update(out=step(params, state, b)))
+                kept["profile"] = {"busy_ms": round(busy, 2),
+                                   "wall_ms": round((time.perf_counter()
+                                                     - t0) * 1e3, 2),
+                                   "device_launches": launches}
+                out = kept.pop("out")
+            else:
+                out = step(params, state, b)
+            kept["params"], kept["plans"] = out[0], plans
+            return out
+        return run
+
+    saved = train_mod.get_model, train_mod.make_train_step
+    if cpu_init:
+        base = get_model(cfg)
+        model = dataclasses.replace(base, init=lambda seed=0, device=None:
+                                    tree_map(lambda t: t.to(device),
+                                             base.init(seed, device="cpu")))
+        train_mod.get_model = lambda _cfg: model
+    train_mod.make_train_step = capture
+    try:
+        rep = train_mod.train_loop(cfg, steps=steps, batch=batch,
+                                   seq_len=seq_len, mesh=mesh, device=device,
+                                   seed=SEED, log_every=0)
+    finally:
+        train_mod.get_model, train_mod.make_train_step = saved
+    return {"losses": rep.losses, "step_ms": [round(t * 1e3, 1)
+                                              for t in rep.step_times],
+            "params": kept["params"], "plans": kept["plans"],
+            "profile": kept.get("profile")}
+
+
+def replicated_equal(params, plans, mesh, axis: str) -> tuple:
+    """(leaves whole on every rank, how many are equal bit for bit on
+    every rank of the ``axis`` group): each gathered over the group and
+    compared here."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models.scan_util import tree_leaves
+    n = same = 0
+    for p, plan in zip(tree_leaves(params), tree_leaves(plans)):
+        if plan.axes:
+            continue
+        parts = [torch.empty_like(p) for _ in range(mesh.shape[axis])]
+        dist.all_gather(parts, p.contiguous(), group=mesh.group(axis))
+        n += 1
+        same += all(torch.equal(parts[0], q) for q in parts[1:])
+    return n, same
+
+
+def allreduces_ms(mesh, axis: str, tensors: list, reps: int = 3) -> float:
+    """Median ms of all_reduces of ``tensors`` (one after another, a card
+    sync on both sides) over the ``axis`` group."""
+    import torch
+    import torch.distributed as dist
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in tensors:
+            dist.all_reduce(t, group=mesh.group(axis))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return round(float(np.median(times[1:])), 2)
+
+
+def mesh_moe_layer(device, mesh=None):
+    """deepseek-v2-236b's MoE layer at its published width (bf16: 160
+    experts, 2 shared) from seed ``SEED + 7`` on ``device``, on 4 x 64
+    random tokens: the output [4, 64, d] in f32 on the CPU.  With a mesh:
+    this rank's experts (``shard_params``), the full stacks freed first."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import use_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.common import make_generator, model_dtype
+    from repro_torch.models.lm_params import shard_params
+    cfg = get_config(MESH_MOE_ARCH)
+    gen = make_generator(SEED + 7, device)
+    mp = moe.init_moe(gen, cfg)
+    x = torch.randn((*MESH_MOE_SHAPE, cfg.d_model), generator=gen,
+                    device=gen.device).to(model_dtype(cfg))
+    if mesh is not None:
+        mp = shard_params(mp, mesh, cfg)[0]
+        torch.cuda.empty_cache()
+    with torch.inference_mode(), use_mesh(mesh):
+        out = moe.moe_forward(mp, cfg, x).float().cpu().numpy()
+    experts = mp["experts_w1"].shape[0]
+    del mp
+    torch.cuda.empty_cache()
+    return out, experts
+
+
+def reduced_cells(mesh, device) -> dict:
+    """(d): the reduced configs trained on this mesh in f32 (TF32 off),
+    from parameters drawn on the CPU: cell -> (losses, local params)."""
+    import torch
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for arch, kw in MESH_REDUCED:
+        cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
+        run = train_capturing(cfg, mesh, device, steps=MESH_REDUCED_STEPS,
+                              batch=MESH_REDUCED_BATCH,
+                              seq_len=MESH_REDUCED_SEQ, cpu_init=True)
+        out[arch] = (run["losses"], flat_numpy(run["params"]))
+    return out
+
+
+def flat_numpy(tree, prefix: str = "") -> dict:
+    """path -> numpy array of a nested dict of tensors."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_numpy(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tree.detach().cpu().numpy()}
+
+
+def reduced_param_check(got: dict, want: dict) -> tuple:
+    """(max |error|, elements beyond MESH_REDUCED_TOL, ok) of a rank's
+    parameters on the card against the same rank's on the CPU
+    (``MESH_REDUCED_OFF_SHARE``)."""
+    bound = 2 * MESH_REDUCED_LR * MESH_REDUCED_STEPS
+    err, off, size = 0.0, 0, 0
+    for path, a in want.items():
+        d = np.abs(got[path] - a)
+        err = max(err, float(d.max()))
+        if not path.endswith("/bk"):
+            off += int((d > MESH_REDUCED_TOL).sum())
+            size += a.size
+    return err, off, err <= bound and off <= size * MESH_REDUCED_OFF_SHARE
+
+
+def mesh_reduced_rank(mesh, device) -> dict:
+    """A rank of (d) on the CPU (``run_ranks`` spawns it)."""
+    import torch
+    torch.set_num_threads(2)
+    return reduced_cells(mesh, device)
+
+
+def mesh_lm_rank(mesh, device, which: str) -> dict:
+    """A card rank of ``lm-train-mesh`` (``run_ranks`` spawns it; module
+    docstring, phase 13): ``"model2"`` runs (a), (c) and (d) on (1, 2),
+    ``"data2"`` (b) and (d) on (2, 1), ``"2x2"`` (d) on (2, 2)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.scan_util import tree_leaves
+    out = {"rank": mesh.rank, "runs": {}}
+    if which == "model2":
+        cfg = dataclasses.replace(get_config(MESH_LM_ARCH),
+                                  chunked_ce=DEC_CHUNK)
+        arch, steps, batch, seq = (MESH_LM_ARCH, MESH_LM_STEPS,
+                                   MESH_LM_BATCH, MESH_LM_SEQ)
+    elif which == "data2":
+        cfg = get_config(MESH_DP_ARCH)
+        arch, steps, batch, seq = (MESH_DP_ARCH, MESH_DP_STEPS,
+                                   MESH_DP_BATCH, MESH_DP_SEQ)
+    if which in ("model2", "data2"):
+        torch.cuda.reset_peak_memory_stats()
+        meter = CollectiveMeter()
+        try:
+            run = train_capturing(cfg, mesh, device, steps=steps,
+                                  batch=batch, seq_len=seq,
+                                  profile_last=True)
+        finally:
+            coll = meter.close()
+        n_rep, same = replicated_equal(run["params"], run["plans"], mesh,
+                                       "model" if which == "model2"
+                                       else "data")
+        leaves = tree_leaves(run["params"])
+        res = {"arch": arch, "losses": run["losses"],
+               "step_ms": run["step_ms"], "profile": run["profile"],
+               "collectives_per_step": {
+                   k: {"calls": v["calls"] / steps,
+                       "mb": round(v["bytes"] / steps / 1e6, 1)}
+                   for k, v in coll.items() if v["calls"]},
+               "replicated_leaves": n_rep, "replicated_equal": same,
+               "local_params": sum(p.numel() for p in leaves),
+               "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}
+        if which == "model2":     # one activation's all_reduce: [2, 1024, d]
+            res["allreduce_8mb_ms"] = allreduces_ms(mesh, "model", [
+                torch.ones((MESH_LM_BATCH, MESH_LM_SEQ, cfg.d_model),
+                           dtype=torch.bfloat16, device=device)])
+        else:                     # the step's gradient all_reduce, alone
+            res["grad_allreduce_ms"] = allreduces_ms(
+                mesh, "data", [torch.zeros_like(p) for p in leaves], reps=1)
+            res["grad_allreduce_gb"] = round(sum(
+                p.numel() * p.element_size() for p in leaves) / 1e9, 3)
+        out["runs"][arch] = res
+        del run, leaves
+        torch.cuda.empty_cache()
+    if which == "model2":
+        layer, experts = mesh_moe_layer(device, mesh)
+        out["moe_layer"] = {"out": layer, "local_experts": experts}
+    out["reduced"] = reduced_cells(mesh, device)
+    out["launches"] = {k: c.value for k, c in lm_counters().items()}
+    return out
+
+
+def phase_lm_train_mesh() -> dict:
+    """The LM zoo on a mesh of ranks on ``cuda:0`` over gloo (module
+    docstring, phase 13)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.train import train_loop
+    counters, t0 = lm_phase_start()
+    one = {}
+    for arch, cfg, steps, batch, seq in (
+            (MESH_LM_ARCH, dataclasses.replace(get_config(MESH_LM_ARCH),
+                                               chunked_ce=DEC_CHUNK),
+             MESH_LM_STEPS, MESH_LM_BATCH, MESH_LM_SEQ),
+            (MESH_DP_ARCH, get_config(MESH_DP_ARCH), MESH_DP_STEPS,
+             MESH_DP_BATCH, MESH_DP_SEQ)):
+        rep = train_loop(cfg, steps=steps, batch=batch, seq_len=seq,
+                         seed=SEED, log_every=0)
+        one[arch] = rep
+        free_card()
+    one_layer, _ = mesh_moe_layer("cuda")
+    free_card()
+    counts, peak = lm_phase_end("lm-train-mesh-one-rank", counters, t0)
+    card, cpu = {}, {}
+    for which, data, model in (("model2", 1, 2), ("data2", 2, 1),
+                               ("2x2", 2, 2)):
+        t1 = time.perf_counter()
+        card[(data, model)] = run_ranks(
+            "chip_smoke:mesh_lm_rank", data=data, model=model,
+            devices=["cuda:0"] * (data * model), backend=MESH_BACKEND,
+            args=(which,), timeout_s=MESH_DEADLINE_S)
+        t2 = time.perf_counter()
+        cpu[(data, model)] = run_ranks(
+            "chip_smoke:mesh_reduced_rank", data=data, model=model,
+            devices=["cpu"] * (data * model), backend=MESH_BACKEND,
+            timeout_s=MESH_DEADLINE_S)
+        log("lm-train-mesh-world", mesh=(data, model),
+            card_s=round(t2 - t1, 1),
+            cpu_s=round(time.perf_counter() - t2, 1))
+    failures = []
+    # (a), (b): full width against one rank's train_loop
+    for mesh, arch in (((1, 2), MESH_LM_ARCH), ((2, 1), MESH_DP_ARCH)):
+        want = one[arch].losses
+        for r in card[mesh]:
+            run = r["runs"][arch]
+            err = [abs(a - b) / abs(b) for a, b in zip(run["losses"], want)]
+            ok = (err[0] <= MESH_BF16_RTOL[0]
+                  and all(e <= MESH_BF16_RTOL[1] for e in err[1:])
+                  and run["replicated_equal"] == run["replicated_leaves"])
+            log("lm-train-mesh", mesh=mesh, rank=r["rank"], **run,
+                one_rank_losses=want,
+                one_rank_step_ms=[round(t * 1e3, 1)
+                                  for t in one[arch].step_times],
+                rel_err=[float(f"{e:.3g}") for e in err], ok=ok)
+            if not ok:
+                failures.append(f"{arch} on {mesh} rank {r['rank']}")
+    # (c): the expert-parallel MoE layer
+    scale = float(np.abs(one_layer).max())
+    for r in card[(1, 2)]:
+        err = float(np.abs(r["moe_layer"]["out"] - one_layer).max())
+        ok = err <= MESH_MOE_TOL * scale
+        log("lm-train-mesh-moe", arch=MESH_MOE_ARCH, rank=r["rank"],
+            tokens=MESH_MOE_SHAPE[0] * MESH_MOE_SHAPE[1],
+            local_experts=r["moe_layer"]["local_experts"],
+            max_abs_err=err, max_abs=scale, tol=MESH_MOE_TOL * scale, ok=ok)
+        if not ok:
+            failures.append(f"moe layer rank {r['rank']}")
+    # (d): reduced configs, card ranks against CPU ranks
+    for mesh in card:
+        for r_card, r_cpu in zip(card[mesh], cpu[mesh]):
+            for arch, _ in MESH_REDUCED:
+                (lc, pc), (lg, pg) = r_cpu[arch], r_card["reduced"][arch]
+                loss_err = float(np.max(np.abs(np.subtract(lg, lc))
+                                        / np.abs(lc)))
+                p_err, p_off, p_ok = reduced_param_check(pg, pc)
+                ok = loss_err <= MESH_REDUCED_TOL and p_ok
+                log("lm-train-mesh-reduced", mesh=mesh, rank=r_card["rank"],
+                    arch=arch, losses_card=lg, losses_cpu=lc,
+                    loss_rel_err=loss_err, param_max_abs_err=p_err,
+                    params_beyond_tol=p_off, ok=ok)
+                if not ok:
+                    failures.append(f"reduced {arch} on {mesh}")
+    launches = {k: sum(r["launches"][k] for rs in card.values() for r in rs)
+                for k in counts}
+    log("lm-train-mesh-done", seconds=round(time.perf_counter() - t0, 1),
+        one_rank_peak_gb=round(peak / 1e9, 3), rank_launches=launches)
+    if any(launches.values()):
+        failures.append(f"kernels launched on the ranks: {launches}")
+    if failures:
+        raise AssertionError(f"lm-train-mesh: {failures}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4123,6 +4530,8 @@ def main() -> int:
     phase_lm_train_parity()
     counts["mesh"] = phase_mesh(ds)
     counts["mesh_serve"] = phase_mesh_serve(ds)
+    free_card()
+    counts["lm_train_mesh"] = phase_lm_train_mesh()
     rows = (phase_times(engine, shapes, errs, counts)
             + phase_train_times(k3_shapes, k3_errs, k1_shapes, counts)
             + phase_k4_times(k4_errs, counts))

@@ -25,6 +25,13 @@ reference's own step dtype; other leaves go through ``np.asarray``.
 Loading puts each tensor leaf on ``device`` (``None``: the device of that
 leaf of ``tree_like``) and gives a Python int back where ``tree_like``
 holds one; other leaves come back as numpy arrays, as the reference's do.
+
+On a mesh of ranks (``plans``: a ``launch.sharding.ShardPlan`` per leaf,
+the tree's structure), a save gathers every leaf whole on every rank and
+the mesh's leader writes it, so the files are those of one device; a load
+reads the whole leaves on every rank and slices each to this rank's block
+under the *current* plans: a run saved on one mesh resumes on another, or
+on one device (the reference's reshard-on-load).
 """
 from __future__ import annotations
 
@@ -37,6 +44,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.models.scan_util import tree_leaves, tree_map
 
 
 def _walk(tree, prefix: tuple = ()):
@@ -84,24 +94,28 @@ def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 def _unflatten_into(tree_like, flat: dict, dtypes: dict, device=None,
-                    prefix: tuple = ()):
+                    prefix: tuple = (), plans=None):
     if isinstance(tree_like, dict):
         return {k: _unflatten_into(v, flat, dtypes, device,
-                                   prefix + (str(k),))
+                                   prefix + (str(k),),
+                                   None if plans is None else plans[k])
                 for k, v in tree_like.items()}
     if isinstance(tree_like, (list, tuple)):
         return type(tree_like)(
-            _unflatten_into(v, flat, dtypes, device, prefix + (str(i),))
+            _unflatten_into(v, flat, dtypes, device, prefix + (str(i),),
+                            None if plans is None else plans[i])
             for i, v in enumerate(tree_like))
     if tree_like is None:
         return None
     path = "/".join(prefix)
     arr = flat[path]
-    assert tuple(arr.shape) == tuple(np.shape(tree_like)), (
-        path, arr.shape, np.shape(tree_like))
+    want = (plans.shape if plans is not None and isinstance(
+        tree_like, torch.Tensor) else tuple(np.shape(tree_like)))
+    assert tuple(arr.shape) == want, (path, arr.shape, want)
     if isinstance(tree_like, torch.Tensor):
         dev = device if device is not None else tree_like.device
-        return _tensor(arr, dtypes[path]).to(dev)
+        t = _tensor(arr, dtypes[path])
+        return (t if plans is None else plans.local(t)).to(dev)
     if isinstance(tree_like, int):
         return int(arr)
     return arr
@@ -177,10 +191,12 @@ def latest_step(directory: str | Path) -> Optional[int]:
 
 def load_checkpoint(directory: str | Path, tree_like,
                     step: Optional[int] = None,
-                    device=None) -> tuple[Any, int, dict]:
+                    device=None, plans=None) -> tuple[Any, int, dict]:
     """Load into the structure of ``tree_like`` (shapes must match), each
     tensor leaf on ``device`` (``None``: where that leaf of ``tree_like``
-    lives).  Returns ``(tree, step, extra)``."""
+    lives).  ``plans``: on a mesh, ``tree_like`` holds this rank's blocks
+    and each whole leaf is sliced under its plan.  Returns ``(tree, step,
+    extra)``."""
     directory = Path(directory)
     step = step if step is not None else latest_step(directory)
     assert step is not None, f"no checkpoint under {directory}"
@@ -190,8 +206,14 @@ def load_checkpoint(directory: str | Path, tree_like,
     with np.load(path / "arrays.npz") as z:
         flat = {k: z[k] for k in z.files}
     dtypes = {k: v["dtype"] for k, v in manifest["leaves"].items()}
-    tree = _unflatten_into(tree_like, flat, dtypes, device)
+    tree = _unflatten_into(tree_like, flat, dtypes, device, plans=plans)
     return tree, manifest["step"], manifest.get("extra", {})
+
+
+def gather_tree(tree, plans):
+    """Every leaf of this rank's ``tree`` gathered whole under its plan
+    (a collective: every rank of the mesh calls it, in one order)."""
+    return tree_map(lambda plan, x: plan.gather(x), plans, tree)
 
 
 def load_aux(directory: str | Path, step: Optional[int] = None) -> dict:
@@ -214,14 +236,28 @@ class CheckpointManager:
         self.every = max(every, 1)
         self.keep = keep
 
-    def maybe_save(self, step: int, tree, extra: Optional[dict] = None):
-        if step % self.every == 0:
+    def maybe_save(self, step: int, tree, extra: Optional[dict] = None,
+                   plans=None):
+        """Save ``tree`` as step N when N is a multiple of ``every``;
+        returns the checkpoint's path (on a mesh, ``plans``: every rank
+        gathers, the leader writes, and every rank returns True)."""
+        if step % self.every:
+            return None
+        if plans is None:
             return save_checkpoint(self.directory, step, tree, extra,
                                    keep=self.keep)
-        return None
+        full = gather_tree(tree, plans)
+        mesh = tree_leaves(plans)[0].mesh
+        if mesh.leader:
+            save_checkpoint(self.directory, step, full, extra, keep=self.keep)
+        del full
+        dist.barrier(group=mesh.host_group)      # written before anyone reads
+        return True
 
-    def restore_or_init(self, tree_like, device=None):
-        """(tree, start_step, extra) — from the newest checkpoint, else as-is."""
+    def restore_or_init(self, tree_like, device=None, plans=None):
+        """(tree, start_step, extra) — from the newest checkpoint, else
+        as-is (``plans``: sliced to this rank's blocks)."""
         if latest_step(self.directory) is None:
             return tree_like, 0, {}
-        return load_checkpoint(self.directory, tree_like, device=device)
+        return load_checkpoint(self.directory, tree_like, device=device,
+                               plans=plans)

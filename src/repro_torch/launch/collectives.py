@@ -1,0 +1,167 @@
+"""Collectives with gradients, over a process group of the mesh in scope
+(what the reference gets from ``shard_map`` and GSPMD).
+
+Every rank of a model group runs the same program on its own shard of the
+weights; the activations between the parallel regions are replicated, so
+every rank computes the same loss and, through the pairs below, the full
+gradient of every replicated tensor (Megatron's f / g):
+
+* :func:`copy_to` — identity forward, ``all_reduce`` backward: the entry
+  of a region whose ranks each use the tensor only in part (a column-
+  parallel product, head-local attention, the local experts' routing);
+* :func:`reduce_from` — ``all_reduce`` forward, identity backward: the
+  exit of such a region (a row-parallel product, the expert combine);
+* :func:`gather` — list ``all_gather`` along a dim forward; backward
+  either sums the gradient over the group and then slices this rank's
+  block (``partial=True``: the ranks each use the gathered tensor in part,
+  as head-local attention uses gathered K/V, or as the data ranks each
+  use a ZeRO-3 weight on their own rows) or only slices it (the gathered
+  tensor is used whole and alike on every rank);
+* :func:`vocab_embed` and :func:`vocab_nll` — a lookup in a table whose
+  rows (the vocab) are split over the group, and the token NLL of logits
+  whose last dim is: the max, the sum of exponentials and the label's
+  logit are reduced over the group, never the ``[B, S, V]`` logits.
+
+Only ``all_reduce``, list ``all_gather`` and ``broadcast`` are used, the
+collectives gloo carries for CPU and CUDA tensors alike.  A group of one
+rank makes every function here the identity.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.launch.sharding import current_mesh
+
+
+def model_group():
+    """(group, size, index) of the model axis of the mesh in scope; size 1
+    (and no group) without one."""
+    mesh = current_mesh()
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return None, 1, 0
+    return mesh.group("model"), mesh.shape["model"], mesh.index("model")
+
+
+def data_group():
+    """(group, size, index) of the data axis of the mesh in scope."""
+    mesh = current_mesh()
+    if mesh is None or mesh.shape.get("data", 1) == 1:
+        return None, 1, 0
+    return mesh.group("data"), mesh.shape["data"], mesh.index("data")
+
+
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The reduction over ``group`` of a copy of ``x`` (``x`` unchanged);
+    ``group`` None (an axis of one rank) reduces nothing."""
+    if group is None:
+        return x
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, partial):
+        ctx.group, ctx.dim, ctx.partial = group, dim, partial
+        ctx.n = x.shape[dim]
+        ctx.rank = dist.get_rank(group)
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            g = all_reduce(g, ctx.group)
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; the gradient summed over ``group`` backward."""
+    return x if group is None else _Copy.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` forward; identity backward."""
+    return x if group is None else _Reduce.apply(x, group)
+
+
+def gather(x: torch.Tensor, group, dim: int, partial: bool) -> torch.Tensor:
+    """Every rank's ``x`` along ``dim``, in rank order (module docstring
+    for ``partial``)."""
+    return x if group is None else _Gather.apply(x, group, dim, partial)
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, group,
+                index: int) -> torch.Tensor:
+    """``full_table[tokens]`` from this rank's rows ``table`` (rows
+    ``[index·n, (index+1)·n)`` of the full table): a masked local lookup
+    summed over the group."""
+    n = table.shape[0]
+    local = tokens.long() - index * n
+    hit = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    return reduce_from(torch.where(hit[..., None], rows, 0), group)
+
+
+class _VocabNLL(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, group, index):
+        x = logits.float()
+        n = x.shape[-1]
+        m = all_reduce(x.amax(dim=-1), group, dist.ReduceOp.MAX)
+        e = torch.exp(x - m[..., None])
+        s = all_reduce(e.sum(dim=-1), group)
+        local = labels.long() - index * n
+        hit = (local >= 0) & (local < n)
+        gold = torch.gather(x, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+        gold = all_reduce(torch.where(hit, gold, 0.0), group)
+        ctx.save_for_backward(e, s, local, hit)
+        ctx.dtype = logits.dtype
+        return torch.log(s) + m - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s, local, hit = ctx.saved_tensors
+        grad = e / s[..., None]
+        onehot = torch.zeros_like(grad).scatter_(
+            -1, local.clamp(0, grad.shape[-1] - 1)[..., None],
+            hit[..., None].to(grad.dtype))
+        return ((grad - onehot) * g[..., None]).to(ctx.dtype), None, None, \
+            None
+
+
+def vocab_nll(logits: torch.Tensor, labels: torch.Tensor, group,
+              index: int) -> torch.Tensor:
+    """Per-token NLL in f32 of logits whose last dim is this rank's slice
+    ``[index·n, (index+1)·n)`` of the vocab (the same on every rank of
+    the group)."""
+    return _VocabNLL.apply(logits, labels, group, index)

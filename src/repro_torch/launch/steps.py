@@ -8,6 +8,17 @@ and the gradients are summed in f32, as the reference's ``scan`` sums them;
 then the loss and the gradients are divided by ``accum``.  The update is
 the port's AdamW, in place (``optim/adam.py``).
 
+On a mesh (``plans``: the ``ShardPlan`` of each local parameter leaf, with
+the mesh in scope through ``launch.sharding.use_mesh``), the step is the
+data-parallel one: each rank's loss is its rows' share of the batch mean
+(``models.common.cross_entropy``), a ZeRO-3 leaf (``cfg.fsdp``) is
+gathered over the data group as the loss reads it (its gradient summed
+over the group and sliced back, ``launch/collectives.py``), every other
+gradient leaf is summed over the data group before the update, and the
+loss returned is the batch's, summed over the data group.  The model
+axis needs nothing here: the layers' own collectives give every rank the
+full gradient of its blocks.
+
 ``make_serve_step`` / ``make_prefill_step``: one decode step (or the prompt)
 + greedy sampling; they return the next token ids, not the logits.
 """
@@ -17,6 +28,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.launch.collectives import all_reduce, data_group, gather
 from repro_torch.models.lm import ModelAPI
 from repro_torch.models.scan_util import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim.adam import AdamW
@@ -34,19 +46,40 @@ def value_and_grad(loss_fn: Callable, params, batch) -> tuple:
     return loss.detach(), tree_unflatten(params, list(grads))
 
 
-def make_train_step(model: ModelAPI, opt: AdamW) -> Callable:
+def _zero3_full(params, plans):
+    """The parameters as the layers read them: each leaf sharded over the
+    data axis (ZeRO-3) gathered along that dim (``gather`` with
+    ``partial``: its gradient is summed over the data group, then
+    sliced)."""
+    group = data_group()[0]
+
+    def one(plan, x):
+        for dim, axes in enumerate(plan.dims):
+            if "data" in axes:
+                x = gather(x, group, dim=dim, partial=True)
+        return x
+    return tree_map(one, plans, params)
+
+
+def make_train_step(model: ModelAPI, opt: AdamW, plans=None) -> Callable:
+    """``plans``: on a mesh, the local parameter leaves' ``ShardPlan``s
+    (module docstring); None: one device."""
     accum = max(model.cfg.grad_accum, 1)
+    loss_fn = model.loss
+    if plans is not None:
+        def loss_fn(params, batch):
+            return model.loss(_zero3_full(params, plans), batch)
 
     def train_step(params, opt_state, batch):
         """batch leaves: [accum, B/accum, ...] tensors.  Returns (params,
         opt_state, loss), the first two updated in place."""
         if accum == 1:
             mb = {k: v[0] for k, v in batch.items()}
-            loss, grads = value_and_grad(model.loss, params, mb)
+            loss, grads = value_and_grad(loss_fn, params, mb)
         else:
             loss, grads = None, None
             for i in range(accum):
-                l, g = value_and_grad(model.loss, params,
+                l, g = value_and_grad(loss_fn, params,
                                       {k: v[i] for k, v in batch.items()})
                 if grads is None:
                     loss, grads = l.float(), tree_map(lambda x: x.float(), g)
@@ -55,7 +88,12 @@ def make_train_step(model: ModelAPI, opt: AdamW) -> Callable:
                     grads = tree_map(lambda a, x: a + x.float(), grads, g)
             loss = loss / accum
             grads = tree_map(lambda x: x / accum, grads)
-        params, opt_state = opt.update(grads, opt_state, params)
+        if plans is not None:
+            group = data_group()[0]
+            grads = tree_map(lambda plan, g: g if "data" in plan.axes
+                             else all_reduce(g, group), plans, grads)
+            loss = all_reduce(loss, group)
+        params, opt_state = opt.update(grads, opt_state, params, plans=plans)
         return params, opt_state, loss
 
     return train_step

@@ -11,9 +11,25 @@ Fault tolerance, as in the reference:
     pipeline is seed-deterministic by (epoch, step), the token stream (and
     the stub frontend's frames or patches) continues exactly.
 
-The reference's mesh (reshard-on-load over a device mesh) is not ported:
-``mesh=`` raises ``NotImplementedError`` (``ROADMAP.md`` Queue A item 9.8).
-``examples/lm_pretrain_torch.py`` calls :func:`train_loop`.
+  * **elastic**: the checkpoint holds unsharded leaves; on load they are
+    sliced under the *current* mesh's plans, so a run can resume on
+    another mesh, or on one device.
+
+On a mesh (``mesh``: this rank's :class:`~repro_torch.launch.mesh.HostMesh`
+of a ``(data, model)`` world that ``launch.mesh.run_ranks`` started; every
+rank calls :func:`train_loop` alike), the parameters are drawn whole and
+sliced to this rank's blocks under the reference's rule table
+(``models.lm_params.shard_params``: tensor parallelism over ``model`` for
+the decoder-only families, expert parallelism for the MoE configs' experts,
+ZeRO-3 over ``data`` where ``cfg.fsdp``), and the AdamW moments follow.
+Data rank ``d`` of ``D`` takes rows ``[d·B/D, (d+1)·B/D)`` of each
+(micro)batch, the ``[accum]`` dim whole; the step is the data-parallel one
+of ``launch/steps.py``.  Every rank of a model group computes the same
+loss; the losses reported are the global batch's.  Checkpoints gather
+each leaf whole and the leader (global rank 0) writes them.  Tensor
+parallelism for the enc-dec and recurrent families is not ported: on a
+model axis larger than 1 they raise ``NotImplementedError`` (``ROADMAP.md``
+item 9.8b).  ``examples/lm_pretrain_torch.py`` calls :func:`train_loop`.
 
     python -m repro_torch.launch.train --arch seamless-m4t-medium \\
         --reduced --steps 10 --device cpu
@@ -32,8 +48,11 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data.tokens import SyntheticCorpus, TokenPipeline
 from repro_torch.device import resolve_device
+from repro_torch.launch.sharding import use_mesh
+from repro_torch.launch.specs import batch_shardings, opt_state_shardings
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.lm import enc_dec_split, get_model
+from repro_torch.models.lm_params import shard_params
 from repro_torch.optim.adam import AdamConfig, AdamW
 
 
@@ -70,53 +89,86 @@ def _pipeline(cfg, corpus: SyntheticCorpus, batch: int, seq_len: int,
     return TokenPipeline(corpus, batch, seq_len, accum=accum)
 
 
+def _check_mesh(cfg, mesh, batch: int) -> None:
+    """Refuse what the mesh trainer does not run: tensor parallelism for
+    the enc-dec and recurrent families, and a batch the data axis does not
+    split evenly."""
+    if mesh.shape["model"] > 1 and (cfg.encoder_layers > 0
+                                    or cfg.xlstm is not None
+                                    or cfg.ssm is not None):
+        raise NotImplementedError(
+            f"{cfg.name} on a model axis of {mesh.shape['model']}: tensor "
+            "parallelism for the enc-dec and recurrent families is not "
+            "ported (ROADMAP.md item 9.8b); train it on (data, 1)")
+    rows = batch // max(cfg.grad_accum, 1)
+    if rows % mesh.shape["data"]:
+        raise ValueError(f"a batch of {rows} rows a microbatch does not "
+                         f"split over {mesh.shape['data']} data ranks")
+
+
+def _upload(host_batch: dict, mesh, dev) -> dict:
+    """The step's batch on ``dev``: on a mesh, data rank d's rows
+    ``[d·b/D, (d+1)·b/D)`` of each ``[accum, b, ...]`` leaf (the
+    reference's batch plans)."""
+    out = {k: torch.from_numpy(v) for k, v in host_batch.items()}
+    if mesh is not None:
+        plans = batch_shardings(mesh, out, accum_dim=True)
+        out = {k: plans[k].local(v) for k, v in out.items()}
+    return {k: v.to(dev) for k, v in out.items()}
+
+
 def train_loop(cfg, *, steps: int, batch: int, seq_len: int,
                mesh=None, lr: float = 3e-4, seed: int = 0,
                ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
                resume: bool = False, log_every: int = 10,
                device=None) -> TrainReport:
     """Train ``cfg`` for ``steps`` steps (from the newest checkpoint under
-    ``ckpt_dir`` when ``resume``); returns the losses and step times of the
-    steps run here.  A step's time runs from its batch's upload to its
-    loss on the host."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the LM trainer on a mesh is not ported yet (ROADMAP.md Queue A "
-            "item 9.8)")
+    ``ckpt_dir`` when ``resume``), on one device or on a mesh (module
+    docstring); returns the losses and step times of the steps run here.
+    A step's time runs from its batch's upload to its loss on the host."""
     dev = resolve_device(device)
+    if mesh is not None:
+        _check_mesh(cfg, mesh, batch)
     model = get_model(cfg)
     opt = AdamW(AdamConfig(lr=lr, clip_norm=1.0))
-    train_step = make_train_step(model, opt)
     accum = max(cfg.grad_accum, 1)
 
-    params = model.init(seed, device=dev)
-    opt_state = opt.init(params)
-    mgr = CheckpointManager(ckpt_dir, every=ckpt_every) if ckpt_dir else None
-    start = 0
-    if mgr and resume:
-        (params, opt_state), start, _ = mgr.restore_or_init(
-            (params, opt_state), device=dev)
+    with use_mesh(mesh):
+        params = model.init(seed, device=dev)
+        plans = state_plans = None
+        if mesh is not None:            # the full tree is dropped here
+            params, plans = shard_params(params, mesh, cfg)
+            state_plans = (plans, opt_state_shardings(mesh, None, plans))
+        train_step = make_train_step(model, opt, plans)
+        opt_state = opt.init(params)
+        mgr = (CheckpointManager(ckpt_dir, every=ckpt_every) if ckpt_dir
+               else None)
+        start = 0
+        if mgr and resume:
+            (params, opt_state), start, _ = mgr.restore_or_init(
+                (params, opt_state), device=dev, plans=state_plans)
 
-    pipe = _pipeline(cfg, SyntheticCorpus(cfg.vocab_size, seed=seed),
+        pipe = _pipeline(cfg, SyntheticCorpus(cfg.vocab_size, seed=seed),
                          batch, seq_len, accum)
-    report = TrainReport([], [], resumed_from=start)
-    for step, host_batch in enumerate(pipe.epoch(0, steps, start_step=start),
-                                      start=start):
-        t0 = time.perf_counter()
-        dev_batch = {k: torch.from_numpy(v).to(dev)
-                     for k, v in host_batch.items()}
-        params, opt_state, loss = train_step(params, opt_state, dev_batch)
-        loss = float(loss)          # waits for the step, its update included
-        report.losses.append(loss)
-        report.step_times.append(time.perf_counter() - t0)
-        if mgr:
-            saved = mgr.maybe_save(step + 1, (params, opt_state),
-                                   extra={"seq_len": seq_len, "batch": batch})
-            if saved:
-                report.checkpoints += 1
-        if log_every and step % log_every == 0:
-            print(f"step {step}: loss {loss:.4f} "
-                  f"({report.step_times[-1] * 1e3:.0f} ms)", flush=True)
+        report = TrainReport([], [], resumed_from=start)
+        for step, host_batch in enumerate(
+                pipe.epoch(0, steps, start_step=start), start=start):
+            t0 = time.perf_counter()
+            dev_batch = _upload(host_batch, mesh, dev)
+            params, opt_state, loss = train_step(params, opt_state, dev_batch)
+            loss = float(loss)      # waits for the step, its update included
+            report.losses.append(loss)
+            report.step_times.append(time.perf_counter() - t0)
+            if mgr:
+                saved = mgr.maybe_save(step + 1, (params, opt_state),
+                                       extra={"seq_len": seq_len,
+                                              "batch": batch},
+                                       plans=state_plans)
+                if saved:
+                    report.checkpoints += 1
+            if log_every and step % log_every == 0:
+                print(f"step {step}: loss {loss:.4f} "
+                      f"({report.step_times[-1] * 1e3:.0f} ms)", flush=True)
     return report
 
 

@@ -34,8 +34,19 @@ from the latent) in training and in a multi-token prefill over the written
 cache, and the absorbed form (attention in the latent space, f32) in a
 single-token decode step.  The MLA cache is written in place too.
 
-Not ported yet: the reference's mesh branches of ``sharded_attention``
-wait for the LM zoo on a mesh (``ROADMAP.md`` Queue A item 9.8).
+On a mesh whose ``model`` axis is larger than 1 (training: no cache),
+the projections follow the rule table: ``wq``/``wk``/``wv`` (and their
+biases) hold column blocks and ``wo`` the matching row block wherever the
+flat width divides the axis, and the partial outputs of ``wo`` are summed
+over the model group.  The reference's ``sharded_attention`` then lets
+``shard_map`` pick heads or sequence parallelism; here only its maths is
+kept (:func:`_attn_tp`): q stays head-local wherever the head count
+divides the axis, and K/V are either head-local too or gathered whole
+(gemma's single KV head), each rank then taking the KV head of each of
+its q heads; with a head count that does not divide, q, K and V are
+gathered and every rank attends over all heads, keeping its block of the
+output for ``wo``.  MLA runs head-local (``q_up``/``k_up``/``v_up``
+column blocks, ``wo`` a row block, ``q_down``/``kv_down`` replicated).
 """
 from __future__ import annotations
 
@@ -45,6 +56,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ref import mha_ref
+from repro_torch.launch.collectives import (copy_to, gather, model_group,
+                                           reduce_from)
+from repro_torch.launch.sharding import model_sharded
 from repro_torch.models.common import (apply_rope, dense_init, model_dtype,
                                        rms_norm, zeros)
 
@@ -136,6 +150,14 @@ def attn_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
         return mla_forward(p, cfg, x, positions, causal=causal,
                            kv_cache=kv_cache, cache_pos=cache_pos)
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_eff
+    if model_group()[0] is not None:
+        if kv_cache is not None or cross_kv is not None:
+            raise NotImplementedError(
+                "attention with a cache or cross-attention on a mesh's "
+                "model axis (serving on a mesh, ROADMAP.md item 10; the "
+                "enc-dec family's tensor parallelism, item 9.8b)")
+        if model_sharded(h * dh):   # else every projection is whole
+            return _attn_tp(p, cfg, x, positions, causal), None
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
@@ -195,6 +217,67 @@ def attn_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     b, s = x.shape[:2]
     out = out.transpose(1, 2).reshape(b, s, h * dh)
     return out @ p["wo"], new_cache
+
+
+def _proj(p: dict, name: str, bias: str, x, xc, width: int, group):
+    """x @ w (+ b): from ``xc`` (``x`` through ``copy_to``) when ``w``
+    holds a column block of ``width``; else from ``x``, the full output
+    entering through ``copy_to`` (each rank uses it only in part).
+    Returns (output, whether it is a block)."""
+    sharded = model_sharded(width)
+    y = (xc if sharded else x) @ p[name]
+    if bias in p:
+        y = y + p[bias]
+    return (y, True) if sharded else (copy_to(y, group), False)
+
+
+def _attn_tp(p: dict, cfg: ArchConfig, x: torch.Tensor,
+             positions: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Training attention on a mesh's model axis that splits ``wq``'s
+    columns (module docstring)."""
+    group, tp, m = model_group()
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_eff
+    b, s, _ = x.shape
+    xc = copy_to(x, group)
+    q = xc @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    k, k_blk = _proj(p, "wk", "bk", x, xc, hkv * dh, group)
+    v, v_blk = _proj(p, "wv", "bv", x, xc, hkv * dh, group)
+    rope = positions[:, None, :]
+    if h % tp == 0:
+        hl = h // tp                                  # q heads of this rank
+        q = apply_rope(_split_heads(q, hl, dh), rope, cfg.rope_theta)
+        if hkv % tp == 0 and k_blk and v_blk:         # K/V head-local too
+            k = _split_heads(k, hkv // tp, dh)
+            v = _split_heads(v, hkv // tp, dh)
+        else:                     # whole K/V; the KV head of each q head
+            if k_blk:
+                k = gather(k, group, dim=-1, partial=True)
+            if v_blk:
+                v = gather(v, group, dim=-1, partial=True)
+            kv_head = torch.div(m * hl + torch.arange(hl, device=x.device),
+                                h // hkv, rounding_mode="floor")
+            k = _split_heads(k, hkv, dh)[:, kv_head]
+            v = _split_heads(v, hkv, dh)[:, kv_head]
+        k = apply_rope(k, rope, cfg.rope_theta)
+        out = sharded_attention(q, k, v, causal=causal,
+                                window=cfg.sliding_window, impl=cfg.attn_impl)
+        out = out.transpose(1, 2).reshape(b, s, hl * dh)
+    else:           # heads split across ranks: attend over all of them
+        q = gather(q, group, dim=-1, partial=True)
+        if k_blk:
+            k = gather(k, group, dim=-1, partial=True)
+        if v_blk:
+            v = gather(v, group, dim=-1, partial=True)
+        q = apply_rope(_split_heads(q, h, dh), rope, cfg.rope_theta)
+        k = apply_rope(_split_heads(k, hkv, dh), rope, cfg.rope_theta)
+        v = _split_heads(v, hkv, dh)
+        out = sharded_attention(q, k, v, causal=causal,
+                                window=cfg.sliding_window, impl=cfg.attn_impl)
+        n = h * dh // tp
+        out = out.transpose(1, 2).reshape(b, s, h * dh)[..., m * n:(m + 1) * n]
+    return reduce_from(out @ p["wo"], group)
 
 
 def _ring_segments(start: int, n: int, size: int) -> list:
@@ -274,8 +357,19 @@ def mla_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     b, s, _ = x.shape
     h = cfg.num_heads
     dev = x.device
+    group, tp, _ = model_group()
+    if group is not None:
+        if kv_cache is not None:
+            raise NotImplementedError(
+                "MLA with a cache on a mesh's model axis (serving on a "
+                "mesh, ROADMAP.md item 10)")
+        if h % tp:
+            raise NotImplementedError(
+                f"MLA on a model axis of {tp}: its {h} heads must divide "
+                "it (the head-local form)")
+        h //= tp                      # this rank's heads (module docstring)
 
-    ql = rms_norm(x @ p["q_down"], p["q_norm"])
+    ql = copy_to(rms_norm(x @ p["q_down"], p["q_norm"]), group)
     q = (ql @ p["q_up"]).reshape(b, s, h, m.qk_nope + m.qk_rope).transpose(
         1, 2)
     q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
@@ -285,6 +379,7 @@ def mla_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     c_kv = rms_norm(kvd[..., :m.kv_lora], p["kv_norm"])       # [B,S,kv_lora]
     k_rope = apply_rope(kvd[..., None, m.kv_lora:].transpose(1, 2),
                         positions[:, None, :], cfg.rope_theta)  # [B,1,S,rope]
+    c_kv, k_rope = copy_to(c_kv, group), copy_to(k_rope, group)
 
     if kv_cache is not None:
         c_all, r_all = kv_cache["c_kv"], kv_cache["k_rope"]
@@ -316,7 +411,7 @@ def mla_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     scale = (m.qk_nope + m.qk_rope) ** -0.5
     out = _mla_attend(qf, k, v, scale, causal, q_pos, kv_pos)
     out = out.transpose(1, 2).reshape(b, s, h * m.v_head)
-    return out @ p["wo"], kv_cache
+    return reduce_from(out @ p["wo"], group), kv_cache
 
 
 def _mla_attend(qf, k, v, scale, causal, q_pos, kv_pos):

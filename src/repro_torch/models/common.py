@@ -7,6 +7,11 @@ cannot be reproduced in torch, so the init here draws the same
 distributions from a ``torch.Generator`` (whose device is where the
 parameters land), and parity with the reference goes through
 ``repro_torch.models.lm_params.params_from_numpy``.
+
+The cross-entropies read the mesh in scope (``launch.sharding.use_mesh``):
+a rank's loss is its rows' NLL sum over the whole data-parallel batch's
+count, and logits holding this rank's vocab slice take the
+vocab-parallel NLL (``launch/collectives.py``).
 """
 from __future__ import annotations
 
@@ -14,10 +19,11 @@ from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models.scan_util import tree_map
+from repro_torch.launch.collectives import (all_reduce, copy_to, data_group,
+                                           model_group, vocab_nll)
+from repro_torch.models.scan_util import remat_call, tree_map
 
 
 def make_generator(seed: int = 0, device=None) -> torch.Generator:
@@ -108,13 +114,42 @@ def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     }[name]
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean token NLL in f32.  logits [..., V], labels [...] int."""
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor,
+               vocab: Optional[int]) -> torch.Tensor:
+    """Per-token NLL in f32; vocab-parallel (``launch/collectives.py``)
+    when the mesh in scope splits the vocab, i.e. ``logits`` holds fewer
+    than ``vocab`` columns."""
+    group, _, index = model_group()
+    if group is not None and vocab is not None and logits.shape[-1] != vocab:
+        return vocab_nll(logits, labels, group, index)
     logits32 = logits.float()
     logz = torch.logsumexp(logits32, dim=-1)
     gold = torch.gather(logits32, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    return logz - gold
+
+
+def _dp_count(count: torch.Tensor) -> torch.Tensor:
+    """The token count of the whole data-parallel batch: this rank's
+    summed over the data group of the mesh in scope (no gradient)."""
+    return all_reduce(count.detach(), data_group()[0])
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  vocab: Optional[int] = None) -> torch.Tensor:
+    """Mean token NLL in f32.  logits [..., V], labels [...] int.
+
+    On a mesh with data parallelism, each rank's value is its rows' NLL
+    sum over the whole batch's count, so the ranks' values (and their
+    gradients) sum to the batch mean; ``vocab``: the full vocab, which
+    says whether ``logits`` is this rank's vocab slice."""
+    nll = _token_nll(logits, labels, vocab)
+    if data_group()[0] is not None:
+        if mask is None:
+            count = torch.tensor(float(nll.numel()), device=nll.device)
+            return nll.sum() / _dp_count(count)
+        mask = mask.float()
+        return (nll * mask).sum() / _dp_count(mask.sum()).clamp(min=1.0)
     if mask is None:
         return nll.mean()
     mask = mask.float()
@@ -129,38 +164,42 @@ def grad_cast(x: torch.Tensor) -> torch.Tensor:
 
 
 def _block_nll(h_b: torch.Tensor, w: torch.Tensor, l_b: torch.Tensor,
-               m_b: torch.Tensor) -> torch.Tensor:
-    logits = (h_b @ w).float()                            # [B,C,V] one block
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, l_b[..., None].long())[..., 0]
-    return ((logz - gold) * m_b).sum()
+               m_b: torch.Tensor, vocab: Optional[int]) -> torch.Tensor:
+    logits = h_b @ w                                      # [B,C,V] one block
+    return (_token_nll(logits, l_b, vocab) * m_b).sum()
 
 
 def chunked_unembed_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
-                       mask: torch.Tensor, chunk: int) -> torch.Tensor:
+                       mask: torch.Tensor, chunk: int,
+                       vocab: Optional[int] = None) -> torch.Tensor:
     """Block-wise unembed + cross-entropy (the reference's fused form).
 
     h [B,S,d] post-final-norm hiddens; w [d,V] unembedding; labels/mask
     [B,S].  Loops over S-blocks so the [B,S,V] logits never exist at once:
     under autograd each block runs under ``torch.utils.checkpoint`` (the
     port's ``jax.checkpoint``), which keeps only its inputs and recomputes
-    its logits in backward.
+    its logits in backward.  On a mesh: ``w`` may hold this rank's vocab
+    columns of ``vocab`` (vocab-parallel NLL, ``h`` entering through
+    ``copy_to``), and the count is the data-parallel batch's, as in
+    :func:`cross_entropy`.
     """
     s = h.shape[1]
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    group = model_group()[0]
+    if group is not None and vocab is not None and w.shape[-1] != vocab:
+        h = copy_to(h, group)
     mask = mask.float()
     grad = torch.is_grad_enabled()
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for lo in range(0, s, chunk):
         blk = (h[:, lo:lo + chunk], w, labels[:, lo:lo + chunk],
-               mask[:, lo:lo + chunk])
-        nll = (checkpoint(_block_nll, *blk, use_reentrant=False) if grad
-               else _block_nll(*blk))
+               mask[:, lo:lo + chunk], vocab)
+        nll = remat_call(_block_nll, *blk) if grad else _block_nll(*blk)
         tot = tot + nll
         cnt = cnt + blk[3].sum()
-    return tot / cnt.clamp(min=1.0)
+    return tot / _dp_count(cnt).clamp(min=1.0)
 
 
 def stack_init(gen: torch.Generator, n: int, init_fn) -> dict:

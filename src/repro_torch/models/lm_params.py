@@ -9,6 +9,11 @@ one with its tied ``embed`` or untied ``embed_in`` / ``unembed`` (MoE and
 MLA layers included), and the xLSTM and hybrid trees.  The reference's
 AdamW state of such a tree carries over through
 :func:`adam_state_from_numpy` (the optimizer's, over any nested tree).
+
+:func:`shard_params` turns a full tree into this rank's local tree on a
+mesh of ranks (the rule table of ``launch/sharding.py``); chained after
+:func:`params_from_numpy` it is how the reference's parameters reach a
+mesh.
 """
 from __future__ import annotations
 
@@ -16,9 +21,11 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.sharding import tree_param_shardings
+from repro_torch.models.scan_util import tree_map
 from repro_torch.optim.adam import adam_state_from_numpy
 
-__all__ = ["params_from_numpy", "adam_state_from_numpy"]
+__all__ = ["params_from_numpy", "adam_state_from_numpy", "shard_params"]
 
 
 # leaves the reference keeps in f32 in a bf16 model: the SSD's decay,
@@ -62,3 +69,13 @@ def params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
     return _walk(tree, "", lambda path, a: _leaf_to_torch(path, a, dev,
                                                           dtype))
 
+
+
+def shard_params(params: dict, mesh, cfg) -> tuple:
+    """(this rank's local tree, the tree of its ``ShardPlan``s): each
+    leaf of the full tree ``params`` sliced to this rank's block under the
+    rule table (``cfg.fsdp``: ZeRO-3 over the data axis).  The local
+    leaves are tensors of their own: drop ``params`` to free the full
+    tree."""
+    plans = tree_param_shardings(mesh, params, fsdp=cfg.fsdp)
+    return tree_map(lambda plan, x: plan.local(x), plans, params), plans

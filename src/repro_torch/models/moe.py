@@ -25,17 +25,31 @@ exactly ±0, so they are left out.
 deepseek-v2 extras: shared (always-on) experts and a first dense layer;
 arctic: a dense FFN residual in parallel with the routed experts.
 
-Only the single-device branch is ported: with a mesh in scope whose
-``model`` axis is larger than 1, :func:`moe_forward` raises (expert
-parallelism comes with the LM zoo on a mesh, ``ROADMAP.md`` Queue A item
-9.8).
+On a mesh (the reference's ``shard_map`` branch), with a ``model`` axis
+of tp > 1 that divides E: expert parallelism.  Each rank holds experts
+``[m·E/tp, (m+1)·E/tp)`` and routes its data shard's T_loc tokens with
+the replicated router, so each expert's capacity is chosen over T_loc
+tokens (the reference's local ``top_k``); the router and the tokens enter
+through ``copy_to`` (their gradients, which flow only through this rank's
+experts, are summed over the model group, as the reference's ``shard_map``
+transpose sums them), and each rank's combine (its experts in ascending
+order) is summed over the model group.  The sum over ranks adds the same
+terms as the single-device combine in another grouping, so the two agree
+to rounding, not bit for bit.  With a model axis of 1 and a data axis
+larger than 1, the reference's single-device branch routes over the
+*global* batch: the token rows are gathered over the data group, every
+data rank runs the single-device branch on all of them and keeps its own
+rows (the gradient of the gathered rows is summed over the data group and
+then sliced).  The shared experts and the dense residual run as
+tensor-parallel FFNs.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.launch.sharding import current_mesh
+from repro_torch.launch.collectives import (copy_to, data_group, gather,
+                                           model_group, reduce_from)
 from repro_torch.models.common import activation, dense_init, model_dtype
 from repro_torch.models.ffn import ffn_forward, init_ffn
 
@@ -141,23 +155,38 @@ def _routed_experts(xt, router, w1, w3, w2, *, cfg: ArchConfig,
 
 
 def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """x: [B, S, d] -> [B, S, d] (the reference's single-device branch)."""
-    mesh = current_mesh()
-    if (mesh is not None and "model" in mesh.axis_names
-            and mesh.shape["model"] > 1):
-        raise NotImplementedError(
-            "expert parallelism over a mesh's model axis is not ported yet "
-            "(the LM zoo on a mesh, ROADMAP.md Queue A item 9.8)")
+    """x: [B, S, d] -> [B, S, d] (module docstring for the mesh's
+    branches)."""
     m = cfg.moe
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    out = _routed_experts(xt, p["router"], p["experts_w1"], p["experts_w3"],
-                          p["experts_w2"], cfg=cfg,
-                          num_local_experts=m.num_experts, expert_offset=0)
+    group, tp, rank = model_group()
+    w = (p["router"], p["experts_w1"], p["experts_w3"], p["experts_w2"])
+    if group is not None:
+        if m.num_experts % tp:
+            raise NotImplementedError(
+                f"{m.num_experts} experts on a model axis of {tp}: the "
+                "reference's single-device branch over experts split by "
+                "their hidden dim is not ported")
+        e_loc = m.num_experts // tp
+        out = _routed_experts(copy_to(xt, group), copy_to(w[0], group),
+                              *w[1:], cfg=cfg, num_local_experts=e_loc,
+                              expert_offset=rank * e_loc)
+        out = reduce_from(out, group)
+    else:
+        dgroup, _, drank = data_group()
+        xs = gather(xt, dgroup, dim=0, partial=True)  # the global batch
+        out = _routed_experts(xs, *w, cfg=cfg,
+                              num_local_experts=m.num_experts,
+                              expert_offset=0)
+        if dgroup is not None:
+            out = out[drank * xt.shape[0]:(drank + 1) * xt.shape[0]]
     if m.num_shared:
-        out = out + ffn_forward(p["shared"], cfg.ffn_act, xt, gated=True)
+        out = out + ffn_forward(p["shared"], cfg.ffn_act, xt, gated=True,
+                                d_ff=m.d_expert * m.num_shared)
     if m.dense_residual:
-        out = out + ffn_forward(p["dense"], cfg.ffn_act, xt, gated=True)
+        out = out + ffn_forward(p["dense"], cfg.ffn_act, xt, gated=True,
+                                d_ff=cfg.d_ff)
     return out.reshape(b, s, d)
 
 

@@ -15,11 +15,14 @@ gradients are the same bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Callable
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.launch.sharding import current_mesh, use_mesh
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -62,6 +65,18 @@ def _unbind_layers(tree: Any) -> list:
             for i in range(leaves[0].shape[0])]
 
 
+def remat_call(f: Callable, *args):
+    """``f(*args)`` under ``torch.utils.checkpoint`` (non-reentrant: only
+    the inputs are kept, ``f`` runs again in backward).  Backward can run
+    on another thread than the forward (CUDA's autograd has a thread per
+    device), so the recompute re-enters the mesh scope of the forward
+    (``launch.sharding.use_mesh``), which the layers' mesh branches
+    read."""
+    mesh = current_mesh()
+    return checkpoint(f, *args, use_reentrant=False, context_fn=lambda: (
+        contextlib.nullcontext(), use_mesh(mesh)))
+
+
 def scan(f: Callable, init: Any, xs: Any, remat: bool = False):
     """``lax.scan`` as a loop: ``carry, y = f(carry, layer_i)`` for each
     layer in order (module docstring: one ``unbind`` per leaf); returns
@@ -71,7 +86,7 @@ def scan(f: Callable, init: Any, xs: Any, remat: bool = False):
     reference's ``jax.checkpoint`` of the scan body: only the step's inputs
     are kept, the rest is recomputed in backward)."""
     if remat and torch.is_grad_enabled():
-        f = functools.partial(checkpoint, f, use_reentrant=False)
+        f = functools.partial(remat_call, f)
     carry, ys = init, []
     for bp in _unbind_layers(xs):
         carry, y = f(carry, bp)

@@ -13,6 +13,13 @@ layers) are consecutive layer groups, as in the reference.
 Decode: stacked per-layer caches written in place (dense KV, the
 sliding-window ring of ``models/attention.py``, or MLA's compressed
 cache); the state's ``pos`` is a Python int.
+
+On a mesh (``launch.sharding.use_mesh``), the blocks run their tensor-
+and expert-parallel forms, and the embedding and unembedding follow the
+rule table: a tied table split by vocab rows (a masked lookup summed over
+the model group; the logits this rank's vocab slice, reduced by the
+vocab-parallel cross-entropy), an untied input table by d_model columns
+(gathered), an untied unembedding by vocab columns.
 """
 from __future__ import annotations
 
@@ -21,6 +28,9 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.collectives import (copy_to, gather, model_group,
+                                           vocab_embed)
+from repro_torch.launch.sharding import model_sharded
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
@@ -59,7 +69,7 @@ def block_forward(bp: dict, cfg: ArchConfig, h: torch.Tensor,
         h = h + moe_mod.moe_forward(bp["moe"], cfg, x2)
     else:
         h = h + ffn_mod.ffn_forward(bp["ffn"], cfg.ffn_act, x2,
-                                    cfg.gated_ffn)
+                                    cfg.gated_ffn, d_ff=cfg.d_ff)
     if cfg.bf16_grad_stream:
         h = grad_cast(h)          # backward cotangent pinned to h.dtype
     return h, new_cache
@@ -122,19 +132,36 @@ def _scan_group(params_g, cfg: ArchConfig, h, positions, kind: str,
 
 def embed_tokens(params: dict, cfg: ArchConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    table = params["embed_in"] if "embed_in" in params else params["embed"]
-    h = table[tokens.long()]
+    """The token embeddings [B, S, d].  On a mesh whose model axis shards
+    the table (the rule table: a tied ``embed`` by vocab rows, an untied
+    ``embed_in`` by d_model columns), a masked lookup of the local rows
+    summed over the model group, or the local columns gathered."""
+    group, _, index = model_group()
+    if "embed_in" in params:
+        h = params["embed_in"][tokens.long()]
+        if group is not None and model_sharded(cfg.d_model):
+            h = gather(h, group, dim=-1, partial=False)
+    elif group is not None and model_sharded(cfg.vocab_size):
+        h = vocab_embed(params["embed"], tokens, group, index)
+    else:
+        h = params["embed"][tokens.long()]
     if cfg.scale_embed:
         h = h * (cfg.d_model ** 0.5)
     return h
 
 
 def unembed_weight(params: dict, cfg: ArchConfig) -> torch.Tensor:
+    """[d, V] (on a mesh that shards the vocab: this rank's V columns)."""
     return params["embed"].T if cfg.tie_embeddings else params["unembed"]
 
 
 def unembed(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    return rms_norm(h, params["final_norm"]) @ unembed_weight(params, cfg)
+    """Logits [..., V]: on a mesh that shards the vocab, this rank's
+    slice (``cross_entropy(..., vocab=)`` reduces over it)."""
+    h = rms_norm(h, params["final_norm"])
+    if model_sharded(cfg.vocab_size):
+        h = copy_to(h, model_group()[0])
+    return h @ unembed_weight(params, cfg)
 
 
 def token_positions(b: int, s: int, start: int, device) -> torch.Tensor:
@@ -175,11 +202,11 @@ def lm_loss(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
         mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
         mask[:, -1] = 0.0
         return chunked_unembed_ce(h, unembed_weight(params, cfg), labels,
-                                  mask, cfg.chunked_ce)
+                                  mask, cfg.chunked_ce, vocab=cfg.vocab_size)
     logits = lm_forward(params, cfg, tokens, prefix_embeds=prefix)
     if prefix is not None:
         logits = logits[:, prefix.shape[1]:]          # text positions only
-    return cross_entropy(logits[:, :-1], tokens[:, 1:])
+    return cross_entropy(logits[:, :-1], tokens[:, 1:], vocab=cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------

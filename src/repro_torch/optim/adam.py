@@ -40,10 +40,30 @@ class AdamConfig:
     moment_dtype: Any = torch.float32  # torch.bfloat16 halves moment memory
 
 
-def global_norm(grads) -> torch.Tensor:
-    """The L2 norm of every leaf of ``grads`` together, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(grads)))
+def global_norm(grads, plans=None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``grads`` together, in f32.
+
+    ``plans``: the leaves' ``ShardPlan``s on a mesh (``launch/
+    sharding.py``), where ``grads`` holds this rank's blocks: the squares
+    of the leaves that shard over some axes are summed over those axes'
+    groups, and a replicated leaf counts once, so every rank gets the
+    norm of the full tree."""
+    if plans is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in tree_leaves(grads)))
+    from repro_torch.launch.collectives import all_reduce
+    sums: dict = {}                  # the axes a leaf shards over -> sum
+    mesh = None
+    for g, plan in zip(tree_leaves(grads), tree_leaves(plans)):
+        sq = torch.sum(torch.square(g.float()))
+        sums[plan.axes] = sums[plan.axes] + sq if plan.axes in sums else sq
+        mesh = plan.mesh
+    total = None
+    for axes, sq in sums.items():     # one order on every rank
+        for a in sorted(axes):
+            sq = all_reduce(sq, mesh.group(a))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
 def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -78,13 +98,17 @@ class AdamW:
                 "step": 0}
 
     @torch.no_grad()
-    def update(self, grads: dict, state: dict, params: dict) -> tuple:
+    def update(self, grads: dict, state: dict, params: dict,
+               plans=None) -> tuple:
         """One step, in place (module docstring).  Returns ``(params,
-        state)``."""
+        state)``.  ``plans``: on a mesh, the leaves' ``ShardPlan``s (the
+        clipping norm is the full tree's, :func:`global_norm`); the
+        moments are the shape of the local leaves, so they follow the
+        plans."""
         cfg = self.cfg
         scale = None                 # clipping, applied leaf by leaf below
         if cfg.clip_norm is not None:
-            scale = _clip_scale(global_norm(grads), cfg.clip_norm)
+            scale = _clip_scale(global_norm(grads, plans), cfg.clip_norm)
         step = state["step"] + 1
         lr, b1, b2 = cfg.lr, cfg.b1, cfg.b2
         if self.lr_schedule is not None:      # f32, as the reference's jnp

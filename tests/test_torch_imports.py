@@ -17,7 +17,7 @@ REPO = Path(__file__).resolve().parents[1]
 # every module of the port's serving, training, LM serving, training-
 # surface (baselines, checkpoints, describe, schedules, trainer), fabric /
 # streaming-ingest (with the runtime lock sanitizer), RPC, mesh, static
-# analysis, LM training and recurrent LM slices
+# analysis, LM training, recurrent LM and LM-on-a-mesh slices
 REQUIRED = (
     "repro_torch.device", "repro_torch.core.pipeline",
     "repro_torch.sampling.rng", "repro_torch.sampling.adjacency",
@@ -51,7 +51,8 @@ REQUIRED = (
     "repro_torch.launch.train", "repro_torch.data.tokens",
     "repro_torch.models.ssm", "repro_torch.models.hybrid",
     "repro_torch.models.xlstm", "repro_torch.models.xlstm_lm",
-    "repro_torch.models.moe",
+    "repro_torch.models.moe", "repro_torch.launch.collectives",
+    "repro_torch.launch.specs", "repro_torch.optim.compression",
 )
 
 # the static passes: `import repro_torch.analysis` (which every threaded

@@ -6,8 +6,8 @@ parameters (``params_from_numpy``): ``init_moe``'s layout, the routing
 at capacity 1, with shared experts and with a dense residual; the
 deterministic combine against the reference's scatter-add and
 ``index_add_``; ``moe_aux_loss``; the
-gradient of ``moe_forward`` against ``jax.grad``; and the mesh branch's
-refusal.
+gradient of ``moe_forward`` against ``jax.grad``; and the refusal of a
+model axis that does not divide the experts.
 
 Tolerances: outputs and gradients rtol 1e-4, atol 1e-5 (the same f32
 products, summed in other orders by XLA and by PyTorch's CPU kernels);
@@ -255,18 +255,23 @@ def test_moe_forward_gradient_matches_jax_grad(case):
 
 
 def test_mesh_branch_raises_naming_its_item():
-    """With a mesh whose model axis is larger than 1 in scope,
-    ``moe_forward`` refuses (expert parallelism, item 9.8); a model axis
-    of 1 runs the single-device branch."""
+    """Expert parallelism needs the model axis to divide the experts: on
+    a model axis of 3, the reduced deepseek's 4 experts are refused before
+    any collective (the reference's branch for that case, experts split by
+    their hidden dim, is not ported); a mesh of one rank, or none, runs
+    the single-device branch.  The expert-parallel and global-batch
+    branches are held on ranks in ``tests/test_torch_lm_mesh_moe.py``."""
     jcfg, tcfg = _cfgs(DEEPSEEK)
     _, tp = _params(jcfg)
     x = torch.from_numpy(_x((1, 4, tcfg.d_model), seed=11))
-    two = types.SimpleNamespace(axis_names=("data", "model"),
-                                shape={"data": 1, "model": 2})
+    three = types.SimpleNamespace(axis_names=("data", "model"),
+                                  shape={"data": 1, "model": 3},
+                                  group=lambda axis: object(),
+                                  index=lambda axis: 0)
     one = types.SimpleNamespace(axis_names=("data", "model"),
-                                shape={"data": 2, "model": 1})
-    with use_mesh(two), pytest.raises(NotImplementedError,
-                                      match="Queue A item 9.8"):
+                                shape={"data": 1, "model": 1})
+    with use_mesh(three), pytest.raises(NotImplementedError,
+                                        match="4 experts on a model axis"):
         moe.moe_forward(tp, tcfg, x)
     with use_mesh(one):
         got = moe.moe_forward(tp, tcfg, x)
