@@ -1,11 +1,15 @@
 """Data substrate of the port: the synthetic token corpus and its
-prefetched loader (the LM trainers), temporal event streams (the
-serve-while-mutating ingest workload).  The reference's vocabulary cache
-(``repro.data.vocab_cache``) is not ported yet (``ROADMAP.md`` Queue A item
-9.5)."""
+prefetched loader (the LM trainers), the hot-vocabulary embedding cache
+(GNS's cache applied to LM tables), temporal event streams (the
+serve-while-mutating ingest workload)."""
 from repro_torch.data.temporal import (EventBatch, TemporalEventStream,
                                        temporal_event_stream)
 from repro_torch.data.tokens import SyntheticCorpus, TokenPipeline
+from repro_torch.data.vocab_cache import (VocabCache, VocabCacheConfig,
+                                          embed_with_cache,
+                                          sampled_softmax_loss)
 
 __all__ = ["SyntheticCorpus", "TokenPipeline",
+           "VocabCache", "VocabCacheConfig", "embed_with_cache",
+           "sampled_softmax_loss",
            "EventBatch", "TemporalEventStream", "temporal_event_stream"]

@@ -17,6 +17,16 @@ gradient of every replicated tensor (Megatron's f / g):
   as head-local attention uses gathered K/V, or as the data ranks each
   use a ZeRO-3 weight on their own rows) or only slices it (the gathered
   tensor is used whole and alike on every rank);
+* :func:`group_sum` — ``all_reduce`` forward and backward: a sum over
+  the group whose result every rank uses only in part (the mean of
+  squares of a norm over a feature dim the ranks split);
+* :func:`whole` — a leaf whole from this rank's block of it (the dim
+  where the shapes differ gathered; a leaf the rule table left whole
+  passes through, through :func:`copy_to` when ``partial``): the layers
+  that use a leaf in a way its split does not follow (Mamba2's ``conv_w``
+  across the ``x | B | C`` boundary, a head count that does not divide
+  the axis); :func:`head_split` picks between a layer's head-local form
+  and that whole form;
 * :func:`vocab_embed` and :func:`vocab_nll` — a lookup in a table whose
   rows (the vocab) are split over the group, and the token NLL of logits
   whose last dim is: the max, the sum of exponentials and the label's
@@ -31,7 +41,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.sharding import current_mesh
+from repro_torch.launch.sharding import current_mesh, model_sharded
 
 
 def model_group():
@@ -118,6 +128,44 @@ def gather(x: torch.Tensor, group, dim: int, partial: bool) -> torch.Tensor:
     """Every rank's ``x`` along ``dim``, in rank order (module docstring
     for ``partial``)."""
     return x if group is None else _Gather.apply(x, group, dim, partial)
+
+
+def group_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` forward, and the gradient summed over
+    it backward: each rank uses the sum only in part (module
+    docstring)."""
+    return copy_to(reduce_from(x, group), group)
+
+
+def whole(x: torch.Tensor, shape, group, partial: bool) -> torch.Tensor:
+    """The full ``shape`` of a leaf from this rank's block ``x`` of it,
+    split over ``group`` along at most one dim (module docstring):
+    ``partial`` as in :func:`gather` (whether the ranks each use the
+    whole leaf only in part)."""
+    if group is None:
+        return x
+    dims = [i for i, (a, b) in enumerate(zip(x.shape, shape)) if a != b]
+    if not dims:
+        return copy_to(x, group) if partial else x
+    if len(dims) > 1 or x.dim() != len(shape):
+        raise ValueError(f"a block {tuple(x.shape)} of {tuple(shape)}")
+    return gather(x, group, dim=dims[0], partial=partial)
+
+
+def head_split(p: dict, heads: int, shapes: dict) -> tuple:
+    """``(p, group, ranks, index)`` of a layer that runs its heads on the
+    model axis in scope: ``p`` as given when ``heads`` divide the axis
+    (the rule table then split its leaves along whole heads), else every
+    leaf gathered whole (``shapes``: the full ones) and the layer run
+    alike on every rank (group None, one rank); ``(p, None, 1, 0)``
+    without a model axis."""
+    group, tp, m = model_group()
+    if group is None:
+        return p, None, 1, 0
+    if heads % tp == 0 and model_sharded(heads):
+        return p, group, tp, m
+    return ({k: whole(v, shapes[k], group, partial=False)
+             for k, v in p.items()}, None, 1, 0)
 
 
 def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, group,

@@ -20,16 +20,15 @@ of a ``(data, model)`` world that ``launch.mesh.run_ranks`` started; every
 rank calls :func:`train_loop` alike), the parameters are drawn whole and
 sliced to this rank's blocks under the reference's rule table
 (``models.lm_params.shard_params``: tensor parallelism over ``model`` for
-the decoder-only families, expert parallelism for the MoE configs' experts,
-ZeRO-3 over ``data`` where ``cfg.fsdp``), and the AdamW moments follow.
+every family, heads for attention and the recurrent cells, expert
+parallelism for the MoE configs' experts, ZeRO-3 over ``data`` where
+``cfg.fsdp``), and the AdamW moments follow.
 Data rank ``d`` of ``D`` takes rows ``[d·B/D, (d+1)·B/D)`` of each
 (micro)batch, the ``[accum]`` dim whole; the step is the data-parallel one
 of ``launch/steps.py``.  Every rank of a model group computes the same
 loss; the losses reported are the global batch's.  Checkpoints gather
-each leaf whole and the leader (global rank 0) writes them.  Tensor
-parallelism for the enc-dec and recurrent families is not ported: on a
-model axis larger than 1 they raise ``NotImplementedError`` (``ROADMAP.md``
-item 9.8b).  ``examples/lm_pretrain_torch.py`` calls :func:`train_loop`.
+each leaf whole and the leader (global rank 0) writes them.
+``examples/lm_pretrain_torch.py`` calls :func:`train_loop`.
 
     python -m repro_torch.launch.train --arch seamless-m4t-medium \\
         --reduced --steps 10 --device cpu
@@ -90,16 +89,7 @@ def _pipeline(cfg, corpus: SyntheticCorpus, batch: int, seq_len: int,
 
 
 def _check_mesh(cfg, mesh, batch: int) -> None:
-    """Refuse what the mesh trainer does not run: tensor parallelism for
-    the enc-dec and recurrent families, and a batch the data axis does not
-    split evenly."""
-    if mesh.shape["model"] > 1 and (cfg.encoder_layers > 0
-                                    or cfg.xlstm is not None
-                                    or cfg.ssm is not None):
-        raise NotImplementedError(
-            f"{cfg.name} on a model axis of {mesh.shape['model']}: tensor "
-            "parallelism for the enc-dec and recurrent families is not "
-            "ported (ROADMAP.md item 9.8b); train it on (data, 1)")
+    """Refuse a batch the data axis does not split evenly."""
     rows = batch // max(cfg.grad_accum, 1)
     if rows % mesh.shape["data"]:
         raise ValueError(f"a batch of {rows} rows a microbatch does not "

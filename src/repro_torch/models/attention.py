@@ -47,17 +47,21 @@ its q heads; with a head count that does not divide, q, K and V are
 gathered and every rank attends over all heads, keeping its block of the
 output for ``wo``.  MLA runs head-local (``q_up``/``k_up``/``v_up``
 column blocks, ``wo`` a row block, ``q_down``/``kv_down`` replicated).
+Cross-attention (the enc-dec decoder's, training) runs head-local too:
+q from the decoder and K/V from the encoder output each this rank's heads,
+``wo`` a row block summed over the group (:func:`_cross_attend`).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ref import mha_ref
-from repro_torch.launch.collectives import (copy_to, gather, model_group,
-                                           reduce_from)
+from repro_torch.launch.collectives import (copy_to, gather, head_split,
+                                           model_group, reduce_from)
 from repro_torch.launch.sharding import model_sharded
 from repro_torch.models.common import (apply_rope, dense_init, model_dtype,
                                        rms_norm, zeros)
@@ -151,29 +155,18 @@ def attn_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
                            kv_cache=kv_cache, cache_pos=cache_pos)
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_eff
     if model_group()[0] is not None:
-        if kv_cache is not None or cross_kv is not None:
+        if kv_cache is not None:
             raise NotImplementedError(
-                "attention with a cache or cross-attention on a mesh's "
-                "model axis (serving on a mesh, ROADMAP.md item 10; the "
-                "enc-dec family's tensor parallelism, item 9.8b)")
-        if model_sharded(h * dh):   # else every projection is whole
+                "attention with a cache on a mesh's model axis (serving on "
+                "a mesh, ROADMAP.md item 10)")
+        if cross_kv is None and model_sharded(h * dh):
             return _attn_tp(p, cfg, x, positions, causal), None
+    if cross_kv is not None:
+        return _cross_attend(p, cfg, x, cross_kv), None
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
     q = _split_heads(q, h, dh)
-
-    if cross_kv is not None:
-        k, v = cross_kv                            # precomputed encoder K/V
-        if x.shape[1] > 1:
-            out = sharded_attention(q, k, v, causal=False, window=None,
-                                    impl=cfg.attn_impl)
-        else:
-            out = _attend(q, k, v, causal=False, window=None,
-                          impl=cfg.attn_impl)
-        b, s = x.shape[:2]
-        out = out.transpose(1, 2).reshape(b, s, h * dh)
-        return out @ p["wo"], None
 
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -315,11 +308,52 @@ def _ring_step(cache: dict, k: torch.Tensor, v: torch.Tensor,
     return q_pos, kv_pos, k_att, v_att
 
 
+def _cross_view(p: dict, cfg: ArchConfig) -> tuple:
+    """(p, group, local q heads, local KV heads) of cross-attention
+    (``collectives.head_split``): head-local when its q and K/V head
+    counts both divide the model axis, else the whole layer on every
+    rank."""
+    h, hkv, dh, d = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_eff,
+                     cfg.d_model)
+    shapes = {"wq": (d, h * dh), "bq": (h * dh,), "wo": (h * dh, d),
+              "wk": (d, hkv * dh), "bk": (hkv * dh,), "wv": (d, hkv * dh),
+              "bv": (hkv * dh,)}
+    p, group, tp, _ = head_split(p, math.gcd(h, hkv), shapes)
+    return p, group, h // tp, hkv // tp
+
+
+def _cross_attend(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                  cross_kv: tuple) -> torch.Tensor:
+    """Cross-attention over the encoder K/V of :func:`make_cross_kv`.  On
+    a model axis (training): q head-local, ``wo`` a row block and its
+    output summed over the group; or, with heads that do not divide the
+    axis, the whole layer on every rank."""
+    p, group, h, _ = _cross_view(p, cfg)
+    dh = cfg.head_dim_eff
+    b, s = x.shape[:2]
+    q = copy_to(x, group) @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    q = _split_heads(q, h, dh)
+    k, v = cross_kv                                # precomputed encoder K/V
+    if s > 1:
+        out = sharded_attention(q, k, v, causal=False, window=None,
+                                impl=cfg.attn_impl)
+    else:
+        out = _attend(q, k, v, causal=False, window=None,
+                      impl=cfg.attn_impl)
+    out = out.transpose(1, 2).reshape(b, s, h * dh)
+    return reduce_from(out @ p["wo"], group)
+
+
 def make_cross_kv(p: dict, cfg: ArchConfig, enc_out: torch.Tensor):
-    """Encoder K/V for the decoder's cross-attention."""
-    hkv, dh = cfg.num_kv_heads, cfg.head_dim_eff
-    k = _split_heads(enc_out @ p["wk"], hkv, dh)
-    v = _split_heads(enc_out @ p["wv"], hkv, dh)
+    """Encoder K/V for the decoder's cross-attention (on a model axis:
+    this rank's KV heads, or every head; :func:`_cross_attend`)."""
+    p, group, _, hkv = _cross_view(p, cfg)
+    dh = cfg.head_dim_eff
+    enc = copy_to(enc_out, group)
+    k = _split_heads(enc @ p["wk"], hkv, dh)
+    v = _split_heads(enc @ p["wv"], hkv, dh)
     return k, v
 
 

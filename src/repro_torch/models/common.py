@@ -11,18 +11,21 @@ parameters land), and parity with the reference goes through
 The cross-entropies read the mesh in scope (``launch.sharding.use_mesh``):
 a rank's loss is its rows' NLL sum over the whole data-parallel batch's
 count, and logits holding this rank's vocab slice take the
-vocab-parallel NLL (``launch/collectives.py``).
+vocab-parallel NLL (``launch/collectives.py``).  :func:`rms_norm` takes
+a model group when each rank holds a slice of the normalised dim (the
+recurrent cells' norms under tensor parallelism).
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.launch.collectives import (all_reduce, copy_to, data_group,
-                                           model_group, vocab_nll)
+                                           group_sum, model_group, vocab_nll)
 from repro_torch.models.scan_util import remat_call, tree_map
 
 
@@ -59,9 +62,16 @@ def zeros(gen: torch.Generator, shape: tuple,
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
+             eps: float = 1e-6, group=None) -> torch.Tensor:
+    """``group``: ``x`` and ``scale`` hold this rank's slice of a feature
+    dim that the ranks of ``group`` split evenly, and the mean of squares
+    runs over the whole dim (its sum over the group, ``group_sum``)."""
     x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
+    if group is None:
+        var = x32.square().mean(dim=-1, keepdim=True)
+    else:
+        var = group_sum(x32.square().sum(dim=-1, keepdim=True), group) / (
+            x.shape[-1] * dist.get_world_size(group))
     out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())
     return out.to(x.dtype)
 

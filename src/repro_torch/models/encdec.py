@@ -15,6 +15,13 @@ step re-reads the cross context but never re-runs the encoder.  The caches
 are written in place (see ``models/attention.py``): the state that
 :func:`decode_step` returns holds the same cache tensors as the one it was
 given, and its ``pos`` is a Python int.
+
+On a mesh's model axis (training), both stacks run the tensor-parallel
+branches of ``models/attention.py`` and ``models/ffn.py`` (the decoder's
+cross-attention head-local), the untied input table's d_model columns are
+gathered and the unembedding holds this rank's vocab columns, which the
+cross-entropy reduces (``vocab``); a vocab the axis does not divide stays
+whole (the rule table's fallback) and takes the plain cross-entropy.
 """
 from __future__ import annotations
 
@@ -87,7 +94,8 @@ def encode(params: dict, cfg: ArchConfig,
                                  positions, causal=False)
         x = x + a
         x = x + ffn_mod.ffn_forward(bp["ffn"], cfg.ffn_act,
-                                    rms_norm(x, bp["norm2"]), cfg.gated_ffn)
+                                    rms_norm(x, bp["norm2"]), cfg.gated_ffn,
+                                    d_ff=cfg.d_ff)
         return x, None
 
     h, _ = scan_util.scan(body, h, params["encoder"], remat=cfg.remat)
@@ -126,7 +134,8 @@ def _dec_block(bp, cfg: ArchConfig, h, positions, enc_out=None,
                               positions, cross_kv=cross_kv)
     h = h + xa
     h = h + ffn_mod.ffn_forward(bp["ffn"], cfg.ffn_act,
-                                rms_norm(h, bp["norm2"]), cfg.gated_ffn)
+                                rms_norm(h, bp["norm2"]), cfg.gated_ffn,
+                                d_ff=cfg.d_ff)
     return h, new_cache
 
 
@@ -144,7 +153,8 @@ def encdec_loss(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
 
     h, _ = scan_util.scan(body, h, params["decoder"], remat=cfg.remat)
     logits = unembed(params, cfg, h)
-    return cross_entropy(logits[:, :-1], tokens[:, 1:])
+    return cross_entropy(logits[:, :-1], tokens[:, 1:],
+                         vocab=cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------

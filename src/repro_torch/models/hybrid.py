@@ -16,6 +16,12 @@ Pure-SSM configs (``shared_attn_every == 0``) run one loop over all Mamba2
 blocks.  Decode states are real allocations: the recurrent states are
 updated and the KV caches written in place (``models/ssm.py``,
 ``models/attention.py``); ``pos`` is a Python int.
+
+On a mesh's model axis (training), the Mamba2 blocks run their heads
+(``models/ssm.py``), the shared block the dense tensor-parallel branches
+of attention and FFN (the rule table reaches its leaves under ``shared/``
+by their names), and the embeddings follow the rule table as the
+decoder-only family's do (``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -106,7 +112,8 @@ def _shared_block(sp, cfg: ArchConfig, h, positions, cache=None,
                                      cache_pos=cache_pos)
     h = h + a
     h = h + ffn_mod.ffn_forward(sp["ffn"], cfg.ffn_act,
-                                rms_norm(h, sp["norm2"]), cfg.gated_ffn)
+                                rms_norm(h, sp["norm2"]), cfg.gated_ffn,
+                                d_ff=cfg.d_ff)
     return h, new_cache
 
 
@@ -134,7 +141,8 @@ def hybrid_loss(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     reference)."""
     tokens = batch["tokens"]
     logits = hybrid_forward(params, cfg, tokens)
-    return cross_entropy(logits[:, :-1], tokens[:, 1:])
+    return cross_entropy(logits[:, :-1], tokens[:, 1:],
+                         vocab=cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------

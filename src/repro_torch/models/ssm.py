@@ -20,6 +20,22 @@ the new values and the same dict is returned, as the port's KV caches are
 (``models/attention.py``).  The buffers are f32; the conv buffer holds the
 activation dtype's values, which the reference's state takes after its
 first step, so every step reads the reference's values.
+
+On a mesh's model axis (training), a rank runs its heads: the rule table
+splits ``in_proj`` into contiguous column blocks of the concatenated
+``[z | x | B | C | dt]``, which do not follow the heads (zamba2's 10,448
+columns are 5,224 a rank on 2 ranks: all of z and 104 of x), so each
+rank computes its column block's product and the blocks are gathered
+(the activations, ``[B, S, 10448]``, not the weight; the gradient summed
+over the group and sliced back), and a rank then takes its heads' z, x
+and dt and the whole B and C.  ``conv_w`` (its channels split across the
+``x | B | C`` boundary in the same way, 4 x 5,248 values) is gathered
+whole for use, and a rank convolves its x channels and B and C.
+``a_log``, ``ssm_d`` and ``dt_bias`` hold this rank's heads, the gated
+norm runs over the whole ``d_inner`` (``rms_norm``'s group),
+``out_proj`` holds the heads' rows and its output is summed over the
+group.  Heads that do not divide the axis run the block whole on every
+rank (every leaf gathered).
 """
 from __future__ import annotations
 
@@ -29,6 +45,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.collectives import (copy_to, gather, head_split,
+                                           model_group, reduce_from, whole)
 from repro_torch.models.common import dense_init, model_dtype, rms_norm, zeros
 
 
@@ -91,38 +109,71 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(y), new_state
 
 
+def _leaf_shapes(cfg: ArchConfig) -> dict:
+    """The full shape of each leaf of one block (``init_ssm``'s)."""
+    s = cfg.ssm
+    d = cfg.d_model
+    d_inner, n_heads = _dims(cfg)
+    gn = s.n_groups * s.d_state
+    conv_dim = d_inner + 2 * gn
+    return {"in_proj": (d, 2 * d_inner + 2 * gn + n_heads),
+            "conv_w": (s.d_conv, conv_dim), "conv_b": (conv_dim,),
+            "a_log": (n_heads,), "ssm_d": (n_heads,), "dt_bias": (n_heads,),
+            "norm_scale": (d_inner,), "out_proj": (d_inner, d)}
+
+
 def ssm_forward(p: dict, cfg: ArchConfig, x_in: torch.Tensor,
                 state: Optional[dict] = None):
     """x_in: [B, S, d].  Returns (y, state | None).
 
     Train / prefill: state None (chunked SSD).  Decode: state holds
     {"conv": [B,K-1,convdim], "ssd": [B,H,P,N]}, updated in place over the
-    S tokens (module docstring)."""
+    S tokens (module docstring).  On a model axis, this rank's heads
+    (module docstring)."""
     s_cfg = cfg.ssm
     d_inner, n_heads = _dims(cfg)
     b, seq, _ = x_in.shape
     hd, n = s_cfg.head_dim, s_cfg.d_state
     gn = s_cfg.n_groups * n
+    if state is not None and model_group()[0] is not None:
+        raise NotImplementedError(
+            "the Mamba2 recurrent form on a mesh's model axis (serving on "
+            "a mesh, ROADMAP.md item 10)")
+    p, group, tp, m = head_split(p, n_heads, _leaf_shapes(cfg))
+    hl, dl = n_heads // tp, d_inner // tp          # this rank's heads
+    mine = slice(m * dl, (m + 1) * dl)
 
-    proj = x_in @ p["in_proj"]
+    width = _leaf_shapes(cfg)["in_proj"][1]
+    if p["in_proj"].shape[-1] < width:       # the column-local product
+        proj = gather(copy_to(x_in, group) @ p["in_proj"], group, dim=-1,
+                      partial=True)
+    else:
+        proj = copy_to(x_in @ p["in_proj"], group)
     z, x, bb, cc, dt_raw = _split_proj(cfg, proj)
+    z, x, dt_raw = z[..., mine], x[..., mine], dt_raw[..., m * hl:
+                                                      (m + 1) * hl]
+    conv_shape = _leaf_shapes(cfg)["conv_w"]
+    conv_w = whole(p["conv_w"], conv_shape, group, partial=True)
+    conv_b = whole(p["conv_b"], conv_shape[1:], group, partial=True)
+    if tp > 1:                       # this rank's x channels, B and C whole
+        conv_w = torch.cat([conv_w[:, mine], conv_w[:, d_inner:]], dim=1)
+        conv_b = torch.cat([conv_b[mine], conv_b[d_inner:]])
     conv_in = torch.cat([x, bb, cc], dim=-1)
     conv_state = state["conv"] if state is not None else None
-    conv_out, new_conv = _causal_conv(conv_in, p["conv_w"], p["conv_b"],
-                                      conv_state)
-    x, bb, cc = torch.split(conv_out, [d_inner, gn, gn], dim=-1)
+    conv_out, new_conv = _causal_conv(conv_in, conv_w, conv_b, conv_state)
+    x, bb, cc = torch.split(conv_out, [dl, gn, gn], dim=-1)
 
     dt = F.softplus(dt_raw.float() + p["dt_bias"])                    # [B,S,H]
     a = -torch.exp(p["a_log"])                                        # [H]
     decay = torch.exp(dt * a)                                         # (0,1)
 
-    xh = x.reshape(b, seq, n_heads, hd).float()
-    # group -> head broadcast (n_groups = 1 for zamba2)
+    xh = x.reshape(b, seq, hl, hd).float()
+    # group -> head broadcast (n_groups = 1 for zamba2), this rank's heads
     rep = n_heads // s_cfg.n_groups
     bbh = bb.reshape(b, seq, s_cfg.n_groups, n).repeat_interleave(
-        rep, dim=2).float()
+        rep, dim=2)[:, :, m * hl:(m + 1) * hl].float()
     cch = cc.reshape(b, seq, s_cfg.n_groups, n).repeat_interleave(
-        rep, dim=2).float()
+        rep, dim=2)[:, :, m * hl:(m + 1) * hl].float()
     dx = xh * dt[..., None]                                           # dt·x
 
     if state is not None:
@@ -143,9 +194,10 @@ def ssm_forward(p: dict, cfg: ArchConfig, x_in: torch.Tensor,
         y = y + xh * p["ssm_d"][None, None, :, None]
         new_state = None
 
-    y = y.reshape(b, seq, d_inner).to(x_in.dtype)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm_scale"])
-    return y @ p["out_proj"], new_state
+    y = y.reshape(b, seq, dl).to(x_in.dtype)
+    scale = whole(p["norm_scale"], (d_inner,), group, partial=True)[mine]
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype), scale, group=group)
+    return reduce_from(y @ p["out_proj"], group), new_state
 
 
 def _intra_decay(cum: torch.Tensor) -> torch.Tensor:

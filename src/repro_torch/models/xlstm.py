@@ -24,6 +24,18 @@ sequential by construction: a loop over time, as the reference's
 The maxima take ``torch.amax`` / ``torch.maximum``, whose gradients split
 evenly among tied entries, as JAX's do.  Decode states are f32 and updated
 in place (the dict handed in is the one returned); ``m`` starts at -1e30.
+
+On a mesh's model axis (training), each cell runs this rank's heads with
+no collective inside its recurrence.  mLSTM: ``wq``/``wk``/``wv`` hold
+whole heads' columns (the reference constrains q to heads on ``model``),
+``w_up`` is whole and its output enters the region through ``copy_to``,
+the whole ``w_if``, ``w_o`` and ``norm_scale`` give each rank its heads'
+columns (their gradients summed over the group), the norm runs over the
+whole ``d_inner`` and ``w_down``'s row block is summed over the group.
+sLSTM: ``w_ih``'s head-major ``[d, 4d]`` columns are this rank's heads,
+``w_hh`` (whole by its rule) gives them their ``[hd, 4hd]`` blocks, and
+the norm and ``w_down`` as the mLSTM's.  Heads that do not divide the
+axis (reduced xlstm's 2 on 4 ranks) run the cell whole on every rank.
 """
 from __future__ import annotations
 
@@ -33,6 +45,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.collectives import (copy_to, head_split,
+                                           model_group, reduce_from)
 from repro_torch.models.common import dense_init, model_dtype, rms_norm, zeros
 
 
@@ -47,6 +61,16 @@ def _copy_into(state: dict, new: dict) -> dict:
     for k, v in new.items():
         state[k].copy_(v)
     return state
+
+
+def _heads_view(p: dict, cfg: ArchConfig, state, shapes: dict) -> tuple:
+    """``collectives.head_split`` of a cell (module docstring); the
+    recurrent form refused on a model axis."""
+    if state is not None and model_group()[0] is not None:
+        raise NotImplementedError(
+            "the xLSTM recurrent form on a mesh's model axis (serving on a "
+            "mesh, ROADMAP.md item 10)")
+    return head_split(p, cfg.xlstm.num_heads, shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -76,18 +100,31 @@ def _causal_max(dmat: torch.Tensor, q: int) -> tuple:
     return dmat, torch.amax(dmat, dim=-1)
 
 
+def _mlstm_shapes(cfg: ArchConfig) -> dict:
+    d = cfg.d_model
+    d_inner, d_qk, nh = _dims(cfg)
+    return {"w_up": (d, 2 * d_inner), "wq": (d_inner, d_qk),
+            "wk": (d_inner, d_qk), "wv": (d_inner, d_inner),
+            "w_if": (d_inner, 2 * nh), "w_o": (d_inner, d_inner),
+            "norm_scale": (d_inner,), "w_down": (d_inner, d)}
+
+
 def mlstm_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
                   state: Optional[dict] = None):
     d_inner, d_qk, nh = _dims(cfg)
     b, s, _ = x.shape
     hq, hv = d_qk // nh, d_inner // nh
+    p, group, tp, m = _heads_view(p, cfg, state, _mlstm_shapes(cfg))
+    nh //= tp                                       # this rank's heads
+    mine = slice(m * nh * hv, (m + 1) * nh * hv)    # their d_inner columns
 
-    up = x @ p["w_up"]
+    up = copy_to(x @ p["w_up"], group)
     inner, gate = torch.chunk(up, 2, dim=-1)
     q = (inner @ p["wq"]).reshape(b, s, nh, hq).transpose(1, 2)
     k = (inner @ p["wk"]).reshape(b, s, nh, hq).transpose(1, 2)
     v = (inner @ p["wv"]).reshape(b, s, nh, hv).transpose(1, 2)
-    gates = (inner @ p["w_if"]).float().reshape(b, s, nh, 2)
+    w_if = copy_to(p["w_if"], group)[:, 2 * m * nh:2 * (m + 1) * nh]
+    gates = (inner @ w_if).float().reshape(b, s, nh, 2)
     i_raw = gates[..., 0].transpose(1, 2)                      # [B,H,S]
     f_raw = gates[..., 1].transpose(1, 2)
     logf = F.logsigmoid(f_raw)
@@ -133,10 +170,12 @@ def mlstm_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
         h = torch.stack(hs, dim=2)                             # [B,H,S,hv]
         new_state = _copy_into(state, {"c": c_mat, "n": n_vec, "m": m_run})
 
-    h = h.transpose(1, 2).reshape(b, s, d_inner).to(x.dtype)
-    o = torch.sigmoid((inner @ p["w_o"]).float()).to(x.dtype)
-    h = rms_norm(h, p["norm_scale"]) * o * F.silu(gate)
-    return h @ p["w_down"], new_state
+    h = h.transpose(1, 2).reshape(b, s, nh * hv).to(x.dtype)
+    w_o = copy_to(p["w_o"], group)[:, mine]
+    o = torch.sigmoid((inner @ w_o).float()).to(x.dtype)
+    scale = copy_to(p["norm_scale"], group)[mine]
+    h = rms_norm(h, scale, group=group) * o * F.silu(gate[..., mine])
+    return reduce_from(h @ p["w_down"], group), new_state
 
 
 def _mlstm_chunked(q, k, v, i_raw, logf, chunk: int):
@@ -232,23 +271,37 @@ def init_slstm(gen: torch.Generator, cfg: ArchConfig) -> dict:
     }
 
 
+def _slstm_shapes(cfg: ArchConfig) -> dict:
+    d = cfg.d_model
+    nh = cfg.xlstm.num_heads
+    hd = d // nh
+    return {"w_ih": (d, 4 * d), "w_hh": (nh, hd, 4 * hd),
+            "b_gates": (4 * d,), "norm_scale": (d,), "w_down": (d, d)}
+
+
 def slstm_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
                   state: Optional[dict] = None):
     """Sequential over the S tokens.  Without ``state`` it starts from
     zeros (``m`` -1e30) and returns None; with it, it continues from the
-    state and updates it in place."""
+    state and updates it in place.  On a model axis, this rank's heads
+    (module docstring)."""
     d = cfg.d_model
     nh = cfg.xlstm.num_heads
     hd = d // nh
     b, s, _ = x.shape
-    carry = state if state is not None else init_slstm_state(
-        cfg, b, device=x.device)
+    p, group, tp, r = _heads_view(p, cfg, state, _slstm_shapes(cfg))
+    heads = slice(r * nh // tp, (r + 1) * nh // tp)     # this rank's heads
+    nh, d = nh // tp, d // tp
+    carry = state if state is not None else {
+        k: v[:, heads] for k, v in init_slstm_state(
+            cfg, b, device=x.device).items()}
 
-    gx = (x @ p["w_ih"]).float() + p["b_gates"]                 # [B,S,4d]
+    b_gates = copy_to(p["b_gates"], group)[r * 4 * d:(r + 1) * 4 * d]
+    gx = (copy_to(x, group) @ p["w_ih"]).float() + b_gates      # [B,S,4d]
     # head-major inside the loop: the recurrent product and the input
     # gates are one baddbmm per step ([nh, B, 4hd])
     gx = gx.reshape(b, s, nh, 4 * hd).permute(1, 2, 0, 3).contiguous()
-    w_hh = p["w_hh"].float()
+    w_hh = copy_to(p["w_hh"], group)[heads].float()
     one = torch.ones((), dtype=torch.float32, device=x.device)  # n == 1 ties
     h, c, n, m = (carry[k].transpose(0, 1) for k in ("h", "c", "n", "m"))
     hs = []
@@ -266,11 +319,13 @@ def slstm_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
         hs.append(h)
     h, c, n, m = (t.transpose(0, 1) for t in (h, c, n, m))     # [B,nh,hd]
     out = torch.stack(hs).permute(2, 0, 1, 3).reshape(b, s, d).to(x.dtype)
-    out = rms_norm(out, p["norm_scale"])
+    scale = copy_to(p["norm_scale"], group)[heads.start * hd:
+                                            heads.stop * hd]
+    out = rms_norm(out, scale, group=group)
     new_state = None
     if state is not None:
         new_state = _copy_into(state, {"h": h, "c": c, "n": n, "m": m})
-    return out @ p["w_down"], new_state
+    return reduce_from(out @ p["w_down"], group), new_state
 
 
 def init_slstm_state(cfg: ArchConfig, batch: int, *, device) -> dict:

@@ -10,6 +10,11 @@ Every block is pre-norm residual: ``h = h + block(rms_norm(h))``.
 ``torch.utils.checkpoint``.  Decode state is O(1) per layer (mLSTM matrix
 memory, sLSTM scalar cells), one real allocation per layer, updated in
 place; ``pos`` is a Python int.
+
+On a mesh's model axis (training), the cells run their heads
+(``models/xlstm.py``) and the tied table is split by vocab rows (a masked
+lookup summed over the group; the logits this rank's vocab slice,
+reduced by the vocab-parallel cross-entropy).
 """
 from __future__ import annotations
 
@@ -87,7 +92,8 @@ def xlstm_loss(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     reference)."""
     tokens = batch["tokens"]
     logits = xlstm_forward(params, cfg, tokens)
-    return cross_entropy(logits[:, :-1], tokens[:, 1:])
+    return cross_entropy(logits[:, :-1], tokens[:, 1:],
+                         vocab=cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------

@@ -83,6 +83,33 @@ def train_ranks(mesh, device, cells: list, params: dict,
     return out
 
 
+def tp_ranks(mesh, device, cells: list, params: dict, ckpt_dir=None,
+             resume: bool = False, layer_cases: list = ()) -> dict:
+    """The enc-dec and recurrent families under tensor parallelism
+    (``tests/test_torch_lm_mesh_tp.py``): ``cells`` as in
+    :func:`train_ranks`; with ``ckpt_dir``, each cell's arch either trains
+    3 steps uninterrupted and 2 with a checkpoint under ``ckpt_dir/name``
+    (``resume`` False) or resumes from that checkpoint to step 3; then
+    :func:`layer_ranks` of ``layer_cases``."""
+    torch.set_num_threads(1)
+    out = {"train": {}, "full3": {}, "resumed": {}}
+    for name, arch, kw in cells:
+        cfg, p = cfg_of(arch, kw), params[arch]
+        out["train"][name] = train(cfg, p, mesh, device)
+        if ckpt_dir is None:
+            continue
+        ck = f"{ckpt_dir}/{name}"
+        if resume:
+            out["resumed"][name] = train(cfg, p, mesh, device, steps=3,
+                                         ckpt_dir=ck, ckpt_every=100,
+                                         resume=True)[0]
+        else:
+            out["full3"][name] = train(cfg, p, mesh, device, steps=3)[0]
+            train(cfg, p, mesh, device, steps=2, ckpt_dir=ck, ckpt_every=2)
+    out["layers"] = layer_ranks(mesh, device, list(layer_cases))
+    return out
+
+
 def moe_ranks(mesh, device, cfg, np_params: dict, x: np.ndarray,
               w: np.ndarray) -> dict:
     """One MoE layer on this mesh (expert parallel on model > 1, the
@@ -134,4 +161,102 @@ def ef_ranks(mesh, device, grads: list) -> list:
                                    group=mesh.group("data"))
         out.append((tree_map(lambda t: t.numpy(), g),
                     tree_map(lambda t: t.numpy(), ef.residual)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# one layer under tensor parallelism (tests/test_torch_lm_mesh_tp.py)
+# ---------------------------------------------------------------------------
+
+LAYER_B, LAYER_S, LAYER_S_ENC = 2, 32, 8
+
+
+def layer_cfg(kind: str, heads: int):
+    """The reduced config of a layer case with ``heads`` heads: seamless's
+    cross-attention (its head width from d_model), zamba2's Mamba2 block
+    (its head width from d_inner), or xlstm's mLSTM / sLSTM cell."""
+    if kind == "cross":
+        cfg = cfg_of("seamless-m4t-medium", {})
+        return dataclasses.replace(cfg, num_heads=heads, num_kv_heads=heads,
+                                   head_dim=cfg.d_model // heads)
+    if kind == "mamba2":
+        cfg = cfg_of("zamba2-2.7b", {})
+        d_inner = cfg.ssm.expand * cfg.d_model
+        return dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, head_dim=d_inner // heads))
+    cfg = cfg_of("xlstm-125m", {})
+    return dataclasses.replace(cfg, xlstm=dataclasses.replace(
+        cfg.xlstm, num_heads=heads))
+
+
+def _layer(kind: str, cfg, seed: int):
+    """(params, inputs, forward) of a layer case, drawn on the CPU from
+    ``seed``: every leaf moved off its init (norm scales are zeros there)
+    by noise, so every gradient is exercised."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import ssm
+    from repro_torch.models import xlstm as xl
+    from repro_torch.models.common import make_generator
+    from repro_torch.models.transformer import token_positions
+    gen = make_generator(seed, "cpu")
+    init = {"cross": lambda g: attn.init_attn(g, cfg, cross=True),
+            "mamba2": lambda g: ssm.init_ssm(g, cfg),
+            "mlstm": lambda g: xl.init_mlstm(g, cfg),
+            "slstm": lambda g: xl.init_slstm(g, cfg)}[kind]
+    p = {k: v + 0.1 * torch.randn(v.shape, generator=gen)
+         for k, v in init(gen).items()}
+    x = torch.randn((LAYER_B, LAYER_S, cfg.d_model), generator=gen)
+    inputs = {"x": x}
+    if kind == "cross":
+        inputs["enc"] = torch.randn((LAYER_B, LAYER_S_ENC, cfg.d_model),
+                                    generator=gen)
+        pos = token_positions(LAYER_B, LAYER_S, 0, "cpu")
+
+        def fwd(p, x, enc):
+            kv = attn.make_cross_kv(p, cfg, enc)
+            return attn.attn_forward(p, cfg, x, pos, cross_kv=kv)[0]
+    else:
+        cell = {"mamba2": ssm.ssm_forward, "mlstm": xl.mlstm_forward,
+                "slstm": xl.slstm_forward}[kind]
+
+        def fwd(p, x):
+            return cell(p, cfg, x)[0]
+    w = torch.randn((LAYER_B, LAYER_S, cfg.d_model), generator=gen)
+    return p, inputs, fwd, w
+
+
+def _layer_grads(fwd, p: dict, inputs: dict, w) -> tuple:
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+    ins = {k: v.detach().clone().requires_grad_(True)
+           for k, v in inputs.items()}
+    out = fwd(leaves, **ins)
+    names, xs = sorted(leaves), sorted(ins)
+    grads = torch.autograd.grad((out * w).sum(),
+                                [leaves[k] for k in names]
+                                + [ins[k] for k in xs])
+    g = dict(zip(names + xs, (t.numpy() for t in grads)))
+    return out.detach().numpy(), g
+
+
+def layer_ranks(mesh, device, cases: list) -> dict:
+    """Each case (kind, heads, seed): the layer on one device (the mesh out
+    of scope) and on this mesh from this rank's blocks of the same
+    parameters; returns per case the one-device output and gradients
+    (leaves sliced to this rank's blocks) beside the mesh's."""
+    from repro_torch.launch.sharding import use_mesh
+    from repro_torch.models.lm_params import shard_params
+    torch.set_num_threads(1)
+    out = {}
+    for kind, heads, seed in cases:
+        cfg = layer_cfg(kind, heads)
+        p, inputs, fwd, w = _layer(kind, cfg, seed)
+        one_out, one_g = _layer_grads(fwd, p, inputs, w)
+        local, plans = shard_params(p, mesh, cfg)
+        for k, plan in plans.items():
+            one_g[k] = plan.local(torch.from_numpy(one_g[k])).numpy()
+        with use_mesh(mesh):
+            got_out, got_g = _layer_grads(fwd, local, inputs, w)
+        out[f"{kind}/{heads}"] = {
+            "one": (one_out, one_g), "mesh": (got_out, got_g),
+            "split": sorted(k for k, pl in plans.items() if pl.axes)}
     return out

@@ -17,7 +17,8 @@ REPO = Path(__file__).resolve().parents[1]
 # every module of the port's serving, training, LM serving, training-
 # surface (baselines, checkpoints, describe, schedules, trainer), fabric /
 # streaming-ingest (with the runtime lock sanitizer), RPC, mesh, static
-# analysis, LM training, recurrent LM and LM-on-a-mesh slices
+# analysis, LM training, recurrent LM, LM-on-a-mesh and vocabulary-cache
+# slices
 REQUIRED = (
     "repro_torch.device", "repro_torch.core.pipeline",
     "repro_torch.sampling.rng", "repro_torch.sampling.adjacency",
@@ -53,6 +54,7 @@ REQUIRED = (
     "repro_torch.models.xlstm", "repro_torch.models.xlstm_lm",
     "repro_torch.models.moe", "repro_torch.launch.collectives",
     "repro_torch.launch.specs", "repro_torch.optim.compression",
+    "repro_torch.data.vocab_cache",
 )
 
 # the static passes: `import repro_torch.analysis` (which every threaded

@@ -1,7 +1,9 @@
 """The LM zoo trained on a mesh of ranks, against the reference's
 ``train_loop(mesh=)``: tensor and data parallelism for the dense and VLM
 decoder-only family, data parallelism for the enc-dec and recurrent
-families, checkpoints across meshes.
+families (their tensor parallelism, on (1, 2), (2, 2) and (1, 4), is
+``tests/test_torch_lm_mesh_tp.py``'s, a file of its own so that the two
+run on different workers), checkpoints across meshes.
 
 The port runs one process per mesh position over ``torch.distributed``
 (``gloo`` ranks on the CPU, spawned by ``launch.mesh.run_ranks``: one
@@ -54,13 +56,14 @@ DENSE = (("gemma", "gemma-2b", {}),
          ("gemma-chunked", "gemma-2b", {"chunked_ce": 16}),
          ("qwen2", "qwen2-7b", {}),
          ("internvl2", "internvl2-1b", {}))
-DP_ONLY = (("seamless", "seamless-m4t-medium", {}),
-           ("xlstm", "xlstm-125m", {}),
-           ("zamba2", "zamba2-2.7b", {}))
+# trained here on (2, 1) alone; tensor parallel in test_torch_lm_mesh_tp
+ENC_DEC_RECURRENT = (("seamless", "seamless-m4t-medium", {}),
+                     ("xlstm", "xlstm-125m", {}),
+                     ("zamba2", "zamba2-2.7b", {}))
 
 
 def _cells(mesh):
-    return DENSE + (DP_ONLY if mesh == (2, 1) else ())
+    return DENSE + (ENC_DEC_RECURRENT if mesh == (2, 1) else ())
 
 
 ALL = [(name, mesh) for mesh in MESHES for name, _, _ in _cells(mesh)]
@@ -103,7 +106,7 @@ def ref_cell(name, arch, kw, mesh):
 
 @pytest.fixture(scope="module")
 def params():
-    return _np_params({a for _, a, _ in DENSE + DP_ONLY})
+    return _np_params({a for _, a, _ in DENSE + ENC_DEC_RECURRENT})
 
 
 @pytest.fixture(scope="module")
@@ -136,7 +139,7 @@ def single(params):
     torch.set_num_threads(1)
     try:
         return {n: R.train(R.cfg_of(a, kw), params[a], None, "cpu")
-                for n, a, kw in DENSE + DP_ONLY}
+                for n, a, kw in DENSE + ENC_DEC_RECURRENT}
     finally:
         torch.set_num_threads(threads)
 
@@ -224,18 +227,6 @@ def test_checkpoint_resumes_on_the_same_mesh_and_on_one_device(ranks,
         for tree in ("0", "1/m", "1/v"):      # params, moments
             assert tuple(manifest["leaves"][f"{tree}/{path}"]["shape"]) \
                 == shape, path
-
-
-@pytest.mark.parametrize("arch", [a for _, a, _ in DP_ONLY])
-def test_model_axis_refused_for_enc_dec_and_recurrent(arch):
-    """Their tensor parallelism is item 9.8b: refused before any rank
-    work (a duck-typed mesh suffices)."""
-    from repro_torch.launch import train as train_mod
-    mesh = type("M", (), {"axis_names": ("data", "model"),
-                          "shape": {"data": 1, "model": 2}})()
-    with pytest.raises(NotImplementedError, match="9.8b"):
-        train_mod.train_loop(R.cfg_of(arch, {}), steps=1, batch=2,
-                             seq_len=16, mesh=mesh, device="cpu")
 
 
 def test_remat_recompute_reenters_the_mesh_scope():

@@ -420,18 +420,15 @@ def test_train_loop_resumes_a_bf16_run(tmp_path):
 
 def test_train_loop_refuses_a_mesh_and_defaults_to_the_card():
     """On a mesh, ``train_loop`` refuses what it does not run before any
-    rank work (a duck-typed mesh suffices): the enc-dec family on a model
-    axis (item 9.8b) and a batch the data axis does not split; without a
-    card it does not fall back to the CPU."""
+    rank work (a duck-typed mesh suffices): a batch the data axis does not
+    split (every family now trains on a model axis:
+    ``tests/test_torch_lm_mesh_tp.py``); without a card it does not fall
+    back to the CPU."""
     _, tcfg = _cfgs("gemma-2b")
-    _, scfg = _cfgs("seamless-m4t-medium")
 
     def mesh(data, model):
         return type("M", (), {"axis_names": ("data", "model"),
                               "shape": {"data": data, "model": model}})()
-    with pytest.raises(NotImplementedError, match="item 9.8b"):
-        train_mod.train_loop(scfg, steps=1, batch=2, seq_len=8,
-                             mesh=mesh(1, 2), device="cpu")
     with pytest.raises(ValueError, match="3 data ranks"):
         train_mod.train_loop(tcfg, steps=1, batch=2, seq_len=8,
                              mesh=mesh(3, 1), device="cpu")
