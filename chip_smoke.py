@@ -382,7 +382,46 @@ line each on stdout:
                the streamed bytes against those of a lookup of every
                row (and of every distinct row), the refresh, assembly
                and lookup times; K1-K4 launch 0 times;
-15. times    — each kernel's median time over cold-L2 launches at the
+15. lm-serve-mesh — the LM zoo served on a mesh of ranks on ``cuda:0``
+               over gloo (``launch/serve.py::mesh_generate``), bf16 at
+               published widths, seeded weights: ``qwen2-7b`` (28
+               layers; Hkv 4, a head-local cache) on (1, 2), prefill 4 x
+               512 then 32 decode steps; ``deepseek-v2-236b`` at 3 of 60
+               layers (MLA absorbed and head-local, 80 experts a rank),
+               ``zamba2-2.7b`` at 18 of 54 and ``xlstm-125m`` (recurrent
+               decode on their heads) on (1, 2), the same batch (xlstm
+               also in f32, where the logits must agree within 1e-2); ``h2o-
+               danube-3-4b`` on (2, 1) at B = 1, 4,032 + 128 tokens
+               through its 4,096-slot ring split over the data ranks
+               (2,048 a rank); cut: depth.  Each run is held to one rank's
+               run from the same weights in rank 0's process: the mesh
+               run is teacher-forced by its greedy tokens, so every
+               step's logits compare (largest difference logged), and a
+               greedy flip counts only where one rank's top-two gap at
+               that step is within ``SERVE_MESH_TIE``.  Logs ms a token
+               per rank beside one rank's, collectives a step (calls and
+               MB, from the recorder), peak GB a rank; K1-K4 launch 0
+               times;
+16. dryrun   — every (arch x shape) cell of the 16x16 mesh counted and
+               every cell of the 2x16x16 mesh run with no counts
+               (``launch/dryrun.py::run_cell``: rank 0's step on ``meta``
+               tensors over a ``fake`` world), then ``dryrun-gnn``
+               (papers100M's GNS step on both meshes): in a process of
+               its own on the host's CPU, started after phase 0 and
+               joined here, its lines printed then; each cell logs its
+               dominant term and three terms at the H100, arg and peak
+               GB a device, whether it fits 80 GB and ``count_s``;
+17. roofline-calib — gemma-2b trained at 2 x 1,024 on one rank: the
+               dry-run's (1, 1) FLOPs and bytes equal the same counter's
+               over the real CUDA step, the predicted peak within
+               ``CALIB_PEAK_MARGIN`` of ``max_memory_allocated``, and the
+               step timed by CUDA events gives the measured roofline
+               fraction ``model_flops / (step_s · 989e12)``; then each
+               of qwen2-7b's (1, 2) serving ranks: its allocation with
+               its parameters and decode state within
+               ``CALIB_ARG_MARGIN`` of the dry-run's arg bytes, and its
+               decode step's collectives the dry-run's list;
+18. times    — each kernel's median time over cold-L2 launches at the
                serving and training shapes (K1 also at LADIES's: B = 2,024
                rows of 32 lanes over 2,536 streamed rows, all misses), in
                turns within this call with
@@ -4694,6 +4733,455 @@ def phase_vocab_cache() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# lm-serve-mesh: the LM zoo served on a mesh of ranks on the card
+# ---------------------------------------------------------------------------
+
+# (key, arch, config overrides (the depth cut, a dtype), mesh (data,
+# model), batch, prompt, new tokens: the prompt's call gives the first,
+# each decode step one more)
+SERVE_MESH_RUNS = (
+    ("qwen2", "qwen2-7b", {}, (1, 2), 4, 512, 33),
+    ("deepseek", "deepseek-v2-236b", {"num_layers": 3}, (1, 2), 4, 512, 33),
+    ("zamba2", "zamba2-2.7b", {"num_layers": 18}, (1, 2), 4, 512, 33),
+    ("xlstm", "xlstm-125m", {}, (1, 2), 4, 512, 33),
+    ("xlstm-f32", "xlstm-125m", {"dtype": "float32"}, (1, 2), 4, 512, 33),
+    ("danube", "h2o-danube-3-4b", {}, (2, 1), 1, 4032, 128),
+)
+# a greedy flip counts only where one rank's top-two logit gap at that
+# step is at most this; in f32 the logits too must lie within it.  f32
+# sums in another order diverge through xlstm's sLSTM recurrence with
+# depth and length: 3.1e-5 at 12 layers x 32 tokens and 1.4e-4 at 6 x 512
+# on CPU ranks, 2.27e-3 at 12 x 512 on the card (logits up to 2.7)
+SERVE_MESH_TIE = {"bfloat16": 0.5, "float32": 1e-2}
+SERVE_MESH_DEADLINE_S = 900.0
+CALIB_ARCH, CALIB_BATCH, CALIB_SEQ = "gemma-2b", 2, 1024
+CALIB_PEAK_MARGIN = 0.05  # predicted peak bytes vs max_memory_allocated
+CALIB_ARG_MARGIN = 0.001  # predicted arg bytes vs memory_allocated, a rank
+DRYRUN_DEADLINE_S = 900.0  # the background dry-run must end within this
+
+
+def serve_mesh_cfg(arch: str, overrides: dict):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), **overrides)
+
+
+def sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def one_rank_decode(cfg, params, prompts: np.ndarray, new: int,
+                    device) -> dict:
+    """The one-rank run the mesh runs are held to: greedy decode on
+    ``device``, no mesh; tokens, f32 logits, top-two gaps, ms a step."""
+    import torch
+    from repro_torch.launch.serve import CACHE_MARGIN, _decode_init
+    from repro_torch.models.lm import get_model
+    model = get_model(cfg)
+    b, s = prompts.shape
+    toks, logits, gaps, times = [], [], [], []
+    with torch.inference_mode():
+        state = _decode_init(model, b, s + new + CACHE_MARGIN, 0, device)
+        nxt = torch.as_tensor(prompts, device=device)
+        for _ in range(new):
+            sync(device)
+            t0 = time.perf_counter()
+            lg, state = model.decode_step(params, nxt, state)
+            sync(device)
+            times.append(time.perf_counter() - t0)
+            lg32 = lg.float()
+            top2 = torch.topk(lg32, 2, dim=-1).values
+            gaps.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+            logits.append(lg32.cpu().numpy())
+            nxt = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+            toks.append(nxt.cpu().numpy())
+    return {"tokens": np.concatenate(toks, 1), "logits": logits,
+            "gaps": np.stack(gaps, 1), "step_ms": [t * 1e3 for t in times]}
+
+
+def serve_mesh_rank(mesh, device, runs: tuple) -> dict:
+    """A card rank of ``lm-serve-mesh`` (module docstring): for each run,
+    the same seeded weights on every rank; rank 0 decodes them alone
+    first; then every rank shards them and ``mesh_generate`` decodes the
+    batch teacher-forced by rank 0's tokens, under the collectives
+    recorder."""
+    import torch
+    from repro_torch.launch.collectives import recording
+    from repro_torch.launch.mesh import broadcast_object
+    from repro_torch.launch.serve import mesh_generate
+    from repro_torch.models.lm import get_model
+    from repro_torch.models.lm_params import shard_params
+    torch.backends.cuda.matmul.allow_tf32 = False     # f32 runs in f32
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": mesh.rank, "runs": {}}
+    for key, arch, over, _, b, prompt, new in runs:
+        cfg = serve_mesh_cfg(arch, over)
+        prompts = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (b, prompt)).astype(np.int32)
+        params = get_model(cfg).init(SEED, device=device)
+        one = one_rank_decode(cfg, params, prompts, new, device) \
+            if mesh.leader else None
+        one = broadcast_object(one, mesh.host_group)
+        local, plans = shard_params(params, mesh, cfg)
+        del params
+        cuda = device.type == "cuda"
+        if cuda:
+            free_card()
+            torch.cuda.reset_peak_memory_stats()
+        with recording() as log:
+            gen = mesh_generate(cfg, local, plans, mesh, prompts, new,
+                                device=device, keep_logits=True,
+                                forced=one["tokens"][:, :-1])
+        sync(device)
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if cuda and clear:   # cuBLAS's workspaces are the library's, not args
+            clear()
+        arg_bytes = torch.cuda.memory_allocated() if cuda else 0
+        per_call = len(log) // new
+        step_log = log[-per_call:] if per_call else []
+        out["runs"][key] = {
+            "tokens": gen.tokens, "logits": gen.logits, "one": one,
+            "layout": gen.layout, "step_ms": [t * 1e3 for t in gen.step_s],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda
+            else 0.0,
+            "arg_bytes": arg_bytes,
+            "step_log": [(r["op"], r["bytes"], r["group"], r["site"])
+                         for r in step_log],
+            "calls": len(log)}
+        del local, plans, gen
+        if cuda:
+            free_card()
+    out["launches"] = {k: c.value for k, c in lm_counters().items()}
+    return out
+
+
+def serve_mesh_check(key: str, rank: dict, rows: np.ndarray,
+                     tie: float, f32: bool) -> dict:
+    """One rank's run against rank 0's one-rank run: the largest logit
+    difference (teacher-forced, every step) and the greedy flips, each
+    allowed only where one rank's top-two gap is within ``tie`` (in f32
+    the logits too must lie within it)."""
+    run = rank["runs"][key]
+    one = run["one"]
+    err = max(float(np.abs(lg - one["logits"][i][rows]).max())
+              for i, lg in enumerate(run["logits"]))
+    flips = np.argwhere(run["tokens"] != one["tokens"][rows])
+    gaps = [float(one["gaps"][rows][r, t]) for r, t in flips]
+    return {"max_abs_logit_err": err, "flips": len(flips),
+            "flip_gaps": gaps[:8], "max_flip_gap": max(gaps, default=0.0),
+            "ok": all(g <= tie for g in gaps) and (not f32 or err <= tie)}
+
+
+def phase_lm_serve_mesh() -> dict:
+    """The LM zoo served on a mesh of ranks on ``cuda:0`` over gloo
+    (module docstring): each run held to one rank's."""
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.sharding import ShardPlan, spec_for
+    counters, t0 = lm_phase_start()
+    worlds: dict = {}
+    for run in SERVE_MESH_RUNS:
+        worlds.setdefault(run[3], []).append(run)
+    ranks, failures = {}, []
+    for (d, m), runs in worlds.items():
+        t1 = time.perf_counter()
+        ranks[(d, m)] = run_ranks(
+            "chip_smoke:serve_mesh_rank", data=d, model=m,
+            devices=["cuda:0"] * (d * m), backend=MESH_BACKEND,
+            args=(tuple(runs),), timeout_s=SERVE_MESH_DEADLINE_S)
+        log("lm-serve-mesh-world", mesh=(d, m),
+            seconds=round(time.perf_counter() - t1, 1))
+    for key, arch, over, (d, m), b, prompt, new in SERVE_MESH_RUNS:
+        cfg = serve_mesh_cfg(arch, over)
+        tie = SERVE_MESH_TIE[cfg.dtype]
+        for r in ranks[(d, m)]:
+            run = r["runs"][key]
+            view = r_mesh_view(d, m, r["rank"])
+            rows = ShardPlan(view, spec_for(view, ("batch", None), (b, 1)),
+                             (b, 1)).local(torch.arange(b)[:, None])
+            rows = rows.reshape(-1).numpy()
+            chk = serve_mesh_check(key, r, rows, tie, cfg.dtype == "float32")
+            calls_step = run["calls"] // new
+            log("lm-serve-mesh", run=key, arch=arch, dtype=cfg.dtype,
+                layers=cfg.num_layers,
+                mesh=(d, m), rank=r["rank"], batch=b, prompt=prompt,
+                new_tokens=new, layout=run["layout"],
+                prefill_ms=round(run["step_ms"][0], 2),
+                ms_per_token=round(float(np.median(run["step_ms"][1:])), 3),
+                one_rank_prefill_ms=round(run["one"]["step_ms"][0], 2),
+                one_rank_ms_per_token=round(float(np.median(
+                    run["one"]["step_ms"][1:])), 3),
+                collectives_per_step=calls_step,
+                collective_mb_per_step=round(sum(
+                    x[1] for x in run["step_log"]) / 1e6, 4),
+                peak_gb=round(run["peak_gb"], 3), tie_bound=tie, **chk)
+            if not chk["ok"]:
+                failures.append(f"{key} rank {r['rank']}: flips {chk}")
+    launches = {k: sum(r["launches"][k] for rs in ranks.values()
+                       for r in rs) for k in lm_counters()}
+    counts, _ = lm_phase_end("lm-serve-mesh", counters, t0)
+    log("lm-serve-mesh-launches", rank_launches=launches)
+    if any(launches.values()):
+        failures.append(f"kernels launched on the ranks: {launches}")
+    if failures:
+        raise AssertionError(f"lm-serve-mesh: {failures}")
+    return launches, ranks
+
+
+def r_mesh_view(d: int, m: int, rank: int):
+    """What ``ShardPlan.local`` reads of rank ``rank``'s view of (d, m)."""
+    import types
+    coord = {"data": rank // m, "model": rank % m}
+    return types.SimpleNamespace(axis_names=("data", "model"),
+                                 shape={"data": d, "model": m},
+                                 index=lambda a: coord[a])
+
+
+# ---------------------------------------------------------------------------
+# dryrun / dryrun-gnn: the port's dry-run on the card's host
+# ---------------------------------------------------------------------------
+
+def dryrun_main() -> int:
+    """The ``dryrun`` and ``dryrun-gnn`` phases (module docstring), run by
+    :func:`start_dryrun` in a process of their own on the host's CPU
+    while the card runs the other phases: ``meta`` tensors over a
+    ``fake`` world, no device work."""
+    sys.path.insert(0, str(ROOT / "src"))
+    phase_dryrun()
+    phase_dryrun_gnn()
+    return 0
+
+
+def start_dryrun():
+    """(process, its output file): :func:`dryrun_main` started now."""
+    import tempfile
+    out = tempfile.TemporaryFile("w+")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.dryrun_main())"], cwd=ROOT, env=env,
+        stdout=out, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def finish_dryrun(proc, out, t_start: float) -> None:
+    """Wait for the background dry-run, print its lines, fail if it did."""
+    left = DRYRUN_DEADLINE_S - (time.perf_counter() - t_start)
+    try:
+        rc = proc.wait(timeout=max(left, 1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed at its deadline"
+    out.seek(0)
+    text = out.read()
+    out.close()
+    sys.stdout.write(text)
+    log("dryrun-process", rc=rc,
+        wall_s=round(time.perf_counter() - t_start, 1))
+    if rc != 0:
+        raise RuntimeError(f"dryrun: exit {rc}\n{text[-4000:]}")
+
+
+def phase_dryrun() -> dict:
+    """Every applicable (arch x shape) cell of the 16x16 mesh counted, and
+    every cell of the 2x16x16 mesh run with no counts (module
+    docstring)."""
+    from repro_torch.configs import SHAPES, get_config, list_archs
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.roofline.analysis import H100_SXM
+    t0 = time.perf_counter()
+    recs, failures = {}, []
+    for multi in (False, True):
+        for arch in list_archs():
+            for shape in SHAPES:
+                mdt = "bfloat16" if get_config(arch).fsdp else "float32"
+                try:
+                    rec = run_cell(arch, shape, multi, opt_moment_dtype=mdt,
+                                   probe=not multi)
+                except Exception as e:           # reported, then raised
+                    failures.append(f"{arch} x {shape} x {multi}: {e!r}")
+                    continue
+                recs[(arch, shape, multi)] = rec
+                fields = {"arch": arch, "shape": shape,
+                          "mesh": rec.get("mesh"), "status": rec["status"]}
+                if rec["status"] == "ok":
+                    fields.update(
+                        arg_gb=round(rec["arg_bytes_per_device"] / 1e9, 3),
+                        count_s=rec["count_s"])
+                    if rec["roofline"]:
+                        r = rec["roofline"]
+                        fields.update(
+                            dominant=r["dominant"],
+                            compute_s=r["compute_s"], memory_s=r["memory_s"],
+                            collective_s=r["collective_s"],
+                            peak_gb=round(rec["peak_bytes_per_device"]
+                                          / 1e9, 3),
+                            fits_80gb=rec["fits_hbm"],
+                            roofline_fraction=r["roofline_fraction"])
+                else:
+                    fields["reason"] = rec["reason"]
+                log("dryrun", **fields)
+    log("dryrun-done", cells=len(recs), hw=H100_SXM.name,
+        seconds=round(time.perf_counter() - t0, 1))
+    if failures:
+        raise AssertionError(f"dryrun: {failures}")
+    return recs
+
+
+def phase_dryrun_gnn() -> None:
+    """The GNS engine's step at ogbn-papers100M's dimensions on both
+    production meshes (``launch/dryrun_gnn.py``)."""
+    from repro_torch.launch import dryrun_gnn
+    for multi in (False, True):
+        rec = dryrun_gnn.run(multi_pod=multi)
+        r = rec["roofline"]
+        log("dryrun-gnn", mesh=rec["mesh"], dp_groups=rec["dp_groups"],
+            dominant=r["dominant"], compute_s=r["compute_s"],
+            memory_s=r["memory_s"], collective_s=r["collective_s"],
+            cache_mb_per_chip=round(rec["cache_bytes_per_chip"] / 1e6, 2),
+            upload_gb_per_gen=round(rec["upload_bytes_per_gen_sharded"]
+                                    / 1e9, 3),
+            local_hit=rec["lookup_local_frac_locality"],
+            input_rows=rec["input_rows_per_batch"], count_s=rec["count_s"])
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun-gnn: {rec}")
+
+
+# ---------------------------------------------------------------------------
+# roofline-calib: the dry-run held to the real step on the card
+# ---------------------------------------------------------------------------
+
+def phase_roofline_calib(serve_ranks: dict) -> None:
+    """gemma-2b trained at 2 x 1,024 on one rank: the dry-run's (1, 1)
+    counts against the same counter over the real CUDA step, its peak
+    against ``max_memory_allocated``, the measured step against the
+    roofline; qwen2-7b's (1, 2) serving ranks against the dry-run's
+    prediction of their arg bytes and collectives (module docstring)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import cell_step, count_step
+    from repro_torch.launch.mesh import dryrun_mesh
+    from repro_torch.launch.sharding import arch_scope, use_mesh
+    from repro_torch.models.scan_util import tree_leaves
+    from repro_torch.roofline.analysis import (H100_SXM, model_flops,
+                                               roofline_terms,
+                                               collective_bytes)
+    counters, t0 = lm_phase_start()
+    cfg = get_config(CALIB_ARCH)
+    shape = ShapeSpec("calib", CALIB_SEQ, CALIB_BATCH, "train")
+    with dryrun_mesh((1, 1)) as mesh, arch_scope(cfg):
+        run, arg, _, n_active, _ = cell_step(cfg, shape, mesh, "float32")
+        meta, meta_log = count_step(run, mesh)
+        run, _, _, _, args = cell_step(cfg, shape, mesh, "float32",
+                                       device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        for t in tree_leaves(args[0]):
+            t.normal_(0.0, 0.02, generator=gen)
+        for t in tree_leaves(args[2]):
+            t.random_(0, cfg.vocab_size, generator=gen)
+        batch_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(args[2]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        real, real_log = count_step(run, mesh)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        with use_mesh(mesh):
+            run()                                     # warm
+            ms = cuda_ms_n(run, 3)
+    pred_peak = arg + batch_bytes + meta.peak_bytes
+    terms = roofline_terms(float(meta.flops), float(meta.bytes),
+                           collective_bytes(meta_log), cfg, shape, 1,
+                           hw=H100_SXM, n_active=n_active)
+    mf = model_flops(cfg, shape, n_active=n_active)
+    frac = mf / (ms / 1e3 * H100_SXM.peak_flops)
+    log("roofline-calib", arch=cfg.name, batch=CALIB_BATCH, seq=CALIB_SEQ,
+        flops_dryrun=meta.flops, flops_card=real.flops,
+        bytes_dryrun=meta.bytes, bytes_card=real.bytes,
+        ops_dryrun=meta.ops, ops_card=real.ops,
+        peak_pred_gb=round(pred_peak / 1e9, 4),
+        peak_card_gb=round(peak / 1e9, 4),
+        peak_rel_err=round(abs(pred_peak - peak) / peak, 5),
+        peak_margin=CALIB_PEAK_MARGIN, step_ms=round(ms, 3),
+        compute_s=terms.compute_s, memory_s=terms.memory_s,
+        dominant=terms.dominant, model_flops=mf,
+        measured_roofline_fraction=round(frac, 5),
+        bound_over_step=round(max(terms.compute_s, terms.memory_s) * 1e3
+                              / ms, 5))
+    failures = []
+    if (meta.flops, meta.bytes) != (real.flops, real.bytes):
+        failures.append(f"counts dry-run {meta.as_dict()} card "
+                        f"{real.as_dict()}")
+    if abs(pred_peak - peak) > CALIB_PEAK_MARGIN * peak:
+        failures.append(f"peak {pred_peak} vs {peak}")
+    del run, args
+    free_card()
+    failures += calib_serving(serve_ranks)
+    lm_phase_end("roofline-calib", counters, t0)
+    if failures:
+        raise AssertionError(f"roofline-calib: {failures}")
+
+
+def cuda_ms_n(fn, reps: int) -> float:
+    """Median ms of ``reps`` calls of ``fn`` by CUDA events."""
+    import torch
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return float(np.median(out))
+
+
+def calib_serving(serve_ranks: dict) -> list:
+    """qwen2-7b's (1, 2) serving ranks: each rank's measured allocation
+    with its parameters and decode state against the dry-run's arg bytes
+    for the same shapes, and its decode step's collectives against the
+    dry-run's log of that step."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import cell_step, count_step
+    from repro_torch.launch.mesh import dryrun_mesh
+    from repro_torch.launch.serve import CACHE_MARGIN
+    from repro_torch.roofline.analysis import collective_bytes
+    key, arch, over, (d, m), b, prompt, new = SERVE_MESH_RUNS[0]
+    cfg = serve_mesh_cfg(arch, over)
+    shape = ShapeSpec("serve", prompt + new + CACHE_MARGIN, b, "decode")
+    failures = []
+    for r in serve_ranks[(d, m)]:
+        with dryrun_mesh((d, m), rank=r["rank"]) as mesh:
+            run, arg, *_ = cell_step(cfg, shape, mesh, "float32")
+            _, pred_log = count_step(run, mesh)
+        run_r = r["runs"][key]
+        pred = [(x["op"], x["bytes"], x["group"], x["site"])
+                for x in pred_log]
+        pred_b = collective_bytes(pred_log)["total"]
+        got_b = collective_bytes([{"op": o, "bytes": nb, "group": g}
+                                  for o, nb, g, _ in run_r["step_log"]])[
+            "total"]
+        err = abs(run_r["arg_bytes"] - arg) / arg
+        log("roofline-calib-serve", arch=arch, mesh=(d, m), rank=r["rank"],
+            arg_pred_gb=round(arg / 1e9, 4),
+            arg_card_gb=round(run_r["arg_bytes"] / 1e9, 4),
+            arg_rel_err=round(err, 6), arg_margin=CALIB_ARG_MARGIN,
+            coll_calls_pred=len(pred), coll_calls_card=len(run_r["step_log"]),
+            coll_wire_mb_pred=round(pred_b / 1e6, 4),
+            coll_wire_mb_card=round(got_b / 1e6, 4),
+            same_log=pred == run_r["step_log"])
+        if err > CALIB_ARG_MARGIN or pred != run_r["step_log"]:
+            failures.append(f"{arch} rank {r['rank']}: arg {arg} vs "
+                            f"{run_r['arg_bytes']}, logs equal "
+                            f"{pred == run_r['step_log']}")
+    return failures
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4704,13 +5192,25 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels._ext import load_kernels
-
     card = nvidia_smi()
     log("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
     phase_analysis()
+    dryrun, t_dryrun = start_dryrun(), time.perf_counter()
+    try:
+        return run_phases(card, dryrun, t_dryrun)
+    finally:
+        if dryrun[0].poll() is None:
+            dryrun[0].kill()
+            dryrun[0].wait()
+
+
+def run_phases(card: str, dryrun: tuple, t_dryrun: float) -> int:
+    """Phases 1 onward (module docstring), the dry-run running beside
+    them in its own process."""
+    import torch
+    from repro_torch.kernels._ext import load_kernels
     t0 = time.perf_counter()
     load_kernels()
     log("build", seconds=round(time.perf_counter() - t0, 1))
@@ -4778,6 +5278,11 @@ def main() -> int:
     free_card()
     counts["lm_train_mesh"] = phase_lm_train_mesh()
     counts["vocab_cache"] = phase_vocab_cache()
+    free_card()
+    counts["lm_serve_mesh"], serve_ranks = phase_lm_serve_mesh()
+    finish_dryrun(*dryrun, t_dryrun)
+    phase_roofline_calib(serve_ranks)
+    counts["dryrun"] = {k: 0 for k in lm_counters()}
     rows = (phase_times(engine, shapes, errs, counts)
             + phase_train_times(k3_shapes, k3_errs, k1_shapes, counts)
             + phase_k4_times(k4_errs, counts))

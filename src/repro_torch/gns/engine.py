@@ -91,7 +91,6 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch import checkpoint
 from repro_torch.core.minibatch import DeviceBatch, LayerBlock, MiniBatch
@@ -101,10 +100,12 @@ from repro_torch.core.sampler import (GNSSampler, LazyGCNSampler,
 from repro_torch.device import resolve_device
 from repro_torch.featurestore import FeatureStore, TrafficMeter
 from repro_torch.gns.config import EngineConfig
-from repro_torch.gns.describe import mesh_report, traffic_report
+from repro_torch.gns.describe import (describe_lowering, mesh_report,
+                                     traffic_report)
 from repro_torch.graph.datasets import get_dataset
 from repro_torch.kernels.ops import (dp_axes, dp_group_count, dp_group_index,
                                      psum)
+from repro_torch.launch.collectives import broadcast
 from repro_torch.launch.mesh import NotLeader, broadcast_object
 from repro_torch.launch.sharding import use_mesh
 from repro_torch.models import graphsage
@@ -189,6 +190,54 @@ def collate_groups(mbs: Sequence[MiniBatch], fused: bool
     return out, home
 
 
+def make_train_step(mcfg: graphsage.SageConfig, opt: AdamW, mesh=None):
+    """The engine's device step (the reference's ``make_train_step``):
+    ``train_step(params, opt_state, batch, cache_table, home_shards,
+    device_adj=None) -> (params, opt_state, loss, acc)``, forward,
+    backward and AdamW in place.
+
+    On a ``mesh`` (this rank's view; ``batch`` is its data-parallel
+    group's), ``home_shards`` is the per-group home-shard vector (-1:
+    none) that gates the fused input's fast path; the label count, the
+    loss, the accuracy and the gradients are summed over the data-parallel
+    groups, and every rank applies its group's shard-0 rank's sums (the
+    card's unordered sums may differ in the last bits between the ranks
+    of a group, so the parameters stay equal everywhere)."""
+    axis = mcfg.cache_shard_axis
+    dp = dp_axes(mesh, axis) if mesh is not None else ()
+
+    def dp_sum(t: torch.Tensor) -> torch.Tensor:
+        for a in dp:
+            psum(t, mesh, a)
+        return t
+
+    def train_step(params, opt_state, batch, cache_table, home_shards,
+                   device_adj=None):
+        count = None
+        if mesh is not None:
+            count = dp_sum(batch.label_mask.sum().reshape(1))[0]
+        with use_mesh(mesh):
+            loss, acc, grads = graphsage.value_and_grad(
+                params, batch, cache_table, mcfg, device_adj=device_adj,
+                local_shard=home_shards, label_count=count)
+        if mesh is not None and mesh.size > 1:
+            leaves = [g for layer in grads["layers"] for g in layer.values()]
+            flat = dp_sum(torch.cat([loss.reshape(1), acc.reshape(1)]
+                                    + [g.reshape(-1) for g in leaves]))
+            for a in mesh.axis_names:
+                if a not in dp and mesh.shape[a] > 1:
+                    broadcast(flat, mesh.rank_at(a, 0), mesh.group(a))
+            loss, acc = flat[0], flat[1]
+            parts = flat[2:].split([g.numel() for g in leaves])
+            it = iter(p.view_as(g) for p, g in zip(parts, leaves))
+            grads = {"layers": [{k: next(it) for k in layer}
+                                for layer in grads["layers"]]}
+        params, opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, loss, acc
+
+    return train_step
+
+
 class GNSEngine:
     """The wired pipeline for one :class:`EngineConfig`."""
 
@@ -262,6 +311,7 @@ class GNSEngine:
         self.params = graphsage.init_params(self.mcfg, gen, self.device)
         self.opt = AdamW(cfg.optim)
         self.opt_state = self.opt.init(self.params)
+        self._train_step = make_train_step(self.mcfg, self.opt, mesh)
         self._dummy_cache = graphsage.dummy_cache_table(self.ds.feat_dim,
                                                         self.device)
         # a recycling sampler (LazyGCN) hands the same host arrays out again:
@@ -312,12 +362,6 @@ class GNSEngine:
     # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------
-    def _dp_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum over the data-parallel groups (the data group), in place."""
-        for a in dp_axes(self.mesh, self.mcfg.cache_shard_axis):
-            psum(t, self.mesh, a)
-        return t
-
     def run_batch(self, mb: MiniBatch) -> tuple[float, float]:
         """One optimizer step: forward, backward, AdamW.  Returns (loss,
         accuracy).  ``t_compute`` includes the sync that reading the loss
@@ -331,37 +375,14 @@ class GNSEngine:
             mb, m, hold=isinstance(self.sampler, LazyGCNSampler))
         m.add_batch(mb.bytes_streamed)
         t0 = time.perf_counter()
-        count = home_shards = None
+        home_shards = None
         if self.mesh is not None:
             home_shards = np.full(self.num_groups, -1, np.int32)
             if mb.local_shard is not None:
                 home_shards[self.group] = mb.local_shard
-            count = self._dp_sum(dev_batch.label_mask.sum().reshape(1))[0]
-        with use_mesh(self.mesh):
-            loss, acc, grads = graphsage.value_and_grad(
-                self.params, dev_batch, self._cache_table(mb), self.mcfg,
-                device_adj=self._device_adj(mb), local_shard=home_shards,
-                label_count=count)
-        if self.mesh is not None and self.mesh.size > 1:
-            leaves = [g for layer in grads["layers"] for g in layer.values()]
-            flat = self._dp_sum(torch.cat([loss.reshape(1), acc.reshape(1)]
-                                          + [g.reshape(-1) for g in leaves]))
-            # the ranks of one group compute the same step, but the card's
-            # unordered sums (index_add_ in the gather's backward) may
-            # differ in the last bits: every rank applies its group's
-            # shard-0 rank's step, so the parameters stay equal everywhere
-            dp = dp_axes(self.mesh, self.mcfg.cache_shard_axis)
-            for a in self.mesh.axis_names:
-                if a not in dp and self.mesh.shape[a] > 1:
-                    dist.broadcast(flat, src=self.mesh.rank_at(a, 0),
-                                   group=self.mesh.group(a))
-            loss, acc = flat[0], flat[1]
-            parts = flat[2:].split([g.numel() for g in leaves])
-            it = iter(p.view_as(g) for p, g in zip(parts, leaves))
-            grads = {"layers": [{k: next(it) for k in layer}
-                                for layer in grads["layers"]]}
-        self.params, self.opt_state = self.opt.update(grads, self.opt_state,
-                                                      self.params)
+        self.params, self.opt_state, loss, acc = self._train_step(
+            self.params, self.opt_state, dev_batch, self._cache_table(mb),
+            home_shards, self._device_adj(mb))
         loss = loss.item()
         m.t_compute += time.perf_counter() - t0
         return loss, acc.item()
@@ -751,7 +772,9 @@ class GNSEngine:
         sampler backend and the meter's breakdown (the reference's record
         without a mesh), on a mesh its shards, rows per shard and upload
         bytes per rank under ``"mesh"`` (:func:`~repro_torch.gns.describe
-        .mesh_report`), and with streaming ingest attached its run state
+        .mesh_report`) and this rank's counted step under ``"lowering"``
+        (:func:`~repro_torch.gns.describe.describe_lowering`, the
+        reference's record on a mesh), and with streaming ingest attached its run state
         under ``"stream"``."""
         rec = traffic_report(
             num_nodes=self.ds.graph.num_nodes, feat_dim=self.ds.feat_dim,
@@ -764,6 +787,15 @@ class GNSEngine:
                 data=self.mesh.data, model=self.mesh.model,
                 cache_rows=rec["cache_rows"], feat_dim=self.ds.feat_dim,
                 n_groups=self.num_groups)
+            rec["lowering"] = describe_lowering(
+                mesh=self.mesh, num_nodes=self.ds.graph.num_nodes,
+                feat_dim=self.ds.feat_dim, num_classes=self.ds.num_classes,
+                cache_frac=self.scfg.cache.fraction,
+                batch=self.scfg.batch_size * max(self.num_groups, 1),
+                fanouts=tuple(self.scfg.fanouts),
+                hidden_dim=self.mcfg.hidden_dim,
+                input_impl=self.mcfg.input_impl, backend=self.scfg.backend,
+                sample_kernel=self.mcfg.sample_kernel, optim=self.cfg.optim)
         if self._stream is not None and self.store is not None:
             # run-state fields: diff() drops "stream" as volatile, by name
             scfg = self.store.stream_cfg

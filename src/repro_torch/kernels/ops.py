@@ -75,9 +75,13 @@ def gather_agg(feat: torch.Tensor, idx: torch.Tensor,
 
 def psum(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """``all_reduce(SUM)`` of ``t`` in place over ``mesh``'s ``axis`` group
-    (nothing on an axis of one rank); returns ``t``."""
+    (nothing on an axis of one rank; recorded as ``launch/collectives.py``
+    records its own); returns ``t``."""
     if mesh.shape[axis] > 1:
-        dist.all_reduce(t, group=mesh.group(axis))
+        from repro_torch.launch.collectives import record
+        record("all-reduce", t.numel() * t.element_size(), mesh.group(axis))
+        if not t.is_meta:
+            dist.all_reduce(t, group=mesh.group(axis))
     return t
 
 
@@ -129,9 +133,9 @@ def _sharded_forward(cache_table, streamed, slots, idx, w, mesh, axis,
         else:
             out = torch.empty((idx.shape[0], cache_table.shape[1]),
                               dtype=torch.float32, device=cache_table.device)
-        dist.broadcast(out, src=mesh.rank_at(axis, local_shard),
-                       group=mesh.group(axis))
-        return out
+        from repro_torch.launch.collectives import broadcast
+        return broadcast(out, mesh.rank_at(axis, local_shard),
+                         mesh.group(axis))
     if home is not None and home >= 0:
         # fast: the owner claims every lane; exact zeros elsewhere
         if shard == home:

@@ -33,6 +33,8 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     caches, prefill over a dense cache); keys with ``kv_pos < 0`` are
     unwritten and masked; they override the ``kv_len`` alignment.
     Computes in f32, returns q's dtype; a row that sees no key is 0.
+    Under ``probe_ctx.linear_attention_traffic`` a multi-token call
+    computes the reference's linear stand-in instead (the dry-run's bytes).
     """
     b, hq, sq, dh = q.shape
     _, hkv, sk, _ = k.shape
@@ -42,6 +44,13 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qf = (q.float() * scale).reshape(b, hkv, g, sq, dh)
     kf = k.float()
     vf = v.float()
+    from repro_torch.kernels.probe_ctx import linear_attention_on
+    if linear_attention_on() and sq > 1:
+        # the flash kernel's HBM-traffic stand-in (kernels/probe_ctx.py):
+        # q/k/v read once, out written once, O(S) intermediates only
+        kv = torch.einsum("bnkd,bnke->bnde", kf, vf)         # [b,n,dh,dv]
+        out = torch.einsum("bngqd,bnde->bngqe", qf, kv)
+        return out.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
     s = torch.einsum("bngqd,bnkd->bngqk", qf, kf)
     if q_pos is not None:
         iq = q_pos[:, None]

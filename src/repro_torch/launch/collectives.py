@@ -34,14 +34,87 @@ gradient of every replicated tensor (Megatron's f / g):
 
 Only ``all_reduce``, list ``all_gather`` and ``broadcast`` are used, the
 collectives gloo carries for CPU and CUDA tensors alike.  A group of one
-rank makes every function here the identity.
+rank makes every function here the identity, and a ``meta`` tensor (the
+dry-run's) is recorded and moves nothing: it has no data to move.
+
+**The recorder.**  Under :func:`recording` (off unless a dry-run or a
+calibration turns it on), every collective this module issues on the
+calling thread — and ``kernels/ops.py::psum`` — is appended to a log as
+``{"op", "bytes", "group", "spans_nodes", "site"}``: the op in the
+reference's HLO naming, its result bytes (an all-gather's: the gathered
+size), the group's size, whether its ranks span nodes of 8 and the model
+call site (``file:line`` of the first frame outside this module; a
+backward's carries its forward's site).  The log replaces parsing
+post-SPMD HLO text (``roofline/analysis.py::collective_bytes``).  A
+backward that runs on another thread (CUDA's autograd thread) logs into
+the log its forward was recorded in.
 """
 from __future__ import annotations
+
+import contextlib
+import os
+import sys
+import threading
+from typing import Optional
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.sharding import current_mesh, model_sharded
+from repro_torch.launch.sharding import current_mesh, layout, model_sharded
+from repro_torch.roofline.analysis import spans_nodes
+
+_rec = threading.local()
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# frames the call site skips: this module, the kernels' psum, the counter
+_SKIP = (os.path.abspath(__file__),
+         os.path.join(_PKG, "kernels", "ops.py"),
+         os.path.join(_PKG, "roofline", "analysis.py"),
+         os.path.join(_PKG, "models", "scan_util.py"))
+
+
+@contextlib.contextmanager
+def recording(log: Optional[list] = None):
+    """Log every collective this thread issues (module docstring) into
+    ``log`` (a new list when None), yielded; nests, restoring the outer
+    log on exit."""
+    prev = getattr(_rec, "log", None)
+    _rec.log = [] if log is None else log
+    try:
+        yield _rec.log
+    finally:
+        _rec.log = prev
+
+
+def current_log() -> Optional[list]:
+    """The log :func:`recording` opened on this thread, or None."""
+    return getattr(_rec, "log", None)
+
+
+def call_site() -> str:
+    """``path:line`` (relative to the package) of the innermost frame of
+    the port outside this module, the psum and the counter; ``?`` when
+    there is none."""
+    f = sys._getframe(1)
+    while f is not None:
+        fn = os.path.abspath(f.f_code.co_filename)
+        if fn.startswith(_PKG) and fn not in _SKIP:
+            return f"{os.path.relpath(fn, _PKG)}:{f.f_lineno}"
+        f = f.f_back
+    return "?"
+
+
+def record(op: str, nbytes: int, group, site: Optional[str] = None,
+           log: Optional[list] = None) -> None:
+    """Append one collective of ``nbytes`` result bytes to ``log``
+    (default: this thread's); no-op when nothing records."""
+    log = current_log() if log is None else log
+    if log is None:
+        return
+    ranks = (dist.get_process_group_ranks(group) if group is not None
+             else list(range(dist.get_world_size())))
+    log.append({"op": op, "bytes": int(nbytes),
+                "group": len(ranks), "spans_nodes": spans_nodes(ranks),
+                "site": site or call_site()})
 
 
 def model_group():
@@ -54,39 +127,80 @@ def model_group():
 
 
 def data_group():
-    """(group, size, index) of the data axis of the mesh in scope."""
+    """(group, size, index) of the data-parallel axes of the mesh in
+    scope: ``data``, or ``pod`` × ``data`` on a pod mesh."""
     mesh = current_mesh()
-    if mesh is None or mesh.shape.get("data", 1) == 1:
+    if mesh is None:
+        return None, 1, 0
+    if "pod" in mesh.axis_names:
+        size = mesh.shape["pod"] * mesh.shape["data"]
+        return (mesh.group("batch"), size,
+                mesh.index("pod") * mesh.shape["data"] + mesh.index("data"))
+    if mesh.shape.get("data", 1) == 1:
         return None, 1, 0
     return mesh.group("data"), mesh.shape["data"], mesh.index("data")
 
 
-def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def seq_group(kind: str = "self"):
+    """(group, size, index) of the data axis when the serving layout in
+    scope splits ``kind``'s cache slots over it (``sharding.serve_layout``
+    — rank ``i`` holds the i-th contiguous slice), else ``(None, 1, 0)``."""
+    mesh = current_mesh()
+    if mesh is None or mesh.shape.get("data", 1) == 1 or not layout(kind):
+        return None, 1, 0
+    return mesh.group("data"), mesh.shape["data"], mesh.index("data")
+
+
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM,
+               site: Optional[str] = None,
+               log: Optional[list] = None) -> torch.Tensor:
     """The reduction over ``group`` of a copy of ``x`` (``x`` unchanged);
-    ``group`` None (an axis of one rank) reduces nothing."""
+    ``group`` None (an axis of one rank) reduces nothing.  ``site`` and
+    ``log``: the recorder's (module docstring)."""
     if group is None:
         return x
     out = x.contiguous().clone()
-    dist.all_reduce(out, op=op, group=group)
+    record("all-reduce", _nbytes(out), group, site, log)
+    if not out.is_meta:
+        dist.all_reduce(out, op=op, group=group)
     return out
 
 
 def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x, group=group)
+    n = dist.get_world_size(group)
+    parts = [torch.empty_like(x) for _ in range(n)]
+    record("all-gather", _nbytes(x) * n, group)
+    if not x.is_meta:
+        dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
+
+
+def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``dist.broadcast`` of ``t`` in place from global rank ``src``
+    over ``group``, recorded; returns ``t``."""
+    record("broadcast", _nbytes(t), group)
+    if not t.is_meta:
+        dist.broadcast(t, src=src, group=group)
+    return t
 
 
 class _Copy(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
+        ctx.log = current_log()
+        ctx.site = call_site() if ctx.log is not None else None
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g, ctx.group), None
+        site = ctx.site and ctx.site + " (backward)"
+        return all_reduce(g, ctx.group, site=site, log=ctx.log), None
 
 
 class _Reduce(torch.autograd.Function):
@@ -105,12 +219,15 @@ class _Gather(torch.autograd.Function):
         ctx.group, ctx.dim, ctx.partial = group, dim, partial
         ctx.n = x.shape[dim]
         ctx.rank = dist.get_rank(group)
+        ctx.log = current_log()
+        ctx.site = call_site() if ctx.log is not None else None
         return _all_gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.partial:
-            g = all_reduce(g, ctx.group)
+            site = ctx.site and ctx.site + " (backward)"
+            g = all_reduce(g, ctx.group, site=site, log=ctx.log)
         return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, None
 
 

@@ -20,7 +20,10 @@ the caller initialised (every rank creates every group, in the same
 order, as ``dist.new_group`` requires), plus a host group of all ranks on
 gloo: the host-side agreements of the feature store (every rank builds
 the same cache generation, and swaps it at the same step) reduce CPU
-tensors, which only gloo carries.
+tensors, which only gloo carries.  A ``pod`` axis before ``data`` makes
+the reference's multi-pod mesh, and :func:`dryrun_mesh` builds one rank's
+view of a production mesh over an in-process ``fake`` world (the
+dry-run's; no rank behind it runs).
 
 Serving on a mesh runs several threads per rank that each issue
 collectives (a server's loop, a fabric's workers and its watchdog), and
@@ -38,7 +41,9 @@ or a run that outlives its deadline, fails the whole run.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
+import itertools
 import multiprocessing
 import queue as queue_mod
 import socket
@@ -77,23 +82,31 @@ def cache_shard_axis(mesh) -> str:
 
 
 class HostMesh:
-    """This rank's view of a ``(data, model)`` mesh of ranks.
+    """This rank's view of a ``(data, model)`` mesh of ranks, or of a
+    ``(pod, data, model)`` one (``pod`` > 1: the multi-pod dry-run).
 
     ``shape`` and ``axis_names`` read as a jax mesh's do; ``index(axis)``
     is this rank's coordinate on an axis, ``group(axis)`` the process group
-    of the ranks that differ from it only there, and ``rank_at(axis, i)``
-    the global rank at coordinate ``i`` of that group."""
-
-    axis_names = AXES
+    of the ranks that differ from it only there (on a pod mesh,
+    ``group("batch")`` is the ranks that differ only in pod and data: the
+    data-parallel group), and ``rank_at(axis, i)`` the global rank at
+    coordinate ``i`` of that group.  Rank ``r = (p·D + d)·M + m``."""
 
     def __init__(self, data: int, model: int, groups: dict,
-                 host_group, timeout: Optional[timedelta] = None) -> None:
+                 host_group, timeout: Optional[timedelta] = None,
+                 pod: int = 1) -> None:
         self.data = data
         self.model = model
+        self.pod = pod
         self.rank = dist.get_rank()
+        self.axis_names = ("pod",) + AXES if pod > 1 else AXES
         self.shape = {"data": data, "model": model}
-        self.size = data * model
-        self._coord = {"data": self.rank // model, "model": self.rank % model}
+        if pod > 1:
+            self.shape = {"pod": pod, **self.shape}
+        self.size = pod * data * model
+        self._coord = {"pod": self.rank // (data * model),
+                       "data": self.rank // model % data,
+                       "model": self.rank % model}
         self._groups = groups
         self.host_group = host_group
         self.timeout = timeout
@@ -108,13 +121,15 @@ class HostMesh:
         thread: new model groups (the sharded K1's ``all_reduce``) and a
         new gloo host group; its data groups are not made (serving never
         sums over the data axis).  Every rank must fork, in one order."""
-        groups = {"model": _model_groups(self.data, self.model,
-                                         self.timeout)}
+        groups = {"model": _axis_groups(self.pod, self.data, self.model,
+                                        ("model",), self.timeout)}
         return HostMesh(self.data, self.model, groups,
-                        new_host_group(self.timeout), self.timeout)
+                        new_host_group(self.timeout), self.timeout,
+                        pod=self.pod)
 
     def __repr__(self) -> str:
-        return (f"HostMesh(data={self.data}, model={self.model}, "
+        pod = f"pod={self.pod}, " if self.pod > 1 else ""
+        return (f"HostMesh({pod}data={self.data}, model={self.model}, "
                 f"rank={self.rank})")
 
     def index(self, axis: str) -> int:
@@ -124,52 +139,82 @@ class HostMesh:
         return self._groups[axis]
 
     def rank_at(self, axis: str, i: int) -> int:
-        d, m = self._coord["data"], self._coord["model"]
-        return i * self.model + m if axis == "data" else d * self.model + i
+        c = dict(self._coord, **{axis: i})
+        return (c["pod"] * self.data + c["data"]) * self.model + c["model"]
 
 
-def new_host_group(timeout: Optional[timedelta] = None):
-    """A new gloo group of every rank (every rank must call it)."""
+def new_host_group(timeout: Optional[timedelta] = None,
+                   backend: str = "gloo"):
+    """A new group of every rank (every rank must call it), on gloo
+    unless ``backend`` names another."""
     return dist.new_group(list(range(dist.get_world_size())),
-                          backend="gloo", timeout=timeout)
+                          backend=backend, timeout=timeout)
 
 
-def _model_groups(data: int, model: int, timeout):
-    """One new group per data index (its ``model`` ranks); returns this
-    rank's.  Every rank creates every group, in one order."""
-    mine = None
-    for d in range(data):
-        g = dist.new_group([d * model + m for m in range(model)],
-                           timeout=timeout)
-        if dist.get_rank() // model == d:
+def _axis_groups(pod: int, data: int, model: int, axes: tuple, timeout):
+    """One new group per setting of the coordinates outside ``axes`` (the
+    ranks that differ only on ``axes``); returns this rank's."""
+    dims = {"pod": pod, "data": data, "model": model}
+    rank, mine = dist.get_rank(), None
+    fixed = [a for a in ("pod", "data", "model") if a not in axes]
+    for key in itertools.product(*(range(dims[a]) for a in fixed)):
+        c = dict(zip(fixed, key))
+        ranks = []
+        for free in itertools.product(*(range(dims[a]) for a in axes)):
+            c.update(zip(axes, free))
+            ranks.append((c["pod"] * data + c["data"]) * model + c["model"])
+        g = dist.new_group(sorted(ranks), timeout=timeout)
+        if rank in ranks:
             mine = g
     return mine
 
 
 def make_host_mesh(data: int = 1, model: int = 1,
-                   timeout: Optional[timedelta] = None) -> HostMesh:
-    """The ``(data, model)`` mesh over the ranks of the initialised process
-    group; raises unless there is one of exactly ``data·model`` ranks.
-    ``timeout`` bounds every collective of the groups it makes (and of
-    their forks); None is ``torch.distributed``'s default."""
+                   timeout: Optional[timedelta] = None, *,
+                   pod: int = 1, backend: str = "gloo") -> HostMesh:
+    """The ``(data, model)`` mesh (``(pod, data, model)`` with ``pod`` >
+    1) over the ranks of the initialised process group; raises unless
+    there is one of exactly ``pod·data·model`` ranks.  ``timeout`` bounds
+    every collective of the groups it makes (and of their forks); None is
+    ``torch.distributed``'s default.  ``backend`` is the host group's:
+    gloo, or ``fake`` under :func:`dryrun_mesh`."""
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError(
             f"a ({data}, {model}) mesh needs an initialised torch.distributed "
             "process group of data·model ranks (run_ranks starts one)")
     world = dist.get_world_size()
-    if data * model != world:
-        raise ValueError(f"mesh data={data} x model={model} needs "
-                         f"{data * model} ranks; the process group has "
-                         f"{world}")
-    rank = dist.get_rank()
+    if pod * data * model != world:
+        raise ValueError(f"mesh pod={pod} x data={data} x model={model} "
+                         f"needs {pod * data * model} ranks; the process "
+                         f"group has {world}")
     # every rank creates every group, in one order
-    mine = {"model": _model_groups(data, model, timeout)}
-    for m in range(model):
-        g = dist.new_group([d * model + m for d in range(data)],
-                           timeout=timeout)
-        if rank % model == m:
-            mine["data"] = g
-    return HostMesh(data, model, mine, new_host_group(timeout), timeout)
+    mine = {"model": _axis_groups(pod, data, model, ("model",), timeout),
+            "data": _axis_groups(pod, data, model, ("data",), timeout)}
+    if pod > 1:
+        mine["pod"] = _axis_groups(pod, data, model, ("pod",), timeout)
+        mine["batch"] = _axis_groups(pod, data, model, ("pod", "data"),
+                                     timeout)
+    return HostMesh(data, model, mine, new_host_group(timeout, backend),
+                    timeout, pod=pod)
+
+
+@contextlib.contextmanager
+def dryrun_mesh(shape: Sequence[int], rank: int = 0):
+    """This rank's view of a mesh of ``shape`` (``(data, model)`` or
+    ``(pod, data, model)``) over a ``fake`` world of ``prod(shape)`` ranks
+    (``torch.distributed``'s in-process backend: every collective returns
+    at once and moves nothing), the counterpart of the reference's
+    ``make_production_mesh``.  The world is torn down on exit; a process
+    holds one world at a time, so none may be initialised on entry."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape = tuple(int(s) for s in shape)
+    pod, data, model = (1,) * (3 - len(shape)) + shape
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=pod * data * model)
+    try:
+        yield make_host_mesh(data, model, pod=pod, backend="fake")
+    finally:
+        dist.destroy_process_group()
 
 
 class Channel:

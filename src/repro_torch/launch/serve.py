@@ -20,6 +20,13 @@ Lockstep batched decoding, as in the reference:
 * The reference jits one step; PyTorch runs the step eagerly, under
   ``torch.inference_mode``.  Prefill and decode times are taken after
   ``torch.cuda.synchronize()`` on a card.
+
+On a mesh of ranks, :func:`mesh_generate` decodes one batch the same way:
+every rank holds its blocks of the parameters (the rule table) and of the
+decode state (``launch/specs.py``'s state rules, :func:`mesh_state`) and
+runs its rows: head-local caches on the model axis, or, when the batch
+does not divide the data axis (B=1), caches whose slots are split over it
+(``models/attention.py``).
 """
 from __future__ import annotations
 
@@ -78,12 +85,8 @@ class ServeEngine:
         return nxt.to(torch.int32)[:, None], state
 
     def _init_state(self, batch: int, cache_len: int, enc_len: int = 0):
-        if self.cfg.encoder_layers > 0:
-            return self.model.decode_init(batch, cache_len, enc_len,
-                                          device=self.device)
-        if self.cfg.xlstm is not None:
-            return self.model.decode_init(batch, device=self.device)
-        return self.model.decode_init(batch, cache_len, device=self.device)
+        return _decode_init(self.model, batch, cache_len, enc_len,
+                            self.device)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -166,3 +169,134 @@ class ServeEngine:
                 for k_i, c in zip(idxs[lo:lo + self.max_batch], comps):
                     results[k_i] = c
         return results  # type: ignore[return-value]
+
+
+# ---------------------------------------------------------------------------
+# serving on a mesh of ranks
+# ---------------------------------------------------------------------------
+
+def _fit(plan, x: torch.Tensor) -> torch.Tensor:
+    """``x`` narrowed to ``plan``'s local block along each dim where it is
+    still larger (a tree computed from this rank's rows and heads, whose
+    other split dims, the slots, it holds whole)."""
+    for dim, (n, axes) in enumerate(zip(plan.local_shape, plan.dims)):
+        if x.shape[dim] != n:
+            x = x.narrow(dim, plan._block(axes) * n, n)
+    return x.contiguous()
+
+
+def _decode_init(model: ModelAPI, batch: int, cache_len: int, enc_len: int,
+                 device):
+    cfg = model.cfg
+    if cfg.encoder_layers > 0:
+        return model.decode_init(batch, cache_len, enc_len, device=device)
+    if cfg.xlstm is not None:
+        return model.decode_init(batch, device=device)
+    return model.decode_init(batch, cache_len, device=device)
+
+
+def mesh_state(cfg: ArchConfig, mesh, batch: int, cache_len: int,
+               enc_len: int = 0, device=None) -> tuple:
+    """(this rank's initial decode state, its plans): each leaf of the
+    state of ``batch`` rows and ``cache_len`` slots at the local shape its
+    rule gives it (``launch/specs.py``), filled with the value the
+    family's ``decode_init`` starts that leaf at (0; -1 for a ring's
+    ``slot_pos``; -1e30 for the sLSTM's stabiliser)."""
+    from repro_torch.launch.sharding import map_with_path
+    from repro_torch.launch.specs import state_shardings
+    model = get_model(cfg)
+    structs = _decode_init(model, batch, cache_len, enc_len, "meta")
+    plans = state_shardings(mesh, structs)
+    fills: dict = {}
+    map_with_path(lambda p, x: fills.__setitem__(p, x.flatten()[0].item())
+                  if isinstance(x, torch.Tensor) else None,
+                  _decode_init(model, 1, 1, 1, "cpu"))
+    plan_at: dict = {}
+    map_with_path(lambda p, plan: plan_at.__setitem__(p, plan), plans)
+    dev = resolve_device(device)
+
+    def one(path, x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        return torch.full(plan_at[path].local_shape, fills[path],
+                          dtype=x.dtype, device=dev)
+    return map_with_path(one, structs), plans
+
+
+@dataclasses.dataclass
+class MeshGeneration:
+    """What :func:`mesh_generate` returns on a rank."""
+    tokens: np.ndarray           # [B_local, new_tokens] int32, greedy
+    logits: list                 # per step [B_local, V] f32 (keep_logits)
+    state: object                # this rank's final decode state
+    layout: dict                 # its launch.sharding.serve_layout
+    step_s: list                 # each call's seconds (synchronised)
+
+
+def mesh_generate(cfg: ArchConfig, params, plans, mesh, prompts,
+                  new_tokens: int, *, frame_embeds=None,
+                  cache_len: Optional[int] = None, device=None,
+                  keep_logits: bool = False, forced=None) -> MeshGeneration:
+    """Greedy decoding of one batch on a mesh of ranks, as
+    :meth:`ServeEngine.generate_batch` decodes it on one device: every
+    rank calls it (in scope of nothing), with its own blocks ``params`` of
+    the parameters and their ``plans`` (``lm_params.shard_params``) and
+    the whole batch's ``prompts`` [B, S] (and ``frame_embeds`` [B, S_enc,
+    d] for an enc-dec model).  Each rank decodes the rows its batch plan
+    gives it (all of them when the batch does not divide the data axis:
+    the caches then split their slots over it) on ``device`` (None: the
+    GPU).  The first call is the prompt's; ``forced`` ([B, new_tokens -
+    1], whole batch) feeds those tokens to the later calls instead of the
+    greedy ones (teacher forcing: logits comparable step by step with
+    another run's)."""
+    from repro_torch.launch.sharding import (ShardPlan, map_with_path,
+                                            serve_layout, spec_for,
+                                            use_mesh)
+    from repro_torch.launch.steps import _zero3_full, mesh_layout
+    dev = resolve_device(device)
+    model = get_model(cfg)
+    prompts = np.asarray(prompts, np.int32)
+    b, s = prompts.shape
+    cache_len = cache_len or s + new_tokens + CACHE_MARGIN
+    enc_len = frame_embeds.shape[1] if frame_embeds is not None else 0
+    def rows_of(a: np.ndarray) -> torch.Tensor:
+        """This rank's rows of a whole-batch [B, ...] array."""
+        plan = ShardPlan(mesh, spec_for(mesh, ("batch",) + (None,) * (
+            a.ndim - 1), a.shape), a.shape)
+        return plan.local(torch.as_tensor(np.ascontiguousarray(a),
+                                          device=dev))
+
+    t_plan = ShardPlan(mesh, spec_for(mesh, ("batch", None), (b, s)), (b, s))
+    with torch.inference_mode():
+        state, s_plans = mesh_state(cfg, mesh, b, cache_len, enc_len, dev)
+    layout = mesh_layout(t_plan, s_plans)
+    forced = None if forced is None else rows_of(
+        np.asarray(forced, np.int32))
+    out, logits, step_s = [], [], []
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    with use_mesh(mesh), serve_layout(**layout), torch.inference_mode():
+        full = _zero3_full(params, plans)
+        if cfg.encoder_layers > 0:
+            cross = encdec.prefill_encoder(full, cfg, rows_of(
+                np.asarray(frame_embeds)))
+            cross_plans: dict = {}
+            map_with_path(lambda p, pl: cross_plans.__setitem__(p, pl),
+                          s_plans["cross"])
+            state["cross"] = {k: _fit(cross_plans[k], v)
+                              for k, v in cross.items()}
+        nxt = rows_of(prompts)
+        for i in range(new_tokens):
+            sync()
+            t0 = time.perf_counter()
+            lg, state = model.decode_step(full, nxt, state)
+            sync()
+            step_s.append(time.perf_counter() - t0)
+            if keep_logits:
+                logits.append(lg.float().cpu().numpy())
+            nxt = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+            out.append(nxt)
+            if forced is not None and i < forced.shape[1]:
+                nxt = forced[:, i:i + 1]
+    return MeshGeneration(torch.cat(out, dim=1).cpu().numpy(), logits, state,
+                          layout, step_s)

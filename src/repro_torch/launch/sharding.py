@@ -94,6 +94,31 @@ def arch_scope(cfg):
         yield
 
 
+@contextlib.contextmanager
+def serve_layout(replicated_batch: bool = False, self_split: bool = False,
+                 cross_split: bool = False):
+    """How a decode state lies on the data axis, for a serving step's
+    scope (``launch/steps.py::mesh_layout`` reads it off the plans):
+    ``replicated_batch`` — the batch does not divide the data axis, so
+    every data rank holds the same rows (the MoE layer then routes them
+    as they are, not gathered over the axis); ``self_split`` /
+    ``cross_split`` — the self-attention caches (KV, ring, MLA latent) /
+    the enc-dec cross K/V are split along their slots over ``data``."""
+    prev = getattr(_state, "layout", None)
+    _state.layout = {"replicated_batch": replicated_batch,
+                     "self": self_split, "cross": cross_split}
+    try:
+        yield
+    finally:
+        _state.layout = prev
+
+
+def layout(key: str) -> bool:
+    """A field of the :func:`serve_layout` in scope (False without one)."""
+    lay = getattr(_state, "layout", None)
+    return bool(lay and lay[key])
+
+
 def batch_axes(mesh) -> tuple:
     """Mesh axes carrying the logical batch (override-aware)."""
     return tuple(a for a in logical_table()["batch"] if a in mesh.axis_names)

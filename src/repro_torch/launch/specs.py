@@ -25,13 +25,14 @@ cache over 'data' instead.  Axes that do not divide replicate.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from repro_torch.launch.sharding import (ShardPlan, map_with_path, spec_for,
                                         tree_param_shardings)
-from repro_torch.models.lm import ModelAPI, enc_dec_split
+from repro_torch.models.lm import ModelAPI, enc_dec_split, get_model
+from repro_torch.models.scan_util import tree_map
 
 
 def _struct(shape: tuple, dtype=torch.float32) -> torch.Tensor:
@@ -131,6 +132,27 @@ def state_shardings(mesh, state_structs) -> Any:
 # params / optimizer
 # ---------------------------------------------------------------------------
 
+def param_structs(model: ModelAPI):
+    """The parameter tree at the config's published shapes and dtypes, as
+    ``meta`` tensors (the reference's ``eval_shape`` of ``init``): the
+    family's init on ``meta``, which draws nothing."""
+    return model.init(0, device="meta")
+
+
+def local_structs(structs, plans, device="meta"):
+    """Tensors of each leaf's local shape under its plan: ``meta`` ones,
+    or zeros on ``device`` (a non-tensor leaf, the decode position or the
+    step count, passes)."""
+    def one(plan, x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if torch.device(device).type == "meta":
+            return torch.empty(plan.local_shape, dtype=x.dtype,
+                               device="meta")
+        return torch.zeros(plan.local_shape, dtype=x.dtype, device=device)
+    return tree_map(one, plans, structs)
+
+
 def param_shardings(mesh, structs, cfg):
     """A plan per parameter leaf (rule table; ``cfg.fsdp``: ZeRO-3)."""
     return tree_param_shardings(mesh, structs, fsdp=cfg.fsdp)
@@ -141,3 +163,41 @@ def opt_state_shardings(mesh, opt_structs, params_shardings) -> dict:
     replicated scalar."""
     return {"m": params_shardings, "v": params_shardings,
             "step": ShardPlan(mesh, spec_for(mesh, (), ()), ())}
+
+
+# ---------------------------------------------------------------------------
+# top-level: everything the dry-run needs for one (arch x shape)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg, shape, mesh, model: Optional[ModelAPI] = None) -> dict:
+    """Structs and plans for one dry-run cell, each ``(structs, plans)``.
+
+    kind == train:  {params, batch} for train_step (the batch with its
+                    leading [accum] dim; the optimizer's moments follow
+                    the parameters' plans, ``opt_state_shardings``).
+    kind == decode / prefill: {params, tokens, state} for serve_step /
+                    prefill_step (the enc-dec prompt is the decoder's
+                    share of the sequence).
+    """
+    model = model or get_model(cfg)
+    p_structs = param_structs(model)
+    out = {"params": (p_structs, param_shardings(mesh, p_structs, cfg))}
+    if shape.kind in ("decode", "prefill"):
+        if shape.kind == "decode":
+            s_new = 1
+        elif cfg.encoder_layers > 0:       # enc-dec: prompt = decoder share
+            _, s_new = enc_dec_split(cfg, shape.seq_len)
+        else:
+            s_new = shape.seq_len
+        t_shape = (shape.global_batch, s_new)
+        t_struct = _struct(t_shape, torch.int32)
+        out["tokens"] = (t_struct, ShardPlan(
+            mesh, spec_for(mesh, ("batch", None), t_shape), t_shape))
+        s_structs = decode_state_structs(model, shape)
+        out["state"] = (s_structs, state_shardings(mesh, s_structs))
+    else:
+        from repro_torch.launch.steps import add_accum_dim
+        b_structs = add_accum_dim(cfg, train_batch_structs(cfg, shape))
+        out["batch"] = (b_structs, batch_shardings(mesh, b_structs,
+                                                   accum_dim=True))
+    return out

@@ -20,15 +20,20 @@ axis needs nothing here: the layers' own collectives give every rank the
 full gradient of its blocks.
 
 ``make_serve_step`` / ``make_prefill_step``: one decode step (or the prompt)
-+ greedy sampling; they return the next token ids, not the logits.
++ greedy sampling; they return the next token ids, not the logits.  On a
+mesh (``plans=`` and ``layout=``), each rank runs its blocks: tensor-
+parallel heads with head-local caches, caches whose slots are split over
+the data axis (B=1), ZeRO-3 leaves gathered (the models' own mesh
+branches, ``models/attention.py``).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.launch.collectives import all_reduce, data_group, gather
+from repro_torch.launch.sharding import map_with_path, serve_layout
 from repro_torch.models.lm import ModelAPI
 from repro_torch.models.scan_util import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim.adam import AdamW
@@ -99,23 +104,69 @@ def make_train_step(model: ModelAPI, opt: AdamW, plans=None) -> Callable:
     return train_step
 
 
-def make_serve_step(model: ModelAPI) -> Callable:
+def mesh_layout(tokens_plan, state_plans) -> dict:
+    """The :func:`~repro_torch.launch.sharding.serve_layout` of a decode
+    state's plans on a mesh: whether the tokens' batch leaves the data
+    axis free (every data rank then holds the same rows), and whether the
+    self-attention caches (``k``/``v``, MLA's ``c_kv``/``k_rope``) and
+    the enc-dec ``cross`` K/V split their slot dim over ``data``."""
+    found = {"self": False, "cross": False}
+
+    def visit(path, plan):
+        leaf = path.split("/")[-1]
+        if leaf in ("k", "v", "c_kv", "k_rope") and len(plan.dims) >= 2 \
+                and "data" in plan.dims[-2]:
+            found["cross" if path.startswith("cross") else "self"] = True
+        return plan
+
+    map_with_path(visit, state_plans)
+    mesh = tokens_plan.mesh
+    replicated = (mesh.shape.get("data", 1) > 1
+                  and "data" not in tokens_plan.dims[0])
+    return {"replicated_batch": replicated, "self_split": found["self"],
+            "cross_split": found["cross"]}
+
+
+def _serving(fn: Callable, plans, layout) -> Callable:
+    """``fn(params, tokens, state)`` on a mesh: ZeRO-3 leaves gathered
+    over the data group, under the state's ``serve_layout``."""
+    if plans is None and layout is None:
+        return fn
+
+    @torch.no_grad()
+    def step(params, tokens, state):
+        with serve_layout(**(layout or {})):
+            if plans is not None:
+                params = _zero3_full(params, plans)
+            return fn(params, tokens, state)
+    return step
+
+
+def make_serve_step(model: ModelAPI, plans=None,
+                    layout: Optional[dict] = None) -> Callable:
+    """``plans``: on a mesh (in scope through ``use_mesh``), the local
+    parameter leaves' ``ShardPlan``s; ``layout``: :func:`mesh_layout` of
+    the state's plans.  Every rank runs the step on its own blocks of the
+    parameters, the tokens and the state (``specs.input_specs``'s plans)
+    and gets the same next tokens for its rows."""
     def serve_step(params, tokens, state):
         """tokens [B, 1] -> (next_tokens [B, 1] int32, new state)."""
         logits, new_state = model.decode_step(params, tokens, state)
         return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], new_state
 
-    return serve_step
+    return _serving(serve_step, plans, layout)
 
 
-def make_prefill_step(model: ModelAPI) -> Callable:
+def make_prefill_step(model: ModelAPI, plans=None,
+                      layout: Optional[dict] = None) -> Callable:
+    """As :func:`make_serve_step`, over the prompt."""
     def prefill_step(params, tokens, state):
         """tokens [B, S_prompt] -> (next_tokens [B, 1] int32, filled
         state)."""
         logits, new_state = model.prefill(params, tokens, state)
         return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], new_state
 
-    return prefill_step
+    return _serving(prefill_step, plans, layout)
 
 
 def add_accum_dim(cfg, batch: dict) -> dict:

@@ -34,8 +34,8 @@ from the latent) in training and in a multi-token prefill over the written
 cache, and the absorbed form (attention in the latent space, f32) in a
 single-token decode step.  The MLA cache is written in place too.
 
-On a mesh whose ``model`` axis is larger than 1 (training: no cache),
-the projections follow the rule table: ``wq``/``wk``/``wv`` (and their
+On a mesh whose ``model`` axis is larger than 1, the projections follow
+the rule table: ``wq``/``wk``/``wv`` (and their
 biases) hold column blocks and ``wo`` the matching row block wherever the
 flat width divides the axis, and the partial outputs of ``wo`` are summed
 over the model group.  The reference's ``sharded_attention`` then lets
@@ -47,9 +47,23 @@ its q heads; with a head count that does not divide, q, K and V are
 gathered and every rank attends over all heads, keeping its block of the
 output for ``wo``.  MLA runs head-local (``q_up``/``k_up``/``v_up``
 column blocks, ``wo`` a row block, ``q_down``/``kv_down`` replicated).
-Cross-attention (the enc-dec decoder's, training) runs head-local too:
-q from the decoder and K/V from the encoder output each this rank's heads,
-``wo`` a row block summed over the group (:func:`_cross_attend`).
+Cross-attention (the enc-dec decoder's) runs head-local too: q from the
+decoder and K/V from the encoder output each this rank's heads, ``wo`` a
+row block summed over the group (:func:`_cross_attend`).
+
+Serving on a mesh (:func:`_attn_tp`, :func:`_cached_attention`):
+a cache on the model axis is head-local, this rank's ``Hkv/tp`` heads
+with the new K/V written in place; where the KV heads do not divide the
+axis the rules replicate the cache, every rank writes the same whole K/V
+and each q head reads its KV head (heads that do not divide at all run
+every head on every rank, as in training).  Where the batch does not
+divide the data axis (B=1) the rules split the cache's slots over it
+instead (the dense cache, the ring and MLA's latent): rank ``i`` holds
+the i-th contiguous slice, only the owner of a position writes it, and
+the softmax is combined across the data group (:func:`_split_attend`:
+the max, the sum of exponentials and the weighted values each
+all-reduced; a slice that sees no key adds 0).  MLA decodes head-local
+in the absorbed form, its latent cache whole on every model rank.
 """
 from __future__ import annotations
 
@@ -60,8 +74,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ref import mha_ref
-from repro_torch.launch.collectives import (copy_to, gather, head_split,
-                                           model_group, reduce_from)
+import torch.distributed as dist
+
+from repro_torch.launch.collectives import (all_reduce, copy_to, gather,
+                                           head_split, model_group,
+                                           reduce_from, seq_group)
 from repro_torch.launch.sharding import model_sharded
 from repro_torch.models.common import (apply_rope, dense_init, model_dtype,
                                        rms_norm, zeros)
@@ -154,13 +171,9 @@ def attn_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
         return mla_forward(p, cfg, x, positions, causal=causal,
                            kv_cache=kv_cache, cache_pos=cache_pos)
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_eff
-    if model_group()[0] is not None:
-        if kv_cache is not None:
-            raise NotImplementedError(
-                "attention with a cache on a mesh's model axis (serving on "
-                "a mesh, ROADMAP.md item 10)")
-        if cross_kv is None and model_sharded(h * dh):
-            return _attn_tp(p, cfg, x, positions, causal), None
+    if model_group()[0] is not None and cross_kv is None \
+            and model_sharded(h * dh):
+        return _attn_tp(p, cfg, x, positions, causal, kv_cache, cache_pos)
     if cross_kv is not None:
         return _cross_attend(p, cfg, x, cross_kv), None
     q = x @ p["wq"]
@@ -181,6 +194,11 @@ def attn_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     kv_len = None
     q_pos = kv_pos = None
     s_new = x.shape[1]
+    b, s = x.shape[:2]
+    if kv_cache is not None and seq_group()[0] is not None:
+        out = _cached_attention(q, k, v, kv_cache, cache_pos, cfg, causal)
+        out = out.transpose(1, 2).reshape(b, s, h * dh)
+        return out @ p["wo"], kv_cache
     if kv_cache is not None and "slot_pos" in kv_cache:
         q_pos, kv_pos, k, v = _ring_step(kv_cache, k, v, cache_pos)
         new_cache = kv_cache
@@ -207,7 +225,6 @@ def attn_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
         out = _attend(q, k, v, causal=causal, window=cfg.sliding_window,
                       impl=cfg.attn_impl, kv_len=kv_len, q_pos=q_pos,
                       kv_pos=kv_pos)
-    b, s = x.shape[:2]
     out = out.transpose(1, 2).reshape(b, s, h * dh)
     return out @ p["wo"], new_cache
 
@@ -225,9 +242,15 @@ def _proj(p: dict, name: str, bias: str, x, xc, width: int, group):
 
 
 def _attn_tp(p: dict, cfg: ArchConfig, x: torch.Tensor,
-             positions: torch.Tensor, causal: bool) -> torch.Tensor:
-    """Training attention on a mesh's model axis that splits ``wq``'s
-    columns (module docstring)."""
+             positions: torch.Tensor, causal: bool,
+             kv_cache: Optional[dict] = None,
+             cache_pos: Optional[int] = None) -> tuple:
+    """Attention on a mesh's model axis that splits ``wq``'s columns
+    (module docstring): q head-local; K/V head-local (into a head-local
+    cache), or whole with each q head reading its KV head (a cache then
+    whole on every rank, every rank writing the same K/V); with heads that
+    do not divide the axis, every head on every rank and this rank's block
+    of the output into ``wo``.  Returns (out, kv_cache)."""
     group, tp, m = model_group()
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_eff
     b, s, _ = x.shape
@@ -238,9 +261,19 @@ def _attn_tp(p: dict, cfg: ArchConfig, x: torch.Tensor,
     k, k_blk = _proj(p, "wk", "bk", x, xc, hkv * dh, group)
     v, v_blk = _proj(p, "wv", "bv", x, xc, hkv * dh, group)
     rope = positions[:, None, :]
+
+    def attend(q, k, v, kv_sel=None):
+        if kv_cache is None:
+            return sharded_attention(q, k, v, causal=causal,
+                                     window=cfg.sliding_window,
+                                     impl=cfg.attn_impl)
+        return _cached_attention(q, k, v, kv_cache, cache_pos, cfg, causal,
+                                 kv_sel)
+
     if h % tp == 0:
         hl = h // tp                                  # q heads of this rank
         q = apply_rope(_split_heads(q, hl, dh), rope, cfg.rope_theta)
+        kv_sel = None
         if hkv % tp == 0 and k_blk and v_blk:         # K/V head-local too
             k = _split_heads(k, hkv // tp, dh)
             v = _split_heads(v, hkv // tp, dh)
@@ -249,13 +282,14 @@ def _attn_tp(p: dict, cfg: ArchConfig, x: torch.Tensor,
                 k = gather(k, group, dim=-1, partial=True)
             if v_blk:
                 v = gather(v, group, dim=-1, partial=True)
-            kv_head = torch.div(m * hl + torch.arange(hl, device=x.device),
-                                h // hkv, rounding_mode="floor")
-            k = _split_heads(k, hkv, dh)[:, kv_head]
-            v = _split_heads(v, hkv, dh)[:, kv_head]
+            kv_sel = [(m * hl + i) // (h // hkv) for i in range(hl)]
+            k = _split_heads(k, hkv, dh)
+            v = _split_heads(v, hkv, dh)
+            if kv_cache is None:     # no cache to hold every head: select
+                sel = torch.tensor(kv_sel, device=x.device)
+                k, v, kv_sel = k[:, sel], v[:, sel], None
         k = apply_rope(k, rope, cfg.rope_theta)
-        out = sharded_attention(q, k, v, causal=causal,
-                                window=cfg.sliding_window, impl=cfg.attn_impl)
+        out = attend(q, k, v, kv_sel)
         out = out.transpose(1, 2).reshape(b, s, hl * dh)
     else:           # heads split across ranks: attend over all of them
         q = gather(q, group, dim=-1, partial=True)
@@ -266,11 +300,102 @@ def _attn_tp(p: dict, cfg: ArchConfig, x: torch.Tensor,
         q = apply_rope(_split_heads(q, h, dh), rope, cfg.rope_theta)
         k = apply_rope(_split_heads(k, hkv, dh), rope, cfg.rope_theta)
         v = _split_heads(v, hkv, dh)
-        out = sharded_attention(q, k, v, causal=causal,
-                                window=cfg.sliding_window, impl=cfg.attn_impl)
+        out = attend(q, k, v)
         n = h * dh // tp
         out = out.transpose(1, 2).reshape(b, s, h * dh)[..., m * n:(m + 1) * n]
-    return reduce_from(out @ p["wo"], group)
+    return reduce_from(out @ p["wo"], group), kv_cache
+
+
+def _write_slots(dst: torch.Tensor, src: torch.Tensor, pos: int, off: int,
+                 dim: int) -> None:
+    """Write ``src``'s rows of absolute positions ``[pos, pos + n)``
+    (along ``dim``) into ``dst``, this rank's slots ``[off, off + L)``:
+    only the part that falls in them (none, when this rank does not own
+    the position)."""
+    n, size = src.shape[dim], dst.shape[dim]
+    lo, hi = max(pos, off), min(pos + n, off + size)
+    if lo < hi:
+        dst.narrow(dim, lo - off, hi - lo).copy_(
+            src.narrow(dim, lo - pos, hi - lo).to(dst.dtype))
+
+
+def _split_attend(q, k, v, q_pos, kv_pos, causal, window, group):
+    """``mha_ref``'s maths (positional masks) over this rank's slice of
+    the keys, the softmax taken across ``group``: the max, the sum of
+    exponentials and the weighted values each reduced over it (a slice
+    that sees no key adds 0)."""
+    b, hq, sq, dh = q.shape
+    hkv = k.shape[1]
+    qf = (q.float() * dh ** -0.5).reshape(b, hkv, hq // hkv, sq, dh)
+    sc = torch.einsum("bngqd,bnkd->bngqk", qf, k.float())
+    iq, jk = q_pos[:, None], kv_pos[None, :]
+    mask = jk >= 0
+    if causal:
+        mask = mask & (jk <= iq)
+    if window is not None:
+        mask = mask & (jk > iq - window)
+    sc = sc.masked_fill(~mask, float("-inf"))
+    mx = all_reduce(sc.amax(dim=-1), group, dist.ReduceOp.MAX)
+    mx = torch.where(torch.isfinite(mx), mx, 0.0)
+    e = torch.exp(sc - mx[..., None])
+    den = all_reduce(e.sum(dim=-1), group)
+    num = all_reduce(torch.einsum("bngqk,bnkd->bngqd", e, v.float()), group)
+    out = torch.where(den[..., None] > 0, num / den[..., None], 0.0)
+    return out.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
+
+
+def _cached_attention(q, k, v, cache: dict, cache_pos: int,
+                      cfg: ArchConfig, causal: bool, kv_sel=None):
+    """Write the S new K/V rows into ``cache`` in place and attend ``q``
+    over it, on a mesh (module docstring): a dense cache or the ring; a
+    cache whose slots are split over the data axis (``seq_group``) takes
+    only the rows of its slots and the softmax combines over the axis
+    (the ring's new tokens are keys on data rank 0 alone).  ``kv_sel``:
+    the cache head each of q's heads reads (None: GQA over all)."""
+    sg, _, si = seq_group()
+    s_new, dev = k.shape[2], q.device
+    q_pos = torch.arange(cache_pos, cache_pos + s_new, dtype=torch.int32,
+                         device=dev)
+    ck, cv = cache["k"], cache["v"]
+    n_loc = ck.shape[2]
+    off = si * n_loc
+    if "slot_pos" in cache:
+        spos = cache["slot_pos"]
+        size = spos.shape[0]
+        # copies of the old ring: its slots are overwritten below
+        kv_pos, k_att, v_att = spos[off:off + n_loc], ck, cv
+        if si == 0:            # [old ring ++ the new tokens], as _ring_step
+            kv_pos = torch.cat([kv_pos, q_pos])
+            k_att = torch.cat([k_att.to(k.dtype), k], dim=2)
+            v_att = torch.cat([v_att.to(v.dtype), v], dim=2)
+        else:
+            kv_pos, k_att, v_att = (kv_pos.clone(), k_att.to(k.dtype, copy=True),
+                                    v_att.to(v.dtype, copy=True))
+        skip = max(s_new - size, 0)
+        for slot, o, n in _ring_segments(cache_pos + skip, s_new - skip,
+                                         size):
+            src = slice(skip + o, skip + o + n)
+            _write_slots(ck, k[:, :, src], slot, off, 2)
+            _write_slots(cv, v[:, :, src], slot, off, 2)
+            spos[slot:slot + n] = q_pos[src]
+    else:
+        _write_slots(ck, k, cache_pos, off, 2)
+        _write_slots(cv, v, cache_pos, off, 2)
+        idx = off + torch.arange(n_loc, dtype=torch.int32, device=dev)
+        kv_pos = torch.where(idx < cache_pos + s_new, idx, -1)
+        k_att, v_att = ck, cv
+    if kv_sel is not None:
+        if len(set(kv_sel)) == 1:          # one KV head for every q head
+            k_att = k_att[:, kv_sel[0]:kv_sel[0] + 1]
+            v_att = v_att[:, kv_sel[0]:kv_sel[0] + 1]
+        else:
+            sel = torch.tensor(kv_sel, device=dev)
+            k_att, v_att = k_att[:, sel], v_att[:, sel]
+    if sg is None:
+        return mha_ref(q, k_att, v_att, causal=causal,
+                       window=cfg.sliding_window, q_pos=q_pos, kv_pos=kv_pos)
+    return _split_attend(q, k_att, v_att, q_pos, kv_pos, causal,
+                         cfg.sliding_window, sg)
 
 
 def _ring_segments(start: int, n: int, size: int) -> list:
@@ -336,7 +461,12 @@ def _cross_attend(p: dict, cfg: ArchConfig, x: torch.Tensor,
         q = q + p["bq"]
     q = _split_heads(q, h, dh)
     k, v = cross_kv                                # precomputed encoder K/V
-    if s > 1:
+    sg = seq_group("cross")[0]
+    if sg is not None:          # the encoder slots split over data (decode)
+        zero = torch.zeros(1, dtype=torch.int32, device=x.device)
+        out = _split_attend(q, k, v, zero.expand(s), zero.expand(k.shape[2]),
+                            False, None, sg)
+    elif s > 1:
         out = sharded_attention(q, k, v, causal=False, window=None,
                                 impl=cfg.attn_impl)
     else:
@@ -393,10 +523,6 @@ def mla_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     dev = x.device
     group, tp, _ = model_group()
     if group is not None:
-        if kv_cache is not None:
-            raise NotImplementedError(
-                "MLA with a cache on a mesh's model axis (serving on a "
-                "mesh, ROADMAP.md item 10)")
         if h % tp:
             raise NotImplementedError(
                 f"MLA on a model axis of {tp}: its {h} heads must divide "
@@ -415,20 +541,24 @@ def mla_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
                         positions[:, None, :], cfg.rope_theta)  # [B,1,S,rope]
     c_kv, k_rope = copy_to(c_kv, group), copy_to(k_rope, group)
 
+    sg = None
     if kv_cache is not None:
         c_all, r_all = kv_cache["c_kv"], kv_cache["k_rope"]
-        c_all[:, cache_pos:cache_pos + s] = c_kv.to(c_all.dtype)
-        r_all[:, cache_pos:cache_pos + s] = k_rope[:, 0].to(r_all.dtype)
+        sg, _, si = seq_group()
+        sk = c_all.shape[1]                 # this rank's slots
+        off = si * sk
+        _write_slots(c_all, c_kv, cache_pos, off, 1)
+        _write_slots(r_all, k_rope[:, 0], cache_pos, off, 1)
         kv_len = cache_pos + s
         if s == 1:
             # single-token decode: absorbed projections, attention in the
             # compressed c_kv space
-            return _mla_absorbed_attend(p, cfg, q_nope, q_rope, c_all, r_all,
-                                        kv_len, b, s), kv_cache
+            out = _mla_absorbed_attend(p, cfg, q_nope, q_rope, c_all, r_all,
+                                       kv_len, b, s, h, off, sg)
+            return reduce_from(out, group), kv_cache
         # multi-token prefill: the expand form over the written cache
         q_pos = cache_pos + torch.arange(s, dtype=torch.int32, device=dev)
-        sk = c_all.shape[1]
-        idx = torch.arange(sk, dtype=torch.int32, device=dev)
+        idx = off + torch.arange(sk, dtype=torch.int32, device=dev)
         kv_pos = torch.where(idx < kv_len, idx, -1)
         c_src, r_src, s_kv = c_all, r_all[:, None], sk
     else:
@@ -443,27 +573,34 @@ def mla_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
         b, h, s_kv, m.qk_rope)], dim=-1)
     qf = torch.cat([q_nope, q_rope], dim=-1)
     scale = (m.qk_nope + m.qk_rope) ** -0.5
-    out = _mla_attend(qf, k, v, scale, causal, q_pos, kv_pos)
+    out = _mla_attend(qf, k, v, scale, causal, q_pos, kv_pos, sg)
     out = out.transpose(1, 2).reshape(b, s, h * m.v_head)
     return reduce_from(out @ p["wo"], group), kv_cache
 
 
-def _mla_attend(qf, k, v, scale, causal, q_pos, kv_pos):
+def _mla_attend(qf, k, v, scale, causal, q_pos, kv_pos, sg=None):
     """The expand form: the scale folded into q (``mha_ref`` rescales by
     dh^-1/2, dh = qk_nope + qk_rope, while V's head is v_head), then the
-    shared multi-token wrapper."""
+    shared multi-token wrapper (over slots split on ``sg``: the combined
+    softmax)."""
     dh = qf.shape[-1]
     qs = qf * (scale * dh ** 0.5)
+    if sg is not None:
+        return _split_attend(qs, k, v, q_pos, kv_pos, causal, None, sg)
     return sharded_attention(qs, k, v, causal=causal, window=None,
                              impl="reference", q_pos=q_pos, kv_pos=kv_pos)
 
 
-def _mla_absorbed_attend(p, cfg, q_nope, q_rope, c_all, r_all, kv_len, b, s):
+def _mla_absorbed_attend(p, cfg, q_nope, q_rope, c_all, r_all, kv_len, b, s,
+                         h, off=0, sg=None):
     """Decode with absorbed projections, in f32: k_up folded into q
     (q_c = q_nope · W_kup, [B,H,S,kv_lora]), v_up applied to the context
-    per head; the mask (-1e30) covers the whole [S_max] cache."""
+    per head; the mask (-1e30) covers the whole [S_max] cache.  ``h``:
+    the heads of this rank's ``k_up`` / ``v_up`` / ``wo`` blocks (its
+    ``wo`` output is a partial sum on a model axis); ``off`` / ``sg``: the
+    cache holds slots ``[off, off + S)`` of a cache split over ``sg``, the
+    softmax combined across it."""
     m = cfg.mla
-    h = cfg.num_heads
     w_kup = p["k_up"].reshape(m.kv_lora, h, m.qk_nope).float()
     q_c = torch.einsum("bhsn,lhn->bhsl", q_nope.float(), w_kup)
     c32 = c_all.float()
@@ -473,11 +610,18 @@ def _mla_absorbed_attend(p, cfg, q_nope, q_rope, c_all, r_all, kv_len, b, s):
                                    r_all.float())
     logits = logits * (m.qk_nope + m.qk_rope) ** -0.5
     dev = c_all.device
-    t_idx = torch.arange(s_kv, device=dev)[None, None, None, :]
+    t_idx = off + torch.arange(s_kv, device=dev)[None, None, None, :]
     q_idx = (kv_len - s) + torch.arange(s, device=dev)[None, None, :, None]
     logits = torch.where(t_idx <= q_idx, logits, -1e30)
-    probs = torch.softmax(logits, dim=-1)
-    ctx = torch.einsum("bhst,btl->bhsl", probs, c32)
+    if sg is None:
+        probs = torch.softmax(logits, dim=-1)
+        ctx = torch.einsum("bhst,btl->bhsl", probs, c32)
+    else:
+        mx = all_reduce(logits.amax(dim=-1, keepdim=True), sg,
+                        dist.ReduceOp.MAX)
+        e = torch.exp(logits - mx)
+        ctx = (all_reduce(torch.einsum("bhst,btl->bhsl", e, c32), sg)
+               / all_reduce(e.sum(dim=-1, keepdim=True), sg))
     w_vup = p["v_up"].reshape(m.kv_lora, h, m.v_head).float()
     out = torch.einsum("bhsl,lhv->bhsv", ctx, w_vup)
     out = out.transpose(1, 2).reshape(b, s, h * m.v_head).to(q_nope.dtype)

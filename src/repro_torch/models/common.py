@@ -29,9 +29,23 @@ from repro_torch.launch.collectives import (all_reduce, copy_to, data_group,
 from repro_torch.models.scan_util import remat_call, tree_map
 
 
+class _MetaGenerator(torch.Generator):
+    """The generator of a ``meta`` init (no generator lives on ``meta``):
+    a host generator the draws never read, whose ``device``, which the
+    init helpers place their tensors on, is ``meta``."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
 def make_generator(seed: int = 0, device=None) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` (None: the GPU), seeded."""
-    return torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    """A ``torch.Generator`` on ``device`` (None: the GPU), seeded; on
+    ``meta`` (the dry-run's parameter structs) one that draws nothing."""
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return _MetaGenerator()
+    return torch.Generator(device=dev).manual_seed(seed)
 
 
 def model_dtype(cfg) -> torch.dtype:
@@ -136,6 +150,17 @@ def _token_nll(logits: torch.Tensor, labels: torch.Tensor,
     logz = torch.logsumexp(logits32, dim=-1)
     gold = torch.gather(logits32, -1, labels[..., None].long())[..., 0]
     return logz - gold
+
+
+def full_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Logits over the whole vocab: on a mesh whose model axis splits it
+    (``logits`` holds this rank's slice), the slices gathered in rank
+    order (the serving steps' argmax reads every column)."""
+    group = model_group()[0]
+    if group is not None and logits.shape[-1] != vocab:
+        from repro_torch.launch.collectives import gather
+        return gather(logits, group, dim=-1, partial=False)
+    return logits
 
 
 def _dp_count(count: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import scan_util
-from repro_torch.models.common import (cross_entropy, embed_init,
+from repro_torch.models.common import (cross_entropy, embed_init, full_logits,
                                        model_dtype, rms_norm, stack_init,
                                        zeros)
 from repro_torch.models.transformer import (embed_tokens, token_positions,
@@ -194,6 +194,6 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 
     h, _ = scan_util.scan(body, h, (params["decoder"], state["caches"],
                                     state["cross"]))
-    logits = unembed(params, cfg, h)
-    return logits[:, -1], {"caches": state["caches"],
+    logits = full_logits(unembed(params, cfg, h)[:, -1], cfg.vocab_size)
+    return logits, {"caches": state["caches"],
                            "cross": state["cross"], "pos": pos + s}

@@ -31,8 +31,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import scan_util, ssm
-from repro_torch.models.common import (cross_entropy, embed_init, model_dtype,
-                                       rms_norm, stack_init, zeros)
+from repro_torch.models.common import (cross_entropy, embed_init,
+                                       full_logits, model_dtype, rms_norm,
+                                       stack_init, zeros)
 from repro_torch.models.transformer import (embed_tokens, token_positions,
                                             unembed)
 
@@ -178,7 +179,7 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     out = {"mamba": state["mamba"], "pos": pos + s}
     if not cfg.shared_attn_every:
         h = _mamba_scan(params["mamba_layers"], cfg, h, states=state["mamba"])
-        return unembed(params, cfg, h)[:, -1], out
+        return full_logits(unembed(params, cfg, h)[:, -1], cfg.vocab_size), out
     out["shared_kv"] = state["shared_kv"]
     positions = token_positions(b, s, pos, h.device)
     shared = params["shared"]
@@ -193,4 +194,4 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     h, _ = scan_util.scan(
         group_body, h, (_regroup(params["mamba_layers"], *group_dims(cfg)),
                         state["mamba"], state["shared_kv"]))
-    return unembed(params, cfg, h)[:, -1], out
+    return full_logits(unembed(params, cfg, h)[:, -1], cfg.vocab_size), out

@@ -6,7 +6,8 @@ attention), the xLSTM family and the SSM / hybrid family.
 functions:
 
   init(seed=0, device=None)     -> params dict (random, on the device;
-                                   None: the GPU)
+                                   None: the GPU; ``meta``: shapes and
+                                   dtypes only, nothing drawn)
   loss(params, batch)           -> scalar CE (f32)
   decode_init(batch, cache_len[, enc_len], device=None) -> decode state
                                    (enc-dec takes ``enc_len``; xLSTM's
@@ -33,7 +34,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, hybrid, transformer, xlstm_lm
-from repro_torch.models.common import make_generator
+from repro_torch.models.common import full_logits, make_generator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +69,8 @@ def get_model(cfg: ArchConfig) -> ModelAPI:
         )
     if cfg.xlstm is not None:
         def xl_prefill(p, t, s):
-            return xlstm_lm.xlstm_forward(p, cfg, t)[:, -1], s
+            return full_logits(xlstm_lm.xlstm_forward(p, cfg, t)[:, -1],
+                               cfg.vocab_size), s
         return ModelAPI(
             cfg=cfg,
             init=lambda seed=0, device=None: xlstm_lm.init_xlstm_lm(
@@ -82,7 +84,8 @@ def get_model(cfg: ArchConfig) -> ModelAPI:
         )
     if cfg.ssm is not None:
         def hy_prefill(p, t, s):
-            return hybrid.hybrid_forward(p, cfg, t)[:, -1], s
+            return full_logits(hybrid.hybrid_forward(p, cfg, t)[:, -1],
+                               cfg.vocab_size), s
         return ModelAPI(
             cfg=cfg,
             init=lambda seed=0, device=None: hybrid.init_hybrid(

@@ -50,6 +50,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.collectives import (copy_to, data_group, gather,
                                            model_group, reduce_from)
+from repro_torch.launch.sharding import layout
 from repro_torch.models.common import activation, dense_init, model_dtype
 from repro_torch.models.ffn import ffn_forward, init_ffn
 
@@ -174,8 +175,11 @@ def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
                               expert_offset=rank * e_loc)
         out = reduce_from(out, group)
     else:
-        dgroup, _, drank = data_group()
-        xs = gather(xt, dgroup, dim=0, partial=True)  # the global batch
+        # the global batch (a serving batch the data axis does not split
+        # is whole on every data rank already)
+        dgroup, _, drank = ((None, 1, 0) if layout("replicated_batch")
+                            else data_group())
+        xs = gather(xt, dgroup, dim=0, partial=True)
         out = _routed_experts(xs, *w, cfg=cfg,
                               num_local_experts=m.num_experts,
                               expert_offset=0)

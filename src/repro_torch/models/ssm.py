@@ -21,7 +21,7 @@ the new values and the same dict is returned, as the port's KV caches are
 activation dtype's values, which the reference's state takes after its
 first step, so every step reads the reference's values.
 
-On a mesh's model axis (training), a rank runs its heads: the rule table
+On a mesh's model axis, a rank runs its heads: the rule table
 splits ``in_proj`` into contiguous column blocks of the concatenated
 ``[z | x | B | C | dt]``, which do not follow the heads (zamba2's 10,448
 columns are 5,224 a rank on 2 ranks: all of z and 104 of x), so each
@@ -35,7 +35,12 @@ whole for use, and a rank convolves its x channels and B and C.
 norm runs over the whole ``d_inner`` (``rms_norm``'s group),
 ``out_proj`` holds the heads' rows and its output is summed over the
 group.  Heads that do not divide the axis run the block whole on every
-rank (every leaf gathered).
+rank (every leaf gathered).  Decode on the model axis (serving on a mesh)
+runs the same heads: the ``ssd`` state holds this rank's heads (its rule
+puts them on ``model`` exactly when they divide it), and the conv state,
+split by its rule into contiguous blocks of ``[x | B | C]`` like
+``conv_w``, is gathered whole, read as this rank's x channels and all of
+B and C, and written back as this rank's block of the whole new state.
 """
 from __future__ import annotations
 
@@ -122,6 +127,35 @@ def _leaf_shapes(cfg: ArchConfig) -> dict:
             "norm_scale": (d_inner,), "out_proj": (d_inner, d)}
 
 
+def _conv_state_in(conv: torch.Tensor, width: int, d_inner: int,
+                   mine: slice, heads_local: bool) -> torch.Tensor:
+    """The conv state a rank's conv reads, from the state it holds: on a
+    model axis the rule splits ``[.., K-1, x | B | C]`` into contiguous
+    blocks (gathered whole here), and a head-local rank reads its x
+    channels and all of B and C."""
+    group = model_group()[0]
+    if conv.shape[-1] < width:
+        conv = gather(conv, group, dim=-1, partial=False)
+    if heads_local:
+        conv = torch.cat([conv[..., mine], conv[..., d_inner:]], dim=-1)
+    return conv
+
+
+def _conv_state_out(conv: torch.Tensor, new: torch.Tensor, dl: int,
+                    heads_local: bool) -> None:
+    """Write the conv's new state back into the state this rank holds:
+    a head-local rank's x channels gathered whole first, then this rank's
+    block of the rule's split, if it splits."""
+    group, tp, m = model_group()
+    if heads_local:
+        new = torch.cat([gather(new[..., :dl], group, dim=-1, partial=False),
+                         new[..., dl:]], dim=-1)
+    n = conv.shape[-1]
+    if n < new.shape[-1]:
+        new = new[..., m * n:(m + 1) * n]
+    conv.copy_(new)
+
+
 def ssm_forward(p: dict, cfg: ArchConfig, x_in: torch.Tensor,
                 state: Optional[dict] = None):
     """x_in: [B, S, d].  Returns (y, state | None).
@@ -135,10 +169,6 @@ def ssm_forward(p: dict, cfg: ArchConfig, x_in: torch.Tensor,
     b, seq, _ = x_in.shape
     hd, n = s_cfg.head_dim, s_cfg.d_state
     gn = s_cfg.n_groups * n
-    if state is not None and model_group()[0] is not None:
-        raise NotImplementedError(
-            "the Mamba2 recurrent form on a mesh's model axis (serving on "
-            "a mesh, ROADMAP.md item 10)")
     p, group, tp, m = head_split(p, n_heads, _leaf_shapes(cfg))
     hl, dl = n_heads // tp, d_inner // tp          # this rank's heads
     mine = slice(m * dl, (m + 1) * dl)
@@ -159,7 +189,10 @@ def ssm_forward(p: dict, cfg: ArchConfig, x_in: torch.Tensor,
         conv_w = torch.cat([conv_w[:, mine], conv_w[:, d_inner:]], dim=1)
         conv_b = torch.cat([conv_b[mine], conv_b[d_inner:]])
     conv_in = torch.cat([x, bb, cc], dim=-1)
-    conv_state = state["conv"] if state is not None else None
+    conv_state = None
+    if state is not None:
+        conv_state = _conv_state_in(state["conv"], conv_shape[1], d_inner,
+                                    mine, tp > 1)
     conv_out, new_conv = _causal_conv(conv_in, conv_w, conv_b, conv_state)
     x, bb, cc = torch.split(conv_out, [dl, gn, gn], dim=-1)
 
@@ -186,7 +219,7 @@ def ssm_forward(p: dict, cfg: ArchConfig, x_in: torch.Tensor,
             ys.append(torch.matmul(h, cch[:, t, :, :, None])[..., 0])
         y = torch.stack(ys, dim=1)                             # [B,S,H,P]
         y = y + xh * p["ssm_d"][None, None, :, None]
-        state["conv"].copy_(new_conv)
+        _conv_state_out(state["conv"], new_conv, dl, tp > 1)
         state["ssd"].copy_(h)
         new_state = state
     else:

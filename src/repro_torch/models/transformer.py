@@ -36,8 +36,9 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import scan_util
 from repro_torch.models.common import (chunked_unembed_ce, cross_entropy,
-                                       embed_init, grad_cast, model_dtype,
-                                       rms_norm, stack_init, zeros)
+                                       embed_init, full_logits, grad_cast,
+                                       model_dtype, rms_norm, stack_init,
+                                       zeros)
 
 # ---------------------------------------------------------------------------
 # one transformer block
@@ -241,5 +242,6 @@ def lm_decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     for name, _, kind in layer_groups(cfg):
         h = _scan_group(params[name], cfg, h, positions, kind,
                         caches=state["caches"][name], cache_pos=pos)
-    logits = unembed(params, cfg, h)
-    return logits[:, -1], {"caches": state["caches"], "pos": pos + s}
+    logits = unembed(params, cfg, h)[:, -1]
+    return full_logits(logits, cfg.vocab_size), {"caches": state["caches"],
+                                                 "pos": pos + s}

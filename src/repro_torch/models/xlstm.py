@@ -25,9 +25,11 @@ The maxima take ``torch.amax`` / ``torch.maximum``, whose gradients split
 evenly among tied entries, as JAX's do.  Decode states are f32 and updated
 in place (the dict handed in is the one returned); ``m`` starts at -1e30.
 
-On a mesh's model axis (training), each cell runs this rank's heads with
-no collective inside its recurrence.  mLSTM: ``wq``/``wk``/``wv`` hold
-whole heads' columns (the reference constrains q to heads on ``model``),
+On a mesh's model axis, each cell runs this rank's heads with no
+collective inside its recurrence; in decode its state holds those heads
+(the state rules put them on ``model`` exactly when they divide it).
+mLSTM: ``wq``/``wk``/``wv`` hold whole heads' columns (the reference
+constrains q to heads on ``model``),
 ``w_up`` is whole and its output enters the region through ``copy_to``,
 the whole ``w_if``, ``w_o`` and ``norm_scale`` give each rank its heads'
 columns (their gradients summed over the group), the norm runs over the
@@ -45,8 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.launch.collectives import (copy_to, head_split,
-                                           model_group, reduce_from)
+from repro_torch.launch.collectives import copy_to, head_split, reduce_from
 from repro_torch.models.common import dense_init, model_dtype, rms_norm, zeros
 
 
@@ -63,13 +64,10 @@ def _copy_into(state: dict, new: dict) -> dict:
     return state
 
 
-def _heads_view(p: dict, cfg: ArchConfig, state, shapes: dict) -> tuple:
-    """``collectives.head_split`` of a cell (module docstring); the
-    recurrent form refused on a model axis."""
-    if state is not None and model_group()[0] is not None:
-        raise NotImplementedError(
-            "the xLSTM recurrent form on a mesh's model axis (serving on a "
-            "mesh, ROADMAP.md item 10)")
+def _heads_view(p: dict, cfg: ArchConfig, shapes: dict) -> tuple:
+    """``collectives.head_split`` of a cell (module docstring).  A decode
+    state follows the same split: its rule puts the heads on the model
+    axis exactly when they divide it."""
     return head_split(p, cfg.xlstm.num_heads, shapes)
 
 
@@ -114,7 +112,7 @@ def mlstm_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     d_inner, d_qk, nh = _dims(cfg)
     b, s, _ = x.shape
     hq, hv = d_qk // nh, d_inner // nh
-    p, group, tp, m = _heads_view(p, cfg, state, _mlstm_shapes(cfg))
+    p, group, tp, m = _heads_view(p, cfg, _mlstm_shapes(cfg))
     nh //= tp                                       # this rank's heads
     mine = slice(m * nh * hv, (m + 1) * nh * hv)    # their d_inner columns
 
@@ -289,7 +287,7 @@ def slstm_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     nh = cfg.xlstm.num_heads
     hd = d // nh
     b, s, _ = x.shape
-    p, group, tp, r = _heads_view(p, cfg, state, _slstm_shapes(cfg))
+    p, group, tp, r = _heads_view(p, cfg, _slstm_shapes(cfg))
     heads = slice(r * nh // tp, (r + 1) * nh // tp)     # this rank's heads
     nh, d = nh // tp, d // tp
     carry = state if state is not None else {

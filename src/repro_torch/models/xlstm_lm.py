@@ -23,8 +23,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import scan_util
 from repro_torch.models import xlstm as xl
-from repro_torch.models.common import (cross_entropy, embed_init, model_dtype,
-                                       rms_norm, stack_init, zeros)
+from repro_torch.models.common import (cross_entropy, embed_init,
+                                       full_logits, model_dtype, rms_norm,
+                                       stack_init, zeros)
 from repro_torch.models.transformer import embed_tokens, unembed
 
 
@@ -120,6 +121,6 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     for name, _, kind in layer_runs(cfg):
         h = _scan_run(params[name], cfg, h, kind,
                       states=state["states"][name])
-    logits = unembed(params, cfg, h)
-    return logits[:, -1], {"states": state["states"],
+    logits = full_logits(unembed(params, cfg, h)[:, -1], cfg.vocab_size)
+    return logits, {"states": state["states"],
                            "pos": state["pos"] + tokens.shape[1]}

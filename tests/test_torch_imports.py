@@ -18,7 +18,7 @@ REPO = Path(__file__).resolve().parents[1]
 # surface (baselines, checkpoints, describe, schedules, trainer), fabric /
 # streaming-ingest (with the runtime lock sanitizer), RPC, mesh, static
 # analysis, LM training, recurrent LM, LM-on-a-mesh and vocabulary-cache
-# slices
+# slices, and the dry-run / roofline slice
 REQUIRED = (
     "repro_torch.device", "repro_torch.core.pipeline",
     "repro_torch.sampling.rng", "repro_torch.sampling.adjacency",
@@ -54,7 +54,10 @@ REQUIRED = (
     "repro_torch.models.xlstm", "repro_torch.models.xlstm_lm",
     "repro_torch.models.moe", "repro_torch.launch.collectives",
     "repro_torch.launch.specs", "repro_torch.optim.compression",
-    "repro_torch.data.vocab_cache",
+    "repro_torch.data.vocab_cache", "repro_torch.roofline",
+    "repro_torch.roofline.analysis", "repro_torch.roofline.inspect",
+    "repro_torch.kernels.probe_ctx", "repro_torch.launch.dryrun",
+    "repro_torch.launch.dryrun_gnn",
 )
 
 # the static passes: `import repro_torch.analysis` (which every threaded
