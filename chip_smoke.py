@@ -318,8 +318,28 @@ line each on stdout:
                rank K1's and K2's counters, zeroed just before each main
                path, must be above 0 and all on the vector path; their sum
                over the ranks is ``launches_by_path["mesh_serve"]``.  Logs
-               p50/p99, each rank's all_reduce ms per batch (timed with a
-               card sync on both sides) and the phase's wall time;
+               p50/p99, each rank's all_reduce ms per batch (CUDA events
+               on the stream around each, ``kernels.ops.psum_clock``) and
+               the phase's wall time.  (e)
+               ``ServeFabric(transport="tcp")`` over mesh endpoints: two
+               ``python -m repro_torch.rpc.endpoint`` worlds
+               and the coordinator's world, each (2, 2) on ``cuda:0``,
+               at the served config: 12 requests pinned to the workers in
+               turn, one at a time, the same as a one-rank inproc fabric
+               with its cache padded to 2 shards gets (bucket and
+               generation equal, logits within rtol 1e-4, atol 1e-4);
+               then the reference rpc smoke's traffic (two tenants, 40
+               requests, 4 pinned to worker 0 as endpoint 0's leader is
+               SIGKILLed, 6 more): 0 errors, a failover and a retry,
+               ``healthy() == [1]``, STATS from worker 1 only, a
+               routed-local share above 0.5, endpoint 0's other ranks
+               gone within 30 s.  A SHUTDOWN stops the survivor, whose 4
+               ranks must each show K1 and K2 launches, all on the vector
+               path, and the same batch count; their sum is
+               ``launches_by_path["tcp_mesh"]``.  Logs per-tenant p50/p99,
+               rpc wait p50/p99, endpoint ready s, each rank's all_reduce
+               ms per batch, the wall times, and the meshless tcp phase's
+               p99 beside them;
 13. lm-train-mesh — the LM zoo trained on a mesh of ranks
                (``train_loop(mesh=)``: tensor parallelism over ``model``,
                expert parallelism, data parallelism, ZeRO-3), ranks on
@@ -954,7 +974,7 @@ class Endpoint:
     stdout lines read by a daemon thread (every read has a deadline) and
     its stderr in a file beside the config."""
 
-    def __init__(self, cfg_path: Path, index: int):
+    def __init__(self, cfg_path: Path, index: int, extra: tuple = ()):
         import os
         import queue
         import threading
@@ -964,10 +984,13 @@ class Endpoint:
             self.proc = subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.rpc.endpoint",
                  "--config", str(cfg_path), "--index", str(index),
-                 "--port", "0"],
+                 "--port", "0", *extra],
                 cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
                 stdout=subprocess.PIPE, stderr=err, text=True)
         self.lines = queue.Queue()
+        self.pids = []                 # the other ranks of a mesh endpoint
+        self.left = []                 # of those, alive after the wait
+        self.t_dead = self.t_gone = None
 
         def pump():
             with self.proc.stdout:
@@ -998,9 +1021,35 @@ class Endpoint:
 
     def ready(self) -> str:
         line = self.line("GNS_ENDPOINT_READY")
-        self.port = int(dict(kv.split("=") for kv in
-                             line.split()[1:])["port"])
+        kv = dict(f.split("=") for f in line.split()[1:])
+        self.port = int(kv["port"])
+        if "pids" in kv:
+            self.pids = [int(p) for p in kv["pids"].split(",")]
         return f"127.0.0.1:{self.port}"
+
+    def watch_death(self) -> None:
+        """Record (wall clock) when the leader dies and when the last of
+        its other ranks is gone, on a daemon thread."""
+        import threading
+
+        def gone(pid):
+            try:
+                with open(f"/proc/{pid}/stat") as f:
+                    return f.read().rsplit(")", 1)[1].split()[0] in "ZX"
+            except (FileNotFoundError, ProcessLookupError):
+                return True
+
+        def watch():
+            while self.proc.poll() is None:
+                time.sleep(0.02)
+            self.t_dead = time.time()
+            while (time.time() < self.t_dead + 2 * RANKS_GONE_S
+                   and not all(gone(p) for p in self.pids)):
+                time.sleep(0.02)
+            self.left = [p for p in self.pids if not gone(p)]
+            self.t_gone = time.time()
+
+        threading.Thread(target=watch, daemon=True).start()
 
     def check_running(self) -> None:
         if self.proc.poll() is not None:
@@ -1035,7 +1084,7 @@ def one_at_a_time(fab, reqs) -> list:
     return out
 
 
-def phase_tcp(engine, inproc_waves: dict) -> dict:
+def phase_tcp(engine, inproc_waves: dict) -> tuple:
     """The served engine's config behind a 2-worker tcp fabric whose
     workers are two endpoint processes on this card (started after this
     process built the kernels, so they load the built extension).  (1)
@@ -1048,7 +1097,7 @@ def phase_tcp(engine, inproc_waves: dict) -> dict:
     by worker 1, 0 errors, a failover, only worker 1 healthy and answering
     STATS.  (4) A SHUTDOWN frame to the survivor, which prints its K1 and
     K2 launches: each at least 1, all on the vector path.  Returns those
-    counts."""
+    counts and the waves' total p99 ms."""
     import os
     import signal
     import socket
@@ -1196,7 +1245,7 @@ def phase_tcp(engine, inproc_waves: dict) -> dict:
             or got["k2_paths"] != {"vector": counts["gather_agg"],
                                    "scalar": 0}):
         raise AssertionError(f"tcp: a launch left the vector path: {got}")
-    return counts
+    return counts, snap["total_p99_ms"]
 
 
 def stream_config():
@@ -3763,31 +3812,6 @@ def serve_waves(rng) -> list:
     return waves
 
 
-class PsumTimer:
-    """Wraps ``kernels.ops.psum`` (every all_reduce of the sharded K1 and of
-    layer 0's own rows) with a card sync on both sides; ``ms`` is the
-    total."""
-
-    def __init__(self):
-        from repro_torch.kernels import ops
-        self.ops, self.orig, self.ms, self.calls = ops, ops.psum, 0.0, 0
-
-        def timed(t, mesh, axis):
-            import torch
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = self.orig(t, mesh, axis)
-            torch.cuda.synchronize()
-            self.ms += (time.perf_counter() - t0) * 1e3
-            self.calls += 1
-            return out
-
-        ops.psum = timed
-
-    def close(self) -> None:
-        self.ops.psum = self.orig
-
-
 def served_one_at_a_time(server, reqs, leader: bool) -> list:
     """(bucket, version, logits) of each request, sent one at a time."""
     if not leader:
@@ -3827,22 +3851,21 @@ def mesh_serve_rank(mesh, device, ds, which: str) -> dict:
     from repro_torch.data import temporal_event_stream
     from repro_torch.gns import FabricConfig, GNSEngine, TenantConfig
     from repro_torch.kernels._ext import load_kernels
+    from repro_torch.kernels.ops import psum_clock
     load_kernels()                     # built by the parent: a load
     out = {"rank": mesh.rank, "leader": mesh.leader, "runs": {}}
     leader = mesh.leader
 
     def counted(name, fn):
         reset_k12()
-        timer = PsumTimer()
+        calls0, ms0 = psum_clock.read()
         t0 = time.perf_counter()
-        try:
-            res = fn()
-        finally:
-            timer.close()
+        res = fn()
         torch.cuda.synchronize()
+        calls, ms = psum_clock.read()
         k12 = read_k12(engine, f"mesh-serve {name} rank {mesh.rank}")
         res.update(k12=k12, wall_s=time.perf_counter() - t0,
-                   psum_ms=timer.ms, psum_calls=timer.calls)
+                   psum_ms=ms - ms0, psum_calls=calls - calls0)
         out["runs"][name] = res
         return res
 
@@ -4142,6 +4165,219 @@ def phase_mesh_serve(ds) -> dict:
     for kernel, n in counts.items():
         if n < 1:
             raise AssertionError(f"mesh-serve: {kernel} never launched")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# mesh-serve (e): the tcp fabric over endpoints that are (2, 2) worlds
+# ---------------------------------------------------------------------------
+
+MESH_RPC_PINNED = 12           # requests held against one rank's fabric
+RANKS_GONE_S = 30.0            # a killed endpoint's ranks exit within this
+
+
+def mesh_rpc_config():
+    """The served config on a (2, 2) mesh: every world of the phase."""
+    from repro_torch.gns.config import MeshConfig
+    return dataclasses.replace(serve_config(), mesh=MeshConfig(2, 2))
+
+
+def mesh_rpc_pinned(num_nodes: int) -> list:
+    """(worker, ids): the first of the mesh-serve requests, pinned to the
+    workers in turn (1-48 ids each: buckets 32 and 128)."""
+    return [(i % 2, ids) for i, ids in
+            enumerate(one_at_a_time_requests(num_nodes)[:MESH_RPC_PINNED])]
+
+
+def mesh_rpc_rank(mesh, device, ds, spec: dict) -> dict:
+    """One rank of the coordinator's world in (e) (``run_ranks`` spawns
+    it): its mesh engine proxies to the two endpoint worlds from the
+    leader.  (1) the pinned requests one at a time; (2) the reference
+    smoke's traffic (two tenants, 40 requests, 4 pinned to worker 0 with
+    endpoint 0's leader SIGKILLed, 6 more)."""
+    import os
+    import signal
+    from repro_torch.gns import FabricConfig, GNSEngine, TenantConfig
+    out = {"rank": mesh.rank}
+    engine = GNSEngine(mesh_rpc_config(), dataset=ds, mesh=mesh)
+    tcp = dict(workers=2, transport="tcp", endpoints=tuple(spec["addrs"]),
+               stall_timeout_ms=10_000.0, watch_interval_ms=50.0,
+               heartbeat_ms=50.0)
+    with engine.serve_fabric(FabricConfig(**tcp)) as fab:
+        if mesh.leader:
+            res = [fab.submit(ids, worker=w).result(timeout=FABRIC_WAIT_S)
+                   for w, ids in spec["pinned"]]
+            if any(r.status != "ok" for r in res):
+                raise AssertionError("mesh-serve (e): a pinned request "
+                                     "failed")
+            out["pinned"] = [(r.bucket, r.cache_version, r.logits)
+                             for r in res]
+    fab = engine.serve_fabric(FabricConfig(**tcp, tenants=(
+        TenantConfig("mobile", weight=2.0, max_queue=64),
+        TenantConfig("batch", weight=1.0, max_queue=64))))
+    ds_ = engine.ds
+    rng = np.random.default_rng(7)
+    half = len(ds_.val_idx) // 2
+    hot_a = rng.choice(ds_.val_idx[:half], size=30, replace=False)
+    hot_b = rng.choice(ds_.val_idx[half:], size=30, replace=False)
+    n_cls = engine.mcfg.num_classes
+    t0 = time.perf_counter()
+    with fab:
+        if mesh.leader:
+            futs = []
+            for i in range(40):
+                tenant, hot = (("mobile", hot_a) if i % 2 == 0
+                               else ("batch", hot_b))
+                n = int(rng.integers(2, 8))
+                futs.append((n, fab.submit(rng.choice(hot, size=n,
+                                                      replace=False),
+                                           tenant=tenant)))
+            results = check_results(futs, n_cls, "mesh-serve (e)")
+            snap = fab.snapshot()
+            w0 = fab.workers[0]
+            futs = [(4, fab.submit(rng.choice(hot_a, size=4, replace=False),
+                                   tenant="mobile", worker=0))
+                    for _ in range(4)]
+            os.kill(spec["pid0"], signal.SIGKILL)
+            wait_for(lambda: not w0.alive(), "worker 0's proxy ends")
+            results += check_results(futs, n_cls, "mesh-serve (e)")
+            futs = [(4, fab.submit(rng.choice(hot_b, size=4, replace=False),
+                                   tenant="batch")) for _ in range(6)]
+            results += check_results(futs, n_cls, "mesh-serve (e)")
+            wait_for(lambda: fab.healthy() == [1],
+                     "worker 0 leaves rotation")
+            out["smoke"] = {
+                "requests": len(results), "healthy": fab.healthy(),
+                "remote": sorted(fab.pull_remote_stats(
+                    timeout=FABRIC_WAIT_S)),
+                "wall_s": time.perf_counter() - t0,
+                "before_kill": snap, "snapshot": fab.snapshot()}
+    return out
+
+
+def phase_mesh_rpc(ds, tcp_p99_ms: float) -> dict:
+    """(e) of the mesh-serve phase (module docstring, phase 12): two
+    endpoint worlds and the coordinator's world.  Returns K1's and K2's
+    launches over the surviving endpoint's ranks."""
+    import signal
+    import socket
+    import tempfile
+    import torch
+    from repro_torch.gns import FabricConfig, GNSEngine
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.rpc import wire
+    from repro_torch.rpc.endpoint import LAUNCHES_TAG
+    t_phase = time.perf_counter()
+    # one rank: the pinned requests through an inproc fabric
+    one = GNSEngine(two_shards(serve_config()), dataset=ds)
+    pinned = mesh_rpc_pinned(one.ds.graph.num_nodes)
+    with one.serve_fabric(FabricConfig(workers=2,
+                                       stall_timeout_ms=10_000.0)) as fab:
+        want = [fab.submit(ids, worker=w).result(timeout=FABRIC_WAIT_S)
+                for w, ids in pinned]
+    del one
+    torch.cuda.synchronize()
+    eps = []
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build",
+                                     prefix="chip_smoke_mesh_rpc_") as d:
+        cfg_path = Path(d) / "engine.json"
+        cfg_path.write_text(json.dumps(mesh_rpc_config().to_dict()))
+        try:
+            t0 = time.perf_counter()
+            eps = [Endpoint(cfg_path, i, ("--heartbeat-ms", "50"))
+                   for i in range(2)]
+            addrs = [ep.ready() for ep in eps]
+            t_ready = time.perf_counter() - t0
+            eps[0].watch_death()
+            log("mesh-serve-e-launch", endpoints=addrs,
+                ranks=[[ep.proc.pid] + ep.pids for ep in eps],
+                ready_s=round(t_ready, 2), deadline_s=MESH_DEADLINE_S)
+            t1 = time.perf_counter()
+            ranks = run_ranks(
+                "chip_smoke:mesh_rpc_rank", data=2, model=2,
+                devices=["cuda:0"] * 4, backend=MESH_BACKEND,
+                args=(ds, {"addrs": addrs, "pinned": pinned,
+                           "pid0": eps[0].proc.pid}),
+                timeout_s=MESH_DEADLINE_S)
+            coord_s = time.perf_counter() - t1
+            wait_for(lambda: eps[0].t_gone is not None,
+                     "endpoint 0's ranks are gone")
+            eps[1].check_running()
+            with socket.create_connection(("127.0.0.1", eps[1].port),
+                                          timeout=FABRIC_WAIT_S) as sock:
+                wire.send_frame(sock, wire.SHUTDOWN)
+                line = eps[1].line(LAUNCHES_TAG)
+            code = eps[1].proc.wait(timeout=FABRIC_WAIT_S)
+        finally:
+            for ep in eps:
+                ep.reap()
+    lead = ranks[0]
+    # (1) against one rank: bucket, version, logits
+    got = lead["pinned"]
+    errs = [float(np.abs(g[2] - w.logits).max()) for g, w in zip(got, want)]
+    same = [(g[0], g[1]) == (w.bucket, w.cache_version)
+            for g, w in zip(got, want)]
+    close = [np.allclose(g[2], w.logits, rtol=1e-4, atol=1e-4)
+             for g, w in zip(got, want)]
+    log("mesh-serve-e-pinned", requests=len(got), max_abs_err=max(errs),
+        buckets=sorted({g[0] for g in got}),
+        same_bucket_and_version=all(same))
+    if len(got) != MESH_RPC_PINNED or not all(same) or not all(close):
+        raise AssertionError(f"mesh-serve (e): the endpoints differ from "
+                             f"one rank's fabric: {same} {errs}")
+    # (2) the smoke: no error, a failover, the killed world gone
+    sm = lead["smoke"]
+    snap, rt = sm["snapshot"], sm["snapshot"]["routing"]
+    exit_s = eps[0].t_gone - eps[0].t_dead
+    tenants_ms = {t: (v["served"], v["total_p50_ms"], v["total_p99_ms"])
+                  for t, v in sm["before_kill"]["tenants"].items()}
+    log("mesh-serve-e", requests=sm["requests"], errors=snap["errors"],
+        failovers=rt["failovers"], retries=rt["retries"],
+        healthy=sm["healthy"], remote_stats_from=sm["remote"],
+        routed_known_ids=rt["routed_known_ids"],
+        route_local_fraction=rt["route_local_fraction"],
+        tenants_served_p50_p99_ms=tenants_ms,
+        total_p50_ms=sm["before_kill"]["total_p50_ms"],
+        total_p99_ms=sm["before_kill"]["total_p99_ms"],
+        rpc_wait_p50_ms=sm["before_kill"].get("rpc_wait_p50_ms"),
+        rpc_wait_p99_ms=sm["before_kill"].get("rpc_wait_p99_ms"),
+        meshless_tcp_total_p99_ms=tcp_p99_ms,
+        endpoint0_exit=eps[0].proc.returncode,
+        endpoint0_ranks_gone_s=round(exit_s, 3),
+        endpoint0_ranks_left=eps[0].left, smoke_wall_s=round(sm["wall_s"], 3),
+        coordinator_world_s=round(coord_s, 1), **snap["rpc"])
+    if (sm["requests"] != 50 or snap["errors"] != 0 or rt["failovers"] < 1
+            or rt["retries"] < 1 or sm["healthy"] != [1]
+            or sm["remote"] != [1] or rt["routed_known_ids"] < 1
+            or not rt["route_local_fraction"] > 0.5):
+        raise AssertionError(f"mesh-serve (e): the smoke failed: {sm}")
+    if eps[0].proc.returncode != -signal.SIGKILL or eps[0].left \
+            or exit_s > RANKS_GONE_S:
+        raise AssertionError(f"mesh-serve (e): endpoint 0's ranks "
+                             f"{eps[0].left} outlived its leader "
+                             f"({exit_s:.1f} s)")
+    # (3) the survivor's ranks: K1 and K2 on every one, all vector
+    rec = json.loads(line.removeprefix(LAUNCHES_TAG))
+    for r in rec["ranks"]:
+        k1, k2 = r["cache_lookup_agg"], r["gather_agg"]
+        log("mesh-serve-e-rank", rank=r["rank"], launches_k1=k1,
+            launches_k2=k2, k1_paths=r["k1_paths"], k2_paths=r["k2_paths"],
+            batches=r["batches"], generation=r["version"],
+            allreduce_ms_per_batch=round(
+                r["psum_ms"] / max(r["batches"], 1), 3),
+            allreduce_calls=r["psum_calls"])
+        if (min(k1, k2) < 1 or r["k1_paths"] != {"vector": k1, "scalar": 0}
+                or r["k2_paths"] != {"vector": k2, "scalar": 0}):
+            raise AssertionError(f"mesh-serve (e): rank {r['rank']} of "
+                                 f"endpoint 1: {r}")
+    counts = {k: rec[k] for k in ("cache_lookup_agg", "gather_agg")}
+    log("mesh-serve-e-done", exit=code, ranks=len(rec["ranks"]),
+        launches=counts, seconds=round(time.perf_counter() - t_phase, 1))
+    if code != 0 or len(rec["ranks"]) != 4 \
+            or len({r["batches"] for r in rec["ranks"]}) != 1:
+        raise AssertionError(f"mesh-serve (e): survivor exit {code}, "
+                             f"{rec}")
     return counts
 
 
@@ -5234,7 +5470,7 @@ def run_phases(card: str, dryrun: tuple, t_dryrun: float) -> int:
     counts = {"serve": phase_serve(engine, rng)}
     phase_engine_parity(engine, rng)
     counts["fabric"], fabric_waves = phase_fabric(engine, rng)
-    counts["tcp"] = phase_tcp(engine, fabric_waves)
+    counts["tcp"], tcp_p99_ms = phase_tcp(engine, fabric_waves)
     counts["stream"] = phase_stream(rng)
 
     dev_engine = GNSEngine(train_config("device"), dataset=ds)
@@ -5275,6 +5511,7 @@ def run_phases(card: str, dryrun: tuple, t_dryrun: float) -> int:
     phase_lm_train_parity()
     counts["mesh"] = phase_mesh(ds)
     counts["mesh_serve"] = phase_mesh_serve(ds)
+    counts["tcp_mesh"] = phase_mesh_rpc(ds, tcp_p99_ms)
     free_card()
     counts["lm_train_mesh"] = phase_lm_train_mesh()
     counts["vocab_cache"] = phase_vocab_cache()

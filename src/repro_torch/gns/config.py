@@ -6,8 +6,10 @@ cache/placement, mesh, model, optimizer and serving sub-configs — that
 (FeatureStore → sampler → forward).  The dataclasses are field-for-field
 the reference's, so the JSON that ``repro.gns.config.EngineConfig.to_dict``
 writes loads here unchanged through :meth:`EngineConfig.from_dict`, and the
-JSON written here loads there.  The mesh, a surface not ported yet, is
-carried as data: the engine refuses one with more than one device.
+JSON written here loads there.  ``MeshConfig`` of more than one position
+makes the engine a rank of a ``torch.distributed`` world
+(:mod:`repro_torch.launch.mesh`; :class:`repro_torch.gns.engine
+.GNSEngine` explains the split).
 
 In ``ModelConfig``, ``aggregate_impl="pallas"`` and ``input_impl="fused"``
 select the port's CUDA kernels (K2 ``gather_agg`` and K1

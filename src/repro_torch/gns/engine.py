@@ -81,7 +81,9 @@ group ``d``:
   the delta log.
 
 Over ``FabricConfig(transport="tcp")`` each endpoint holds its own engine
-replica, and a mesh engine refuses it.
+replica; on a mesh each endpoint is a world of ranks of its own
+(``repro_torch.rpc.endpoint``) and the mesh engine's fabric proxies to
+them from the leader.
 """
 from __future__ import annotations
 

@@ -45,6 +45,8 @@ shard ``m``; the batch operands are this rank's data-parallel group's own
 """
 from __future__ import annotations
 
+import threading
+import time
 from typing import Optional
 
 import torch
@@ -73,15 +75,75 @@ def gather_agg(feat: torch.Tensor, idx: torch.Tensor,
     return gather_agg_cuda(feat, idx, w)
 
 
+class PsumClock:
+    """Every :func:`psum` that all-reduced: the calls, and the ms each held
+    its tensor's stream.  A CPU tensor's is the call's wall time.  A card
+    tensor's is the time between two CUDA events on its stream, one
+    recorded before the call and one after (gloo stages a card tensor
+    through the host and the stream waits for the reduced copy back), read
+    once the second has passed: the clock adds no sync to the path."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._calls = 0
+        self._ms = 0.0
+        self._pending: list = []      # (start, end) events not yet read
+
+    def start(self, t: torch.Tensor):
+        """The mark taken before ``t``'s all_reduce."""
+        if t.is_cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(t.device))
+            return ev
+        return time.perf_counter()
+
+    def stop(self, t: torch.Tensor, mark) -> None:
+        """Count one all_reduce of ``t`` begun at ``mark``."""
+        if t.is_cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(t.device))
+            with self._lock:
+                self._calls += 1
+                self._pending.append((mark, ev))
+                self._fold(wait=False)
+            return
+        ms = (time.perf_counter() - mark) * 1e3
+        with self._lock:
+            self._calls += 1
+            self._ms += ms
+
+    def _fold(self, wait: bool) -> None:
+        keep = []
+        for a, b in self._pending:
+            if wait:
+                b.synchronize()
+            elif not b.query():
+                keep.append((a, b))
+                continue
+            self._ms += a.elapsed_time(b)
+        self._pending = keep
+
+    def read(self) -> tuple:
+        """``(calls, ms)`` so far (waits for the events still pending)."""
+        with self._lock:
+            self._fold(wait=True)
+            return self._calls, self._ms
+
+
+psum_clock = PsumClock()
+
+
 def psum(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """``all_reduce(SUM)`` of ``t`` in place over ``mesh``'s ``axis`` group
     (nothing on an axis of one rank; recorded as ``launch/collectives.py``
-    records its own); returns ``t``."""
+    records its own, and timed on :data:`psum_clock`); returns ``t``."""
     if mesh.shape[axis] > 1:
         from repro_torch.launch.collectives import record
         record("all-reduce", t.numel() * t.element_size(), mesh.group(axis))
         if not t.is_meta:
+            mark = psum_clock.start(t)
             dist.all_reduce(t, group=mesh.group(axis))
+            psum_clock.stop(t, mark)
     return t
 
 

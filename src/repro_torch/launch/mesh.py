@@ -38,6 +38,9 @@ it spawns ``data·model`` processes over ``tcp://127.0.0.1``, each on the
 device the caller names for it, with the backend the caller names, runs
 one function in each and returns what each returned.  A rank that raises,
 or a run that outlives its deadline, fails the whole run.
+:func:`lead_world` is the launcher of a world that serves until it is
+told to stop (an RPC endpoint's): the calling process becomes its rank 0,
+the other ranks exit with it, and it exits when one of them fails.
 """
 from __future__ import annotations
 
@@ -225,9 +228,14 @@ class Channel:
     ids, broadcast from the leader in one fixed-size message: the leader
     calls :meth:`send`, every other rank :meth:`recv`, in the same order.
     A follower's ``recv`` is bounded by the group's timeout, and a leader
-    with nothing to send sends ``HEARTBEAT`` at its poll interval."""
+    with nothing to send sends ``HEARTBEAT`` at its poll interval.
 
-    HEARTBEAT, STOP = 0, 1
+    A serving loop's commands beside ``HEARTBEAT`` and ``STOP``: ``BATCH``
+    (bucket, pinned generation, a flag, request count; the ids), ``POLL``
+    (a watchdog's decisions) and ``SWAP`` (how many batches were sampled
+    before a swap's publish)."""
+
+    HEARTBEAT, STOP, BATCH, POLL, SWAP = range(5)
     HEADER = 4
 
     def __init__(self, group, width: int) -> None:
@@ -367,3 +375,152 @@ def run_ranks(target: str, *, data: int, model: int, devices: Sequence,
                 p.kill()
                 p.join(5.0)
     return [out[r] for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# a world led by this process (an endpoint's)
+# ---------------------------------------------------------------------------
+
+_PR_SET_PDEATHSIG = 1
+
+
+def _die_with(parent: int) -> None:
+    """End this process when ``parent`` does: the kernel's parent-death
+    signal where there is one (Linux), and a thread that watches the
+    parent's pid either way (it also covers a parent gone before the
+    signal was set)."""
+    import ctypes
+    import os
+    import signal
+    import threading
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(_PR_SET_PDEATHSIG,
+                                                 signal.SIGKILL)
+    except (OSError, AttributeError):
+        pass
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(0.5)
+        os._exit(1)
+
+    threading.Thread(target=watch, daemon=True,
+                     name="mesh-parent-watch").start()
+
+
+def _follower_main(rank, world, port, data, model, device, backend, target,
+                   args, timeout_s, parent) -> None:
+    import os
+    import sys
+    _die_with(parent)
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        timeout = timedelta(seconds=timeout_s)
+        store = dist.TCPStore("127.0.0.1", port, world, False,
+                              timeout=timeout)
+        dist.init_process_group(backend, store=store, rank=rank,
+                                world_size=world, timeout=timeout)
+        try:
+            _resolve(target)(make_host_mesh(data, model, timeout), dev,
+                             *args)
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+class World:
+    """The ranks :func:`lead_world` spawned beside this process (rank 0)
+    and this rank's mesh; until :meth:`close`, a thread ends this process
+    when one of them fails."""
+
+    def __init__(self, procs: list) -> None:
+        import threading
+        self.mesh: Optional[HostMesh] = None
+        self.procs = procs
+        self._closing = threading.Event()
+        threading.Thread(target=self._watch, daemon=True,
+                         name="mesh-world-watch").start()
+
+    def _watch(self) -> None:
+        import os
+        import sys
+        while not self._closing.wait(0.1):
+            for r, p in enumerate(self.procs, start=1):
+                if p.exitcode not in (None, 0):
+                    sys.stderr.write(f"mesh: rank {r} of the world exited "
+                                     f"with {p.exitcode}; its leader "
+                                     f"exits\n")
+                    sys.stderr.flush()
+                    os._exit(1)
+
+    @property
+    def pids(self) -> list:
+        """The followers' process ids, rank 1 first."""
+        return [p.pid for p in self.procs]
+
+    def close(self, timeout_s: float = 60.0) -> list:
+        """Tear down this rank's process group and wait for the followers
+        to exit (their targets returned); kills any still running after
+        ``timeout_s``.  Returns their exit codes, rank 1 first."""
+        self._closing.set()
+        dist.destroy_process_group()
+        deadline = time.monotonic() + timeout_s
+        for p in self.procs:
+            p.join(max(deadline - time.monotonic(), 0.1))
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5.0)
+        return [p.exitcode for p in self.procs]
+
+
+def lead_world(target: str, *, data: int, model: int, device,
+               backend: str, args: tuple = (), timeout_s: float = 300.0
+               ) -> World:
+    """Make this process rank 0, the leader, of a ``(data, model)`` world
+    whose other ranks are spawned processes on ``device``, each running
+    ``target`` (``"module:function"``) as ``fn(mesh, device, *args)`` and
+    exiting when it returns.  Returns once this rank's mesh is made (every
+    rank makes its groups in one order).  Unlike :func:`run_ranks`, the
+    ranks live as long as their work, not a deadline:
+
+    * the rendezvous is a ``TCPStore`` this process holds on a port the OS
+      chose, bound from the start, so no other world can take it;
+    * a follower exits with its leader, also on a SIGKILL (the parent-death
+      signal, and a thread that watches the parent);
+    * a follower that fails (raises, or is killed) ends this process with
+      exit code 1, its traceback on the shared stderr: a world that lost a
+      rank cannot go on.
+
+    ``timeout_s`` bounds the rendezvous and every collective of the
+    world's groups."""
+    import os
+    world = data * model
+    timeout = timedelta(seconds=timeout_s)
+    store = dist.TCPStore("127.0.0.1", 0, world, True, timeout=timeout,
+                          wait_for_workers=False)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_follower_main, daemon=True, args=(
+        r, world, store.port, data, model, str(device), backend, target,
+        args, timeout_s, os.getpid())) for r in range(1, world)]
+    for p in procs:
+        p.start()
+    out = World(procs)
+    dist.init_process_group(backend, store=store, rank=0, world_size=world,
+                            timeout=timeout)
+    out.mesh = make_host_mesh(data, model, timeout)
+    return out
+
+
+def failed_ranks(ok: bool, group) -> list:
+    """The ranks of ``group`` whose ``ok`` is false, on every rank (every
+    rank of the group calls it, as a collective)."""
+    t = torch.zeros(dist.get_world_size(group), dtype=torch.int32)
+    t[dist.get_rank(group)] = int(not ok)
+    dist.all_reduce(t, group=group)
+    return [r for r, bad in enumerate(t.tolist()) if bad]

@@ -13,42 +13,76 @@ mirrors the FabricWorker serve loop:
 
 plus a heartbeat thread (liveness + the worker's own beat age, so a stalled
 compute loop is visible through a healthy TCP connection), REFRESH handling
-(the coordinator's watchdog drives the refresh cadence; the endpoint swaps
-locally and ships the new routing table back in a SWAPPED frame), and a
-STATS reply for cross-host tenant aggregation.
+(the coordinator's watchdog drives the refresh cadence; the endpoint's
+compute loop begins the build, swaps it in between batches and ships the
+new routing table back in a SWAPPED frame), and a STATS reply for
+cross-host tenant aggregation.
+
+**On a mesh** (``EngineConfig.mesh`` above one position) an endpoint is a
+world of ``torch.distributed`` ranks (:func:`repro_torch.launch.mesh
+.lead_world`): the process started below is rank 0, the leader, and spawns
+the other ranks on the same device; every rank builds the mesh engine and
+generation 0, and only the leader binds the socket and answers frames.  The
+leader's compute loop sends every batch it samples to the other ranks over
+a :class:`~repro_torch.launch.mesh.Channel` (ids, bucket, pinned
+generation), as worker ``w`` of the in-process mesh fabric does; every
+rank samples it with the same rng and group stamp and runs the same
+forward, whose sharded K1 sums over the model axis.  Swaps and refresh
+kickoffs happen on the same thread as sampling, announced by a ``POLL``
+in the same command order, so every rank samples every batch against the
+same generation; worker ``w``'s results are bit for bit those of worker
+``w`` of the in-process mesh fabric.  After each forward the ranks agree
+that all of them succeeded: a rank whose forward fails fails the batch's
+requests on the leader with an error status.  A rank whose sampling fails
+exits, since its rng no longer follows the leader's.  A SHUTDOWN stops
+every rank; a rank that dies ends the world (its leader exits with code
+1), and the other ranks exit with a killed leader.
 
 Run one per host::
 
     python -m repro_torch.rpc.endpoint --config engine.json --index 0 --port 0
 
 The replica runs on the GPU unless ``--device cpu`` is given; on a CUDA
-device the kernels are built (or the built extension loaded) before the
-endpoint announces itself, and a failed build exits non-zero.  ``--port 0``
-binds an ephemeral port; the chosen one is announced on stdout as
-``GNS_ENDPOINT_READY host=... port=... index=...`` before serving.  The
-endpoint survives coordinator disconnects (it keeps listening), so a
-rebooted coordinator re-adopts a warm replica.  After a SHUTDOWN frame, an
-endpoint on the GPU prints one last line, ``GNS_ENDPOINT_LAUNCHES {json}``:
-this process's launches of K1 (``cache_lookup_agg``) and K2
-(``gather_agg``) and their access paths.
+device the kernels are built (or the built extension loaded) on every rank
+before the endpoint announces itself, and a failed build exits non-zero.
+``--restore DIR`` serves the parameters of a checkpoint (either package's
+``save``).  ``--port 0`` binds an ephemeral port; the chosen one is
+announced on stdout as ``GNS_ENDPOINT_READY host=... port=... index=...``
+(on a mesh with ``world=N pids=...``, the other ranks' process ids) once
+generation 0 is built on every rank.  The endpoint survives coordinator
+disconnects (it keeps listening), so a rebooted coordinator re-adopts a
+warm replica.  After a SHUTDOWN frame it prints one last line,
+``GNS_ENDPOINT_LAUNCHES {json}``: each rank's launches of K1
+(``cache_lookup_agg``) and K2 (``gather_agg``), their access paths, its
+live generation and a digest of its routing table, and the launches
+summed over the ranks.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import socket
+import sys
 import threading
 import time
+import traceback
 from typing import List, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.analysis import guarded_by
+from repro_torch.launch.mesh import (Channel, MeshDesync, failed_ranks,
+                                     new_host_group)
 from repro_torch.serve.batcher import MicroBatcher
 from repro_torch.serve.metrics import BatchRecord, ServeMeter
 
 from . import wire
+
+WORLD_TIMEOUT_S = 300.0     # bounds a world's rendezvous and collectives
 
 
 @dataclasses.dataclass
@@ -63,7 +97,7 @@ class _EpPending:
 
 
 @guarded_by("_esend", "_ep_conn")
-@guarded_by("_elock", writes_only=("ep_last_beat",))
+@guarded_by("_elock", "_refresh_ask", writes_only=("ep_last_beat",))
 class WorkerEndpoint:
     """One remote fabric worker: engine replica + serve loop + transport.
 
@@ -71,7 +105,12 @@ class WorkerEndpoint:
     lock ``_esend`` — every frame write and the accept/EOF swaps happen
     under it.  ``ep_last_beat`` follows the FabricWorker writes_only
     contract: written under ``_elock`` once per loop, read lock-free by the
-    heartbeat thread.
+    heartbeat thread.  ``_refresh_ask`` (the last REFRESH's version, boxed)
+    passes from the receiving thread to the compute loop under ``_elock``.
+
+    On a mesh every rank builds its endpoint, in one order (the command
+    channel's group is made here); the leader serves, the others
+    :meth:`follow`.
     """
 
     def __init__(self, engine, index: int = 0, *, host: str = "127.0.0.1",
@@ -96,10 +135,18 @@ class WorkerEndpoint:
         self._ep_conn: Optional[socket.socket] = None
         self._elock = threading.Lock()
         self.ep_last_beat = time.monotonic()
+        self._refresh_ask: Optional[tuple] = None
+        self._building = False          # compute loop only: a build begun
+                                        # and not yet swapped in
         self.stall_s = 0.0              # chaos hook: sleep mid-batch
         self._stop_ev = threading.Event()
         self._lsock: Optional[socket.socket] = None
         self._threads: List[threading.Thread] = []
+        self.mesh = engine.mesh
+        self.channel: Optional[Channel] = None
+        if self.mesh is not None:
+            self.channel = Channel(new_host_group(self.mesh.timeout),
+                                   self.batcher.capacity)
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -115,12 +162,16 @@ class WorkerEndpoint:
         self.port = s.getsockname()[1]
         return self.port
 
+    def warm(self) -> None:
+        """Build generation 0 (on a mesh every rank calls it)."""
+        self.engine.ensure_cache(self._refresh_rng)
+
     def start(self) -> "WorkerEndpoint":
         """Warm the replica (generation 0) and start the serve threads."""
         if self._lsock is None:
             self.bind()
         if not self._threads:
-            self.engine.ensure_cache(self._refresh_rng)
+            self.warm()
             for target, name in ((self._compute_loop, "compute"),
                                  (self._hb_loop, "heartbeat")):
                 t = threading.Thread(
@@ -131,7 +182,8 @@ class WorkerEndpoint:
         return self
 
     def serve_forever(self) -> None:
-        """Accept loop: one coordinator at a time, reconnects welcome."""
+        """Accept loop: one coordinator at a time, reconnects welcome.  On
+        a mesh it returns after the other ranks were told to stop."""
         self.start()
         self._lsock.settimeout(0.2)
         try:
@@ -147,7 +199,8 @@ class WorkerEndpoint:
         finally:
             self.stop()
             for t in self._threads:
-                t.join(timeout=5.0)
+                # the compute loop's last command is every rank's STOP
+                t.join(timeout=None if self.channel is not None else 5.0)
 
     def serve_in_thread(self) -> threading.Thread:
         """Test/bench helper: run :meth:`serve_forever` on a daemon thread."""
@@ -169,6 +222,11 @@ class WorkerEndpoint:
         with self._esend:
             conn, self._ep_conn = self._ep_conn, None
         if conn is not None:
+            try:
+                # a close alone does not wake the recv blocked on it
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
             try:
                 conn.close()
             except OSError:
@@ -243,7 +301,10 @@ class WorkerEndpoint:
             md["index"] = self.index
             self._send(wire.HELLO_ACK, md, arrs)
         elif kind == wire.REFRESH:
-            self._begin_refresh(meta.get("version"))
+            # begun by the compute loop, the one thread that samples and
+            # swaps (on a mesh, the one that speaks to the other ranks)
+            with self._elock:
+                self._refresh_ask = (meta.get("version"),)
         elif kind == wire.STATS_REQ:
             self._send(wire.STATS, {
                 "rpc_id": meta.get("rpc_id"), "index": self.index,
@@ -263,16 +324,43 @@ class WorkerEndpoint:
         md["version"] = store.version if store is not None else -1
         return md, arrs
 
-    def _begin_refresh(self, version) -> None:
+    # ------------------------------------------------------------------
+    # generation maintenance (the compute loop's, on every rank alike)
+    # ------------------------------------------------------------------
+    def _maintain(self) -> None:
+        """Publish a finished build (SWAPPED to the coordinator), then
+        begin the one the last REFRESH asked for.  On a mesh the leader
+        first tells the other ranks, with a POLL, while a refresh is asked
+        for or building (the store's swap and kickoff are agreements)."""
+        with self._elock:
+            ask, self._refresh_ask = self._refresh_ask, None
+        version = ask[0] if ask is not None else None
+        if self.channel is not None:
+            if ask is None and not self._building:
+                return
+            self.channel.send(Channel.POLL, (ask is not None,
+                                             version is not None,
+                                             version or 0))
+        self._maintain_store(ask is not None, version)
+
+    def _maintain_store(self, due: bool, version: Optional[int]) -> None:
         store = self.engine.store
-        if store is None or store.refreshing:
+        if store is None:
             return
         try:
-            store.begin_refresh(
-                self._refresh_rng,
-                version=int(version) if version is not None
-                else store.version + 1)
+            if store.swap_if_ready():
+                self._building = False
+                self.meter.observe_swap()
+                if self.mesh is None or self.mesh.leader:
+                    md, arrs = self._table_frame()
+                    self._send(wire.SWAPPED, md, arrs)
+            if due and store.begin_refresh(
+                    self._refresh_rng,
+                    version=int(version) if version is not None
+                    else store.version + 1):
+                self._building = True
         except BaseException:
+            self._building = False
             self.meter.observe_refresh_failure()
 
     # ------------------------------------------------------------------
@@ -287,27 +375,24 @@ class WorkerEndpoint:
                 "beat_age_s": max(now - self.ep_last_beat, 0.0),
                 "backlog": self.batcher.qsize()})
 
-    def _poll_swap(self) -> None:
-        store = self.engine.store
-        if store is None:
-            return
-        try:
-            if store.swap_if_ready():
-                self.meter.observe_swap()
-                md, arrs = self._table_frame()
-                self._send(wire.SWAPPED, md, arrs)
-        except BaseException:
-            self.meter.observe_refresh_failure()
-
     def _compute_loop(self) -> None:
+        try:
+            self._compute_batches()
+        finally:
+            if self.channel is not None:
+                self.channel.send(Channel.STOP)
+
+    def _compute_batches(self) -> None:
         while True:
             with self._elock:
                 self.ep_last_beat = time.monotonic()
-            self._poll_swap()
+            self._maintain()
             batch = self.batcher.next_batch(timeout=0.02)
             if batch is None:
                 if self._stop_ev.is_set():
                     return
+                if self.channel is not None:
+                    self.channel.send(Channel.HEARTBEAT)
                 continue
             t_start = time.monotonic()
             live, expired = [], []
@@ -333,24 +418,53 @@ class WorkerEndpoint:
             if self._stop_ev.is_set() and self.batcher.qsize() == 0:
                 return
 
+    def _prepare(self, ids: np.ndarray, bucket: int):
+        """Sample one batch with this worker's rng and group stamp."""
+        eng = self.engine
+        store = eng.store
+        if store is None:
+            return eng.infer_prepare(ids, bucket=bucket, rng=self._rng)
+        store.dp_group = self.group
+        with store.serving(self.meter.traffic):
+            return eng.infer_prepare(ids, bucket=bucket, rng=self._rng)
+
+    def _failed_forward(self, err: Optional[BaseException]) -> list:
+        """On a mesh: the ranks whose forward failed (every rank calls
+        it); a failure of this rank is written to stderr with its
+        traceback."""
+        if err is not None:
+            sys.stderr.write(f"endpoint {self.index} rank {self.mesh.rank}: "
+                             f"the forward failed:\n" + "".join(
+                                 traceback.format_exception(err)))
+            sys.stderr.flush()
+        return failed_ranks(err is None, self.channel.group)
+
     def _serve_batch(self, live: List[_EpPending], t_start: float) -> None:
         eng = self.engine
         ids = np.concatenate([p.node_ids for p in live])
         bucket = self.batcher.bucket_for(len(ids))
         t0 = time.perf_counter()
-        store = eng.store
-        if store is not None:
-            store.dp_group = self.group
-            with store.serving(self.meter.traffic):
-                mb = eng.infer_prepare(ids, bucket=bucket, rng=self._rng)
-        else:
-            mb = eng.infer_prepare(ids, bucket=bucket, rng=self._rng)
+        mb = self._prepare(ids, bucket)
         if self.stall_s:
             time.sleep(self.stall_s)    # chaos hook: remote in-flight stall
-        logits = eng.infer_compute(mb, meter=self.meter.traffic)
+        version = mb.cache_version
+        if self.channel is not None:    # the batch, on every rank
+            self.channel.send(Channel.BATCH, (bucket, version, 0, len(live)),
+                              ids)
+        err, logits = None, None
+        try:
+            logits = eng.infer_compute(mb, meter=self.meter.traffic)
+        except BaseException as e:
+            err = e
+        if self.channel is not None:
+            bad = self._failed_forward(err)
+            if bad and err is None:
+                raise RuntimeError(f"ranks {bad} of endpoint {self.index}'s "
+                                   f"world failed the forward")
+        if err is not None:
+            raise err
         compute_s = time.perf_counter() - t0
         t_done = time.monotonic()
-        version = mb.cache_version
         rec = {"bucket": bucket, "n_requests": len(live), "n_ids": len(ids),
                "compute_s": compute_s, "cache_version": version,
                "hit_fraction": mb.num_cached / max(mb.num_input, 1)}
@@ -370,12 +484,82 @@ class WorkerEndpoint:
                 {"logits": logits[lo:lo + n]})
             lo += n
 
+    # ------------------------------------------------------------------
+    # the other ranks of a mesh
+    # ------------------------------------------------------------------
+    def follow(self) -> None:
+        """A rank other than the leader: run the leader's commands in its
+        order (batches, the store's maintenance) until its STOP."""
+        while True:
+            kind, fields, ids = self.channel.recv()
+            if kind == Channel.STOP:
+                return
+            if kind == Channel.POLL:
+                due, given, version = fields[:3]
+                self._maintain_store(bool(due), version if given else None)
+            elif kind == Channel.BATCH:
+                bucket, version, _, n_requests = fields
+                self._follow_batch(ids, bucket, version, n_requests)
+
+    def _follow_batch(self, ids: np.ndarray, bucket: int, version: int,
+                      n_requests: int) -> None:
+        """One of the leader's batches.  A forward that fails fails the
+        batch (the leader answers its requests with an error status) and
+        the world goes on: no state outlives a forward.  A failed
+        sampling raises, which ends this rank and so the world (its
+        leader's watch exits within 0.1 s): its sampling rng no longer
+        follows the leader's."""
+        mb = self._prepare(ids, bucket)
+        if mb.cache_version != version:
+            raise MeshDesync(f"rank {self.mesh.rank} sampled generation "
+                             f"{mb.cache_version}, the leader {version}")
+        err = None
+        t0 = time.perf_counter()
+        try:
+            self.engine.infer_compute(mb, meter=self.meter.traffic)
+        except Exception as e:
+            err = e
+            self.meter.observe_error(1)
+        if not self._failed_forward(err):
+            self.meter.observe_batch(BatchRecord(
+                bucket=bucket, n_requests=n_requests, n_ids=len(ids),
+                compute_s=time.perf_counter() - t0, cache_version=version,
+                hit_fraction=mb.num_cached / max(mb.num_input, 1)),
+                worker=self.index)
+
+    def record(self) -> dict:
+        """This rank's launches (:func:`launch_counts`), batches served,
+        the sharded K1's all_reduces and their ms (``kernels.ops
+        .psum_clock``), live generation and routing-table digest
+        (:func:`table_digest`)."""
+        from repro_torch.kernels.ops import psum_clock
+        store = self.engine.store
+        rank = self.mesh.rank if self.mesh is not None else 0
+        calls, ms = psum_clock.read()
+        return {"rank": rank, **launch_counts(),
+                "batches": self.meter.batch_count(), "psum_calls": calls,
+                "psum_ms": ms,
+                "version": store.version if store is not None else -1,
+                "table": table_digest(store.routing_table()
+                                      if store is not None else None)}
+
+    def gather_records(self) -> list:
+        """Every rank's :meth:`record`, in rank order (on a mesh every
+        rank calls it, after the serve loop ended)."""
+        if self.mesh is None:
+            return [self.record()]
+        out = [None] * self.mesh.size
+        dist.all_gather_object(out, self.record(),
+                               group=self.mesh.host_group)
+        return out
+
 
 # ---------------------------------------------------------------------------
 # process entrypoint
 # ---------------------------------------------------------------------------
 
 LAUNCHES_TAG = "GNS_ENDPOINT_LAUNCHES"
+READY_TAG = "GNS_ENDPOINT_READY"
 
 
 def launch_counts() -> dict:
@@ -387,6 +571,45 @@ def launch_counts() -> dict:
                          for p, c in cache_lookup.path_calls.items()},
             "k2_paths": {p: c.value
                          for p, c in gather_agg.path_calls.items()}}
+
+
+def table_digest(table) -> Optional[str]:
+    """SHA-256 of a routing table as the wire carries it (None: none)."""
+    if table is None:
+        return None
+    md, arrs = wire.pack_table(table)
+    h = hashlib.sha256(json.dumps(md, sort_keys=True).encode())
+    h.update(np.ascontiguousarray(arrs["shard_of_node"]).tobytes())
+    return h.hexdigest()
+
+
+def build_endpoint(cfg, opts: dict, mesh=None) -> WorkerEndpoint:
+    """One rank's endpoint: the engine on ``opts["device"]`` (on ``mesh``),
+    the checkpoint's parameters when ``opts["restore"]`` names one, the
+    kernels loaded on a CUDA device, generation 0 built."""
+    from repro_torch.gns.engine import GNSEngine
+    engine = GNSEngine(cfg, device=opts["device"], mesh=mesh)
+    if opts.get("restore"):
+        engine.restore(opts["restore"])
+    if engine.device.type == "cuda":
+        # build (or load the built) kernels before announcing: a replica
+        # that cannot launch them must not serve through the plain versions
+        from repro_torch.kernels._ext import load_kernels
+        load_kernels()
+    ep = WorkerEndpoint(engine, opts["index"], host=opts["host"],
+                        port=opts["port"], heartbeat_ms=opts["heartbeat_ms"])
+    ep.warm()
+    return ep
+
+
+def _follower(mesh, device, cfg_dict: dict, opts: dict) -> None:
+    """A rank other than the leader of an endpoint's world (on the
+    leader's device, ``opts["device"]``)."""
+    from repro_torch.gns.config import EngineConfig
+    ep = build_endpoint(EngineConfig.from_dict(cfg_dict), opts, mesh)
+    dist.barrier(group=mesh.host_group)       # every rank is warm
+    ep.follow()
+    ep.gather_records()
 
 
 def main(argv=None) -> int:
@@ -402,28 +625,54 @@ def main(argv=None) -> int:
     ap.add_argument("--heartbeat-ms", type=float, default=100.0)
     ap.add_argument("--device", default=None,
                     help="torch device of the replica (default: the GPU)")
+    ap.add_argument("--restore", default=None,
+                    help="checkpoint directory whose parameters to serve")
     args = ap.parse_args(argv)
 
+    from repro_torch.device import resolve_device
     from repro_torch.gns.config import EngineConfig
-    from repro_torch.gns.engine import GNSEngine
     with open(args.config) as f:
-        cfg = EngineConfig.from_dict(json.load(f))
-    engine = GNSEngine(cfg, device=args.device)
-    on_card = engine.device.type == "cuda"
-    if on_card:
-        # build (or load the built) kernels before announcing: a replica
-        # that cannot launch them must not serve through the plain versions
-        from repro_torch.kernels._ext import load_kernels
-        load_kernels()
-    ep = WorkerEndpoint(engine, args.index, host=args.host, port=args.port,
-                        heartbeat_ms=args.heartbeat_ms)
+        cfg_dict = json.load(f)
+    cfg = EngineConfig.from_dict(cfg_dict)
+    device = resolve_device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    opts = {"device": str(device), "index": args.index, "host": args.host,
+            "port": args.port, "heartbeat_ms": args.heartbeat_ms,
+            "restore": args.restore}
+    world, mesh, extra = None, None, ""
+    if cfg.mesh is not None and cfg.mesh.data * cfg.mesh.model > 1:
+        from repro_torch.launch.mesh import lead_world
+        if device.type == "cuda":
+            from repro_torch.kernels._ext import load_kernels
+            load_kernels()            # built once, before the ranks load it
+        world = lead_world("repro_torch.rpc.endpoint:_follower",
+                           data=cfg.mesh.data, model=cfg.mesh.model,
+                           device=device, backend="gloo",
+                           args=(cfg_dict, opts), timeout_s=WORLD_TIMEOUT_S)
+        mesh = world.mesh
+        extra = (f" world={mesh.size} pids="
+                 + ",".join(str(p) for p in world.pids))
+    ep = build_endpoint(cfg, opts, mesh)
+    if world is not None:
+        dist.barrier(group=mesh.host_group)   # every rank is warm
     port = ep.bind()
-    print(f"GNS_ENDPOINT_READY host={args.host} port={port} "
-          f"index={args.index}", flush=True)
+    print(f"{READY_TAG} host={args.host} port={port} "
+          f"index={args.index}{extra}", flush=True)
     ep.serve_forever()
-    if on_card:
-        print(f"{LAUNCHES_TAG} " + json.dumps(
-            {"index": args.index, **launch_counts()}), flush=True)
+    ranks = ep.gather_records()
+    total = {k: sum(r[k] for r in ranks)
+             for k in ("cache_lookup_agg", "gather_agg")}
+    for k in ("k1_paths", "k2_paths"):
+        total[k] = {p: sum(r[k][p] for r in ranks) for p in ranks[0][k]}
+    print(f"{LAUNCHES_TAG} " + json.dumps(
+        {"index": args.index, **total, "ranks": ranks}), flush=True)
+    if world is not None:
+        codes = world.close()
+        if any(codes):
+            print(f"endpoint {args.index}: ranks exited with {codes}",
+                  file=sys.stderr)
+            return 1
     return 0
 
 

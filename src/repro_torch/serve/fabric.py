@@ -49,13 +49,16 @@ replica and cache generations: the coordinator then computes nothing (no
 generation 0, no kernel build) and only drives the refresh cadence.
 
 **On a mesh** (an engine over a :class:`~repro_torch.launch.mesh.HostMesh`
-of ``torch.distributed`` ranks; in-process transport only) every rank
-builds, starts and stops the fabric, in the same order.  The leader
-(global rank 0) runs ``submit``, tenancy, the router, every worker's
-scheduler and batcher, and the watchdog's health, failover and refresh
-decisions; ``submit`` elsewhere raises
-:class:`~repro_torch.launch.mesh.NotLeader`.  Worker ``w`` runs on every
-rank: its leader thread sends each batch it samples (ids, bucket, pinned
+of ``torch.distributed`` ranks) every rank builds, starts and stops the
+fabric, in the same order.  The leader (global rank 0) runs ``submit``,
+tenancy, the router, every worker's scheduler and batcher, and the
+watchdog's health, failover and refresh decisions; ``submit`` elsewhere
+raises :class:`~repro_torch.launch.mesh.NotLeader`.  Over
+``transport="tcp"`` only the leader holds workers, its proxies (each
+endpoint is a world of ranks of its own, :mod:`repro_torch.rpc
+.endpoint`), and the other ranks wait for the leader's stop on the
+watchdog's channel.  In process, worker ``w`` runs on every rank: its
+leader thread sends each batch it samples (ids, bucket, pinned
 generation, the kill flag) over a gloo channel of its own, and worker
 ``w`` on every other rank samples it with the same rng and group stamp
 and runs the same forward, whose sharded K1 sums over process groups of
@@ -97,8 +100,6 @@ from repro_torch.serve.server import (QueueFull, ServeFuture, ServeResult,
 from repro_torch.serve.tenancy import FairScheduler
 
 DEFAULT_TENANT = "default"
-# Channel command kinds on a mesh (beside HEARTBEAT and STOP)
-_BATCH, _POLL, _SWAP = 2, 3, 4
 _FOLLOW_BOUND_S = 300.0     # a follower's longest wait for the leader's
                             # next step, where the mesh sets no timeout
 
@@ -282,8 +283,8 @@ class FabricWorker:
             time.sleep(self.stall_s)      # chaos hook: in-flight stall
         die = self._die
         if self.channel is not None:      # the batch, on every rank
-            self.channel.send(_BATCH, (bucket, mb.cache_version, die,
-                                       len(live)), ids)
+            self.channel.send(Channel.BATCH, (bucket, mb.cache_version,
+                                              die, len(live)), ids)
         if die:
             raise WorkerKilled(f"worker {self.index} killed (chaos hook)")
         logits = eng.infer_compute(mb, meter=self.copy_meter, mesh=self.mesh)
@@ -323,7 +324,7 @@ class FabricWorker:
                 kind, fields, ids = self.channel.recv()
                 if kind == Channel.STOP:
                     return
-                if kind != _BATCH:
+                if kind != Channel.BATCH:
                     continue
                 bucket, version, die, n_requests = fields[:4]
                 fab._await_version(version)
@@ -403,22 +404,19 @@ class ServeFabric:
         self._last_refresh_batches = 0
         mesh = engine.mesh
         self.leader = mesh is None or mesh.leader
-        if mesh is not None and cfg.transport == "tcp":
-            raise NotImplementedError(
-                "ServeFabric(transport='tcp') over a mesh engine: each "
-                "endpoint holds its own engine replica; serve a mesh with "
-                "transport='inproc'")
         if cfg.transport == "tcp":
             # cross-host fleet: each worker is a proxy over a TCP channel
-            # to a WorkerEndpoint process holding its own cache replica
+            # to a WorkerEndpoint process holding its own cache replica (on
+            # a mesh, the leader's proxies: the other ranks hold none)
             from repro_torch.rpc import RemoteWorkerProxy
             endpoints = tuple(cfg.endpoints)
             if len(endpoints) != cfg.workers:
                 raise ValueError(
                     f"transport='tcp' needs one endpoint per worker: "
                     f"{len(endpoints)} endpoints for {cfg.workers} workers")
-            self.workers = [RemoteWorkerProxy(self, i, endpoints[i])
-                            for i in range(cfg.workers)]
+            self.workers = ([RemoteWorkerProxy(self, i, endpoints[i])
+                             for i in range(cfg.workers)]
+                            if self.leader else [])
         else:
             if cfg.transport != "inproc":
                 raise ValueError(f"unknown transport {cfg.transport!r}")
@@ -436,10 +434,11 @@ class ServeFabric:
         if mesh is not None:
             if mesh.timeout is not None:
                 self._bound_s = mesh.timeout.total_seconds()
-            width = self.workers[0].batcher.capacity
-            for w in self.workers:
-                w.mesh = mesh.fork()
-                w.channel = Channel(w.mesh.host_group, width)
+            if cfg.transport != "tcp":
+                width = self.workers[0].batcher.capacity
+                for w in self.workers:
+                    w.mesh = mesh.fork()
+                    w.channel = Channel(w.mesh.host_group, width)
             self._watch_channel = Channel(new_host_group(mesh.timeout), 0)
 
     # ------------------------------------------------------------------
@@ -647,10 +646,10 @@ class ServeFabric:
             with self._sample_lock:
                 yield
                 n = self._windows
-            self._watch_channel.send(_SWAP, (n,))
+            self._watch_channel.send(Channel.SWAP, (n,))
             return
         kind, (n, *_), _ = self._watch_channel.recv()
-        if kind != _SWAP:
+        if kind != Channel.SWAP:
             raise MeshDesync(f"the leader's watchdog sent {kind}, not a "
                              f"swap")
         self._wait(lambda: self._windows >= n,
@@ -678,7 +677,7 @@ class ServeFabric:
                 kind, (stopping, due, *_), _ = self._watch_channel.recv()
                 if kind == Channel.STOP:
                     return
-                if kind == _POLL:
+                if kind == Channel.POLL:
                     self._maintain(self.engine.store, bool(stopping),
                                    bool(due))
         except Exception as e:        # raised by this rank's stop()
@@ -762,6 +761,8 @@ class ServeFabric:
             # the refresh CADENCE (broadcast REFRESH frames); each endpoint
             # swaps locally and ships its new table back in a SWAPPED frame
             # (_on_remote_swap adopts the placement leader's copy)
+            if self._watch_channel is not None:   # the others wait for STOP
+                self._watch_channel.send(Channel.HEARTBEAT)
             every = self.serve_cfg.refresh_every
             if every is None or self._stop.is_set():
                 return
@@ -781,7 +782,7 @@ class ServeFabric:
         due = (every is not None and not stopping and n > 0
                and n - self._last_refresh_batches >= every)
         if self._watch_channel is not None:     # the others' watchdogs
-            self._watch_channel.send(_POLL, (stopping, due))
+            self._watch_channel.send(Channel.POLL, (stopping, due))
         self._maintain(store, stopping, due, n)
 
     def _maintain(self, store, stopping: bool, due: bool,

@@ -55,8 +55,6 @@ from repro_torch.launch.mesh import Channel, MeshDesync, NotLeader
 from repro_torch.serve.batcher import MicroBatcher
 from repro_torch.serve.metrics import BatchRecord, ServeMeter
 
-_BATCH = 2          # a Channel command kind: one micro-batch to serve
-
 
 class QueueFull(RuntimeError):
     """Admission control: the bounded request queue refused the request."""
@@ -347,7 +345,7 @@ class GNSServer:
                 kind, fields, ids = self._channel.recv()
                 if kind == Channel.STOP:
                     return
-                if kind != _BATCH:
+                if kind != Channel.BATCH:
                     continue
                 bucket, version, stopping, n_requests = fields[:4]
                 if store is not None and store.version != version:
@@ -392,8 +390,8 @@ class GNSServer:
         if self._channel is not None:
             store = self.engine.store
             version = store.version if store is not None else -1
-            self._channel.send(_BATCH, (bucket, version, stopping,
-                                        len(live)), ids)
+            self._channel.send(Channel.BATCH, (bucket, version, stopping,
+                                               len(live)), ids)
         logits, version, compute_s = self._compute(ids, bucket, len(live))
         t_done = time.monotonic()
         lo = 0

@@ -601,3 +601,176 @@ def stream_ranks(mesh, device, spec: dict) -> dict:
         out["restored"][name] = dict(_ckpt_state(eng), step=step,
                                      merged=_merged(eng))
     return out
+
+
+def rpc_coordinator_ranks(mesh, device, spec: dict) -> dict:
+    """The port's coordinator on this mesh, over two endpoint worlds
+    (``tests/test_torch_mesh_rpc.py``): (1) ``spec["pinned"]`` one at a
+    time through the inproc mesh fabric, then through tcp; (2) a refresh
+    every 4 batches over tcp, each endpoint's SWAPPED tables logged; (3)
+    the reference's ``RPC_COORD_CODE`` traffic with endpoint 0's leader
+    SIGKILLed.  Every rank serves the checkpoint ``spec["restore"]``."""
+    import dataclasses
+    import json
+    import os
+    import signal
+    from repro_torch.gns import (EngineConfig, FabricConfig, GNSEngine,
+                                 TenantConfig)
+    from repro_torch.launch.mesh import NotLeader
+    from repro_torch.rpc.endpoint import table_digest
+    torch.set_num_threads(1)
+    out = {"rank": mesh.rank}
+    cfg = EngineConfig.from_dict(json.loads(spec["cfg"]))
+    eng = GNSEngine(cfg, device=device, mesh=mesh)
+    eng.restore(spec["restore"])
+    leader = mesh.leader
+    addrs = tuple(spec["endpoints"])
+
+    def pinned(fab):
+        if not leader:
+            out["refused"] = refuses(lambda: fab.submit(np.arange(3)),
+                                     NotLeader)
+            return None
+        res = []
+        for w, ids in spec["pinned"]:
+            r = fab.submit(ids, worker=w).result(timeout=WAIT_S)
+            res.append((r.status, r.bucket, r.cache_version, r.logits))
+        return res
+
+    # (1) the inproc mesh fabric, then tcp, one request at a time
+    with eng.serve_fabric(FabricConfig(workers=2,
+                                       stall_timeout_ms=600_000.0)) as fab:
+        out["inproc"] = pinned(fab)
+    tcp = dict(workers=2, transport="tcp", endpoints=addrs,
+               stall_timeout_ms=600_000.0, watch_interval_ms=50.0,
+               heartbeat_ms=50.0)
+    with eng.serve_fabric(FabricConfig(**tcp)) as fab:
+        out["tcp"] = pinned(fab)
+        out["tcp_workers"] = len(fab.workers)
+
+    # (2) the watchdog's REFRESH after 4 batches: both endpoints swap
+    swapped = []
+    serve_cfg = dataclasses.replace(cfg.serve_config(), refresh_every=4)
+    fab = eng.serve_fabric(FabricConfig(**tcp), serve_cfg=serve_cfg)
+    remote_swap = fab._on_remote_swap
+
+    def logged(index, table):
+        swapped.append((index, None if table is None else table.version,
+                        table_digest(table)))
+        remote_swap(index, table)
+
+    fab._on_remote_swap = logged
+    with fab:
+        if leader:
+            ids = spec["pinned"][0][1]
+            before = [fab.submit(ids, worker=i % 2).result(timeout=WAIT_S)
+                      for i in range(4)]
+            wait_until(lambda: {i for i, _, _ in swapped} == {0, 1},
+                       "both endpoints swap in the refreshed generation")
+            after = [fab.submit(ids, worker=i).result(timeout=WAIT_S)
+                     for i in range(2)]
+            out["refresh"] = {
+                "versions": [r.cache_version for r in before + after],
+                "status": [r.status for r in before + after],
+                "swapped": list(swapped),
+                "errors": fab.meter.snapshot()["errors"]}
+
+    # (3) the reference's rpc smoke, endpoint 0 SIGKILLed mid-stream
+    fab = eng.serve_fabric(FabricConfig(
+        workers=2, transport="tcp", endpoints=addrs,
+        tenants=(TenantConfig("mobile", weight=2.0, max_queue=64),
+                 TenantConfig("batch", weight=1.0, max_queue=64)),
+        stall_timeout_ms=5000.0, watch_interval_ms=50.0, heartbeat_ms=50.0))
+    ds = eng.ds
+    rng = np.random.default_rng(7)
+    half = len(ds.val_idx) // 2
+    hot_a = rng.choice(ds.val_idx[:half], size=30, replace=False)
+    hot_b = rng.choice(ds.val_idx[half:], size=30, replace=False)
+    with fab:
+        if leader:
+            futs = []
+            for i in range(40):
+                tenant, hot = (("mobile", hot_a) if i % 2 == 0
+                               else ("batch", hot_b))
+                ids = rng.choice(hot, size=int(rng.integers(2, 8)),
+                                 replace=False)
+                futs.append(fab.submit(ids, tenant=tenant))
+            status = [f.result(timeout=WAIT_S).status for f in futs]
+            w0 = fab.workers[0]
+            futs = [fab.submit(rng.choice(hot_a, size=4, replace=False),
+                               tenant="mobile", worker=0) for _ in range(4)]
+            os.kill(spec["pid0"], signal.SIGKILL)
+            wait_until(lambda: not w0.alive(),
+                       "the proxy of the killed endpoint ends")
+            status += [f.result(timeout=WAIT_S).status for f in futs]
+            tail = [fab.submit(rng.choice(hot_b, size=4, replace=False),
+                               tenant="batch") for _ in range(6)]
+            status += [f.result(timeout=WAIT_S).status for f in tail]
+            out["smoke_status"] = status
+            out["smoke_healthy"] = fab.healthy()
+            out["smoke_remote"] = sorted(fab.pull_remote_stats(timeout=30.0))
+            out["smoke_snapshot"] = fab.snapshot()
+    return out
+
+
+def endpoint_fault_ranks(mesh, device, spec: dict) -> dict:
+    """An endpoint world served in this spawn, rank 1 failing its second
+    batch: its forward after it ran, or with ``spec["fault"] ==
+    "sampling"`` its sampling; the leader also holds a meshless tcp
+    coordinator.  Returns the leader's outcome of each request, one at a
+    time, and every rank's batch count."""
+    import dataclasses
+    import json
+    import torch.distributed as dist
+    from repro_torch.gns import EngineConfig, FabricConfig, GNSEngine
+    from repro_torch.rpc.endpoint import build_endpoint
+    torch.set_num_threads(1)
+    cfg = EngineConfig.from_dict(json.loads(spec["cfg"]))
+    ep = build_endpoint(cfg, {"device": str(device), "index": 0,
+                              "host": "127.0.0.1", "port": 0,
+                              "heartbeat_ms": 50.0}, mesh)
+    if mesh.rank == 1 and spec.get("fault") == "sampling":
+        prepare, calls = ep._prepare, []
+
+        def fails_second(ids, bucket):
+            calls.append(1)
+            if len(calls) == 2:
+                raise RuntimeError("injected sampling fault on rank 1")
+            return prepare(ids, bucket)
+
+        ep._prepare = fails_second
+    elif mesh.rank == 1:
+        compute, calls = ep.engine.infer_compute, []
+
+        def fails_second(mb, meter=None, mesh=None):
+            out = compute(mb, meter=meter, mesh=mesh)
+            calls.append(1)
+            if len(calls) == 2:
+                raise RuntimeError("injected fault on rank 1")
+            return out
+
+        ep.engine.infer_compute = fails_second
+    dist.barrier(group=mesh.host_group)
+    out = {"rank": mesh.rank}
+    if not mesh.leader:
+        ep.follow()
+        out["batches"] = ep.meter.batch_count()
+        return out
+    serving = ep.serve_in_thread()
+    coord = dataclasses.replace(cfg, mesh=None, cache=dataclasses.replace(
+        cfg.cache, shards=2))
+    fab = GNSEngine(coord, device="cpu").serve_fabric(FabricConfig(
+        workers=1, transport="tcp", endpoints=(f"127.0.0.1:{ep.port}",),
+        stall_timeout_ms=600_000.0, watch_interval_ms=50.0))
+    outcome = []
+    with fab:
+        for ids in spec["requests"]:
+            try:
+                outcome.append(fab.submit(ids).result(timeout=WAIT_S).status)
+            except Exception as e:          # the endpoint's error status
+                outcome.append(str(e))
+    ep.stop()
+    serving.join(WAIT_S)
+    out.update(outcome=outcome, batches=ep.meter.batch_count(),
+               errors=ep.meter.snapshot()["errors"])
+    return out

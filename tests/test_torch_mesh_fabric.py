@@ -15,8 +15,9 @@ of its own.
 * The reference's fabric smoke holds: both tenants served, most owned ids
   routed to their owner, a killed worker fails over losslessly (it dies
   on every rank).
-* A follower's ``submit`` raises ``NotLeader``; ``transport="tcp"`` over
-  a mesh engine raises ``NotImplementedError``.
+* A follower's ``submit`` raises ``NotLeader``.
+
+``transport="tcp"`` over a mesh engine is ``tests/test_torch_mesh_rpc.py``'s.
 """
 import json
 
@@ -26,15 +27,13 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
-from _torch_mesh_ranks import engine_config  # noqa: E402
-from _torch_parity import jax_params_to_numpy, one_rank_group  # noqa: E402
+from _torch_parity import jax_params_to_numpy  # noqa: E402
 from repro.gns import EngineConfig as EngineConfigRef  # noqa: E402
 from repro.gns import FabricConfig as FabricConfigRef  # noqa: E402
 from repro.gns import GNSEngine as EngineRef  # noqa: E402
 from repro.graph.datasets import get_dataset as get_dataset_ref  # noqa: E402
 from repro.serve import ServeFabric as ServeFabricRef  # noqa: E402
-from repro_torch.gns import FabricConfig, GNSEngine  # noqa: E402
-from repro_torch.launch.mesh import make_host_mesh, run_ranks  # noqa: E402
+from repro_torch.launch.mesh import run_ranks  # noqa: E402
 
 SPAWN_S = 300
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -176,11 +175,3 @@ def test_reference_fabric_smoke_on_the_mesh(fabric):
 def test_follower_submit_is_refused(fabric):
     assert all(r["refused"] for r in fabric["ranks"][1:])
 
-
-def test_tcp_transport_on_a_mesh_is_refused():
-    with one_rank_group():
-        eng = GNSEngine(engine_config({}), device="cpu",
-                        mesh=make_host_mesh(1, 1))
-        with pytest.raises(NotImplementedError, match="transport='tcp'"):
-            eng.serve_fabric(FabricConfig(
-                workers=1, transport="tcp", endpoints=("127.0.0.1:1",)))
