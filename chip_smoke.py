@@ -3,8 +3,11 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout, on a host with one CUDA card.  Phases, one
-line each on stdout:
+Run from the root of a checkout, on a host with one CUDA card.  After each
+phase a ``[phase-clock] name=... seconds=... since_start=...`` line gives
+the seconds since the previous one, so the clock lines sum to the whole
+run.
+Phases, one line each on stdout:
 
 0. analysis  — the port's static analyzer, ``python -m repro_torch.analysis
                --baseline .github/gnscheck-torch-baseline.txt --json`` with
@@ -170,12 +173,12 @@ line each on stdout:
     lm-train — ``seamless-m4t-medium`` at its published width (bf16,
                ``remat=True``, ``attn_impl="pallas"``) through
                ``launch.train.train_loop``: 8 steps at batch 8, seq 256 (64
-               stub frames + 192 tokens), a checkpoint every 4 steps (under
-               ``build/``, removed after); every loss finite, the first
+               stub frames + 192 tokens); every loss finite, the first
                within 1.0 of ln V, the last below the first.  Then 6 steps
-               into a fresh directory and a resume to 8: resumed from step
-               4, steps 5-8 within rtol 2e-3 of the uninterrupted run's
-               (whether bit for bit is logged).  Logs ms per step after the
+               with a checkpoint every 4 (under ``build/``, removed after)
+               and a resume to 8: resumed from step 4, steps 5-8 within
+               rtol 2e-3 of the uninterrupted run's (whether bit for bit is
+               logged).  Logs ms per step after the
                first, positions and decoder tokens per second, the
                checkpoint's size;
     lm-train-dec — ``gemma-2b`` at its published width (tied 256,000-entry
@@ -199,11 +202,11 @@ line each on stdout:
                ``lm-profile`` does;
     lm-train-xlstm — ``xlstm-125m`` at its published width (12 blocks,
                d_model 768, sLSTM at 3 and 9, tied 50,304 vocab, bf16,
-               remat) through ``train_loop``: 4 steps at batch 8 × 1,024
-               with a checkpoint every 2, then 3 steps into a fresh
-               directory and a resume to 4: the resumed losses bit for bit
-               the uninterrupted run's, losses finite, the last below the
-               first.  Then two more steps timed (CUDA events) in turns
+               remat) through ``train_loop``: 2 steps at batch 8 × 1,024,
+               then 1 step with a checkpoint and a resume to 2: the
+               resumed loss bit for bit the uninterrupted run's, losses
+               finite, the last below the first.  Then two more steps
+               timed (CUDA events) in turns
                with the two sLSTM blocks alone (forward, remat recompute,
                backward; their share of the step), one step profiled
                (device launches, busy ms), and the loss
@@ -322,11 +325,13 @@ line each on stdout:
                on the stream around each, ``kernels.ops.psum_clock``) and
                the phase's wall time.  (e)
                ``ServeFabric(transport="tcp")`` over mesh endpoints: two
-               ``python -m repro_torch.rpc.endpoint`` worlds
-               and the coordinator's world, each (2, 2) on ``cuda:0``,
-               at the served config: 12 requests pinned to the workers in
-               turn, one at a time, the same as a one-rank inproc fabric
-               with its cache padded to 2 shards gets (bucket and
+               ``python -m repro_torch.rpc.endpoint`` worlds, each (2, 2)
+               on ``cuda:0``, and the coordinator, one process as the
+               reference's is (``GNSEngine.coordinator`` of the (2, 2)
+               config in this process: no process group, the cache's 2
+               shards), at the served config: 12 requests pinned to the
+               workers in turn, one at a time, the same as a one-rank
+               inproc fabric with its cache padded to 2 shards gets (bucket and
                generation equal, logits within rtol 1e-4, atol 1e-4);
                then the reference rpc smoke's traffic (two tenants, 40
                requests, 4 pinned to worker 0 as endpoint 0's leader is
@@ -337,9 +342,9 @@ line each on stdout:
                ranks must each show K1 and K2 launches, all on the vector
                path, and the same batch count; their sum is
                ``launches_by_path["tcp_mesh"]``.  Logs per-tenant p50/p99,
-               rpc wait p50/p99, endpoint ready s, each rank's all_reduce
-               ms per batch, the wall times, and the meshless tcp phase's
-               p99 beside them;
+               rpc wait p50/p99, endpoint ready s, the coordinator's ready
+               s, each rank's all_reduce ms per batch, the wall times, and
+               the meshless tcp phase's p99 beside them;
 13. lm-train-mesh — the LM zoo trained on a mesh of ranks
                (``train_loop(mesh=)``: tensor parallelism over ``model``,
                expert parallelism, data parallelism, ZeRO-3), ranks on
@@ -376,7 +381,7 @@ line each on stdout:
                (1, 2), 2 steps at 8 x 256 (heads, cross-attention
                head-local, the 256,206 vocab split in two), against (b)'s
                one rank; (f) ``xlstm-125m`` at its width and depth on
-               (1, 2) and (1, 4) (its 4 heads: 2 and 1 a rank), 3 steps
+               (1, 2) and (1, 4) (its 4 heads: 2 and 1 a rank), 2 steps
                at 4 x 512; (g) ``zamba2-2.7b`` at its width, 18 of 54
                layers (3 shared-block invocations; cut: depth), on
                (1, 2), 3 steps at 2 x 1,024 (Mamba2's ``in_proj``
@@ -385,8 +390,9 @@ line each on stdout:
                with (a)'s bounds and the leaves left whole equal over the
                group bit for bit; (d) also trains reduced seamless,
                xlstm and zamba2 (xlstm's share beyond 1e-5 logged beside
-               the CPU ranks' one-ulp floor: MESH_REDUCED_NOISY).  Each
-               full-width run logs per rank its losses and their error,
+               the CPU ranks' one-ulp floor: MESH_REDUCED_NOISY), each
+               CPU world in the background beside the next card worlds.
+               Each full-width run logs per rank its losses and their error,
                ms a step beside one rank's, peak GB, collectives a step.
                The ranks' K1-K4 counters stay 0;
 14. vocab-cache — ``data/vocab_cache.py`` on the card: gemma-2b's
@@ -406,24 +412,41 @@ line each on stdout:
                over gloo (``launch/serve.py::mesh_generate``), bf16 at
                published widths, seeded weights: ``qwen2-7b`` (28
                layers; Hkv 4, a head-local cache) on (1, 2), prefill 4 x
-               512 then 32 decode steps; ``deepseek-v2-236b`` at 3 of 60
+               512 then 16 decode steps; ``deepseek-v2-236b`` at 3 of 60
                layers (MLA absorbed and head-local, 80 experts a rank),
                ``zamba2-2.7b`` at 18 of 54 and ``xlstm-125m`` (recurrent
                decode on their heads) on (1, 2), the same batch (xlstm
                also in f32, where the logits must agree within 1e-2); ``h2o-
-               danube-3-4b`` on (2, 1) at B = 1, 4,032 + 128 tokens
-               through its 4,096-slot ring split over the data ranks
-               (2,048 a rank); cut: depth.  Each run is held to one rank's
-               run from the same weights in rank 0's process: the mesh
-               run is teacher-forced by its greedy tokens, so every
+               danube-3-4b`` on (2, 1) at B = 1, 4,032 + 72 tokens
+               (the ring wraps at decode step 64) through its 4,096-slot
+               ring split over the data ranks
+               (2,048 a rank); ``deepseek-v2-236b`` at 3 of 60 layers on
+               (1, 3), 4 x (512 + 33) — 3 divides neither its 160 experts
+               nor its 128 heads: the MoE layer's single-device branch
+               with the experts split along f (w1/w3 [160, 5120, 512], w2
+               [160, 512, 5120] a rank, logged and checked) and MLA over
+               all heads on every rank (``q_up`` a column block gathered
+               whole; ``k_up``, ``v_up``, ``wo`` and the 102,400 vocab
+               whole), the leaves' specs and local shapes logged; then in
+               that world its MoE layer at full width (bf16) forward and
+               backward over 4 x 64 tokens, the output and every gradient
+               (each rank's blocks) within 2^-5 of one rank's largest
+               |value| (``lm-train-mesh-moe``'s rule); cut: depth.  Each
+               run is held to one rank's run from the same weights in
+               rank 0's process: the mesh run is teacher-forced by its
+               greedy tokens, so every
                step's logits compare (largest difference logged), and a
                greedy flip counts only where one rank's top-two gap at
                that step is within ``SERVE_MESH_TIE``.  Logs ms a token
                per rank beside one rank's, collectives a step (calls and
                MB, from the recorder), peak GB a rank; K1-K4 launch 0
                times;
-16. dryrun   — every (arch x shape) cell of the 16x16 mesh counted and
-               every cell of the 2x16x16 mesh run with no counts
+16. dryrun   — every (arch x shape) cell of the 16x16 mesh counted, and
+               each arch's ``MULTIPOD_SHAPE`` (train_4k: the data group
+               over pod x data, the collectives that span nodes) on the
+               2x16x16 mesh run with no counts (cut: from 40 multi-pod
+               cells to 10; the CPU tests hold every cell,
+               ``tests/test_torch_dryrun.py``)
                (``launch/dryrun.py::run_cell``: rank 0's step on ``meta``
                tensors over a ``fake`` world), then ``dryrun-gnn``
                (papers100M's GNS step on both meshes): in a process of
@@ -468,6 +491,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -491,6 +515,21 @@ ANALYSIS_RULES = {"lock-unguarded-write", "lock-unguarded-read",
 def log(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
+
+
+class PhaseClock:
+    """``[phase-clock]`` lines from the script's start."""
+
+    def __init__(self) -> None:
+        self.start = self.last = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        """One line: the seconds since the last one (or the start), so the
+        lines sum to the whole run, and since the start."""
+        now = time.perf_counter()
+        log("phase-clock", name=name, seconds=round(now - self.last, 3),
+            since_start=round(now - self.start, 3))
+        self.last = now
 
 
 def nvidia_smi() -> str:
@@ -2273,6 +2312,7 @@ def phase_lm_parity() -> None:
 
 LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_EVERY = 8, 8, 256, 4
 LM_TRAIN_CUT = 6                  # the interrupted run's steps
+NO_SAVE = 10 ** 6                 # a checkpoint interval no run reaches
 LM_RESUME_RTOL = 2e-3             # resumed steps against the uninterrupted
 DEC_TRAIN_ARCH, DEC_TRAIN_BATCH, DEC_TRAIN_SEQ = "gemma-2b", 2, 1024
 DEC_CHUNK = 512                   # chunked_ce of the third step
@@ -2280,8 +2320,8 @@ DEC_CE_RTOL = 5e-3                # chunked against plain CE, bf16 logits
 DEC_SERVE_ARCH, DEC_SERVE_BATCH = "h2o-danube-3-4b", 2
 DEC_PROMPT, DEC_NEW = 4032, 128   # the 4,096-slot ring wraps at step 64
 XL_ARCH, ZA_ARCH = "xlstm-125m", "zamba2-2.7b"
-XL_TRAIN_STEPS, XL_TRAIN_BATCH, XL_TRAIN_SEQ, XL_TRAIN_EVERY = 4, 8, 1024, 2
-XL_TRAIN_CUT = 3                  # the interrupted run's steps
+XL_TRAIN_STEPS, XL_TRAIN_BATCH, XL_TRAIN_SEQ, XL_TRAIN_EVERY = 2, 8, 1024, 1
+XL_TRAIN_CUT = 1                  # the interrupted run's steps
 XL_CHUNK, XL_CHUNK_RTOL = 256, 2e-3   # chunked against parallel mLSTM, bf16
 ZA_TRAIN_STEPS, ZA_TRAIN_BATCH, ZA_TRAIN_SEQ = 3, 2, 1024
 REC_SERVE = ((XL_ARCH, 4, 512, 128), (ZA_ARCH, 2, 512, 64))
@@ -2357,8 +2397,8 @@ def dir_bytes(path: Path) -> int:
 def phase_lm_train() -> dict:
     """``seamless-m4t-medium`` at its published width, ``remat=True``,
     through ``launch.train.train_loop``: 8 steps at batch 8, seq 256 (64
-    frames + 192 tokens) with a checkpoint every 4 steps; then 6 steps
-    into a fresh directory and a resume to 8."""
+    frames + 192 tokens); then 6 steps with a checkpoint every 4 and a
+    resume to 8 that saves none (one checkpoint written in all)."""
     import math
     import shutil
     from repro_torch.configs import get_config
@@ -2371,16 +2411,14 @@ def phase_lm_train() -> dict:
               ckpt_every=LM_TRAIN_EVERY, log_every=0, seed=SEED)
     counters, t0 = lm_phase_start()
     try:
-        full = train_loop(cfg, steps=LM_TRAIN_STEPS, ckpt_dir=ck / "full",
-                          **kw)
+        full = train_loop(cfg, steps=LM_TRAIN_STEPS, **kw)
         full_s = time.perf_counter() - t0
-        ck_bytes = dir_bytes(ck / "full" / f"step_{LM_TRAIN_STEPS:08d}")
-        free_at = shutil.disk_usage(ck).free
-        shutil.rmtree(ck / "full")
         t1 = time.perf_counter()
         cut = train_loop(cfg, steps=LM_TRAIN_CUT, ckpt_dir=ck / "cut", **kw)
+        ck_bytes = dir_bytes(ck / "cut" / f"step_{LM_TRAIN_EVERY:08d}")
+        free_at = shutil.disk_usage(ck).free
         resumed = train_loop(cfg, steps=LM_TRAIN_STEPS, ckpt_dir=ck / "cut",
-                             resume=True, **kw)
+                             resume=True, **{**kw, "ckpt_every": NO_SAVE})
         resume_s = time.perf_counter() - t1
     finally:
         shutil.rmtree(ck, ignore_errors=True)
@@ -2401,9 +2439,9 @@ def phase_lm_train() -> dict:
         positions_per_s=round(LM_TRAIN_BATCH * LM_TRAIN_SEQ / step_s, 1),
         decoder_tokens_per_s=round(LM_TRAIN_BATCH * (LM_TRAIN_SEQ * 3 // 4)
                                    / step_s, 1),
-        checkpoints=full.checkpoints, checkpoint_gb=round(ck_bytes / 1e9, 3),
-        run_s=round(full_s, 2),
-        init_and_saves_s=round(full_s - sum(full.step_times), 2),
+        checkpoints=cut.checkpoints + resumed.checkpoints,
+        checkpoint_gb=round(ck_bytes / 1e9, 3), run_s=round(full_s, 2),
+        init_s=round(full_s - sum(full.step_times), 2),
         disk_free_gb=round(free_at / 1e9, 1), k4=counts["flash_attention"],
         peak_mem_gb=round(peak / 1e9, 3))
     log("lm-train-resume", cut_steps=LM_TRAIN_CUT, cut_losses_equal=(
@@ -2647,8 +2685,8 @@ def profile_device(fn) -> tuple:
 
 def phase_lm_train_xlstm() -> dict:
     """``xlstm-125m`` at its published width (bf16, remat) through
-    ``train_loop``: 4 steps at batch 8 × 1,024 with a checkpoint every 2,
-    then 3 steps into a fresh directory and a resume to 4 (bit for bit);
+    ``train_loop``: 2 steps at batch 8 × 1,024, then 1 step with a
+    checkpoint and a resume to 2 (bit for bit);
     one more step profiled beside the sLSTM blocks alone; the chunked
     mLSTM's loss against the parallel form's."""
     import math
@@ -2669,14 +2707,13 @@ def phase_lm_train_xlstm() -> dict:
               ckpt_every=XL_TRAIN_EVERY, log_every=0, seed=SEED)
     counters, t0 = lm_phase_start()
     try:
-        full = train_loop(cfg, steps=XL_TRAIN_STEPS, ckpt_dir=ck / "full",
-                          **kw)
+        full = train_loop(cfg, steps=XL_TRAIN_STEPS, **kw)
         full_s = time.perf_counter() - t0
-        ck_bytes = dir_bytes(ck / "full" / f"step_{XL_TRAIN_STEPS:08d}")
         t1 = time.perf_counter()
         cut = train_loop(cfg, steps=XL_TRAIN_CUT, ckpt_dir=ck / "cut", **kw)
+        ck_bytes = dir_bytes(ck / "cut" / f"step_{XL_TRAIN_EVERY:08d}")
         resumed = train_loop(cfg, steps=XL_TRAIN_STEPS, ckpt_dir=ck / "cut",
-                             resume=True, **kw)
+                             resume=True, **{**kw, "ckpt_every": NO_SAVE})
         resume_s = time.perf_counter() - t1
     finally:
         shutil.rmtree(ck, ignore_errors=True)
@@ -2734,8 +2771,8 @@ def phase_lm_train_xlstm() -> dict:
         ms_per_step=round(step_s * 1e3, 2),
         step_ms=[round(t * 1e3, 1) for t in full.step_times],
         tokens_per_s=round(XL_TRAIN_BATCH * XL_TRAIN_SEQ / step_s, 1),
-        checkpoints=full.checkpoints, checkpoint_gb=round(ck_bytes / 1e9, 3),
-        run_s=round(full_s, 2),
+        checkpoints=cut.checkpoints + resumed.checkpoints,
+        checkpoint_gb=round(ck_bytes / 1e9, 3), run_s=round(full_s, 2),
         timed_step_ms=[round(t, 2) for t in times["step"]],
         device_busy_ms=round(busy_ms, 2),
         idle_share=round(1.0 - busy_ms / step_ms, 4),
@@ -4189,29 +4226,29 @@ def mesh_rpc_pinned(num_nodes: int) -> list:
             enumerate(one_at_a_time_requests(num_nodes)[:MESH_RPC_PINNED])]
 
 
-def mesh_rpc_rank(mesh, device, ds, spec: dict) -> dict:
-    """One rank of the coordinator's world in (e) (``run_ranks`` spawns
-    it): its mesh engine proxies to the two endpoint worlds from the
-    leader.  (1) the pinned requests one at a time; (2) the reference
-    smoke's traffic (two tenants, 40 requests, 4 pinned to worker 0 with
-    endpoint 0's leader SIGKILLed, 6 more)."""
+def mesh_rpc_coordinator(ds, spec: dict) -> dict:
+    """The coordinator of (e), in this process: ``GNSEngine.coordinator``
+    of the (2, 2) config (one process, no rank) proxies to the two
+    endpoint worlds.  (1) the pinned requests one at a time; (2) the
+    reference smoke's traffic (two tenants, 40 requests, 4 pinned to
+    worker 0 with endpoint 0's leader SIGKILLed, 6 more)."""
     import os
     import signal
+    import torch.distributed as dist
     from repro_torch.gns import FabricConfig, GNSEngine, TenantConfig
-    out = {"rank": mesh.rank}
-    engine = GNSEngine(mesh_rpc_config(), dataset=ds, mesh=mesh)
+    t0 = time.perf_counter()
+    engine = GNSEngine.coordinator(mesh_rpc_config(), dataset=ds)
+    out = {"mesh": engine.mesh, "shards": engine.store.n_shards}
     tcp = dict(workers=2, transport="tcp", endpoints=tuple(spec["addrs"]),
                stall_timeout_ms=10_000.0, watch_interval_ms=50.0,
                heartbeat_ms=50.0)
     with engine.serve_fabric(FabricConfig(**tcp)) as fab:
-        if mesh.leader:
-            res = [fab.submit(ids, worker=w).result(timeout=FABRIC_WAIT_S)
-                   for w, ids in spec["pinned"]]
-            if any(r.status != "ok" for r in res):
-                raise AssertionError("mesh-serve (e): a pinned request "
-                                     "failed")
-            out["pinned"] = [(r.bucket, r.cache_version, r.logits)
-                             for r in res]
+        out["ready_s"] = time.perf_counter() - t0
+        res = [fab.submit(ids, worker=w).result(timeout=FABRIC_WAIT_S)
+               for w, ids in spec["pinned"]]
+        if any(r.status != "ok" for r in res):
+            raise AssertionError("mesh-serve (e): a pinned request failed")
+        out["pinned"] = [(r.bucket, r.cache_version, r.logits) for r in res]
     fab = engine.serve_fabric(FabricConfig(**tcp, tenants=(
         TenantConfig("mobile", weight=2.0, max_queue=64),
         TenantConfig("batch", weight=1.0, max_queue=64))))
@@ -4223,48 +4260,45 @@ def mesh_rpc_rank(mesh, device, ds, spec: dict) -> dict:
     n_cls = engine.mcfg.num_classes
     t0 = time.perf_counter()
     with fab:
-        if mesh.leader:
-            futs = []
-            for i in range(40):
-                tenant, hot = (("mobile", hot_a) if i % 2 == 0
-                               else ("batch", hot_b))
-                n = int(rng.integers(2, 8))
-                futs.append((n, fab.submit(rng.choice(hot, size=n,
-                                                      replace=False),
-                                           tenant=tenant)))
-            results = check_results(futs, n_cls, "mesh-serve (e)")
-            snap = fab.snapshot()
-            w0 = fab.workers[0]
-            futs = [(4, fab.submit(rng.choice(hot_a, size=4, replace=False),
-                                   tenant="mobile", worker=0))
-                    for _ in range(4)]
-            os.kill(spec["pid0"], signal.SIGKILL)
-            wait_for(lambda: not w0.alive(), "worker 0's proxy ends")
-            results += check_results(futs, n_cls, "mesh-serve (e)")
-            futs = [(4, fab.submit(rng.choice(hot_b, size=4, replace=False),
-                                   tenant="batch")) for _ in range(6)]
-            results += check_results(futs, n_cls, "mesh-serve (e)")
-            wait_for(lambda: fab.healthy() == [1],
-                     "worker 0 leaves rotation")
-            out["smoke"] = {
-                "requests": len(results), "healthy": fab.healthy(),
-                "remote": sorted(fab.pull_remote_stats(
-                    timeout=FABRIC_WAIT_S)),
-                "wall_s": time.perf_counter() - t0,
-                "before_kill": snap, "snapshot": fab.snapshot()}
+        futs = []
+        for i in range(40):
+            tenant, hot = (("mobile", hot_a) if i % 2 == 0
+                           else ("batch", hot_b))
+            n = int(rng.integers(2, 8))
+            futs.append((n, fab.submit(rng.choice(hot, size=n,
+                                                  replace=False),
+                                       tenant=tenant)))
+        results = check_results(futs, n_cls, "mesh-serve (e)")
+        snap = fab.snapshot()
+        w0 = fab.workers[0]
+        futs = [(4, fab.submit(rng.choice(hot_a, size=4, replace=False),
+                               tenant="mobile", worker=0))
+                for _ in range(4)]
+        os.kill(spec["pid0"], signal.SIGKILL)
+        wait_for(lambda: not w0.alive(), "worker 0's proxy ends")
+        results += check_results(futs, n_cls, "mesh-serve (e)")
+        futs = [(4, fab.submit(rng.choice(hot_b, size=4, replace=False),
+                               tenant="batch")) for _ in range(6)]
+        results += check_results(futs, n_cls, "mesh-serve (e)")
+        wait_for(lambda: fab.healthy() == [1], "worker 0 leaves rotation")
+        out["smoke"] = {
+            "requests": len(results), "healthy": fab.healthy(),
+            "remote": sorted(fab.pull_remote_stats(timeout=FABRIC_WAIT_S)),
+            "wall_s": time.perf_counter() - t0,
+            "before_kill": snap, "snapshot": fab.snapshot()}
+    out["dist"] = dist.is_available() and dist.is_initialized()
     return out
 
 
 def phase_mesh_rpc(ds, tcp_p99_ms: float) -> dict:
     """(e) of the mesh-serve phase (module docstring, phase 12): two
-    endpoint worlds and the coordinator's world.  Returns K1's and K2's
-    launches over the surviving endpoint's ranks."""
+    endpoint worlds and the one-process coordinator.  Returns K1's and
+    K2's launches over the surviving endpoint's ranks."""
     import signal
     import socket
     import tempfile
     import torch
     from repro_torch.gns import FabricConfig, GNSEngine
-    from repro_torch.launch.mesh import run_ranks
     from repro_torch.rpc import wire
     from repro_torch.rpc.endpoint import LAUNCHES_TAG
     t_phase = time.perf_counter()
@@ -4293,14 +4327,8 @@ def phase_mesh_rpc(ds, tcp_p99_ms: float) -> dict:
             log("mesh-serve-e-launch", endpoints=addrs,
                 ranks=[[ep.proc.pid] + ep.pids for ep in eps],
                 ready_s=round(t_ready, 2), deadline_s=MESH_DEADLINE_S)
-            t1 = time.perf_counter()
-            ranks = run_ranks(
-                "chip_smoke:mesh_rpc_rank", data=2, model=2,
-                devices=["cuda:0"] * 4, backend=MESH_BACKEND,
-                args=(ds, {"addrs": addrs, "pinned": pinned,
-                           "pid0": eps[0].proc.pid}),
-                timeout_s=MESH_DEADLINE_S)
-            coord_s = time.perf_counter() - t1
+            lead = mesh_rpc_coordinator(ds, {
+                "addrs": addrs, "pinned": pinned, "pid0": eps[0].proc.pid})
             wait_for(lambda: eps[0].t_gone is not None,
                      "endpoint 0's ranks are gone")
             eps[1].check_running()
@@ -4312,7 +4340,6 @@ def phase_mesh_rpc(ds, tcp_p99_ms: float) -> dict:
         finally:
             for ep in eps:
                 ep.reap()
-    lead = ranks[0]
     # (1) against one rank: bucket, version, logits
     got = lead["pinned"]
     errs = [float(np.abs(g[2] - w.logits).max()) for g, w in zip(got, want)]
@@ -4346,7 +4373,12 @@ def phase_mesh_rpc(ds, tcp_p99_ms: float) -> dict:
         endpoint0_exit=eps[0].proc.returncode,
         endpoint0_ranks_gone_s=round(exit_s, 3),
         endpoint0_ranks_left=eps[0].left, smoke_wall_s=round(sm["wall_s"], 3),
-        coordinator_world_s=round(coord_s, 1), **snap["rpc"])
+        coordinator_ready_s=round(lead["ready_s"], 2),
+        coordinator_shards=lead["shards"], coordinator_mesh=lead["mesh"],
+        coordinator_process_group=lead["dist"], **snap["rpc"])
+    if lead["mesh"] is not None or lead["dist"] or lead["shards"] != 2:
+        raise AssertionError(f"mesh-serve (e): the coordinator is not one "
+                             f"process on 2 shards: {lead}")
     if (sm["requests"] != 50 or snap["errors"] != 0 or rt["failovers"] < 1
             or rt["retries"] < 1 or sm["healthy"] != [1]
             or sm["remote"] != [1] or rt["routed_known_ids"] < 1
@@ -4390,7 +4422,7 @@ MESH_LM_STEPS = 3
 MESH_DP_ARCH, MESH_DP_BATCH, MESH_DP_SEQ, MESH_DP_STEPS = (
     "seamless-m4t-medium", 8, 256, 2)
 MESH_XL_ARCH, MESH_XL_BATCH, MESH_XL_SEQ, MESH_XL_STEPS = (
-    "xlstm-125m", 4, 512, 3)
+    "xlstm-125m", 4, 512, 2)
 MESH_ZA_ARCH, MESH_ZA_BATCH, MESH_ZA_SEQ, MESH_ZA_STEPS = (
     "zamba2-2.7b", 2, 1024, 3)
 MESH_ZA_LAYERS = 18        # of 54 (3 shared-block invocations): one rank at
@@ -4809,22 +4841,37 @@ def phase_lm_train_mesh() -> dict:
     free_card()
     counts, peak = lm_phase_end("lm-train-mesh-one-rank", counters, t0,
                                 peak=max(p for _, p in one.values()))
-    card, cpu = {}, {}
-    for which, data, model, runs in MESH_WORLDS:
-        t1 = time.perf_counter()
-        card[(data, model)] = run_ranks(
-            "chip_smoke:mesh_lm_rank", data=data, model=model,
-            devices=["cuda:0"] * (data * model), backend=MESH_BACKEND,
-            args=(which, runs), timeout_s=MESH_DEADLINE_S)
+    card, cpu_futs = {}, {}
+
+    def cpu_world(data, model):
+        t = time.perf_counter()
+        out = run_ranks("chip_smoke:mesh_reduced_rank", data=data,
+                        model=model, devices=["cpu"] * (data * model),
+                        backend=MESH_BACKEND, timeout_s=MESH_DEADLINE_S)
+        return out, time.perf_counter() - t
+
+    # each (d)'s CPU world runs in the background, beside the next card
+    # worlds (one CPU world at a time)
+    with ThreadPoolExecutor(1) as pool:
+        for which, data, model, runs in MESH_WORLDS:
+            t1 = time.perf_counter()
+            card[(data, model)] = run_ranks(
+                "chip_smoke:mesh_lm_rank", data=data, model=model,
+                devices=["cuda:0"] * (data * model), backend=MESH_BACKEND,
+                args=(which, runs), timeout_s=MESH_DEADLINE_S)
+            log("lm-train-mesh-world", mesh=(data, model),
+                card_s=round(time.perf_counter() - t1, 1))
+            if (data, model) in MESH_REDUCED_WORLDS:
+                cpu_futs[(data, model)] = pool.submit(cpu_world, data,
+                                                      model)
         t2 = time.perf_counter()
-        if (data, model) in MESH_REDUCED_WORLDS:
-            cpu[(data, model)] = run_ranks(
-                "chip_smoke:mesh_reduced_rank", data=data, model=model,
-                devices=["cpu"] * (data * model), backend=MESH_BACKEND,
-                timeout_s=MESH_DEADLINE_S)
-        log("lm-train-mesh-world", mesh=(data, model),
-            card_s=round(t2 - t1, 1),
-            cpu_s=round(time.perf_counter() - t2, 1))
+        cpu = {}
+        for (data, model), fut in cpu_futs.items():
+            cpu[(data, model)], cpu_s = fut.result()
+            log("lm-train-mesh-cpu-world", mesh=(data, model),
+                cpu_s=round(cpu_s, 1))
+        log("lm-train-mesh-cpu-wait", seconds=round(
+            time.perf_counter() - t2, 1))
     failures = full_run_checks(one, card)
     # (c): the expert-parallel MoE layer
     scale = float(np.abs(one_layer).max())
@@ -4977,13 +5024,25 @@ def phase_vocab_cache() -> dict:
 # model), batch, prompt, new tokens: the prompt's call gives the first,
 # each decode step one more)
 SERVE_MESH_RUNS = (
-    ("qwen2", "qwen2-7b", {}, (1, 2), 4, 512, 33),
-    ("deepseek", "deepseek-v2-236b", {"num_layers": 3}, (1, 2), 4, 512, 33),
-    ("zamba2", "zamba2-2.7b", {"num_layers": 18}, (1, 2), 4, 512, 33),
-    ("xlstm", "xlstm-125m", {}, (1, 2), 4, 512, 33),
-    ("xlstm-f32", "xlstm-125m", {"dtype": "float32"}, (1, 2), 4, 512, 33),
-    ("danube", "h2o-danube-3-4b", {}, (2, 1), 1, 4032, 128),
+    ("qwen2", "qwen2-7b", {}, (1, 2), 4, 512, 17),
+    ("deepseek", "deepseek-v2-236b", {"num_layers": 3}, (1, 2), 4, 512, 17),
+    ("zamba2", "zamba2-2.7b", {"num_layers": 18}, (1, 2), 4, 512, 17),
+    ("xlstm", "xlstm-125m", {}, (1, 2), 4, 512, 17),
+    ("xlstm-f32", "xlstm-125m", {"dtype": "float32"}, (1, 2), 4, 512, 17),
+    # 4,032 + 72: the 4,096-slot ring wraps at decode step 64
+    ("danube", "h2o-danube-3-4b", {}, (2, 1), 1, 4032, 72),
+    # 3 model ranks divide neither the 160 experts nor the 128 heads: the
+    # MoE layer's single-device branch (experts split along f, 512 of
+    # 1,536 columns a rank) and MLA over all heads on every rank
+    ("deepseek-13", "deepseek-v2-236b", {"num_layers": 3}, (1, 3), 4, 512,
+     33),
 )
+# the (1, 3) world's full-width MoE layer, forward and backward: the
+# layout the rule table must give each rank (one layer's stacks)
+SERVE_MESH_THREE = (1, 3)
+THREE_EXPERT_SHAPES = {"experts_w1": [160, 5120, 512],
+                       "experts_w3": [160, 5120, 512],
+                       "experts_w2": [160, 512, 5120]}
 # a greedy flip counts only where one rank's top-two logit gap at that
 # step is at most this; in f32 the logits too must lie within it.  f32
 # sums in another order diverge through xlstm's sLSTM recurrence with
@@ -4995,6 +5054,7 @@ CALIB_ARCH, CALIB_BATCH, CALIB_SEQ = "gemma-2b", 2, 1024
 CALIB_PEAK_MARGIN = 0.05  # predicted peak bytes vs max_memory_allocated
 CALIB_ARG_MARGIN = 0.001  # predicted arg bytes vs memory_allocated, a rank
 DRYRUN_DEADLINE_S = 900.0  # the background dry-run must end within this
+MULTIPOD_SHAPE = "train_4k"  # the one 2x16x16 cell an arch (phase 16)
 
 
 def serve_mesh_cfg(arch: str, overrides: dict):
@@ -5037,13 +5097,103 @@ def one_rank_decode(cfg, params, prompts: np.ndarray, new: int,
             "gaps": np.stack(gaps, 1), "step_ms": [t * 1e3 for t in times]}
 
 
-def serve_mesh_rank(mesh, device, runs: tuple) -> dict:
-    """A card rank of ``lm-serve-mesh`` (module docstring): for each run,
-    the same seeded weights on every rank; rank 0 decodes them alone
-    first; then every rank shards them and ``mesh_generate`` decodes the
-    batch teacher-forced by rank 0's tokens, under the collectives
-    recorder."""
+def leaf_layout(plans, names: tuple) -> dict:
+    """{path: (spec, local shape)} of the plans whose leaf is in
+    ``names``, stacked layer dims dropped."""
+    from repro_torch.launch.sharding import map_with_path
+    out = {}
+
+    def one(path, plan):
+        leaf = path.split("/")[-1]
+        if leaf in names:   # one layer's leaf: rank 3 (experts) or 2
+            n = len(plan.shape) - (3 if leaf.startswith("experts") else 2)
+            out[path] = (str(plan.spec[n:]), list(plan.local_shape[n:]))
+    map_with_path(one, plans)
+    return out
+
+
+def three_moe_layer(mesh, device) -> dict:
+    """The (1, 3) world's check of deepseek's MoE layer at its published
+    width (bf16; 160 experts split along f, 2 shared) forward and
+    backward over ``MESH_MOE_SHAPE`` tokens, against one rank's.  Every
+    rank draws the full layer, input and output weights from seed
+    ``SEED + 9``; in turns, each rank runs it alone and keeps its own
+    blocks of the gradients (one rank's layer and gradients on the card at
+    a time); then every rank runs its blocks on the mesh.  Returns each
+    leaf's (largest error, largest one-rank |value|) and the local
+    shapes."""
     import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import tree_param_shardings, use_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.common import make_generator, model_dtype
+    from repro_torch.models.scan_util import tree_map
+    cfg = get_config(MESH_MOE_ARCH)
+    gen = make_generator(SEED + 9, device)
+    mp = moe.init_moe(gen, cfg)
+    x = torch.randn((*MESH_MOE_SHAPE, cfg.d_model), generator=gen,
+                    device=gen.device).to(model_dtype(cfg))
+    w = torch.randn(x.shape, generator=gen, device=gen.device).to(x.dtype)
+    plans = tree_param_shardings(mesh, mp)
+
+    def fwd_bwd(p):
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        xg = x.detach().requires_grad_(True)
+        out = moe.moe_forward(leaves, cfg, xg)
+        flat = {"router": leaves["router"], "x": xg,
+                **{k: leaves[k] for k in ("experts_w1", "experts_w2",
+                                           "experts_w3")},
+                **{f"shared/{k}": v for k, v in leaves["shared"].items()}}
+        g = torch.autograd.grad((out.float() * w.float()).sum(),
+                                list(flat.values()))
+        return out.detach(), dict(zip(flat, g))
+
+    def plan_of(k):
+        return plans["shared"][k[7:]] if k.startswith("shared/") else \
+            plans.get(k)
+
+    mine = None
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            out, g = fwd_bwd(mp)
+            mine = (out, {k: (plan_of(k).local(v) if plan_of(k) else v)
+                          for k, v in g.items()},
+                    {k: float(v.float().abs().max()) for k, v in g.items()})
+            del out, g
+            free_card()
+        dist.barrier(group=mesh.host_group)
+    local = {k: plans[k].local(v) for k, v in mp.items() if k != "shared"}
+    local["shared"] = {k: plans["shared"][k].local(v)
+                       for k, v in mp["shared"].items()}
+    del mp
+    free_card()
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with use_mesh(mesh):
+        out, g = fwd_bwd(local)
+    one_out, one_g, scale = mine
+    errs = {"out": (float((out.float() - one_out.float()).abs().max()),
+                    float(one_out.float().abs().max()))}
+    for k, v in g.items():
+        errs[k] = (float((v.float() - one_g[k].float()).abs().max()),
+                   scale[k])
+    with use_mesh(mesh):
+        split = moe.expert_layout(cfg)
+    return {"errs": errs, "peak_gb": torch.cuda.max_memory_allocated() / 1e9
+            if cuda else 0.0, "split": split,
+            "layout": {k: list(local[k].shape) for k in THREE_EXPERT_SHAPES}}
+
+
+def serve_mesh_rank(mesh, device, runs: tuple, moe_layer: bool) -> dict:
+    """A card rank of ``lm-serve-mesh`` (module docstring): for each run,
+    the same seeded weights on every rank, drawn and sharded one rank at a
+    time; rank 0 decodes them alone first; then ``mesh_generate`` decodes the
+    batch teacher-forced by rank 0's tokens, under the collectives
+    recorder; with ``moe_layer``, :func:`three_moe_layer` last."""
+    import torch
+    import torch.distributed as dist
     from repro_torch.launch.collectives import recording
     from repro_torch.launch.mesh import broadcast_object
     from repro_torch.launch.serve import mesh_generate
@@ -5056,15 +5206,22 @@ def serve_mesh_rank(mesh, device, runs: tuple) -> dict:
         cfg = serve_mesh_cfg(arch, over)
         prompts = np.random.default_rng(SEED).integers(
             0, cfg.vocab_size, (b, prompt)).astype(np.int32)
-        params = get_model(cfg).init(SEED, device=device)
-        one = one_rank_decode(cfg, params, prompts, new, device) \
-            if mesh.leader else None
-        one = broadcast_object(one, mesh.host_group)
-        local, plans = shard_params(params, mesh, cfg)
-        del params
         cuda = device.type == "cuda"
+        one = None
+        # in turns, so that one rank's full weights are on the card at a
+        # time (three ranks' full deepseek would not fit beside each other)
+        for turn in range(mesh.size):
+            if turn == mesh.rank:
+                params = get_model(cfg).init(SEED, device=device)
+                if mesh.leader:
+                    one = one_rank_decode(cfg, params, prompts, new, device)
+                local, plans = shard_params(params, mesh, cfg)
+                del params
+                if cuda:
+                    free_card()
+            dist.barrier(group=mesh.host_group)
+        one = broadcast_object(one, mesh.host_group)
         if cuda:
-            free_card()
             torch.cuda.reset_peak_memory_stats()
         with recording() as log:
             gen = mesh_generate(cfg, local, plans, mesh, prompts, new,
@@ -5080,6 +5237,9 @@ def serve_mesh_rank(mesh, device, runs: tuple) -> dict:
         out["runs"][key] = {
             "tokens": gen.tokens, "logits": gen.logits, "one": one,
             "layout": gen.layout, "step_ms": [t * 1e3 for t in gen.step_s],
+            "leaves": leaf_layout(plans, (
+                "experts_w1", "experts_w2", "experts_w3", "q_up", "k_up",
+                "v_up", "wo")) if cfg.mla is not None else {},
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda
             else 0.0,
             "arg_bytes": arg_bytes,
@@ -5089,6 +5249,8 @@ def serve_mesh_rank(mesh, device, runs: tuple) -> dict:
         del local, plans, gen
         if cuda:
             free_card()
+    if moe_layer:
+        out["moe_layer"] = three_moe_layer(mesh, device)
     out["launches"] = {k: c.value for k, c in lm_counters().items()}
     return out
 
@@ -5110,15 +5272,17 @@ def serve_mesh_check(key: str, rank: dict, rows: np.ndarray,
             "ok": all(g <= tie for g in gaps) and (not f32 or err <= tie)}
 
 
-def phase_lm_serve_mesh() -> dict:
+def phase_lm_serve_mesh(only=None) -> dict:
     """The LM zoo served on a mesh of ranks on ``cuda:0`` over gloo
-    (module docstring): each run held to one rank's."""
+    (module docstring): each run held to one rank's.  ``only``: the
+    (data, model) worlds to run (None: all of them)."""
     import torch
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.launch.sharding import ShardPlan, spec_for
     counters, t0 = lm_phase_start()
     worlds: dict = {}
-    for run in SERVE_MESH_RUNS:
+    runs_here = [r for r in SERVE_MESH_RUNS if only is None or r[3] in only]
+    for run in runs_here:
         worlds.setdefault(run[3], []).append(run)
     ranks, failures = {}, []
     for (d, m), runs in worlds.items():
@@ -5126,10 +5290,11 @@ def phase_lm_serve_mesh() -> dict:
         ranks[(d, m)] = run_ranks(
             "chip_smoke:serve_mesh_rank", data=d, model=m,
             devices=["cuda:0"] * (d * m), backend=MESH_BACKEND,
-            args=(tuple(runs),), timeout_s=SERVE_MESH_DEADLINE_S)
+            args=(tuple(runs), (d, m) == SERVE_MESH_THREE),
+            timeout_s=SERVE_MESH_DEADLINE_S)
         log("lm-serve-mesh-world", mesh=(d, m),
             seconds=round(time.perf_counter() - t1, 1))
-    for key, arch, over, (d, m), b, prompt, new in SERVE_MESH_RUNS:
+    for key, arch, over, (d, m), b, prompt, new in runs_here:
         cfg = serve_mesh_cfg(arch, over)
         tie = SERVE_MESH_TIE[cfg.dtype]
         for r in ranks[(d, m)]:
@@ -5155,6 +5320,12 @@ def phase_lm_serve_mesh() -> dict:
                 peak_gb=round(run["peak_gb"], 3), tie_bound=tie, **chk)
             if not chk["ok"]:
                 failures.append(f"{key} rank {r['rank']}: flips {chk}")
+            if run["leaves"]:
+                log("lm-serve-mesh-leaves", run=key, rank=r["rank"],
+                    **{k.replace("/", "."): v
+                       for k, v in run["leaves"].items()})
+    for r in ranks.get(SERVE_MESH_THREE, []):
+        failures += three_moe_check(r)
     launches = {k: sum(r["launches"][k] for rs in ranks.values()
                        for r in rs) for k in lm_counters()}
     counts, _ = lm_phase_end("lm-serve-mesh", counters, t0)
@@ -5164,6 +5335,28 @@ def phase_lm_serve_mesh() -> dict:
     if failures:
         raise AssertionError(f"lm-serve-mesh: {failures}")
     return launches, ranks
+
+
+def three_moe_check(rank: dict) -> list:
+    """Log the (1, 3) rank's full-width MoE layer (forward and backward
+    against one rank's: each within ``MESH_MOE_TOL`` of its one-rank
+    largest |value|, the rule of ``lm-train-mesh-moe``) and its local
+    expert shapes; the failures."""
+    ml = rank["moe_layer"]
+    bad = [k for k, (err, scale) in ml["errs"].items()
+           if not err <= MESH_MOE_TOL * scale]
+    log("lm-serve-mesh-moe", arch=MESH_MOE_ARCH, rank=rank["rank"],
+        mesh=SERVE_MESH_THREE, tokens=MESH_MOE_SHAPE[0] * MESH_MOE_SHAPE[1],
+        split=ml["split"], local_shapes=ml["layout"],
+        max_abs_err={k: e for k, (e, _) in ml["errs"].items()},
+        max_abs={k: v for k, (_, v) in ml["errs"].items()},
+        tol_of_max_abs=MESH_MOE_TOL, peak_gb=round(ml["peak_gb"], 3),
+        ok=not bad)
+    out = [f"(1, 3) moe layer rank {rank['rank']}: {k}" for k in bad]
+    if ml["layout"] != THREE_EXPERT_SHAPES or ml["split"] != "hidden":
+        out.append(f"(1, 3) rank {rank['rank']}: expert layout "
+                   f"{ml['split']} {ml['layout']}")
+    return out
 
 
 def r_mesh_view(d: int, m: int, rank: int):
@@ -5223,8 +5416,8 @@ def finish_dryrun(proc, out, t_start: float) -> None:
 
 def phase_dryrun() -> dict:
     """Every applicable (arch x shape) cell of the 16x16 mesh counted, and
-    every cell of the 2x16x16 mesh run with no counts (module
-    docstring)."""
+    each arch's ``MULTIPOD_SHAPE`` cell of the 2x16x16 mesh run with no
+    counts (module docstring)."""
     from repro_torch.configs import SHAPES, get_config, list_archs
     from repro_torch.launch.dryrun import run_cell
     from repro_torch.roofline.analysis import H100_SXM
@@ -5232,7 +5425,7 @@ def phase_dryrun() -> dict:
     recs, failures = {}, []
     for multi in (False, True):
         for arch in list_archs():
-            for shape in SHAPES:
+            for shape in (MULTIPOD_SHAPE,) if multi else SHAPES:
                 mdt = "bfloat16" if get_config(arch).fsdp else "float32"
                 try:
                     rec = run_cell(arch, shape, multi, opt_moment_dtype=mdt,
@@ -5419,6 +5612,7 @@ def calib_serving(serve_ranks: dict) -> list:
 
 
 def main() -> int:
+    clock = PhaseClock()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -5433,24 +5627,27 @@ def main() -> int:
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
     phase_analysis()
+    clock("analysis")
     dryrun, t_dryrun = start_dryrun(), time.perf_counter()
     try:
-        return run_phases(card, dryrun, t_dryrun)
+        return run_phases(card, clock, dryrun, t_dryrun)
     finally:
         if dryrun[0].poll() is None:
             dryrun[0].kill()
             dryrun[0].wait()
 
 
-def run_phases(card: str, dryrun: tuple, t_dryrun: float) -> int:
+def run_phases(card: str, clock: PhaseClock, dryrun: tuple,
+               t_dryrun: float) -> int:
     """Phases 1 onward (module docstring), the dry-run running beside
-    them in its own process."""
+    them in its own process; ``clock`` ticks after each."""
     import torch
     from repro_torch.kernels._ext import load_kernels
     t0 = time.perf_counter()
     load_kernels()
     log("build", seconds=round(time.perf_counter() - t0, 1))
     phase_kbuild()
+    clock("build")
 
     from repro_torch.gns import GNSEngine
     from repro_torch.graph.datasets import get_dataset
@@ -5465,64 +5662,100 @@ def run_phases(card: str, dryrun: tuple, t_dryrun: float) -> int:
         train_nodes=len(engine.ds.train_idx),
         cache_rows=engine.store.generation.table.shape[0],
         seconds=round(time.perf_counter() - t0, 1))
+    clock("engine")
     shapes = serving_shapes(engine, rng)
     errs = phase_parity(engine, shapes, rng)
+    clock("parity")
     counts = {"serve": phase_serve(engine, rng)}
+    clock("serve")
     phase_engine_parity(engine, rng)
+    clock("engine-parity")
     counts["fabric"], fabric_waves = phase_fabric(engine, rng)
+    clock("fabric")
     counts["tcp"], tcp_p99_ms = phase_tcp(engine, fabric_waves)
+    clock("tcp")
     counts["stream"] = phase_stream(rng)
+    clock("stream")
 
     dev_engine = GNSEngine(train_config("device"), dataset=ds)
     host_engine = GNSEngine(train_config("fused"), dataset=ds)
     k3_shapes = device_shapes(dev_engine, rng)
     k3_errs = phase_k3_parity(k3_shapes, rng)
+    clock("k3-parity")
     counts["train_device"] = phase_train(
         dev_engine, "device", epochs=2, max_batches=None, eval_batches=2,
         expect="gns_sample_agg")["counts"]
+    clock("train-device")
     phase_profile(dev_engine, rng, "device")
+    clock("profile")
     counts["train_host_fused"] = phase_train(
         host_engine, "host_fused", epochs=1, max_batches=2, eval_batches=1,
         expect="cache_lookup_agg")["counts"]
+    clock("train-host-fused")
     phase_train_parity(ds, train_config("device", PARITY_BATCH),
                        "train-parity")
+    clock("train-parity")
     k1_shapes = {"train": host_train_batch(host_engine, rng)}
     counts["train_baselines"], baseline_engines = phase_baselines(ds)
+    clock("baselines")
     phase_train_parity(ds, baseline_config("ladies", PARITY_BATCH),
                        "baseline-parity")
+    clock("baseline-parity")
     phase_checkpoint(dev_engine, ds)
+    clock("checkpoint")
     phase_describe({"serve": engine, "train_device": dev_engine,
                     "train_host_fused": host_engine,
                     **{f"baseline_{k}": v
                        for k, v in baseline_engines.items()}})
     k1_shapes["ladies"] = host_train_batch(baseline_engines["ladies"], rng)
     del baseline_engines
+    clock("describe")
 
     k4_errs = phase_k4_parity()
+    clock("k4-parity")
     counts["lm_serve"] = phase_lm_serve()
+    clock("lm-serve")
     phase_lm_parity()
+    clock("lm-parity")
     counts["lm_train"] = phase_lm_train()
+    clock("lm-train")
     counts["lm_train_dec"] = phase_lm_train_dec()
+    clock("lm-train-dec")
     counts["lm_serve_dec"] = phase_lm_serve_dec()
+    clock("lm-serve-dec")
     counts["lm_train_xlstm"] = phase_lm_train_xlstm()
+    clock("lm-train-xlstm")
     counts["lm_train_zamba2"] = phase_lm_train_zamba2()
+    clock("lm-train-zamba2")
     counts["lm_serve_rec"] = phase_lm_serve_rec()
+    clock("lm-serve-rec")
     counts["lm_serve_moe"] = phase_lm_serve_moe()
+    clock("lm-serve-moe")
     phase_lm_train_parity()
+    clock("lm-train-parity")
     counts["mesh"] = phase_mesh(ds)
+    clock("mesh")
     counts["mesh_serve"] = phase_mesh_serve(ds)
+    clock("mesh-serve")
     counts["tcp_mesh"] = phase_mesh_rpc(ds, tcp_p99_ms)
+    clock("mesh-serve-e")
     free_card()
     counts["lm_train_mesh"] = phase_lm_train_mesh()
+    clock("lm-train-mesh")
     counts["vocab_cache"] = phase_vocab_cache()
+    clock("vocab-cache")
     free_card()
     counts["lm_serve_mesh"], serve_ranks = phase_lm_serve_mesh()
+    clock("lm-serve-mesh")
     finish_dryrun(*dryrun, t_dryrun)
+    clock("dryrun-wait")
     phase_roofline_calib(serve_ranks)
+    clock("roofline-calib")
     counts["dryrun"] = {k: 0 for k in lm_counters()}
     rows = (phase_times(engine, shapes, errs, counts)
             + phase_train_times(k3_shapes, k3_errs, k1_shapes, counts)
             + phase_k4_times(k4_errs, counts))
+    clock("times")
 
     print(json.dumps({"kernels": rows}))
     print(card)

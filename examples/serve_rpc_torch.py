@@ -132,7 +132,7 @@ def main(argv=None):
 
 
 def _serve(args, cfg, procs, ports) -> None:
-    coordinator = GNSEngine(cfg, device=args.device)
+    coordinator = GNSEngine.coordinator(cfg, device=args.device)
     fab = coordinator.serve_fabric(FabricConfig(
         workers=args.endpoints, transport="tcp",
         endpoints=tuple(f"127.0.0.1:{p}" for p in ports),

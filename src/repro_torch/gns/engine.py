@@ -82,8 +82,9 @@ group ``d``:
 
 Over ``FabricConfig(transport="tcp")`` each endpoint holds its own engine
 replica; on a mesh each endpoint is a world of ranks of its own
-(``repro_torch.rpc.endpoint``) and the mesh engine's fabric proxies to
-them from the leader.
+(``repro_torch.rpc.endpoint``).  The coordinator is one process, as in the
+reference: :meth:`GNSEngine.coordinator` builds its engine without the
+mesh, and its fabric proxies to the endpoints.
 """
 from __future__ import annotations
 
@@ -562,6 +563,23 @@ class GNSEngine:
                                        self._cache_table(mb), self.mcfg,
                                        device_adj=self._device_adj(mb))
         return logits.cpu().numpy()
+
+    @classmethod
+    def coordinator(cls, cfg: EngineConfig, *, device=None,
+                    dataset=None) -> "GNSEngine":
+        """The engine of a ``FabricConfig(transport="tcp")`` coordinator
+        for ``cfg``: one process, as the reference runs it, whatever
+        ``cfg.mesh`` says (each endpoint of a mesh config is the world of
+        ranks).  The coordinator only routes, so its engine is built
+        without the mesh, its cache in the mesh's shards (one per
+        position on the ``model`` axis, ``launch.mesh.cache_shard_axis``):
+        the router reads the shard count, and the routing tables come from
+        the endpoints.  It starts no process group and no rank."""
+        if cfg.mesh is not None and cfg.mesh.data * cfg.mesh.model > 1:
+            cfg = dataclasses.replace(cfg, mesh=None, cache=dataclasses
+                                      .replace(cfg.cache,
+                                               shards=cfg.mesh.model))
+        return cls(cfg, device=device, dataset=dataset)
 
     def serve(self, serve_cfg=None):
         """A :class:`repro_torch.serve.GNSServer` over this engine (not

@@ -45,8 +45,15 @@ divides the axis, and K/V are either head-local too or gathered whole
 (gemma's single KV head), each rank then taking the KV head of each of
 its q heads; with a head count that does not divide, q, K and V are
 gathered and every rank attends over all heads, keeping its block of the
-output for ``wo``.  MLA runs head-local (``q_up``/``k_up``/``v_up``
-column blocks, ``wo`` a row block, ``q_down``/``kv_down`` replicated).
+output for ``wo``.  MLA runs head-local where its heads divide the axis
+(``q_up``/``k_up``/``v_up`` column blocks, ``wo`` a row block,
+``q_down``/``kv_down`` replicated); where they do not (deepseek's 128
+heads on 3 ranks), every rank attends over all heads and each projection
+follows its leaf's layout (:func:`_mla_up`): a column block, not aligned
+to heads (``q_up``: 8,192 of 24,576 columns), is gathered whole, a
+replicated leaf (``k_up``, ``v_up``) is used whole, and ``wo`` is either a
+row block (this rank's block of the output into it, summed over the
+group) or replicated (the whole product on every rank, no sum).
 Cross-attention (the enc-dec decoder's) runs head-local too: q from the
 decoder and K/V from the encoder output each this rank's heads, ``wo`` a
 row block summed over the group (:func:`_cross_attend`).
@@ -62,8 +69,9 @@ instead (the dense cache, the ring and MLA's latent): rank ``i`` holds
 the i-th contiguous slice, only the owner of a position writes it, and
 the softmax is combined across the data group (:func:`_split_attend`:
 the max, the sum of exponentials and the weighted values each
-all-reduced; a slice that sees no key adds 0).  MLA decodes head-local
-in the absorbed form, its latent cache whole on every model rank.
+all-reduced; a slice that sees no key adds 0).  MLA decodes in the
+absorbed form, head-local or over every head as in training, its latent
+cache (no head dim) whole on every model rank.
 """
 from __future__ import annotations
 
@@ -78,7 +86,7 @@ import torch.distributed as dist
 
 from repro_torch.launch.collectives import (all_reduce, copy_to, gather,
                                            head_split, model_group,
-                                           reduce_from, seq_group)
+                                           reduce_from, seq_group, whole)
 from repro_torch.launch.sharding import model_sharded
 from repro_torch.models.common import (apply_rope, dense_init, model_dtype,
                                        rms_norm, zeros)
@@ -509,6 +517,28 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, *,
 # MLA (deepseek-v2)
 # ---------------------------------------------------------------------------
 
+def _mla_up(inp: torch.Tensor, inp_col: torch.Tensor, w: torch.Tensor,
+            width: int, group, part: bool,
+            heads_local: bool) -> torch.Tensor:
+    """``inp @ w`` for an MLA projection of ``width`` columns on the model
+    axis in scope, as the rule table laid ``w`` out: a column block
+    (``inp_col @ w``) kept head-local, or gathered whole along its last
+    dim (``gather(partial=part)``); a replicated ``w`` used whole
+    (``inp @ w``), its output through ``copy_to`` when ``part``.
+    ``inp_col``: ``copy_to(inp)``, taken once by the caller for all the
+    column blocks that read ``inp`` (one gradient sum backward, not one a
+    block).  ``part``: the ranks each use the whole projection only in
+    part (head-local attention, or a ``wo`` row block); else every rank
+    computes the layer whole."""
+    if group is None:
+        return inp @ w
+    if not model_sharded(width):
+        y = inp @ w
+        return copy_to(y, group) if part else y
+    y = inp_col @ w
+    return y if heads_local else gather(y, group, dim=-1, partial=part)
+
+
 def mla_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, causal: bool = True,
                 kv_cache: Optional[dict] = None,
@@ -516,22 +546,29 @@ def mla_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     """Returns (out [B,S,d], kv_cache | None).  With a cache, the S new
     tokens' ``c_kv`` and ``k_rope`` are written at ``cache_pos`` in place;
     a single token then attends in the absorbed form, a prompt in the
-    expand form over the cache (positional mask, unwritten rows -1)."""
+    expand form over the cache (positional mask, unwritten rows -1).  On a
+    model axis: head-local where the heads divide it, else every head on
+    every rank, each projection as its leaf lies (module docstring)."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.num_heads
     dev = x.device
-    group, tp, _ = model_group()
-    if group is not None:
-        if h % tp:
-            raise NotImplementedError(
-                f"MLA on a model axis of {tp}: its {h} heads must divide "
-                "it (the head-local form)")
+    group, tp, mi = model_group()
+    local = group is not None and h % tp == 0
+    if local:
         h //= tp                      # this rank's heads (module docstring)
+    # the ranks each use the activations only in part: head-local, or wo
+    # a row block (this rank's block of the output into it, summed)
+    part = group is not None and (
+        local or model_sharded(cfg.num_heads * m.v_head))
 
-    ql = copy_to(rms_norm(x @ p["q_down"], p["q_norm"]), group)
-    q = (ql @ p["q_up"]).reshape(b, s, h, m.qk_nope + m.qk_rope).transpose(
-        1, 2)
+    def up(inp, inp_col, name, width):
+        return _mla_up(inp, inp_col, p[name], width, group, part, local)
+
+    ql = rms_norm(x @ p["q_down"], p["q_norm"])
+    q = up(ql, copy_to(ql, group), "q_up",
+           cfg.num_heads * (m.qk_nope + m.qk_rope))
+    q = q.reshape(b, s, h, m.qk_nope + m.qk_rope).transpose(1, 2)
     q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
     q_rope = apply_rope(q_rope, positions[:, None, :], cfg.rope_theta)
 
@@ -539,7 +576,8 @@ def mla_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     c_kv = rms_norm(kvd[..., :m.kv_lora], p["kv_norm"])       # [B,S,kv_lora]
     k_rope = apply_rope(kvd[..., None, m.kv_lora:].transpose(1, 2),
                         positions[:, None, :], cfg.rope_theta)  # [B,1,S,rope]
-    c_kv, k_rope = copy_to(c_kv, group), copy_to(k_rope, group)
+    if part:
+        k_rope = copy_to(k_rope, group)
 
     sg = None
     if kv_cache is not None:
@@ -553,9 +591,15 @@ def mla_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
         if s == 1:
             # single-token decode: absorbed projections, attention in the
             # compressed c_kv space
-            out = _mla_absorbed_attend(p, cfg, q_nope, q_rope, c_all, r_all,
-                                       kv_len, b, s, h, off, sg)
-            return reduce_from(out, group), kv_cache
+            w_up = {k: p[k] for k in ("k_up", "v_up")}
+            if group is not None and not local:     # every head: whole
+                w_up = {k: whole(v, (m.kv_lora, cfg.num_heads * (
+                    m.qk_nope if k == "k_up" else m.v_head)), group,
+                    partial=False) for k, v in w_up.items()}
+            out = _mla_absorbed_attend(w_up, cfg, q_nope, q_rope, c_all,
+                                       r_all, kv_len, b, s, h, off, sg)
+            return _mla_out(p, cfg, out, group, mi, tp, local, part), \
+                kv_cache
         # multi-token prefill: the expand form over the written cache
         q_pos = cache_pos + torch.arange(s, dtype=torch.int32, device=dev)
         idx = off + torch.arange(sk, dtype=torch.int32, device=dev)
@@ -566,16 +610,30 @@ def mla_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
         c_src, r_src, s_kv = c_kv, k_rope, s
 
     # train / prefill: per-head keys and values expanded from the latent
-    k_nope = (c_src @ p["k_up"]).reshape(b, s_kv, h, m.qk_nope).transpose(
-        1, 2)
-    v = (c_src @ p["v_up"]).reshape(b, s_kv, h, m.v_head).transpose(1, 2)
+    c_col = copy_to(c_src, group)          # once for k_up's and v_up's
+    k_nope = up(c_src, c_col, "k_up", cfg.num_heads * m.qk_nope).reshape(
+        b, s_kv, h, m.qk_nope).transpose(1, 2)
+    v = up(c_src, c_col, "v_up", cfg.num_heads * m.v_head).reshape(
+        b, s_kv, h, m.v_head).transpose(1, 2)
     k = torch.cat([k_nope, r_src.to(k_nope.dtype).expand(
         b, h, s_kv, m.qk_rope)], dim=-1)
     qf = torch.cat([q_nope, q_rope], dim=-1)
     scale = (m.qk_nope + m.qk_rope) ** -0.5
     out = _mla_attend(qf, k, v, scale, causal, q_pos, kv_pos, sg)
     out = out.transpose(1, 2).reshape(b, s, h * m.v_head)
-    return reduce_from(out @ p["wo"], group), kv_cache
+    return _mla_out(p, cfg, out, group, mi, tp, local, part), kv_cache
+
+
+def _mla_out(p: dict, cfg: ArchConfig, out: torch.Tensor, group, mi: int,
+             tp: int, local: bool, part: bool) -> torch.Tensor:
+    """``out @ wo`` on the model axis in scope: head-local (``out`` this
+    rank's heads), or over every head with ``wo`` a row block (``part``:
+    this rank's block of ``out``) — each summed over the group — or with
+    ``wo`` replicated (the whole product, no sum)."""
+    if part and not local:
+        n = cfg.num_heads * cfg.mla.v_head // tp
+        out = out[..., mi * n:(mi + 1) * n]
+    return reduce_from(out @ p["wo"], group if part else None)
 
 
 def _mla_attend(qf, k, v, scale, causal, q_pos, kv_pos, sg=None):
@@ -591,17 +649,17 @@ def _mla_attend(qf, k, v, scale, causal, q_pos, kv_pos, sg=None):
                              impl="reference", q_pos=q_pos, kv_pos=kv_pos)
 
 
-def _mla_absorbed_attend(p, cfg, q_nope, q_rope, c_all, r_all, kv_len, b, s,
-                         h, off=0, sg=None):
+def _mla_absorbed_attend(w_up, cfg, q_nope, q_rope, c_all, r_all, kv_len, b,
+                         s, h, off=0, sg=None):
     """Decode with absorbed projections, in f32: k_up folded into q
     (q_c = q_nope · W_kup, [B,H,S,kv_lora]), v_up applied to the context
-    per head; the mask (-1e30) covers the whole [S_max] cache.  ``h``:
-    the heads of this rank's ``k_up`` / ``v_up`` / ``wo`` blocks (its
-    ``wo`` output is a partial sum on a model axis); ``off`` / ``sg``: the
-    cache holds slots ``[off, off + S)`` of a cache split over ``sg``, the
-    softmax combined across it."""
+    per head; the mask (-1e30) covers the whole [S_max] cache.  ``w_up``:
+    ``k_up`` and ``v_up`` for ``h`` heads (this rank's, or all of them);
+    returns the context before ``wo``, [B, S, h·v_head].  ``off`` /
+    ``sg``: the cache holds slots ``[off, off + S)`` of a cache split over
+    ``sg``, the softmax combined across it."""
     m = cfg.mla
-    w_kup = p["k_up"].reshape(m.kv_lora, h, m.qk_nope).float()
+    w_kup = w_up["k_up"].reshape(m.kv_lora, h, m.qk_nope).float()
     q_c = torch.einsum("bhsn,lhn->bhsl", q_nope.float(), w_kup)
     c32 = c_all.float()
     s_kv = c_all.shape[1]
@@ -622,10 +680,9 @@ def _mla_absorbed_attend(p, cfg, q_nope, q_rope, c_all, r_all, kv_len, b, s,
         e = torch.exp(logits - mx)
         ctx = (all_reduce(torch.einsum("bhst,btl->bhsl", e, c32), sg)
                / all_reduce(e.sum(dim=-1, keepdim=True), sg))
-    w_vup = p["v_up"].reshape(m.kv_lora, h, m.v_head).float()
+    w_vup = w_up["v_up"].reshape(m.kv_lora, h, m.v_head).float()
     out = torch.einsum("bhsl,lhv->bhsv", ctx, w_vup)
-    out = out.transpose(1, 2).reshape(b, s, h * m.v_head).to(q_nope.dtype)
-    return out @ p["wo"]
+    return out.transpose(1, 2).reshape(b, s, h * m.v_head).to(q_nope.dtype)
 
 
 def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, *,

@@ -25,23 +25,39 @@ exactly ±0, so they are left out.
 deepseek-v2 extras: shared (always-on) experts and a first dense layer;
 arctic: a dense FFN residual in parallel with the routed experts.
 
-On a mesh (the reference's ``shard_map`` branch), with a ``model`` axis
-of tp > 1 that divides E: expert parallelism.  Each rank holds experts
-``[m·E/tp, (m+1)·E/tp)`` and routes its data shard's T_loc tokens with
-the replicated router, so each expert's capacity is chosen over T_loc
-tokens (the reference's local ``top_k``); the router and the tokens enter
-through ``copy_to`` (their gradients, which flow only through this rank's
-experts, are summed over the model group, as the reference's ``shard_map``
-transpose sums them), and each rank's combine (its experts in ascending
-order) is summed over the model group.  The sum over ranks adds the same
-terms as the single-device combine in another grouping, so the two agree
-to rounding, not bit for bit.  With a model axis of 1 and a data axis
-larger than 1, the reference's single-device branch routes over the
-*global* batch: the token rows are gathered over the data group, every
-data rank runs the single-device branch on all of them and keeps its own
-rows (the gradient of the gathered rows is summed over the data group and
-then sliced).  The shared experts and the dense residual run as
-tensor-parallel FFNs.
+On a mesh, the expert stacks lie as the rule table lays them out
+(``launch/sharding.py``: ``experts_*`` on ``expert`` first, then on
+``model`` along the hidden dim ``f``), and the layer follows that layout:
+
+* **Expert parallel** (the reference's ``shard_map`` branch): a ``model``
+  axis of tp > 1 that divides E.  Each rank holds experts
+  ``[m·E/tp, (m+1)·E/tp)`` and routes its data shard's T_loc tokens with
+  the replicated router, so each expert's capacity is chosen over T_loc
+  tokens (the reference's local ``top_k``); the router and the tokens
+  enter through ``copy_to`` (their gradients, which flow only through this
+  rank's experts, are summed over the model group, as the reference's
+  ``shard_map`` transpose sums them), and each rank's combine (its experts
+  in ascending order) is summed over the model group.  The sum over ranks
+  adds the same terms as the single-device combine in another grouping,
+  so the two agree to rounding, not bit for bit.
+* **The single-device branch** everywhere else (no model axis, or one
+  that does not divide E: the reference's branch under GSPMD).  Routing
+  sees all E experts over the *global* batch: with a data axis larger
+  than 1 the token rows are gathered over the data group, every data rank
+  routes all of them and keeps its own rows (the gradient of the gathered
+  rows is summed over the data group and then sliced).  The router,
+  capacity and dropped choices are those of one device.  The expert
+  stacks are then either **hidden-split** (``f`` divides the model axis:
+  w1/w3 ``[E, d, f/tp]``, w2 ``[E, f/tp, d]``) — each rank computes
+  ``act(x_e @ w1) * (x_e @ w3)``, exact per column of ``f``, and a partial
+  ``h @ w2``, gates and combines it (both linear), and the partial outputs
+  are summed over the model group (the tokens and the router enter through
+  ``copy_to``) — or **replicated** (neither E nor f divides): every rank
+  computes every expert in full, and nothing is reduced (a sum over the
+  group would count the output tp times; each rank's gradient of a
+  replicated leaf is the whole one).
+
+The shared experts and the dense residual run as tensor-parallel FFNs.
 """
 from __future__ import annotations
 
@@ -50,7 +66,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.collectives import (copy_to, data_group, gather,
                                            model_group, reduce_from)
-from repro_torch.launch.sharding import layout
+from repro_torch.launch.sharding import (current_mesh, infer_logical_axes,
+                                        layout, spec_for)
 from repro_torch.models.common import activation, dense_init, model_dtype
 from repro_torch.models.ffn import ffn_forward, init_ffn
 
@@ -142,8 +159,9 @@ def _routed_experts(xt, router, w1, w3, w2, *, cfg: ArchConfig,
                     num_local_experts: int,
                     expert_offset: int) -> torch.Tensor:
     """Routed experts over ``xt`` [T, d] and the local experts (w1/w3
-    [E_loc, d, f], w2 [E_loc, f, d]); the reference's single-device call
-    has E_loc = E and offset 0."""
+    [E_loc, d, f], w2 [E_loc, f, d]; on a hidden split, this rank's
+    columns of f, and the output a partial sum); the reference's
+    single-device call has E_loc = E and offset 0."""
     top_aff, top_idx = route(xt, router, cfg, num_local_experts,
                              expert_offset)
     x_e = xt[top_idx]                                          # [E, C, d]
@@ -155,6 +173,19 @@ def _routed_experts(xt, router, w1, w3, w2, *, cfg: ArchConfig,
     return combine(y_e, top_aff, top_idx, xt.shape[0], cfg.moe.top_k)
 
 
+def expert_layout(cfg: ArchConfig) -> str:
+    """How the rule table lays the expert stacks out on the mesh in scope:
+    ``"expert"`` (split along E), ``"hidden"`` (split along f) or
+    ``"whole"`` (replicated, or no model axis)."""
+    mesh = current_mesh()
+    if model_group()[0] is None:
+        return "whole"
+    m = cfg.moe
+    shape = (m.num_experts, cfg.d_model, m.d_expert)
+    spec = spec_for(mesh, infer_logical_axes("experts_w1", shape), shape)
+    return "expert" if spec[0] else "hidden" if spec[2] else "whole"
+
+
 def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """x: [B, S, d] -> [B, S, d] (module docstring for the mesh's
     branches)."""
@@ -163,12 +194,8 @@ def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     xt = x.reshape(b * s, d)
     group, tp, rank = model_group()
     w = (p["router"], p["experts_w1"], p["experts_w3"], p["experts_w2"])
-    if group is not None:
-        if m.num_experts % tp:
-            raise NotImplementedError(
-                f"{m.num_experts} experts on a model axis of {tp}: the "
-                "reference's single-device branch over experts split by "
-                "their hidden dim is not ported")
+    split = expert_layout(cfg)
+    if split == "expert":
         e_loc = m.num_experts // tp
         out = _routed_experts(copy_to(xt, group), copy_to(w[0], group),
                               *w[1:], cfg=cfg, num_local_experts=e_loc,
@@ -180,9 +207,12 @@ def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
         dgroup, _, drank = ((None, 1, 0) if layout("replicated_batch")
                             else data_group())
         xs = gather(xt, dgroup, dim=0, partial=True)
-        out = _routed_experts(xs, *w, cfg=cfg,
+        hgroup = group if split == "hidden" else None
+        out = _routed_experts(copy_to(xs, hgroup), copy_to(w[0], hgroup),
+                              *w[1:], cfg=cfg,
                               num_local_experts=m.num_experts,
                               expert_offset=0)
+        out = reduce_from(out, hgroup)
         if dgroup is not None:
             out = out[drank * xt.shape[0]:(drank + 1) * xt.shape[0]]
     if m.num_shared:

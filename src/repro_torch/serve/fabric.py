@@ -46,24 +46,26 @@ first batch stalls the others behind the build.  Under
 :class:`~repro_torch.rpc.RemoteWorkerProxy` to a
 :class:`~repro_torch.rpc.WorkerEndpoint` process that holds its own engine
 replica and cache generations: the coordinator then computes nothing (no
-generation 0, no kernel build) and only drives the refresh cadence.
+generation 0, no kernel build) and only drives the refresh cadence.  It
+is one process, as in the reference, whatever the config's mesh: its
+engine comes from :meth:`~repro_torch.gns.GNSEngine.coordinator` (the
+config without the mesh, its cache in the mesh's shards, which is all the
+router reads), and each endpoint of a mesh config is the world of ranks
+(:mod:`repro_torch.rpc.endpoint`).  A tcp fabric over an engine on a mesh
+is refused.
 
 **On a mesh** (an engine over a :class:`~repro_torch.launch.mesh.HostMesh`
 of ``torch.distributed`` ranks) every rank builds, starts and stops the
 fabric, in the same order.  The leader (global rank 0) runs ``submit``,
 tenancy, the router, every worker's scheduler and batcher, and the
 watchdog's health, failover and refresh decisions; ``submit`` elsewhere
-raises :class:`~repro_torch.launch.mesh.NotLeader`.  Over
-``transport="tcp"`` only the leader holds workers, its proxies (each
-endpoint is a world of ranks of its own, :mod:`repro_torch.rpc
-.endpoint`), and the other ranks wait for the leader's stop on the
-watchdog's channel.  In process, worker ``w`` runs on every rank: its
-leader thread sends each batch it samples (ids, bucket, pinned
-generation, the kill flag) over a gloo channel of its own, and worker
-``w`` on every other rank samples it with the same rng and group stamp
-and runs the same forward, whose sharded K1 sums over process groups of
-worker ``w``'s own (each thread that issues collectives has its own
-groups, made here in one order on every rank).  The watchdog alone drives
+raises :class:`~repro_torch.launch.mesh.NotLeader`.  Worker ``w`` runs
+on every rank: its leader thread sends each batch it samples (ids,
+bucket, pinned generation, the kill flag) over a gloo channel of its own,
+and worker ``w`` on every other rank samples it with the same rng and
+group stamp and runs the same forward, whose sharded K1 sums over process
+groups of worker ``w``'s own (each thread that issues collectives has its
+own groups, made here in one order on every rank).  The watchdog alone drives
 the store's agreements: the leader's tells the others' when, with its
 decisions (stop flag, refresh due).  A swap is ordered against the
 workers' sampling: the leader publishes under its sample lock and sends
@@ -406,17 +408,21 @@ class ServeFabric:
         self.leader = mesh is None or mesh.leader
         if cfg.transport == "tcp":
             # cross-host fleet: each worker is a proxy over a TCP channel
-            # to a WorkerEndpoint process holding its own cache replica (on
-            # a mesh, the leader's proxies: the other ranks hold none)
+            # to a WorkerEndpoint process holding its own cache replica;
+            # the coordinator is one process (module docstring)
             from repro_torch.rpc import RemoteWorkerProxy
+            if mesh is not None:
+                raise ValueError(
+                    "transport='tcp' runs its coordinator as one process, "
+                    "not on a mesh of ranks: build its engine with "
+                    "GNSEngine.coordinator(cfg)")
             endpoints = tuple(cfg.endpoints)
             if len(endpoints) != cfg.workers:
                 raise ValueError(
                     f"transport='tcp' needs one endpoint per worker: "
                     f"{len(endpoints)} endpoints for {cfg.workers} workers")
-            self.workers = ([RemoteWorkerProxy(self, i, endpoints[i])
-                             for i in range(cfg.workers)]
-                            if self.leader else [])
+            self.workers = [RemoteWorkerProxy(self, i, endpoints[i])
+                            for i in range(cfg.workers)]
         else:
             if cfg.transport != "inproc":
                 raise ValueError(f"unknown transport {cfg.transport!r}")
@@ -434,11 +440,10 @@ class ServeFabric:
         if mesh is not None:
             if mesh.timeout is not None:
                 self._bound_s = mesh.timeout.total_seconds()
-            if cfg.transport != "tcp":
-                width = self.workers[0].batcher.capacity
-                for w in self.workers:
-                    w.mesh = mesh.fork()
-                    w.channel = Channel(w.mesh.host_group, width)
+            width = self.workers[0].batcher.capacity
+            for w in self.workers:
+                w.mesh = mesh.fork()
+                w.channel = Channel(w.mesh.host_group, width)
             self._watch_channel = Channel(new_host_group(mesh.timeout), 0)
 
     # ------------------------------------------------------------------
@@ -761,8 +766,6 @@ class ServeFabric:
             # the refresh CADENCE (broadcast REFRESH frames); each endpoint
             # swaps locally and ships its new table back in a SWAPPED frame
             # (_on_remote_swap adopts the placement leader's copy)
-            if self._watch_channel is not None:   # the others wait for STOP
-                self._watch_channel.send(Channel.HEARTBEAT)
             every = self.serve_cfg.refresh_every
             if every is None or self._stop.is_set():
                 return

@@ -33,8 +33,10 @@ from repro.launch import train as jtrain  # noqa: E402
 
 
 def run(cell: dict) -> tuple:
-    cfg = dataclasses.replace(get_config(cell["arch"]).reduced(),
-                              **cell["kw"])
+    cfg = get_config(cell["arch"]).reduced()
+    cfg = dataclasses.replace(cfg, **{      # a dict: a nested config's
+        k: dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict)
+        else v for k, v in cell["kw"].items()})
     mesh = None
     if cell["mesh"] is not None:
         d, m = cell["mesh"]

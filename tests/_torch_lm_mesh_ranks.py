@@ -22,8 +22,16 @@ from repro_torch.models.scan_util import tree_map
 STEPS, BATCH, SEQ, LR = 2, 4, 32, 1e-3
 
 
+def with_kw(cfg, kw: dict):
+    """``cfg`` with the fields of ``kw`` replaced; a dict value replaces
+    fields of the nested config it names (``{"moe": {"d_expert": 48}}``)."""
+    return dataclasses.replace(cfg, **{
+        k: dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict)
+        else v for k, v in kw.items()})
+
+
 def cfg_of(arch: str, kw: dict):
-    return dataclasses.replace(configs.get_config(arch).reduced(), **kw)
+    return with_kw(configs.get_config(arch).reduced(), kw)
 
 
 def train(cfg, np_params, mesh, device, **kw):
@@ -146,6 +154,17 @@ def moe_mesh_ranks(mesh, device, cells: list, params: dict,
             "layer": moe_ranks(mesh, device, *layer)}
 
 
+def three_ranks(mesh, device, cells: list, params: dict, layer: tuple,
+                hidden: tuple, attn_cases: list) -> dict:
+    """The (1, 3) world of the MoE module's tests: :func:`moe_mesh_ranks`
+    of ``cells`` and ``layer``, ``moe_ranks(*hidden)``, then
+    :func:`layer_ranks` of the MLA ``attn_cases``."""
+    out = moe_mesh_ranks(mesh, device, cells, params, layer)
+    out["hidden"] = moe_ranks(mesh, device, *hidden)
+    out["attn"] = layer_ranks(mesh, device, attn_cases)
+    return out
+
+
 def ef_ranks(mesh, device, grads: list) -> list:
     """``ef_compress_update`` over the data group, one step per entry of
     ``grads`` (each a list of per-rank gradient trees), the residual
@@ -174,7 +193,13 @@ LAYER_B, LAYER_S, LAYER_S_ENC = 2, 32, 8
 def layer_cfg(kind: str, heads: int):
     """The reduced config of a layer case with ``heads`` heads: seamless's
     cross-attention (its head width from d_model), zamba2's Mamba2 block
-    (its head width from d_inner), or xlstm's mLSTM / sLSTM cell."""
+    (its head width from d_inner), xlstm's mLSTM / sLSTM cell, or
+    deepseek's MLA (``mla``; ``mla-rows`` with ``v_head`` 24, which makes
+    ``wo`` [heads·24, d] a row block on 3 ranks where 4·16 is whole)."""
+    if kind in ("mla", "mla-rows"):
+        return cfg_of("deepseek-v2-236b", {
+            "num_heads": heads, "num_kv_heads": heads,
+            "mla": {"v_head": 24 if kind == "mla-rows" else 16}})
     if kind == "cross":
         cfg = cfg_of("seamless-m4t-medium", {})
         return dataclasses.replace(cfg, num_heads=heads, num_kv_heads=heads,
@@ -200,6 +225,8 @@ def _layer(kind: str, cfg, seed: int):
     from repro_torch.models.transformer import token_positions
     gen = make_generator(seed, "cpu")
     init = {"cross": lambda g: attn.init_attn(g, cfg, cross=True),
+            "mla": lambda g: attn.init_attn(g, cfg),
+            "mla-rows": lambda g: attn.init_attn(g, cfg),
             "mamba2": lambda g: ssm.init_ssm(g, cfg),
             "mlstm": lambda g: xl.init_mlstm(g, cfg),
             "slstm": lambda g: xl.init_slstm(g, cfg)}[kind]
@@ -215,6 +242,11 @@ def _layer(kind: str, cfg, seed: int):
         def fwd(p, x, enc):
             kv = attn.make_cross_kv(p, cfg, enc)
             return attn.attn_forward(p, cfg, x, pos, cross_kv=kv)[0]
+    elif kind.startswith("mla"):
+        pos = token_positions(LAYER_B, LAYER_S, 0, "cpu")
+
+        def fwd(p, x):
+            return attn.attn_forward(p, cfg, x, pos)[0]
     else:
         cell = {"mamba2": ssm.ssm_forward, "mlstm": xl.mlstm_forward,
                 "slstm": xl.slstm_forward}[kind]
@@ -242,7 +274,9 @@ def layer_ranks(mesh, device, cases: list) -> dict:
     """Each case (kind, heads, seed): the layer on one device (the mesh out
     of scope) and on this mesh from this rank's blocks of the same
     parameters; returns per case the one-device output and gradients
-    (leaves sliced to this rank's blocks) beside the mesh's."""
+    (leaves sliced to this rank's blocks) beside the mesh's, and the ops
+    of the collectives the mesh's forward and backward issued."""
+    from repro_torch.launch.collectives import recording
     from repro_torch.launch.sharding import use_mesh
     from repro_torch.models.lm_params import shard_params
     torch.set_num_threads(1)
@@ -254,9 +288,10 @@ def layer_ranks(mesh, device, cases: list) -> dict:
         local, plans = shard_params(p, mesh, cfg)
         for k, plan in plans.items():
             one_g[k] = plan.local(torch.from_numpy(one_g[k])).numpy()
-        with use_mesh(mesh):
+        with use_mesh(mesh), recording() as log:
             got_out, got_g = _layer_grads(fwd, local, inputs, w)
         out[f"{kind}/{heads}"] = {
             "one": (one_out, one_g), "mesh": (got_out, got_g),
-            "split": sorted(k for k, pl in plans.items() if pl.axes)}
+            "split": sorted(k for k, pl in plans.items() if pl.axes),
+            "collectives": [e["op"] for e in log]}
     return out

@@ -603,50 +603,91 @@ def stream_ranks(mesh, device, spec: dict) -> dict:
     return out
 
 
-def rpc_coordinator_ranks(mesh, device, spec: dict) -> dict:
-    """The port's coordinator on this mesh, over two endpoint worlds
-    (``tests/test_torch_mesh_rpc.py``): (1) ``spec["pinned"]`` one at a
-    time through the inproc mesh fabric, then through tcp; (2) a refresh
-    every 4 batches over tcp, each endpoint's SWAPPED tables logged; (3)
-    the reference's ``RPC_COORD_CODE`` traffic with endpoint 0's leader
-    SIGKILLed.  Every rank serves the checkpoint ``spec["restore"]``."""
-    import dataclasses
+def inproc_pinned_ranks(mesh, device, spec: dict) -> dict:
+    """The inproc mesh fabric on this mesh, the one the tcp coordinator of
+    ``tests/test_torch_mesh_rpc.py`` is held to: ``spec["pinned"]`` one at
+    a time from the checkpoint ``spec["restore"]``; a follower's submit
+    and a tcp fabric over the mesh engine are refused."""
     import json
-    import os
-    import signal
-    from repro_torch.gns import (EngineConfig, FabricConfig, GNSEngine,
-                                 TenantConfig)
+    from repro_torch.gns import EngineConfig, FabricConfig, GNSEngine
     from repro_torch.launch.mesh import NotLeader
-    from repro_torch.rpc.endpoint import table_digest
     torch.set_num_threads(1)
     out = {"rank": mesh.rank}
     cfg = EngineConfig.from_dict(json.loads(spec["cfg"]))
     eng = GNSEngine(cfg, device=device, mesh=mesh)
     eng.restore(spec["restore"])
-    leader = mesh.leader
-    addrs = tuple(spec["endpoints"])
-
-    def pinned(fab):
-        if not leader:
-            out["refused"] = refuses(lambda: fab.submit(np.arange(3)),
-                                     NotLeader)
-            return None
-        res = []
-        for w, ids in spec["pinned"]:
-            r = fab.submit(ids, worker=w).result(timeout=WAIT_S)
-            res.append((r.status, r.bucket, r.cache_version, r.logits))
-        return res
-
-    # (1) the inproc mesh fabric, then tcp, one request at a time
+    out["tcp_refused"] = refuses(lambda: eng.serve_fabric(FabricConfig(
+        workers=2, transport="tcp", endpoints=tuple(spec["endpoints"]))),
+        ValueError)
     with eng.serve_fabric(FabricConfig(workers=2,
                                        stall_timeout_ms=600_000.0)) as fab:
-        out["inproc"] = pinned(fab)
+        if mesh.leader:
+            out["inproc"] = []
+            for w, ids in spec["pinned"]:
+                r = fab.submit(ids, worker=w).result(timeout=WAIT_S)
+                out["inproc"].append((r.status, r.bucket, r.cache_version,
+                                      r.logits))
+        else:
+            out["refused"] = refuses(lambda: fab.submit(np.arange(3)),
+                                     NotLeader)
+    return out
+
+
+def _children() -> list:
+    """The pids of this process's children (every thread's)."""
+    import os
+    pids = []
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/children") as f:
+                pids += [int(p) for p in f.read().split()]
+        except OSError:
+            pass
+    return pids
+
+
+def rpc_coordinator(spec: dict) -> dict:
+    """The port's tcp coordinator over two endpoint worlds, in this one
+    process (``tests/test_torch_mesh_rpc.py``): (1) ``spec["pinned"]`` one
+    at a time; (2) a refresh every 4 batches, each endpoint's SWAPPED
+    tables logged; (3) the reference's ``RPC_COORD_CODE`` traffic with
+    endpoint 0's leader SIGKILLed.  Its engine is
+    ``GNSEngine.coordinator`` of the mesh config; what it started (a
+    process group, child processes) is recorded while the fabrics run."""
+    import dataclasses
+    import json
+    import multiprocessing
+    import os
+    import signal
+    import torch.distributed as dist
+    from repro_torch.gns import (EngineConfig, FabricConfig, GNSEngine,
+                                 TenantConfig)
+    from repro_torch.rpc.endpoint import table_digest
+    torch.set_num_threads(1)
+    out = {"pid": os.getpid()}
+    cfg = EngineConfig.from_dict(json.loads(spec["cfg"]))
+    eng = GNSEngine.coordinator(cfg, device="cpu")
+    addrs = tuple(spec["endpoints"])
+    seen = {"children": set(), "dist": False}
+
+    def look():
+        seen["children"].update(_children())
+        seen["children"].update(p.pid for p in
+                                multiprocessing.active_children())
+        seen["dist"] |= dist.is_available() and dist.is_initialized()
+
+    # (1) one request at a time
     tcp = dict(workers=2, transport="tcp", endpoints=addrs,
                stall_timeout_ms=600_000.0, watch_interval_ms=50.0,
                heartbeat_ms=50.0)
     with eng.serve_fabric(FabricConfig(**tcp)) as fab:
-        out["tcp"] = pinned(fab)
+        out["tcp"] = []
+        for w, ids in spec["pinned"]:
+            r = fab.submit(ids, worker=w).result(timeout=WAIT_S)
+            out["tcp"].append((r.status, r.bucket, r.cache_version,
+                               r.logits))
         out["tcp_workers"] = len(fab.workers)
+        look()
 
     # (2) the watchdog's REFRESH after 4 batches: both endpoints swap
     swapped = []
@@ -661,19 +702,19 @@ def rpc_coordinator_ranks(mesh, device, spec: dict) -> dict:
 
     fab._on_remote_swap = logged
     with fab:
-        if leader:
-            ids = spec["pinned"][0][1]
-            before = [fab.submit(ids, worker=i % 2).result(timeout=WAIT_S)
-                      for i in range(4)]
-            wait_until(lambda: {i for i, _, _ in swapped} == {0, 1},
-                       "both endpoints swap in the refreshed generation")
-            after = [fab.submit(ids, worker=i).result(timeout=WAIT_S)
-                     for i in range(2)]
-            out["refresh"] = {
-                "versions": [r.cache_version for r in before + after],
-                "status": [r.status for r in before + after],
-                "swapped": list(swapped),
-                "errors": fab.meter.snapshot()["errors"]}
+        ids = spec["pinned"][0][1]
+        before = [fab.submit(ids, worker=i % 2).result(timeout=WAIT_S)
+                  for i in range(4)]
+        wait_until(lambda: {i for i, _, _ in swapped} == {0, 1},
+                   "both endpoints swap in the refreshed generation")
+        after = [fab.submit(ids, worker=i).result(timeout=WAIT_S)
+                 for i in range(2)]
+        out["refresh"] = {
+            "versions": [r.cache_version for r in before + after],
+            "status": [r.status for r in before + after],
+            "swapped": list(swapped),
+            "errors": fab.meter.snapshot()["errors"]}
+        look()
 
     # (3) the reference's rpc smoke, endpoint 0 SIGKILLed mid-stream
     fab = eng.serve_fabric(FabricConfig(
@@ -687,29 +728,33 @@ def rpc_coordinator_ranks(mesh, device, spec: dict) -> dict:
     hot_a = rng.choice(ds.val_idx[:half], size=30, replace=False)
     hot_b = rng.choice(ds.val_idx[half:], size=30, replace=False)
     with fab:
-        if leader:
-            futs = []
-            for i in range(40):
-                tenant, hot = (("mobile", hot_a) if i % 2 == 0
-                               else ("batch", hot_b))
-                ids = rng.choice(hot, size=int(rng.integers(2, 8)),
-                                 replace=False)
-                futs.append(fab.submit(ids, tenant=tenant))
-            status = [f.result(timeout=WAIT_S).status for f in futs]
-            w0 = fab.workers[0]
-            futs = [fab.submit(rng.choice(hot_a, size=4, replace=False),
-                               tenant="mobile", worker=0) for _ in range(4)]
-            os.kill(spec["pid0"], signal.SIGKILL)
-            wait_until(lambda: not w0.alive(),
-                       "the proxy of the killed endpoint ends")
-            status += [f.result(timeout=WAIT_S).status for f in futs]
-            tail = [fab.submit(rng.choice(hot_b, size=4, replace=False),
-                               tenant="batch") for _ in range(6)]
-            status += [f.result(timeout=WAIT_S).status for f in tail]
-            out["smoke_status"] = status
-            out["smoke_healthy"] = fab.healthy()
-            out["smoke_remote"] = sorted(fab.pull_remote_stats(timeout=30.0))
-            out["smoke_snapshot"] = fab.snapshot()
+        futs = []
+        for i in range(40):
+            tenant, hot = (("mobile", hot_a) if i % 2 == 0
+                           else ("batch", hot_b))
+            ids = rng.choice(hot, size=int(rng.integers(2, 8)),
+                             replace=False)
+            futs.append(fab.submit(ids, tenant=tenant))
+        status = [f.result(timeout=WAIT_S).status for f in futs]
+        w0 = fab.workers[0]
+        futs = [fab.submit(rng.choice(hot_a, size=4, replace=False),
+                           tenant="mobile", worker=0) for _ in range(4)]
+        look()
+        os.kill(spec["pid0"], signal.SIGKILL)
+        wait_until(lambda: not w0.alive(),
+                   "the proxy of the killed endpoint ends")
+        status += [f.result(timeout=WAIT_S).status for f in futs]
+        tail = [fab.submit(rng.choice(hot_b, size=4, replace=False),
+                           tenant="batch") for _ in range(6)]
+        status += [f.result(timeout=WAIT_S).status for f in tail]
+        out["smoke_status"] = status
+        out["smoke_healthy"] = fab.healthy()
+        out["smoke_remote"] = sorted(fab.pull_remote_stats(timeout=30.0))
+        out["smoke_snapshot"] = fab.snapshot()
+    out["mesh"] = eng.mesh
+    out["shards"] = eng.store.n_shards
+    out["children"] = sorted(seen["children"])
+    out["dist"] = seen["dist"]
     return out
 
 
@@ -774,3 +819,15 @@ def endpoint_fault_ranks(mesh, device, spec: dict) -> dict:
     out.update(outcome=outcome, batches=ep.meter.batch_count(),
                errors=ep.meter.snapshot()["errors"])
     return out
+
+
+if __name__ == "__main__":
+    # python tests/_torch_mesh_ranks.py SPEC.pkl OUT.pkl: rpc_coordinator
+    # of the pickled spec, its result pickled
+    import pickle
+    import sys
+    with open(sys.argv[1], "rb") as f:
+        _spec = pickle.load(f)
+    _out = rpc_coordinator(_spec)
+    with open(sys.argv[2], "wb") as f:
+        pickle.dump(_out, f)

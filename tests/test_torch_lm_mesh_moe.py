@@ -16,12 +16,23 @@ What the reference does, and so what is held here:
   without a mesh (by design) and are held to the reference's alone; at
   (1, 2) and (1, 4) T_loc is the whole batch;
 * model = 1, data > 1: the reference's single-device branch routes over
-  the global batch: the (2, 1) losses equal the run without a mesh.
+  the global batch: the (2, 1) losses equal the run without a mesh;
+* a model axis of 3, which divides neither the reduced configs' 4
+  experts nor their 4 heads: the reference's single-device branch under
+  GSPMD, held on (1, 3) (the reference's mesh over 3 of the 4 forced host
+  devices, in the same background subprocess) with the expert stacks
+  replicated (f = 32, deepseek and arctic) or split along their hidden
+  dim (deepseek with ``d_expert=48``), and deepseek's MLA over all heads
+  on every rank (``q_up`` a column block gathered whole, ``wo`` whole, or
+  a row block with ``v_head=24``).  With data = 1 the local token count
+  is the whole batch, so these losses also equal the run without a mesh.
 
 Tolerances: losses rtol 1e-5 (f32); the MoE layer's output and gradients
 against one device rtol 1e-5, atol 1e-6: expert parallelism sums each
 rank's experts and then the ranks, another grouping of the same f32
-terms, so it is not bit for bit.  The router's gradient, summed over the
+terms, so it is not bit for bit (experts split along f: the router's
+gradient with that atol taken of its largest element, see
+``ROUTER_SPLIT_ATOL``).  The router's gradient, summed over the
 model group, is the same on every rank bit for bit.
 """
 import dataclasses
@@ -47,16 +58,34 @@ REPO = Path(__file__).resolve().parents[1]
 SPAWN_S = 300
 LOSS_RTOL = 1e-5
 LAYER_TOL = dict(rtol=1e-5, atol=1e-6)
-MESHES = ((1, 2), (2, 1), (2, 2), (1, 4))
+# the router's gradient on experts split along f, of its largest |element|:
+# it sums over the tokens softmax-backward terms as large as that element,
+# and each expert output it is taken against is a sum of 3 partial
+# products, not one, so an element near 0 moves by ~1e-7 of the largest
+ROUTER_SPLIT_ATOL = 1e-6
+MESHES = ((1, 2), (2, 1), (2, 2), (1, 4), (1, 3))
 MOE = (("deepseek", "deepseek-v2-236b", {"fsdp": True}),
        ("arctic", "arctic-480b", {"fsdp": True}))
 # 6 heads on a model axis of 4: q, K and V gathered, every rank attends
 SPLIT_HEADS = (("qwen2-6heads", "qwen2-7b", {"num_heads": 6}),)
+# on 3 model ranks: experts whole (f = 32) or split along f (48 = 3 x 16);
+# MLA's wo [H·v_head, d] whole (4 x 16) or a row block (4 x 24 = 3 x 32)
+HIDDEN = (("deepseek-d48", "deepseek-v2-236b",
+           {"fsdp": True, "moe": {"d_expert": 48}}),
+          ("deepseek-wo-rows", "deepseek-v2-236b",
+           {"fsdp": True, "mla": {"v_head": 24}}))
+THREE = MOE[:1] + HIDDEN + MOE[1:]
+# MLA layers on (1, 3), (kind, heads, seed): 4 heads, wo whole / row block
+MLA_CASES = (("mla", 4, 11), ("mla-rows", 4, 12))
+MLA_TOL = 1e-5    # of each leaf's largest |value|, as tests/test_torch_lm_
+                  # mesh_tp.py holds its layers
 
 
 def _cells(mesh):
     if mesh == (1, 4):
         return MOE[:1] + SPLIT_HEADS
+    if mesh == (1, 3):
+        return THREE
     return MOE
 
 
@@ -65,14 +94,14 @@ LAYER_MESHES = MESHES[:3]
 
 
 def _ref_params(arch, kw):
-    cfg = dataclasses.replace(jconfigs.get_config(arch).reduced(), **kw)
+    cfg = R.with_kw(jconfigs.get_config(arch).reduced(), kw)
     return jax.tree_util.tree_map(np.asarray, jget_model(cfg).init(
         jax.random.PRNGKey(0)))
 
 
 @pytest.fixture(scope="module")
 def params():
-    return {n: _ref_params(a, kw) for n, a, kw in MOE + SPLIT_HEADS}
+    return {n: _ref_params(a, kw) for n, a, kw in MOE + SPLIT_HEADS + HIDDEN}
 
 
 @pytest.fixture(scope="module")
@@ -84,14 +113,13 @@ def reference(tmp_path_factory):
     return Reference(tmp_path_factory.mktemp("lm_mesh_moe_ref"), cells)
 
 
-@pytest.fixture(scope="module")
-def layer_case():
+def _layer_case(**moe_kw):
     """A reduced deepseek MoE layer (shared expert; capacity factor 0.5,
-    so experts drop tokens), x [4, 16, d] and the output weights."""
-    jcfg, cfg = (dataclasses.replace(c, moe=dataclasses.replace(
-        c.moe, capacity_factor=0.5)) for c in (
-            jconfigs.get_config("deepseek-v2-236b").reduced(),
-            R.cfg_of("deepseek-v2-236b", {})))
+    so experts drop tokens; ``moe_kw`` more MoECfg changes), x [4, 16, d]
+    and the output weights."""
+    kw = {"moe": {"capacity_factor": 0.5, **moe_kw}}
+    jcfg, cfg = (R.with_kw(jconfigs.get_config("deepseek-v2-236b").reduced(),
+                           kw), R.cfg_of("deepseek-v2-236b", kw))
     p = jax.tree_util.tree_map(np.asarray, jmoe.init_moe(
         jax.random.PRNGKey(3), jcfg))
     rng = np.random.default_rng(5)
@@ -101,11 +129,27 @@ def layer_case():
 
 
 @pytest.fixture(scope="module")
-def ranks(params, reference, layer_case):
+def layer_case():
+    return _layer_case()
+
+
+@pytest.fixture(scope="module")
+def layer_case_hidden():
+    """The layer with ``d_expert=48``: split along f on 3 model ranks."""
+    return _layer_case(d_expert=48)
+
+
+@pytest.fixture(scope="module")
+def ranks(params, reference, layer_case, layer_case_hidden):
     out = {}
     for d, m in MESHES:
         args = (list(_cells((d, m))), params)
-        if (d, m) in LAYER_MESHES:
+        if m == 3:
+            out[(d, m)] = run_ranks(
+                "_torch_lm_mesh_ranks:three_ranks", data=d, model=m,
+                devices=["cpu"] * (d * m), backend="gloo", timeout_s=SPAWN_S,
+                args=args + (layer_case, layer_case_hidden, list(MLA_CASES)))
+        elif (d, m) in LAYER_MESHES:
             out[(d, m)] = run_ranks(
                 "_torch_lm_mesh_ranks:moe_mesh_ranks", data=d, model=m,
                 devices=["cpu"] * (d * m), backend="gloo", timeout_s=SPAWN_S,
@@ -124,7 +168,7 @@ def single(params):
     torch.set_num_threads(1)
     try:
         return {n: R.train(R.cfg_of(a, kw), params[n], None, "cpu")
-                for n, a, kw in MOE + SPLIT_HEADS}
+                for n, a, kw in MOE + SPLIT_HEADS + HIDDEN}
     finally:
         torch.set_num_threads(threads)
 
@@ -237,3 +281,100 @@ def test_moe_layer_on_a_mesh(ranks, layer_case, mesh):
         for k in ("router", "experts_w1", "experts_w2", "experts_w3"):
             np.testing.assert_allclose(sum(r["grads"][k] for r in got),
                                        whole[1][k], **LAYER_TOL)
+
+
+def _grads_of_blocks(row: list, k: str, full_shape: tuple) -> np.ndarray:
+    """The full gradient of an expert stack from the model ranks' blocks:
+    each rank's whole when it holds the leaf whole, else the blocks
+    concatenated along the dim they split."""
+    blocks = [r["grads"][k] for r in row]
+    if blocks[0].shape == full_shape:
+        for b in blocks[1:]:
+            assert np.array_equal(b, blocks[0]), k
+        return blocks[0]
+    dim = [i for i, (a, b) in enumerate(zip(blocks[0].shape, full_shape))
+           if a != b]
+    assert len(dim) == 1, (k, blocks[0].shape, full_shape)
+    return np.concatenate(blocks, axis=dim[0])
+
+
+@pytest.mark.parametrize("which", ["whole", "hidden"])
+def test_moe_layer_on_three_model_ranks(ranks, layer_case, layer_case_hidden,
+                                        which):
+    """(1, 3): the single-device branch on every rank.  Experts whole
+    (f = 32): every rank computes the layer of one device, no sum.  Split
+    along f (48): each rank's partial output summed over the model group.
+    Either way every rank's output, the router's gradient (the same bit
+    for bit on every rank), the input's and the expert stacks' (the
+    blocks put together) are one device's within ``LAYER_TOL``; split
+    along f, the router's gradient with ``LAYER_TOL``'s atol taken of its
+    largest element (``ROUTER_SPLIT_ATOL``)."""
+    case = layer_case if which == "whole" else layer_case_hidden
+    cfg, p, x, w = case
+    row = [r["layer" if which == "whole" else "hidden"]
+           for r in ranks[(1, 3)]]
+    want_out, want_g = _one_device(cfg, p, x, w)
+    for r in row:
+        np.testing.assert_allclose(r["out"], want_out, **LAYER_TOL)
+        assert np.array_equal(r["grads"]["router"], row[0]["grads"]["router"])
+    np.testing.assert_allclose(row[0]["grads"]["x"], want_g["x"],
+                               **LAYER_TOL)
+    router = dict(LAYER_TOL)
+    if which == "hidden":
+        router["atol"] = ROUTER_SPLIT_ATOL * np.abs(want_g["router"]).max()
+    np.testing.assert_allclose(row[0]["grads"]["router"], want_g["router"],
+                               **router)
+    for k in ("experts_w1", "experts_w2", "experts_w3"):
+        got = _grads_of_blocks(row, k, want_g[k].shape)
+        np.testing.assert_allclose(got, want_g[k], **LAYER_TOL)
+    split = row[0]["grads"]["experts_w1"].shape != want_g["experts_w1"].shape
+    assert split == (which == "hidden")
+
+
+@pytest.mark.parametrize("name", [n for n, _, _ in THREE])
+def test_local_expert_shapes_follow_the_rule_table(ranks, single, name):
+    """On (1, 3) the experts lose ``expert`` on E (4 does not divide 3)
+    and take ``model`` on f where f divides: w1/w3 [E, d, f/3] and w2
+    [E, f/3, d] at f = 48, whole at f = 32: every rank holds such a
+    block after training."""
+    from test_torch_lm_mesh import _flat
+    full = _flat(single[name][1])
+    cfg = R.cfg_of(*[(a, kw) for n, a, kw in THREE if n == name][0])
+    f = cfg.moe.d_expert
+    paths = [k for k in full if k.split("/")[-1].startswith("experts_w")]
+    assert paths
+    for path in paths:
+        shape = full[path].shape
+        want = list(shape)
+        if f % 3 == 0:
+            want[-1 if path.endswith(("w1", "w3")) else -2] = f // 3
+        for r in ranks[(1, 3)]:
+            assert _flat(r["train"][name][1])[path].shape == tuple(want), \
+                (name, path)
+
+
+@pytest.mark.parametrize("case", [f"{k}/{h}" for k, h, _ in MLA_CASES])
+def test_mla_layer_on_three_model_ranks(ranks, case):
+    """MLA with 4 heads on 3 model ranks: every rank attends over all
+    heads, ``q_up`` a column block gathered whole and ``k_up`` whole; the
+    output and every gradient (this rank's block of a split leaf) are one
+    device's within ``MLA_TOL``.  ``wo`` is whole (no sum over the group:
+    every rank's gradients are the whole ones) or, with ``v_head`` 24, a
+    row block (each rank's block of the output into it, summed)."""
+    results = [r["attn"][case] for r in ranks[(1, 3)]]
+    split = set(results[0]["split"])
+    assert {"q_up"} <= split and "k_up" not in split
+    assert ("wo" in split) == case.startswith("mla-rows")
+    for res in results:
+        (one_out, one_g), (out, g) = res["one"], res["mesh"]
+        np.testing.assert_allclose(out, one_out, rtol=0,
+                                   atol=MLA_TOL * np.abs(one_out).max())
+        assert sorted(g) == sorted(one_g)
+        for k, want in one_g.items():
+            np.testing.assert_allclose(
+                g[k], want, rtol=0, atol=MLA_TOL * np.abs(want).max(),
+                err_msg=k)
+    for k, g0 in results[0]["mesh"][1].items():
+        if k not in split:                      # whole leaves and inputs
+            for res in results[1:]:
+                assert np.array_equal(res["mesh"][1][k], g0), k

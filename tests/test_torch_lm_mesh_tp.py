@@ -4,7 +4,8 @@ trained by ``train_loop(mesh=)`` on (1, 2), (2, 2) and (1, 4) gloo CPU
 ranks, against the reference's ``train_loop(mesh=)`` on the same mesh;
 a checkpoint saved on (1, 2) resumed on (1, 4) and on one device; and
 one layer at a time (cross-attention, the Mamba2 block, the mLSTM and
-sLSTM cells) on 2 and 4 ranks against the same layer on one device.
+sLSTM cells, deepseek's MLA head-local) on 2 and 4 ranks against the same
+layer on one device, and the collectives the head-local MLA issues.
 
 The runs, parameters and tolerances are those of
 ``tests/test_torch_lm_mesh.py`` (its module docstring): both packages
@@ -63,7 +64,7 @@ LAYERS = (("cross", 4, 1, (2, 4)), ("cross", 2, 8, (4,)),
           ("mamba2", 8, 2, (2, 4)),
           ("mamba2", 2, 3, (4,)), ("mlstm", 4, 4, (2, 4)),
           ("mlstm", 2, 5, (4,)), ("slstm", 4, 6, (2, 4)),
-          ("slstm", 2, 7, (4,)))
+          ("slstm", 2, 7, (4,)), ("mla", 4, 9, (2, 4)))
 LAYER_CASES = [(f"{k}/{h}", tp) for k, h, _, tps in LAYERS for tp in tps]
 LAYER_TOL = 1e-5
 NOISY = ("xlstm",)      # share beyond PARAM_ATOL: module docstring
@@ -223,3 +224,13 @@ def test_layer_on_ranks_matches_one_device(ranks, case, tp):
         if k not in split:                      # whole leaves and inputs
             for res in results[1:]:
                 assert np.array_equal(res["mesh"][1][k], g0), k
+
+
+@pytest.mark.parametrize("tp", (2, 4))
+def test_head_local_mla_sums_each_input_gradient_once(ranks, tp):
+    """Head-local MLA issues four all-reduces a forward and backward: the
+    sum of ``wo``'s row blocks, and one gradient sum each for the latents
+    that the column blocks read (``q_up``'s input, and ``c_kv`` that both
+    ``k_up`` and ``v_up`` read) and for the shared ``k_rope``."""
+    for r in ranks[(1, tp)]:
+        assert r["layers"]["mla/4"]["collectives"] == ["all-reduce"] * 4

@@ -17,7 +17,8 @@ of its own.
   on every rank).
 * A follower's ``submit`` raises ``NotLeader``.
 
-``transport="tcp"`` over a mesh engine is ``tests/test_torch_mesh_rpc.py``'s.
+``transport="tcp"`` on a mesh config (a one-process coordinator over
+endpoints that are worlds of ranks) is ``tests/test_torch_mesh_rpc.py``'s.
 """
 import json
 

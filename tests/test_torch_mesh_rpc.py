@@ -7,13 +7,14 @@ process leads.  One scenario for every test here, the lock sanitizer armed
 in every process:
 
 * endpoints A0 and A1 serve the reference's parameters (a checkpoint of
-  its meshless engine with 2 cache shards) to the port's coordinator, a
-  (2, 2) world of its own: requests pinned to a worker, one at a time,
-  match the reference's meshless fabric (same bucket and generation,
-  logits within rtol 1e-4 / atol 1e-4) and the port's inproc mesh fabric
-  bit for bit; then a refresh after 4 batches, which every rank of an
-  endpoint swaps in; then the reference smoke's traffic, and A0's leader
-  is SIGKILLed;
+  its meshless engine with 2 cache shards) to the port's coordinator, one
+  process as the reference's is (``GNSEngine.coordinator`` of the mesh
+  config: no process group, no child process): requests pinned to a
+  worker, one at a time, match the reference's meshless fabric (same
+  bucket and generation, logits within rtol 1e-4 / atol 1e-4) and the
+  port's inproc fabric on a (2, 2) world bit for bit; then a refresh
+  after 4 batches, which every rank of an endpoint swaps in; then the
+  reference smoke's traffic, and A0's leader is SIGKILLed;
 * then endpoints B0 and B1 are driven by the reference's own
   coordinator (``RPC_COORD_CODE``, jax on 4 forced host devices), which
   SIGKILLs B0;
@@ -29,6 +30,7 @@ Every wait has a deadline.  Ephemeral ports on 127.0.0.1 only.
 import dataclasses
 import json
 import os
+import pickle
 import queue
 import signal
 import socket
@@ -196,9 +198,17 @@ def scenario(tmp_path_factory):
         spec = {"cfg": json.dumps(smoke), "restore": str(ckpt),
                 "pinned": pinned, "pid0": eps["A0"].proc.pid,
                 "endpoints": [eps["A0"].address, eps["A1"].address]}
-        ranks = run_ranks("_torch_mesh_ranks:rpc_coordinator_ranks", data=2,
+        ranks = run_ranks("_torch_mesh_ranks:inproc_pinned_ranks", data=2,
                           model=2, devices=["cpu"] * 4, backend="gloo",
                           args=(spec,), timeout_s=WAIT_S * 2)
+        spec_path, out_path = tmp / "coord_spec.pkl", tmp / "coord_out.pkl"
+        spec_path.write_bytes(pickle.dumps(spec))
+        coord = subprocess.run(
+            [sys.executable, str(REPO / "tests" / "_torch_mesh_ranks.py"),
+             str(spec_path), str(out_path)], cwd=REPO, env=env,
+            capture_output=True, text=True, timeout=WAIT_S * 2)
+        assert coord.returncode == 0, coord.stderr[-4000:]
+        port = pickle.loads(out_path.read_bytes())
         for i in range(2):
             eps[f"B{i}"] = _Endpoint(cfg_path, i, f"B{i}", env)
             eps[f"B{i}"].ready()
@@ -213,7 +223,7 @@ def scenario(tmp_path_factory):
         b_alive = eps["B1"].proc.poll() is None
         exits = {k: _followers_exit(eps[k]) for k in ("A0", "B0")}
         records = {k: eps[k].shutdown() for k in ("A1", "B1")}
-        return {"want": want, "pinned": pinned, "ranks": ranks,
+        return {"want": want, "pinned": pinned, "ranks": ranks, "port": port,
                 "ref_coord": (coord.returncode, coord.stdout,
                               coord.stderr[-4000:]),
                 "b1_alive": b_alive, "exits": exits, "records": records,
@@ -224,7 +234,7 @@ def scenario(tmp_path_factory):
 
 
 def test_pinned_requests_match_reference_meshless_fabric(scenario):
-    got = scenario["ranks"][0]["tcp"]
+    got = scenario["port"]["tcp"]
     assert len(got) == len(PINNED)
     for (status, bucket, version, logits), r, (_, ids) in zip(
             got, scenario["want"], scenario["pinned"]):
@@ -235,17 +245,16 @@ def test_pinned_requests_match_reference_meshless_fabric(scenario):
 
 
 def test_pinned_requests_equal_the_inproc_mesh_fabric(scenario):
-    lead = scenario["ranks"][0]
-    assert len(lead["tcp"]) == len(lead["inproc"]) == len(PINNED)
-    for (s, b, v, x), (s2, b2, v2, x2) in zip(lead["tcp"], lead["inproc"]):
+    tcp, inproc = scenario["port"]["tcp"], scenario["ranks"][0]["inproc"]
+    assert len(tcp) == len(inproc) == len(PINNED)
+    for (s, b, v, x), (s2, b2, v2, x2) in zip(tcp, inproc):
         assert (s, b, v) == (s2, b2, v2)
         np.testing.assert_array_equal(x, x2)
 
 
 def test_reference_smoke_assertions_on_the_port_coordinator(scenario):
-    """``RPC_COORD_CODE``'s asserts, the port's coordinator a (2, 2)
-    world of its own."""
-    lead = scenario["ranks"][0]
+    """``RPC_COORD_CODE``'s asserts, the port's coordinator one process."""
+    lead = scenario["port"]
     assert lead["smoke_status"] == ["ok"] * 50
     assert lead["smoke_healthy"] == [1]
     assert lead["smoke_remote"] == [1]
@@ -273,7 +282,7 @@ def test_refresh_lands_on_every_rank_of_an_endpoint(scenario):
     batches after it pin the new generation, and the survivor's four
     ranks end on one generation whose routing table is the one its
     SWAPPED frame carried."""
-    ref = scenario["ranks"][0]["refresh"]
+    ref = scenario["port"]["refresh"]
     assert ref["status"] == ["ok"] * 6 and ref["errors"] == 0
     assert ref["versions"] == [0, 0, 0, 0, 1, 1]
     swapped = {i: (v, d) for i, v, d in ref["swapped"]}
@@ -307,10 +316,18 @@ def test_endpoints_are_worlds_and_the_coordinator_leads_its_own(scenario):
         assert rec["ranks"][0]["batches"] > 0
         assert rec["ranks"][0]["psum_calls"] > 0
         assert all(r["psum_ms"] > 0 for r in rec["ranks"])   # always timed
+    # the port's coordinator: one process, as the reference's, on the
+    # config's 2 cache shards; no process group, no child process
+    port = scenario["port"]
+    assert port["tcp_workers"] == 2
+    assert port["mesh"] is None and port["shards"] == 2
+    assert not port["dist"] and port["children"] == []
+    # a tcp fabric over the (2, 2) mesh engine is refused on every rank;
+    # its inproc fabric takes requests on the leader only
     ranks = scenario["ranks"]
-    assert ranks[0]["tcp_workers"] == 2
+    assert all(r["tcp_refused"] for r in ranks)
     assert all(r["refused"] for r in ranks[1:])
-    assert all("tcp" not in r or r["tcp"] is None for r in ranks[1:])
+    assert "inproc" not in ranks[1]
 
 
 def test_a_follower_that_fails_a_forward_fails_its_batch():

@@ -20,6 +20,12 @@ The MoE layer routes each data rank's tokens on its own when it runs
 expert-parallel (deepseek on (2, 2)), as the reference's sharded program
 does (``tests/test_torch_lm_mesh_moe.py``): there the reference decodes
 each data rank's rows as a batch of its own.
+
+deepseek also decodes on (1, 3), a model axis that divides neither its 4
+experts nor its 4 heads: every rank runs the MoE layer's single-device
+branch and MLA over all heads (``q_up`` a column block gathered whole,
+``k_up`` / ``v_up`` / ``wo`` whole), its latent cache whole; the same
+tokens, logits and state as the reference's single-device decode.
 """
 import types
 
@@ -44,6 +50,8 @@ from repro_torch.models.lm import get_model  # noqa: E402
 ARCHS = ("qwen2-7b", "deepseek-v2-236b", "zamba2-2.7b", "xlstm-125m",
          "seamless-m4t-medium", "h2o-danube-3-4b")
 MESHES = ((1, 2), (2, 1), (2, 2))
+# a model axis that divides neither deepseek's experts nor its heads
+THREE, THREE_ARCH = (1, 3), "deepseek-v2-236b"
 # B=1 on (2, 1): an even cache splits its slots over the two data ranks
 SPLIT = ("h2o-danube-3-4b", "deepseek-v2-236b", "qwen2-7b",
          "seamless-m4t-medium")
@@ -84,12 +92,14 @@ def ranks(params, batch):
     """mesh -> every rank's results: the three meshes' ranks run in the
     background while the reference decodes every cell."""
     from concurrent.futures import ThreadPoolExecutor
-    with ThreadPoolExecutor(len(MESHES)) as pool:
+    cells = {(d, m): _cells(2) + (_cells(1) if (d, m) == (2, 1) else [])
+             for d, m in MESHES}
+    cells[THREE] = [c for c in _cells(2) if c[1] == THREE_ARCH]
+    with ThreadPoolExecutor(len(cells)) as pool:
         futs = {(d, m): pool.submit(
             run_ranks, "_torch_dryrun_ranks:serve_cells", data=d, model=m,
             devices=["cpu"] * (d * m), backend="gloo", timeout_s=SPAWN_S,
-            args=(_cells(2) + (_cells(1) if (d, m) == (2, 1) else []),
-                  params, batch)) for d, m in MESHES}
+            args=(c, params, batch)) for (d, m), c in cells.items()}
         for b in (1, 2):
             for name, arch, _, _ in _cells(b):
                 _reference(arch, name, None, params[arch], batch)
@@ -227,3 +237,19 @@ def test_b1_caches_split_over_the_data_axis(arch, ranks, params, batch):
     assert layout["replicated_batch"] and layout["self_split"]
     if arch == "seamless-m4t-medium":
         assert layout["cross_split"]
+
+
+def test_mesh_decode_on_three_model_ranks(ranks, params, batch):
+    """deepseek on (1, 3): the MoE layer's single-device branch with its
+    experts whole and MLA over all heads on every rank, against the
+    reference's single-device decode under the bounds above."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import spec_for
+    layout = _check(f"{THREE_ARCH}/b2", THREE_ARCH, THREE, ranks[THREE],
+                    params, batch, False)
+    assert not any(layout.values())
+    cfg = get_config(THREE_ARCH).reduced()
+    view = _rank_view(*THREE, 0)
+    assert cfg.num_heads % 3 and cfg.moe.num_experts % 3
+    assert spec_for(view, ("expert", None, "model"), (
+        cfg.moe.num_experts, cfg.d_model, cfg.moe.d_expert)) == (None,) * 3

@@ -6,8 +6,8 @@ parameters (``params_from_numpy``): ``init_moe``'s layout, the routing
 at capacity 1, with shared experts and with a dense residual; the
 deterministic combine against the reference's scatter-add and
 ``index_add_``; ``moe_aux_loss``; the
-gradient of ``moe_forward`` against ``jax.grad``; and the refusal of a
-model axis that does not divide the experts.
+gradient of ``moe_forward`` against ``jax.grad``; and the routing of the
+single-device branch on a model axis that does not divide the experts.
 
 Tolerances: outputs and gradients rtol 1e-4, atol 1e-5 (the same f32
 products, summed in other orders by XLA and by PyTorch's CPU kernels);
@@ -254,25 +254,75 @@ def test_moe_forward_gradient_matches_jax_grad(case):
                                    err_msg=f"leaf {i}", **TOL)
 
 
-def test_mesh_branch_raises_naming_its_item():
-    """Expert parallelism needs the model axis to divide the experts: on
-    a model axis of 3, the reduced deepseek's 4 experts are refused before
-    any collective (the reference's branch for that case, experts split by
-    their hidden dim, is not ported); a mesh of one rank, or none, runs
-    the single-device branch.  The expert-parallel and global-batch
-    branches are held on ranks in ``tests/test_torch_lm_mesh_moe.py``."""
-    jcfg, tcfg = _cfgs(DEEPSEEK)
+def _three_ranks(m: int):
+    """What the layer reads of rank ``m``'s view of a (1, 3) mesh: no
+    process behind it (the caller stubs the sum over the group)."""
+    return types.SimpleNamespace(axis_names=("data", "model"),
+                                 shape={"data": 1, "model": 3},
+                                 group=lambda axis: ("model-group", axis),
+                                 index=lambda axis: m if axis == "model"
+                                 else 0)
+
+
+@pytest.mark.parametrize("d_expert", [32, 48], ids=["whole", "hidden"])
+def test_three_model_ranks_route_as_one_device(monkeypatch, d_expert):
+    """On a model axis of 3, which does not divide the reduced deepseek's
+    4 experts, each rank runs the reference's single-device branch: it
+    routes the same tokens to the same experts, over all 4 of them, with
+    the same capacity and the same dropped choices as one device (bit for
+    bit).  At f = 32 the rule table leaves the stacks whole and a rank's
+    output is one device's, with no sum over the group; at f = 48 each
+    rank holds [E, d, 16] / [E, 16, d] and the three ranks' partial
+    outputs (routed experts and the shared expert) sum to one device's.
+    The sums over the group are recorded here, not run (no ranks); the
+    sums on ranks are held in ``tests/test_torch_lm_mesh_moe.py``."""
+    from repro_torch.launch.sharding import tree_param_shardings
+    from repro_torch.models import ffn
+    jcfg, tcfg = _cfgs(DEEPSEEK, capacity_factor=0.5, d_expert=d_expert)
     _, tp = _params(jcfg)
-    x = torch.from_numpy(_x((1, 4, tcfg.d_model), seed=11))
-    three = types.SimpleNamespace(axis_names=("data", "model"),
-                                  shape={"data": 1, "model": 3},
-                                  group=lambda axis: object(),
-                                  index=lambda axis: 0)
-    one = types.SimpleNamespace(axis_names=("data", "model"),
-                                shape={"data": 1, "model": 1})
-    with use_mesh(three), pytest.raises(NotImplementedError,
-                                        match="4 experts on a model axis"):
-        moe.moe_forward(tp, tcfg, x)
-    with use_mesh(one):
-        got = moe.moe_forward(tp, tcfg, x)
-    assert torch.equal(got, moe.moe_forward(tp, tcfg, x))
+    x = torch.from_numpy(_x((2, 8, tcfg.d_model), seed=11))
+    routes, sums = [], []
+    route = moe.route
+
+    def spy(*args, **kw):
+        out = route(*args, **kw)
+        routes.append(out)
+        return out
+
+    def summed(t, group):
+        sums.append(group)
+        return t
+
+    with torch.no_grad():
+        want = moe.moe_forward(tp, tcfg, x)
+        monkeypatch.setattr(moe, "route", spy)
+        want_route = moe.route(x.reshape(-1, tcfg.d_model), tp["router"],
+                               tcfg, tcfg.moe.num_experts, 0)
+        monkeypatch.setattr(moe, "reduce_from", summed)
+        monkeypatch.setattr(ffn, "reduce_from", summed)
+        outs = []
+        for m in range(3):
+            mesh = _three_ranks(m)
+            plans = tree_param_shardings(mesh, tp)
+            local = {k: plans[k].local(v) for k, v in tp.items()
+                     if k != "shared"}
+            local["shared"] = {k: plans["shared"][k].local(v)
+                               for k, v in tp["shared"].items()}
+            with use_mesh(mesh):
+                assert moe.expert_layout(tcfg) == (
+                    "hidden" if d_expert == 48 else "whole")
+                outs.append(moe.moe_forward(local, tcfg, x))
+    e, t = tcfg.moe.num_experts, x.shape[0] * x.shape[1]
+    for top_aff, top_idx in routes[1:]:
+        assert top_aff.shape == (e, moe.capacity(tcfg, t))
+        assert torch.equal(top_aff, want_route[0])
+        assert torch.equal(top_idx, want_route[1])
+    assert len(routes) == 4
+    if d_expert == 32:
+        assert sums == [None] * 3 * 2       # the routed and shared FFN
+        for out in outs:
+            assert torch.equal(out, want)
+    else:
+        assert sums == [("model-group", "model")] * 3 * 2
+        np.testing.assert_allclose((outs[0] + outs[1] + outs[2]).numpy(),
+                                   want.numpy(), **TOL)
