@@ -187,8 +187,22 @@ Phases, one line each on stdout:
                and one step with ``chunked_ce=512, bf16_grad_stream=True``
                from the same parameters and batch: the losses within rtol
                5e-3; then one more step with its loss-and-gradients and its
-               AdamW update timed apart (CUDA events); losses finite, no
-               NaN parameter, peak memory under 80 GB;
+               AdamW update timed apart (CUDA events), each half's own
+               peak memory beside it; losses finite, no NaN parameter,
+               peak memory under 80 GB;
+    lm-train-moe — ``deepseek-v2-236b`` at its published widths, 2 of 60
+               layers (the dense first layer and one MoE layer: 5.36 B
+               parameters): (a) one random leaf of 3·2^26 + 12,345
+               elements updated over AdamW's slices and as one slice, bit
+               for bit; (b) ``train_loop``, 3 steps at batch 2, seq 1,024
+               (bf16, remat, f32 moments, clip 1.0): losses finite, peak
+               memory under 80 GB; (c) from a fresh tree, one step's loss
+               and gradients and its AdamW update timed apart (the
+               update beside its bound), no gradient leaf non-finite; (d)
+               the loss and gradients twice on the same parameters and
+               batch, bit for bit (integer checksums of each gradient
+               leaf's bits).  Alone: ``PYTHONPATH=src python3 -c "import
+               chip_smoke as c; c.phase_lm_train_moe()"``;
     lm-serve-dec — ``h2o-danube-3-4b`` at its published width (SWA window
                4,096, ``attn_impl="pallas"``): ``ServeEngine(max_batch=2)``
                serves 2 requests of 4,032 prompt tokens and 128 new tokens,
@@ -2338,6 +2352,10 @@ TRAIN_PARITY_TOL = dict(rtol=1e-4, atol=1e-5)
 # 4.7e-5 from an f64 evaluation of the same loss (exponential gates)
 TRAIN_PARITY_TOL_BY_ARCH = {XL_ARCH: dict(rtol=1e-4, atol=1e-4)}
 CARD_BYTES = 80e9                 # one H100's HBM
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "deepseek-v2-236b", 2  # dense + one MoE
+MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 3, 2, 1024
+SLICE_CHECK_ELEMENTS = 3 * 2 ** 26 + 12_345   # (a): 3 slices + a ragged tail
+CHECKSUM_SLICE = 2 ** 26          # elements a checksum slice (d)
 
 
 def lm_counters() -> dict:
@@ -2464,13 +2482,15 @@ def phase_lm_train() -> dict:
     return counts
 
 
-def step_split(model, opt, params, state, batch) -> dict:
+def step_split(model, opt, params, state, batch) -> tuple:
     """One more train step, its halves timed apart with CUDA events: the
     loss and gradients (forward, remat recompute, backward) and the AdamW
     update (clipping included), beside the update's bound: parameters and
     moments read and written once, gradients read once, over the HBM
-    rate; then the loss and the count of gradient leaves with a
-    non-finite entry."""
+    rate; each half's own peak memory (the mark reset before it); then
+    the loss and the count of gradient leaves with a non-finite entry.
+    Returns (that dict, the phase's peak bytes before the step), the
+    latter for ``lm_phase_end``'s ``peak``."""
     import torch
     from repro_torch.launch.steps import value_and_grad
     from repro_torch.models.scan_util import tree_leaves
@@ -2481,20 +2501,28 @@ def step_split(model, opt, params, state, batch) -> dict:
                        for p, m, v in zip(tree_leaves(params),
                                           tree_leaves(state["m"]),
                                           tree_leaves(state["v"])))
+    prior = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     ev[0].record()
     loss, grads = value_and_grad(model.loss, params,
                                  {k: v[0] for k, v in batch.items()})
     ev[1].record()
+    grads_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     opt.update(grads, state, params)
     ev[2].record()
     ev[2].synchronize()
     return {"loss_and_grads": round(ev[0].elapsed_time(ev[1]), 2),
             "adamw": round(ev[1].elapsed_time(ev[2]), 2),
             "adamw_bound": round(update_bytes / HBM_MS, 2),
+            "loss_and_grads_peak_gb": round(grads_peak / 1e9, 3),
+            "adamw_peak_gb": round(torch.cuda.max_memory_allocated() / 1e9,
+                                   3),
             "loss": float(loss),      # the update reads the gradients only
             "nonfinite_grad_leaves": sum(int(not torch.isfinite(g).all())
-                                         for g in tree_leaves(grads))}
+                                         for g in tree_leaves(grads))
+            }, max(prior, grads_peak)
 
 
 def phase_lm_train_dec() -> dict:
@@ -2539,9 +2567,9 @@ def phase_lm_train_dec() -> dict:
         params, state, batches[2])
     chunked = float(loss)
     chunk_s = time.perf_counter() - t1
-    split = step_split(model, opt, params, state, batches[0])
+    split, peak = step_split(model, opt, params, state, batches[0])
     nan_leaves = sum(int(torch.isnan(p).any()) for p in tree_leaves(params))
-    counts, peak = lm_phase_end("lm-train-dec", counters, t0)
+    counts, peak = lm_phase_end("lm-train-dec", counters, t0, peak)
     rel = abs(chunked - plain) / abs(plain)
     log("lm-train-dec", arch=cfg.name, layers=cfg.num_layers,
         d_model=cfg.d_model, heads=f"{cfg.num_heads}/{cfg.num_kv_heads}",
@@ -2567,6 +2595,166 @@ def phase_lm_train_dec() -> dict:
     if peak >= CARD_BYTES:
         raise AssertionError(f"lm-train-dec: peak memory {peak / 1e9} GB")
     del params, state, batches, model, step
+    free_card()
+    return counts
+
+
+def slices_check() -> dict:
+    """(a) of ``lm-train-moe``: one random leaf of SLICE_CHECK_ELEMENTS
+    (bf16 parameter and gradient, f32 moments, weight decay 0.1, no
+    clipping) updated over AdamW's slices and as a single slice (the
+    constant raised for that call): parameter and moments bit for bit."""
+    import torch
+    from repro_torch.optim import adam
+    n, limit = SLICE_CHECK_ELEMENTS, adam.SLICE_ELEMENTS
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    p, g, m = (torch.randn(n, generator=gen, device="cuda") for _ in range(3))
+    v = torch.rand(n, generator=gen, device="cuda") * 1e-6
+    p, g, m = p.bfloat16(), (g * 1e-3).bfloat16(), m * 1e-3
+    opt = adam.AdamW(adam.AdamConfig(lr=3e-4, weight_decay=0.1))
+    out, ms = {}, {}
+    for name, elements in (("sliced", limit), ("one", n)):
+        params, state = [p.clone()], {"m": [m.clone()], "v": [v.clone()],
+                                      "step": 0}
+        adam.SLICE_ELEMENTS = elements
+        try:
+            pieces = len(adam.leaf_slices(p))
+            ms[name] = cuda_ms(lambda: opt.update([g], state, params))
+        finally:
+            adam.SLICE_ELEMENTS = limit
+        out[name] = (params[0], state["m"][0], state["v"][0], pieces)
+    equal = [bool(torch.equal(a, b)) for a, b in zip(out["sliced"][:3],
+                                                      out["one"][:3])]
+    return {"elements": n, "slice_elements": limit,
+            "slices": out["sliced"][3], "one": out["one"][3],
+            "sliced_ms": round(ms["sliced"], 3), "one_ms": round(ms["one"], 3),
+            "p_m_v_equal": equal}
+
+
+def bit_checksums(tree) -> list:
+    """Two integer checksums of each leaf's raw bits, slice by slice: the
+    bits' sum and their sum weighted by position mod 65,521 plus 1 (int64,
+    wrapping), so two trees compare without both on the card."""
+    import torch
+    from repro_torch.models.scan_util import tree_leaves
+    ints = {2: torch.int16, 4: torch.int32}
+    out = []
+    for t in tree_leaves(tree):
+        flat = t.reshape(-1).view(ints[t.element_size()])
+        plain = weighted = 0
+        for i in range(0, flat.numel(), CHECKSUM_SLICE):
+            x = flat[i:i + CHECKSUM_SLICE].long()
+            pos = torch.arange(i, i + x.numel(), device=x.device) % 65521 + 1
+            plain += int(x.sum())
+            weighted += int((x * pos).sum())
+        out.append((plain, weighted))
+    return out
+
+
+def phase_lm_train_moe() -> dict:
+    """``deepseek-v2-236b`` at its published widths, trained on one card at
+    2 of its 60 layers (the dense first layer and one MoE layer): (a) AdamW
+    over slices of a leaf against one slice, bit for bit
+    (:func:`slices_check`); (b) ``train_loop``, 3 steps at 2 × 1,024
+    (bf16, remat, f32 moments, clip 1.0): losses finite, peak memory under
+    80 GB; (c) from a fresh tree of the same seed, one step's loss and
+    gradients and its AdamW update timed apart (``step_split``), no
+    gradient leaf non-finite; (d) the loss and gradients twice on the same
+    parameters and batch, bit for bit (:func:`bit_checksums`)."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import add_accum_dim, value_and_grad
+    from repro_torch.launch.sharding import map_with_path
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.common import make_generator
+    from repro_torch.models.lm import get_model, make_batch
+    from repro_torch.models.scan_util import tree_leaves
+    from repro_torch.optim.adam import AdamConfig, AdamW
+    full = get_config(MOE_TRAIN_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MOE_TRAIN_LAYERS)
+    counters, t0 = lm_phase_start()
+    sliced = slices_check()
+    log("lm-train-moe-slices", **sliced)
+    if not all(sliced["p_m_v_equal"]) or sliced["slices"] < 2 \
+            or sliced["one"] != 1:
+        raise AssertionError(f"lm-train-moe: sliced update {sliced}")
+    free_card()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    report = train_loop(cfg, steps=MOE_TRAIN_STEPS, batch=MOE_TRAIN_BATCH,
+                        seq_len=MOE_TRAIN_SEQ, seed=SEED, log_every=0,
+                        device=None)
+    loop_s = time.perf_counter() - t1
+    loop_peak = torch.cuda.max_memory_allocated()
+    peak = max(peak, loop_peak)
+    free_card()
+
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg)
+    params = model.init(SEED)
+    n_params, p_bytes = tree_size(params)
+    opt = AdamW(AdamConfig(lr=3e-4, clip_norm=1.0))
+    state = opt.init(params)
+    s_bytes = p_bytes + tree_size(state["m"])[1] + tree_size(state["v"])[1]
+    batch = add_accum_dim(cfg, make_batch(cfg, MOE_TRAIN_SEQ,
+                                          MOE_TRAIN_BATCH,
+                                          make_generator(SEED)))
+    init_peak = torch.cuda.max_memory_allocated()
+    split, split_prior = step_split(model, opt, params, state, batch)
+    peak = max(peak, split_prior)
+    del state
+    free_card()
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+
+    names = tree_leaves(map_with_path(lambda path, _: path, params))
+    one = {k: v[0] for k, v in batch.items()}
+    runs = []
+    t1 = time.perf_counter()
+    for _ in range(2):
+        loss, grads = value_and_grad(model.loss, params, one)
+        runs.append((float(loss), bit_checksums(grads)))
+        del grads
+    det_s = time.perf_counter() - t1
+    det_peak = torch.cuda.max_memory_allocated()
+    differ = [n for n, a, b in zip(names, runs[0][1], runs[1][1]) if a != b]
+    counts, peak = lm_phase_end("lm-train-moe", counters, t0, peak)
+    step_s = float(np.mean(report.step_times[1:]))
+    log("lm-train-moe", arch=cfg.name,
+        layers=f"{cfg.num_layers} of {full.num_layers}",
+        d_model=cfg.d_model, experts=cfg.moe.num_experts,
+        top_k=cfg.moe.top_k, d_expert=cfg.moe.d_expert,
+        shared=cfg.moe.num_shared, vocab=cfg.vocab_size, dtype=cfg.dtype,
+        remat=cfg.remat, params=n_params, param_gb=round(p_bytes / 1e9, 3),
+        state_gb=round(s_bytes / 1e9, 3), steps=MOE_TRAIN_STEPS,
+        batch=MOE_TRAIN_BATCH, seq_len=MOE_TRAIN_SEQ,
+        losses=[round(x, 5) for x in report.losses],
+        ln_vocab=round(math.log(cfg.vocab_size), 4),
+        step_ms=[round(t * 1e3, 1) for t in report.step_times],
+        ms_per_step=round(step_s * 1e3, 2),
+        tokens_per_s=round(MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / step_s, 1),
+        loop_s=round(loop_s, 2), loop_peak_gb=round(loop_peak / 1e9, 3),
+        init_peak_gb=round(init_peak / 1e9, 3), split_step_ms=split,
+        peak_mem_gb=round(peak / 1e9, 3))
+    log("lm-train-moe-determinism", passes=2, leaves=len(names),
+        losses=[r[0] for r in runs], losses_equal=runs[0][0] == runs[1][0],
+        leaves_differing=differ, seconds=round(det_s, 2),
+        peak_mem_gb=round(det_peak / 1e9, 3))
+    if not all(math.isfinite(x) for x in report.losses + [split["loss"]]) \
+            or split["nonfinite_grad_leaves"]:
+        raise AssertionError(f"lm-train-moe: losses {report.losses}, "
+                             f"{split['loss']}; "
+                             f"{split['nonfinite_grad_leaves']} non-finite "
+                             f"gradient leaves")
+    if peak >= CARD_BYTES:
+        raise AssertionError(f"lm-train-moe: peak memory {peak / 1e9} GB")
+    if runs[0][0] != runs[1][0] or differ:
+        raise AssertionError(f"lm-train-moe: two gradient passes differ: "
+                             f"losses {runs[0][0]} / {runs[1][0]}, leaves "
+                             f"{differ}")
+    del params, batch, model, report
     free_card()
     return counts
 
@@ -2835,10 +3023,10 @@ def phase_lm_train_zamba2() -> dict:
         params, state, loss = step(params, state, batch)
         losses.append(float(loss))
         times.append(time.perf_counter() - t1)
-    split = step_split(model, opt, params, state, batches[-1])
+    split, peak = step_split(model, opt, params, state, batches[-1])
     bad_params = sum(int(not torch.isfinite(p).all())
                      for p in tree_leaves(params))
-    counts, peak = lm_phase_end("lm-train-zamba2", counters, t0)
+    counts, peak = lm_phase_end("lm-train-zamba2", counters, t0, peak)
     log("lm-train-zamba2", arch=cfg.name, layers=cfg.num_layers,
         groups=f"{cfg.num_layers // cfg.shared_attn_every}x"
         f"{cfg.shared_attn_every}", d_model=cfg.d_model,
@@ -5721,6 +5909,8 @@ def run_phases(card: str, clock: PhaseClock, dryrun: tuple,
     clock("lm-train")
     counts["lm_train_dec"] = phase_lm_train_dec()
     clock("lm-train-dec")
+    counts["lm_train_moe"] = phase_lm_train_moe()
+    clock("lm-train-moe")
     counts["lm_serve_dec"] = phase_lm_serve_dec()
     clock("lm-serve-dec")
     counts["lm_train_xlstm"] = phase_lm_train_xlstm()

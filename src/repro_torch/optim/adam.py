@@ -10,6 +10,14 @@ params)``, over any nested dict / list of tensors (GraphSAGE's ``{"layers":
 flatten order (dict keys sorted).  Clipping scales each f32 gradient leaf
 as the update reaches it, so no clipped copy of the whole tree is made.
 
+A leaf above :data:`SLICE_ELEMENTS` elements is updated, and its squares
+summed for the clipping norm, slice by slice (:func:`leaf_slices`), so the
+f32 temporaries of the update are those of one slice, not of the leaf (the
+reference's update runs fused inside its jitted step and keeps none).
+Elementwise arithmetic does not depend on where a slice starts, so the
+sliced update is bit for bit the whole leaf's, given the same clipping
+scale; only the norm of a leaf above one slice sums in another order.
+
 One difference from the functional reference: :meth:`AdamW.update` writes
 the new parameters and moments into the existing tensors, under
 ``torch.no_grad()``, and returns them.  That saves a copy of every
@@ -28,6 +36,10 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.scan_util import tree_leaves, tree_map
 
+# the most elements of a leaf that one slice of the update (and of the
+# norm) covers: its f32 temporaries are 268 MB each
+SLICE_ELEMENTS = 2 ** 26
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamConfig:
@@ -40,6 +52,30 @@ class AdamConfig:
     moment_dtype: Any = torch.float32  # torch.bfloat16 halves moment memory
 
 
+def leaf_slices(*leaves: torch.Tensor) -> list:
+    """Views of same-shape ``leaves`` that together cover them, each of at
+    most :data:`SLICE_ELEMENTS` elements: the leaves themselves where they
+    fit one slice; else consecutive pieces of their flattened storage
+    where all are contiguous, or pieces along the first dim.  Returns one
+    tuple of views a slice."""
+    n, limit = leaves[0].numel(), SLICE_ELEMENTS
+    if n <= limit:
+        return [leaves]
+    if all(t.is_contiguous() for t in leaves):
+        flat = [t.reshape(-1) for t in leaves]
+        return [tuple(t[i:i + limit] for t in flat)
+                for i in range(0, n, limit)]
+    rows = max(limit // (n // leaves[0].shape[0]), 1)
+    return [tuple(t[i:i + rows] for t in leaves)
+            for i in range(0, leaves[0].shape[0], rows)]
+
+
+def _sum_squares(g: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of ``g``'s squares, over its slices in order."""
+    sums = [torch.sum(torch.square(s.float())) for s, in leaf_slices(g)]
+    return sum(sums[1:], sums[0])
+
+
 def global_norm(grads, plans=None) -> torch.Tensor:
     """The L2 norm of every leaf of ``grads`` together, in f32.
 
@@ -49,13 +85,12 @@ def global_norm(grads, plans=None) -> torch.Tensor:
     groups, and a replicated leaf counts once, so every rank gets the
     norm of the full tree."""
     if plans is None:
-        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                              for g in tree_leaves(grads)))
+        return torch.sqrt(sum(_sum_squares(g) for g in tree_leaves(grads)))
     from repro_torch.launch.collectives import all_reduce
     sums: dict = {}                  # the axes a leaf shards over -> sum
     mesh = None
     for g, plan in zip(tree_leaves(grads), tree_leaves(plans)):
-        sq = torch.sum(torch.square(g.float()))
+        sq = _sum_squares(g)
         sums[plan.axes] = sums[plan.axes] + sq if plan.axes in sums else sq
         mesh = plan.mesh
     total = None
@@ -116,18 +151,18 @@ class AdamW:
         step_f = np.float32(step)        # the corrections in f32
         bc1 = float(np.float32(1.0) - np.float32(b1) ** step_f)
         bc2 = float(np.float32(1.0) - np.float32(b2) ** step_f)
-        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                              tree_leaves(state["m"]),
-                              tree_leaves(state["v"])):
-            g32 = g.float() if scale is None else g.float() * scale
-            m32 = m.float() * b1 + (1 - b1) * g32
-            v32 = v.float() * b2 + (1 - b2) * torch.square(g32)
-            delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
-            if cfg.weight_decay:
-                delta = delta + cfg.weight_decay * p.float()
-            p.copy_(p.float() - lr * delta)
-            m.copy_(m32)
-            v.copy_(v32)
+        for leaf in zip(tree_leaves(params), tree_leaves(grads),
+                        tree_leaves(state["m"]), tree_leaves(state["v"])):
+            for p, g, m, v in leaf_slices(*leaf):
+                g32 = g.float() if scale is None else g.float() * scale
+                m32 = m.float() * b1 + (1 - b1) * g32
+                v32 = v.float() * b2 + (1 - b2) * torch.square(g32)
+                delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+                if cfg.weight_decay:
+                    delta = delta + cfg.weight_decay * p.float()
+                p.copy_(p.float() - lr * delta)
+                m.copy_(m32)
+                v.copy_(v32)
         state["step"] = step
         return params, state
 
