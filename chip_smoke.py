@@ -15,10 +15,13 @@ Phases, one line each on stdout:
                ``jax`` nor ``repro``, so it runs where they are missing):
                exit 0, no finding, no new and no stale baseline entry;
                then the same CLI over ``tests/analysis_fixtures_torch``:
-               exit 1, with every ported rule firing.  Prints what the passes walked
-               (modules, ``@guarded_by`` classes, thread entry points,
-               host→device transfer sites, all paired) and the wall
-               seconds of each run;
+               exit 1, with every ported rule firing (16, the trace-purity
+               and scalar retrace rules among them).  Prints what the
+               passes walked (modules, ``@guarded_by`` classes, thread
+               entry points, host→device transfer sites, all paired, the
+               trace roots resolved, at least the reference's 19, and the
+               functions they reach, at least its 68) and the wall seconds
+               of each run;
 1. build     — compile the port's CUDA kernels (K1 ``cache_lookup_agg``, K2
                ``gather_agg`` and K3 ``gns_sample_agg`` on row tiles, K4
                ``flash_attention`` in three routes) from
@@ -523,7 +526,13 @@ METER_TIMES = ("t_sample", "t_slice", "t_copy", "t_compute", "t_refresh")
 ANALYSIS_RULES = {"lock-unguarded-write", "lock-unguarded-read",
                   "lock-external-access", "gen-chained-read",
                   "gen-multi-read", "gen-direct-private",
-                  "meter-unpaired-transfer", "retrace-pad-registry"}
+                  "meter-unpaired-transfer", "retrace-pad-registry",
+                  "retrace-scalar-arg", "retrace-scalar-flow",
+                  "trace-nondeterminism", "trace-global-state",
+                  "trace-self-mutation", "trace-mutation",
+                  "trace-host-branch", "trace-root-missing"}
+REFERENCE_TRACE_ROOTS = 19     # distinct roots of the reference's analyzer
+REFERENCE_TRACED = 68          # the functions they reach
 
 
 def log(phase: str, **fields) -> None:
@@ -566,8 +575,9 @@ def gnscheck(*args: str) -> tuple[subprocess.CompletedProcess, float]:
 
 
 def phase_analysis() -> None:
-    """The port's tree clean against its empty baseline; every ported rule
-    firing on the fixtures."""
+    """The port's tree clean against its empty baseline, every reference
+    trace root's counterpart resolved; every ported rule firing on the
+    fixtures."""
     proc, s = gnscheck("--baseline",
                        str(ROOT / ".github" / "gnscheck-torch-baseline.txt"))
     if proc.returncode != 0:
@@ -590,11 +600,16 @@ def phase_analysis() -> None:
     st = out["stats"]
     if st["transfers"] < 3 or st["paired_transfers"] != st["transfers"]:
         raise RuntimeError(f"analysis: transfer sites {st}")
+    if st["trace_roots"] < REFERENCE_TRACE_ROOTS \
+            or st["traced_functions"] < REFERENCE_TRACED:
+        raise RuntimeError(f"analysis: trace region {st}")
     log("analysis", modules=st["modules"],
         guarded_classes=st["guarded_classes"],
         thread_entries=st["thread_entries"], transfers=st["transfers"],
-        paired=st["paired_transfers"], findings=len(out["violations"]),
-        s=round(s, 3), fixture_rules=len(fired), fixture_s=round(fx_s, 3))
+        paired=st["paired_transfers"], trace_roots=st["trace_roots"],
+        traced_functions=st["traced_functions"],
+        findings=len(out["violations"]), s=round(s, 3),
+        fixture_rules=len(fired), fixture_s=round(fx_s, 3))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """The port's ``gnscheck``: lock-discipline annotations, the runtime lock
-sanitizer and (``python -m repro_torch.analysis``) the static passes: lock
-discipline, generation pinning, the pad registry and TrafficMeter pairing.
+sanitizer and (``python -m repro_torch.analysis``) the static passes: trace
+purity, lock discipline, generation pinning, retrace hazards and
+TrafficMeter pairing.
 
 Only the runtime symbols are re-exported here — every threaded module of
 the port imports this at module load, so it must stay stdlib-only and must

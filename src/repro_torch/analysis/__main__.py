@@ -1,7 +1,9 @@
 """Command line: ``python -m repro_torch.analysis`` (the port's ``gnscheck``).
 
-Runs lock discipline, generation pinning, the pad registry and the
-TrafficMeter pairing lint over ``src/repro_torch`` (or ``--root``).
+Runs trace purity, lock discipline, generation pinning, the retrace
+rules (scalar arguments and flows, the pad registry) and the TrafficMeter
+pairing lint over ``src/repro_torch`` (or ``--root``), in the reference's
+order.
 
 Exit codes: 0 clean (or all violations baselined), 1 new violations or
 stale baseline entries (ratchet breach), 2 usage error.
@@ -20,9 +22,9 @@ from .common import RepoIndex, Violation
 def run_passes(index: RepoIndex) -> List[Violation]:
     # imported lazily so `import repro_torch.analysis` stays cheap for the
     # runtime-annotation consumers
-    from . import generation, locks, meterlint, retrace
+    from . import generation, locks, meterlint, retrace, trace_purity
     out: List[Violation] = []
-    for mod in (locks, generation, retrace, meterlint):
+    for mod in (trace_purity, locks, generation, retrace, meterlint):
         out.extend(mod.run(index))
     out.sort(key=lambda v: (v.path, v.line, v.rule))
     return out
@@ -30,24 +32,29 @@ def run_passes(index: RepoIndex) -> List[Violation]:
 
 def stats(index: RepoIndex) -> Dict[str, int]:
     """What the passes walked: modules, ``@guarded_by`` classes, thread
-    entry points and host→device transfer sites (paired or not)."""
+    entry points, host→device transfer sites (paired or not), the
+    ``TRACE_ROOTS`` rows that resolved and the functions they reach."""
     from . import locks, meterlint
+    from .common import find_trace_roots
     transfers = meterlint.find_transfers(index)
+    roots = find_trace_roots(index)
     return {
         "modules": len(index.modules),
         "guarded_classes": len(locks._parse_guarded(index)),
         "thread_entries": len(locks._thread_entry_refs(index)),
         "transfers": len(transfers),
         "paired_transfers": sum(t.paired for t in transfers),
+        "trace_roots": len(roots),
+        "traced_functions": len(index.reachable([r.ref for r in roots])),
     }
 
 
 def main(argv: List[str] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="gnscheck",
-        description="static analysis of the PyTorch port: lock "
-                    "discipline, generation pinning, the pad registry, "
-                    "TrafficMeter pairing")
+        description="static analysis of the PyTorch port: trace purity, "
+                    "lock discipline, generation pinning, retrace "
+                    "hazards, TrafficMeter pairing")
     ap.add_argument("--root", default=None,
                     help="scan root (default: the repro_torch package this "
                          "module was imported from)")

@@ -13,13 +13,17 @@ Provided:
   baseline reads the other's file alike.
 * :class:`RepoIndex` — every module parsed once, parent links attached, with
   per-module import maps, function/class tables, and a cheap call graph
-  (module functions, ``self.`` methods, direct imports, and a unique-name
-  fallback for attribute calls).
+  (module functions, ``self.`` methods, direct imports, ``Cls.apply`` of a
+  ``torch.autograd.Function`` to its ``forward``/``backward``, and a
+  unique-name fallback for attribute calls).
+* :data:`TRACE_ROOTS` and :func:`find_trace_roots` — the port's
+  counterparts of the reference's traced entry points (the functions it
+  hands to ``jax.jit`` / ``shard_map`` / ``pallas_call``), with their
+  static parameters: the shared entry-point table of the trace-purity and
+  retrace passes.  The port traces nothing; these are the eager functions
+  that do the same work once per call, and that a captured step would
+  capture.
 * ``# gnscheck: ignore[rule]`` line suppressions.
-
-The reference's traced-entry-point discovery (``find_trace_roots``: the
-functions handed to ``jax.jit`` / ``shard_map`` / ``pallas_call``) is not
-here: the port has no traced or captured roots yet, so nothing would use it.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Set, Tuple
 
 SUPPRESS_RE = re.compile(r"#\s*gnscheck:\s*ignore\[([a-z0-9_,\- ]+)\]")
+AUTOGRAD_FUNCTION = "torch.autograd.Function"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +106,8 @@ class ModuleInfo:
                              # "dist" -> "torch.distributed")
     functions: Dict[str, FuncInfo] = dataclasses.field(default_factory=dict)
                              # local qualname ("Class.method", "fn") -> info
+    classes: Dict[str, ast.ClassDef] = dataclasses.field(
+        default_factory=dict)  # local qualname ("Outer.Inner") -> node
 
     def suppressed(self, line: int) -> Set[str]:
         if 1 <= line <= len(self.source_lines):
@@ -169,6 +176,7 @@ class RepoIndex:
                         module=mi, cls=cls)
                     visit(child, (*scope, child.name), cls)
                 elif isinstance(child, ast.ClassDef):
+                    mi.classes[".".join((*scope, child.name))] = child
                     visit(child, (*scope, child.name), child.name)
                 else:
                     visit(child, scope, cls)
@@ -196,6 +204,33 @@ class RepoIndex:
         # module-local function (possibly Class.method)
         if target in mi.functions:
             return f"{mi.name}:{target}"
+        return None
+
+    def autograd_function(self, mi: ModuleInfo, target: str
+                          ) -> Optional[str]:
+        """"mod:Cls" if ``target`` names, in ``mi``'s scope, a subclass of
+        ``torch.autograd.Function``, else None."""
+        owner, local = mi, target
+        head, _, rest = target.partition(".")
+        imp = mi.imports.get(head)
+        if imp is not None:
+            parts = (f"{imp}.{rest}" if rest else imp).split(".")
+            for cut in range(len(parts) - 1, 0, -1):
+                mod = ".".join(parts[:cut])
+                if mod in self.modules:
+                    owner, local = self.modules[mod], ".".join(parts[cut:])
+                    break
+            else:
+                return None
+        node = owner.classes.get(local)
+        for base in (node.bases if node is not None else ()):
+            d = dotted(base)
+            if d is None:
+                continue
+            head = d.split(".")[0]
+            if owner.imports.get(head, head) + d[len(head):] == \
+                    AUTOGRAD_FUNCTION:
+                return f"{owner.name}:{local}"
         return None
 
     def func(self, ref: str) -> Optional[FuncInfo]:
@@ -242,6 +277,16 @@ class RepoIndex:
             if r is not None and r != ref:
                 out.add(r)
                 continue
+            if d.endswith(".apply"):
+                # Fn.apply(...) runs Fn.forward now and Fn.backward in the
+                # backward pass: both belong to the caller's region
+                cls = self.autograd_function(mi, d[:-len(".apply")])
+                if cls is not None:
+                    mod, _, local = cls.partition(":")
+                    for meth in ("forward", "backward"):
+                        if f"{local}.{meth}" in self.modules[mod].functions:
+                            out.add(f"{cls}.{meth}")
+                    continue
             if unique_name_fallback and "." in d:
                 # over-approximate dynamic dispatch: a few same-named repo
                 # methods (e.g. the policy registry's `scores`) all become
@@ -271,3 +316,113 @@ class RepoIndex:
             stack.extend(self.callees(
                 ref, unique_name_fallback=unique_name_fallback))
         return seen
+
+
+# ---------------------------------------------------------------------------
+# the port's trace roots (shared by trace_purity and retrace)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TraceRoot:
+    ref: str                     # "mod:local"
+    kind: str                    # "step" | "kernel" | "rank"
+    site_path: str
+    site_line: int
+    static_names: Set[str] = dataclasses.field(default_factory=set)
+    static_nums: Set[int] = dataclasses.field(default_factory=set)
+
+
+# The port's counterpart of every function the reference hands to
+# ``jax.jit`` ("step"), ``pallas_call`` ("kernel": the CUDA launch wrapper)
+# or ``shard_map`` ("rank": the per-rank function), one row per reference
+# root: (path-suffix, function-local-name, kind, static parameter names,
+# reference root).  The static names are the reference's static_argnames
+# that the port's function has as parameters.
+TRACE_ROOTS: List[Tuple[str, str, str, Tuple[str, ...], str]] = [
+    ("gns/engine.py", "make_train_step.train_step", "step", (),
+     "repro.gns.engine:make_train_step.train_step"),
+    # describe_lowering counts the engine's own train step: the reference
+    # wraps it only to drop `acc` from its out_shardings
+    ("gns/engine.py", "make_train_step.train_step", "step", (),
+     "repro.gns.describe:describe_lowering.train_step"),
+    # what infer_compute and evaluate run: their _put_batch is the host
+    # copy, which the reference keeps outside its jit
+    ("models/graphsage.py", "forward", "step", (),
+     "repro.gns.engine:GNSEngine.__init__.logits_step"),
+    ("models/graphsage.py", "loss_fn", "step", (),
+     "repro.gns.engine:GNSEngine.__init__.eval_step"),
+    ("kernels/ops.py", "gather_agg", "step", (),
+     "repro.kernels.ops:gather_agg"),
+    ("kernels/ops.py", "cache_lookup_agg", "step",
+     ("local_shard", "mesh", "shard_axis"),
+     "repro.kernels.ops:cache_lookup_agg"),
+    ("kernels/ops.py", "flash_attention", "step",
+     ("causal", "scale", "window"), "repro.kernels.ops:flash_attention"),
+    ("kernels/ops.py", "_sharded_forward", "rank", (),
+     "repro.kernels.ops:_fused_forward.body"),
+    ("kernels/ops.py", "_CacheLookupAgg.backward", "rank", (),
+     "repro.kernels.ops:_fused_bwd.body"),
+    ("launch/steps.py", "make_train_step.train_step", "step", (),
+     "repro.launch.steps:make_train_step.train_step"),
+    ("launch/steps.py", "make_serve_step.serve_step", "step", (),
+     "repro.launch.steps:make_serve_step.serve_step"),
+    ("launch/steps.py", "make_prefill_step.prefill_step", "step", (),
+     "repro.launch.steps:make_prefill_step.prefill_step"),
+    ("launch/serve.py", "ServeEngine._step", "step", (),
+     "repro.launch.serve:ServeEngine._decode_fn.step"),
+    ("models/attention.py", "sharded_attention", "rank", (),
+     "repro.models.attention:sharded_attention.body"),
+    ("models/moe.py", "moe_forward", "rank", (),
+     "repro.models.moe:moe_forward.body"),
+    ("sampling/kernels.py", "gns_sample_agg", "step", ("mesh", "shard_axis"),
+     "repro.sampling.kernels:gns_sample_agg"),
+    ("sampling/kernels.py", "gns_sample_agg", "rank", (),
+     "repro.sampling.kernels:gns_sample_agg.body"),
+    ("kernels/cache_lookup.py", "cache_lookup_agg_cuda", "kernel", (),
+     "repro.kernels.cache_lookup:_kernel"),
+    ("sampling/kernels.py", "gns_sample_agg_cuda", "kernel", (),
+     "repro.sampling.kernels:_kernel"),
+]
+
+
+def module_at(index: RepoIndex, suffix: str) -> Optional[ModuleInfo]:
+    """The first module whose path ends with ``suffix`` (a registry row's
+    file), if any."""
+    for mi in index.modules.values():
+        if mi.path.endswith(suffix):
+            return mi
+    return None
+
+
+def find_trace_roots(index: RepoIndex, table=TRACE_ROOTS) -> List[TraceRoot]:
+    """The rows of ``table`` whose function is in ``index``.  A row whose
+    file is not there is skipped (a scan root holding part of the tree); a
+    row whose file is there but its function is not is
+    :func:`missing_trace_roots`'s."""
+    roots: List[TraceRoot] = []
+    for suffix, local, kind, static, _ref in table:
+        mi = module_at(index, suffix)
+        fi = mi.functions.get(local) if mi is not None else None
+        if fi is not None:
+            roots.append(TraceRoot(
+                ref=fi.qualname, kind=kind, site_path=mi.path,
+                site_line=fi.node.lineno, static_names=set(static)))
+    return roots
+
+
+def missing_trace_roots(index: RepoIndex, table=TRACE_ROOTS
+                        ) -> List[Violation]:
+    """``trace-root-missing``: a row's file is there, its function is
+    gone, so the passes would silently stop walking what it reached."""
+    out: List[Violation] = []
+    for suffix, local, _kind, _static, ref in table:
+        mi = module_at(index, suffix)
+        if mi is None or local in mi.functions:
+            continue
+        out.append(Violation(
+            rule="trace-root-missing", path=mi.path, line=1, symbol=local,
+            message=(f"trace root `{local}` (standing for the reference's "
+                     f"`{ref}`) not found in {suffix} — update "
+                     "TRACE_ROOTS"),
+            detail=f"{local}:missing"))
+    return out

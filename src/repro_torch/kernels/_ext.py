@@ -29,7 +29,9 @@ _ext_lock = threading.Lock()
 
 def load_kernels():
     """The compiled extension module, built on first use (thread-safe)."""
-    global _ext
+    # the one-time build and load: capture a step only after every kernel
+    # it runs has launched once, so that this never runs inside a capture
+    global _ext  # gnscheck: ignore[trace-global-state]
     with _ext_lock:
         if _ext is None:
             from torch.utils.cpp_extension import load

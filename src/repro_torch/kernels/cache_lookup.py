@@ -104,7 +104,9 @@ def cache_lookup_agg_cuda(cache_table: torch.Tensor, streamed: torch.Tensor,
         load_kernels().cache_lookup_agg(cache_table, streamed, slots, idx, w,
                                         out, path == "vector",
                                         0)   # 0: the kernel's own tile plan
-        launches.add()
+        # one count per eager call; a captured step would count once per
+        # capture, so the capture must count its replays itself
+        launches.add()  # gnscheck: ignore[trace-mutation]
         path_calls[path].add()
     return out
 

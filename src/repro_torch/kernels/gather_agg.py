@@ -88,6 +88,8 @@ def gather_agg_cuda(feat: torch.Tensor, idx: torch.Tensor,
         path = access_path(feat)
         load_kernels().gather_agg(feat, idx, w, out, path == "vector",
                                   0)   # 0: the kernel's own tile plan
-        launches.add()
+        # one count per eager call; a captured step would count once per
+        # capture, so the capture must count its replays itself
+        launches.add()  # gnscheck: ignore[trace-mutation]
         path_calls[path].add()
     return out

@@ -209,7 +209,9 @@ def gns_sample_agg_cuda(adj: DeviceCacheAdj, cache_table: torch.Tensor,
             *adj.tensors(), cache_table, dst_rows, fb_rows, fb_w, key_lo,
             key_hi, out, lane_rows, lane_w, write_lanes, row_lo, row_count,
             path == "vector", 0)     # 0: the kernel's own tile plan
-        launches.add()
+        # one count per eager call; a captured step would count once per
+        # capture, so the capture must count its replays itself
+        launches.add()  # gnscheck: ignore[trace-mutation]
         path_calls[path].add()
     return out
 

@@ -48,6 +48,7 @@ REQUIRED = (
     "repro_torch.analysis.common", "repro_torch.analysis.baseline",
     "repro_torch.analysis.locks", "repro_torch.analysis.generation",
     "repro_torch.analysis.meterlint", "repro_torch.analysis.retrace",
+    "repro_torch.analysis.trace_purity",
     "repro_torch.analysis.__main__", "repro_torch.launch.steps",
     "repro_torch.launch.train", "repro_torch.data.tokens",
     "repro_torch.models.ssm", "repro_torch.models.hybrid",
