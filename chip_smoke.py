@@ -173,7 +173,8 @@ Phases, one line each on stdout:
                ``decode_step`` logits of one prefill and three
                teacher-forced single-token steps allclose (rtol 1e-4, atol
                1e-5: cuBLAS and the CPU order the f32 sums differently);
-    lm-train — ``seamless-m4t-medium`` at its published width (bf16,
+    lm-train — ``seamless-m4t-medium`` at its published width, 6 + 6 of
+               its 12 + 12 layers (cut: depth; bf16,
                ``remat=True``, ``attn_impl="pallas"``) through
                ``launch.train.train_loop``: 8 steps at batch 8, seq 256 (64
                stub frames + 192 tokens); every loss finite, the first
@@ -217,14 +218,16 @@ Phases, one line each on stdout:
                and ms per token beside the step's bound (weights and ring
                over the HBM rate), then profiles 3 more decode steps as
                ``lm-profile`` does;
-    lm-train-xlstm — ``xlstm-125m`` at its published width (12 blocks,
-               d_model 768, sLSTM at 3 and 9, tied 50,304 vocab, bf16,
-               remat) through ``train_loop``: 2 steps at batch 8 × 1,024,
+    lm-train-xlstm — ``xlstm-125m`` at its published width, 6 of its 12
+               blocks (d_model 768, the sLSTM at 3; the one at 9, the
+               same code, cut to keep the script within 960 s;
+               tied 50,304 vocab, bf16, remat) through ``train_loop``:
+               2 steps at batch 8 × 1,024,
                then 1 step with a checkpoint and a resume to 2: the
                resumed loss bit for bit the uninterrupted run's, losses
                finite, the last below the first.  Then two more steps
                timed (CUDA events) in turns
-               with the two sLSTM blocks alone (forward, remat recompute,
+               with the sLSTM blocks alone (forward, remat recompute,
                backward; their share of the step), one step profiled
                (device launches, busy ms), and the loss
                with ``xlstm.chunk=256`` against ``chunk=0`` on the same
@@ -274,13 +277,41 @@ Phases, one line each on stdout:
                128 heads), the second (recorded) run's times too (warm,
                with one read-back a MoE layer a step), then profiles 3
                decode steps;
+    lm-serve-sc — ``starcoder2-7b`` served whole at its published widths
+               (32 layers, d_model 4,608, 36/4 heads, non-gated GELU FFN
+               of 18,432, attention biases, untied 49,152 vocabulary;
+               7.40 B parameters, bf16, ``attn_impl="pallas"``) through
+               ``ServeEngine(max_batch=4).generate_batch``: 4 requests of
+               512 prompt and 64 new tokens; tokens in the vocabulary,
+               logits finite, and ``lm_forward`` over the 575 tokens
+               without a cache within 2^-5 of the largest logit of the
+               last decode step's.  Logs prefill ms and ms a token beside
+               the step's bound (weights and cache over the HBM rate),
+               then profiles 3 decode steps (launches a step);
+    lm-serve-vlm — ``internvl2-1b``'s backbone served whole (24 layers,
+               d_model 896, 14/2 heads, tied 151,655 vocabulary; 0.49 B
+               parameters) as ``lm-serve-sc``, on tokens (the reference's
+               engine has no patch path);
+    lm-train-vlm — ``internvl2-1b`` at all 24 layers (bf16, remat): 3
+               ``make_train_step`` steps at batch 2 × 1,024, each 256
+               patch embeddings before 768 tokens (the vision prefix),
+               then one more with its loss-and-gradients and AdamW timed
+               apart (the update beside its bound): losses finite, no
+               gradient or parameter leaf non-finite;
+    lm-train-sc — ``starcoder2-7b`` at its published widths as
+               ``lm-train-vlm``, at 23 of its 32 layers, the most whose
+               peak stays under 72 GB (all 32 need 88.8 GB of bf16
+               parameters and gradients and f32 moments; a layer adds
+               2.6 GB): the peak must stay under 72 GB; logs it beside the
+               peak one layer more would reach;
     lm-train-parity — reduced seamless, gemma, danube, xlstm, zamba2,
-               deepseek and arctic (f32, remat) with the same parameters
-               and batch on the card and on the CPU: loss and every
-               gradient allclose (rtol 1e-4, atol 1e-5; xlstm atol 1e-4,
-               its tied embedding's f32 gradients sit up to 4.7e-5 from an
-               f64 evaluation on the CPU alone).
-    Each of these eight phases zeroes the kernels' launch counters and the
+               deepseek, arctic, qwen2-7b, starcoder2 and internvl2 (f32,
+               remat; internvl2's batch with its patch embeddings) with the
+               same parameters and batch on the card and on the CPU: loss
+               and every gradient allclose (rtol 1e-4, atol 1e-5; xlstm
+               atol 1e-4, its tied embedding's f32 gradients sit up to
+               4.7e-5 from an f64 evaluation on the CPU alone).
+    Each of these twelve phases zeroes the kernels' launch counters and the
     peak-memory mark first, logs its wall time and
     ``torch.cuda.max_memory_allocated()``, fails if any kernel (K4
     included) was launched (the reference runs ``mha_ref`` in training and
@@ -368,7 +399,8 @@ Phases, one line each on stdout:
                ``cuda:0`` over gloo as in 11, random weights.  First, in
                this process: one rank's ``train_loop`` of (a) and (b) and
                one rank's MoE layer of (c), then ``free_card``.  (a)
-               ``gemma-2b`` at its published width (bf16, remat, tied
+               ``gemma-2b`` at its published width, 9 of 18 layers (cut:
+               depth; bf16, remat, tied
                256,000 vocab split over the ranks, MQA: its one K/V head
                gathered, ``chunked_ce=512``) on (1, 2), 3 steps at 2 x
                1,024: losses within 2^-7 relative at step 0 and 2^-5
@@ -397,10 +429,11 @@ Phases, one line each on stdout:
                and recurrent families: (e) seamless at its width on
                (1, 2), 2 steps at 8 x 256 (heads, cross-attention
                head-local, the 256,206 vocab split in two), against (b)'s
-               one rank; (f) ``xlstm-125m`` at its width and depth on
+               one rank; (f) ``xlstm-125m`` at its width, 6 of 12 blocks
+               (the sLSTM at 3; cut: depth), on
                (1, 2) and (1, 4) (its 4 heads: 2 and 1 a rank), 2 steps
-               at 4 x 512; (g) ``zamba2-2.7b`` at its width, 18 of 54
-               layers (3 shared-block invocations; cut: depth), on
+               at 4 x 512; (g) ``zamba2-2.7b`` at its width, 12 of 54
+               layers (2 shared-block invocations; cut: depth), on
                (1, 2), 3 steps at 2 x 1,024 (Mamba2's ``in_proj``
                columns gathered as activations); each against one rank's
                run in this process on the same seed, depth and batches,
@@ -427,14 +460,17 @@ Phases, one line each on stdout:
                and lookup times; K1-K4 launch 0 times;
 15. lm-serve-mesh — the LM zoo served on a mesh of ranks on ``cuda:0``
                over gloo (``launch/serve.py::mesh_generate``), bf16 at
-               published widths, seeded weights: ``qwen2-7b`` (28
+               published widths, seeded weights, depth cut:
+               ``qwen2-7b`` (14 of 28
                layers; Hkv 4, a head-local cache) on (1, 2), prefill 4 x
                512 then 16 decode steps; ``deepseek-v2-236b`` at 3 of 60
                layers (MLA absorbed and head-local, 80 experts a rank),
-               ``zamba2-2.7b`` at 18 of 54 and ``xlstm-125m`` (recurrent
+               ``zamba2-2.7b`` at 12 of 54 and ``xlstm-125m`` at 6 of 12
+               (recurrent
                decode on their heads) on (1, 2), the same batch (xlstm
                also in f32, where the logits must agree within 1e-2); ``h2o-
-               danube-3-4b`` on (2, 1) at B = 1, 4,032 + 72 tokens
+               danube-3-4b`` at 12 of 24 layers on (2, 1) at B = 1,
+               4,032 + 72 tokens
                (the ring wraps at decode step 64) through its 4,096-slot
                ring split over the data ranks
                (2,048 a rank); ``deepseek-v2-236b`` at 3 of 60 layers on
@@ -2341,6 +2377,7 @@ def phase_lm_parity() -> None:
 
 LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_EVERY = 8, 8, 256, 4
 LM_TRAIN_CUT = 6                  # the interrupted run's steps
+LM_TRAIN_LAYERS = 6               # of 12 + 12: lm-train's depth
 NO_SAVE = 10 ** 6                 # a checkpoint interval no run reaches
 LM_RESUME_RTOL = 2e-3             # resumed steps against the uninterrupted
 DEC_TRAIN_ARCH, DEC_TRAIN_BATCH, DEC_TRAIN_SEQ = "gemma-2b", 2, 1024
@@ -2351,8 +2388,13 @@ DEC_PROMPT, DEC_NEW = 4032, 128   # the 4,096-slot ring wraps at step 64
 XL_ARCH, ZA_ARCH = "xlstm-125m", "zamba2-2.7b"
 XL_TRAIN_STEPS, XL_TRAIN_BATCH, XL_TRAIN_SEQ, XL_TRAIN_EVERY = 2, 8, 1024, 1
 XL_TRAIN_CUT = 1                  # the interrupted run's steps
+# depths cut to keep the script within 960 s once starcoder2's and
+# internvl2's four phases came in: lm-train's seamless to 6 + 6 layers
+# (LM_TRAIN_LAYERS), xlstm to 6 of 12 blocks here and in the mesh phases
+# (the sLSTM at 3; the one at 9 is the same code), and the mesh phases'
+# gemma, zamba2, qwen2 and danube (MESH_*_LAYERS, SERVE_MESH_RUNS)
+XL_TRAIN_LAYERS = 6
 XL_CHUNK, XL_CHUNK_RTOL = 256, 2e-3   # chunked against parallel mLSTM, bf16
-ZA_TRAIN_STEPS, ZA_TRAIN_BATCH, ZA_TRAIN_SEQ = 3, 2, 1024
 REC_SERVE = ((XL_ARCH, 4, 512, 128), (ZA_ARCH, 2, 512, 64))
 MOE_SERVE = (("deepseek-v2-236b", 3), ("arctic-480b", 1))  # (arch, layers)
 MOE_BATCH, MOE_PROMPT, MOE_NEW = 4, 512, 64
@@ -2360,8 +2402,20 @@ MOE_CHECK_SHAPE = (2, 128)        # tokens of the full-width MoE layer check
 MOE_CHECK_TOL = 2.0 ** -5         # of the plain form's largest |output|
 MLA_CHECK_PROMPT = 128            # cached tokens before the absorbed step
 MLA_CHECK_TOL = 1e-4              # of the expand form's largest |output|
+SC_ARCH, VLM_ARCH = "starcoder2-7b", "internvl2-1b"
+DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 4, 512, 64   # lm-serve-sc / -vlm
+# train_steps: lm-train-zamba2, lm-train-vlm, lm-train-sc
+STEP_TRAIN_STEPS, STEP_TRAIN_BATCH, STEP_TRAIN_SEQ = 3, 2, 1024
+SC_TRAIN_PEAK = 72e9              # lm-train-sc's peak stays under this
+# the most of starcoder2's 32 layers whose training peak stays under
+# SC_TRAIN_PEAK in this script on an H100: 24 layers peaked at 72.43 GB
+# (71.66 alone: the script holds 0.77 GB of earlier phases), 23 at 68.90
+# alone; a layer adds 2.6 GB of bf16 parameters, gradients and f32
+# moments (PERF.md §6)
+SC_TRAIN_LAYERS = 23
 TRAIN_PARITY_ARCHS = ("seamless-m4t-medium", DEC_TRAIN_ARCH, DEC_SERVE_ARCH,
-                      XL_ARCH, ZA_ARCH, "deepseek-v2-236b", "arctic-480b")
+                      XL_ARCH, ZA_ARCH, "deepseek-v2-236b", "arctic-480b",
+                      "qwen2-7b", SC_ARCH, VLM_ARCH)
 TRAIN_PARITY_TOL = dict(rtol=1e-4, atol=1e-5)
 # xLSTM's tied embedding: on the CPU alone its f32 gradients sit up to
 # 4.7e-5 from an f64 evaluation of the same loss (exponential gates)
@@ -2371,6 +2425,19 @@ MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "deepseek-v2-236b", 2  # dense + one MoE
 MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 3, 2, 1024
 SLICE_CHECK_ELEMENTS = 3 * 2 ** 26 + 12_345   # (a): 3 slices + a ragged tail
 CHECKSUM_SLICE = 2 ** 26          # elements a checksum slice (d)
+
+
+def at_depth(cfg, layers: int, encoder_layers: int = 0):
+    """``cfg`` cut to its first ``layers`` (decoder) layers and, for an
+    encoder-decoder, ``encoder_layers`` encoder layers; an xLSTM keeps
+    the sLSTM blocks that fall among them."""
+    cut = dict(num_layers=layers)
+    if encoder_layers:
+        cut["encoder_layers"] = encoder_layers
+    if cfg.xlstm is not None:
+        cut["xlstm"] = dataclasses.replace(cfg.xlstm, slstm_at=tuple(
+            i for i in cfg.xlstm.slstm_at if i < layers))
+    return dataclasses.replace(cfg, **cut)
 
 
 def lm_counters() -> dict:
@@ -2436,8 +2503,9 @@ def phase_lm_train() -> dict:
     import shutil
     from repro_torch.configs import get_config
     from repro_torch.launch.train import train_loop
-    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="pallas",
-                              remat=True)
+    cfg = dataclasses.replace(
+        at_depth(get_config(LM_ARCH), LM_TRAIN_LAYERS, LM_TRAIN_LAYERS),
+        attn_impl="pallas", remat=True)
     ck = ROOT / "build" / "lm_train_ckpt"
     shutil.rmtree(ck, ignore_errors=True)
     kw = dict(batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
@@ -2497,6 +2565,18 @@ def phase_lm_train() -> dict:
     return counts
 
 
+def nonfinite_leaves(tree) -> int:
+    """The leaves of ``tree`` with a non-finite entry, each read over
+    AdamW's slices: whole-leaf ``isfinite`` temporaries of starcoder2's
+    FFN stacks raised ``lm-train-sc``'s peak by 6.3 GB."""
+    import torch
+    from repro_torch.models.scan_util import tree_leaves
+    from repro_torch.optim.adam import leaf_slices
+    return sum(int(not torch.stack([torch.isfinite(s).all()
+                                    for s, in leaf_slices(t)]).all())
+               for t in tree_leaves(tree))
+
+
 def step_split(model, opt, params, state, batch) -> tuple:
     """One more train step, its halves timed apart with CUDA events: the
     loss and gradients (forward, remat recompute, backward) and the AdamW
@@ -2535,8 +2615,7 @@ def step_split(model, opt, params, state, batch) -> tuple:
             "adamw_peak_gb": round(torch.cuda.max_memory_allocated() / 1e9,
                                    3),
             "loss": float(loss),      # the update reads the gradients only
-            "nonfinite_grad_leaves": sum(int(not torch.isfinite(g).all())
-                                         for g in tree_leaves(grads))
+            "nonfinite_grad_leaves": nonfinite_leaves(grads)
             }, max(prior, grads_peak)
 
 
@@ -2774,6 +2853,29 @@ def phase_lm_train_moe() -> dict:
     return counts
 
 
+def watch_decode(engine) -> tuple:
+    """Wrap ``engine``'s decode step: every step's logits must be finite
+    (one flag on the card, no read-back a step), and the last step's
+    logits and state are kept.  Returns (the flag, ``{"logits",
+    "state"}``, a function that unwraps the step)."""
+    import torch
+    finite = torch.ones((), dtype=torch.bool, device=engine.device)
+    last = {}
+    decode = engine.model.decode_step
+
+    def checked(p, tokens, state):
+        logits, state = decode(p, tokens, state)
+        finite.logical_and_(torch.isfinite(logits).all())
+        last.update(logits=logits, state=state)
+        return logits, state
+
+    def unwatch():
+        engine.model = dataclasses.replace(engine.model, decode_step=decode)
+
+    engine.model = dataclasses.replace(engine.model, decode_step=checked)
+    return finite, last, unwatch
+
+
 def phase_lm_serve_dec() -> dict:
     """``h2o-danube-3-4b`` at its published width (``attn_impl="pallas"``)
     through ``ServeEngine(max_batch=2).generate_batch``: 2 requests of
@@ -2791,17 +2893,7 @@ def phase_lm_serve_dec() -> dict:
     n_params, p_bytes = tree_size(params)
     engine = ServeEngine(cfg, params, max_batch=DEC_SERVE_BATCH)
     dev = engine.device
-    finite = torch.ones((), dtype=torch.bool, device=dev)
-    last = {}
-    decode = engine.model.decode_step
-
-    def checked(p, tokens, state):
-        logits, state = decode(p, tokens, state)
-        finite.logical_and_(torch.isfinite(logits).all())
-        last.update(logits=logits, state=state)
-        return logits, state
-
-    engine.model = dataclasses.replace(engine.model, decode_step=checked)
+    finite, last, unwatch = watch_decode(engine)
     rng = np.random.default_rng(SEED)
     prompts = rng.integers(0, cfg.vocab_size, (DEC_SERVE_BATCH, DEC_PROMPT)
                            ).astype(np.int32)
@@ -2827,7 +2919,7 @@ def phase_lm_serve_dec() -> dict:
     cache_bytes = sum(t.numel() * t.element_size()
                       for t in (ring["k"], ring["v"]))
     bound_ms = (p_bytes + cache_bytes) / HBM_MS
-    engine.model = dataclasses.replace(engine.model, decode_step=decode)
+    unwatch()
     profile_decode(engine, torch.from_numpy(tokens[:, -1:]).to(dev),
                    last["state"], "lm-serve-dec-profile")
     counts, peak = lm_phase_end("lm-serve-dec", counters, t0)
@@ -2887,8 +2979,8 @@ def profile_device(fn) -> tuple:
 
 
 def phase_lm_train_xlstm() -> dict:
-    """``xlstm-125m`` at its published width (bf16, remat) through
-    ``train_loop``: 2 steps at batch 8 × 1,024, then 1 step with a
+    """``xlstm-125m`` at its published width, 6 of its 12 blocks (bf16,
+    remat), through ``train_loop``: 2 steps at batch 8 × 1,024, then 1 step with a
     checkpoint and a resume to 2 (bit for bit);
     one more step profiled beside the sLSTM blocks alone; the chunked
     mLSTM's loss against the parallel form's."""
@@ -2903,7 +2995,9 @@ def phase_lm_train_xlstm() -> dict:
     from repro_torch.models.common import make_generator
     from repro_torch.models.lm import get_model, make_batch
     from repro_torch.optim.adam import AdamConfig, AdamW
-    cfg = dataclasses.replace(get_config(XL_ARCH), remat=True)
+    published = get_config(XL_ARCH)
+    cfg = dataclasses.replace(at_depth(published, XL_TRAIN_LAYERS),
+                              remat=True)
     ck = ROOT / "build" / "lm_train_xlstm_ckpt"
     shutil.rmtree(ck, ignore_errors=True)
     kw = dict(batch=XL_TRAIN_BATCH, seq_len=XL_TRAIN_SEQ,
@@ -2930,7 +3024,7 @@ def phase_lm_train_xlstm() -> dict:
     batch = add_accum_dim(cfg, make_batch(cfg, XL_TRAIN_SEQ, XL_TRAIN_BATCH,
                                           make_generator(SEED)))
 
-    # the two sLSTM blocks alone, as the model runs them (forward under
+    # the sLSTM blocks alone, as the model runs them (forward under
     # remat, recompute, backward) on a batch-shaped input
     runs = [name for name, _, kind in xlstm_lm.layer_runs(cfg)
             if kind == "slstm"]
@@ -2965,7 +3059,8 @@ def phase_lm_train_xlstm() -> dict:
     step_s = float(np.mean(full.step_times[1:]))
     chunk_rel = abs(chunked - plain) / abs(plain)
     ln_v = math.log(cfg.vocab_size)
-    log("lm-train-xlstm", arch=cfg.name, layers=cfg.num_layers,
+    log("lm-train-xlstm", arch=cfg.name,
+        layers=f"{cfg.num_layers} of {published.num_layers}",
         slstm_at=list(cfg.xlstm.slstm_at), d_model=cfg.d_model,
         vocab=cfg.vocab_size, tied=cfg.tie_embeddings, dtype=cfg.dtype,
         remat=cfg.remat, params=n_params, param_gb=round(p_bytes / 1e9, 3),
@@ -3009,67 +3104,16 @@ def phase_lm_train_xlstm() -> dict:
 
 
 def phase_lm_train_zamba2() -> dict:
-    """``zamba2-2.7b`` at its published width (bf16, remat): 3
-    ``make_train_step`` steps at batch 2 × 1,024, then one more with its
-    halves timed apart (``step_split``) and its gradients checked finite."""
-    import torch
+    """``zamba2-2.7b`` at its published width (bf16, remat) through
+    :func:`train_steps`."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.steps import add_accum_dim, make_train_step
-    from repro_torch.models.common import make_generator
-    from repro_torch.models.lm import get_model, make_batch
-    from repro_torch.models.scan_util import tree_leaves
-    from repro_torch.optim.adam import AdamConfig, AdamW
     cfg = dataclasses.replace(get_config(ZA_ARCH), remat=True)
-    counters, t0 = lm_phase_start()
-    model = get_model(cfg)
-    params = model.init(SEED)
-    n_params, p_bytes = tree_size(params)
-    opt = AdamW(AdamConfig(lr=3e-4, clip_norm=1.0))
-    state = opt.init(params)
-    step = make_train_step(model, opt)
-    batches = [add_accum_dim(cfg, make_batch(
-        cfg, ZA_TRAIN_SEQ, ZA_TRAIN_BATCH, make_generator(SEED + i)))
-        for i in range(ZA_TRAIN_STEPS + 1)]
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    losses, times = [], []
-    for batch in batches[:ZA_TRAIN_STEPS]:
-        t1 = time.perf_counter()
-        params, state, loss = step(params, state, batch)
-        losses.append(float(loss))
-        times.append(time.perf_counter() - t1)
-    split, peak = step_split(model, opt, params, state, batches[-1])
-    bad_params = sum(int(not torch.isfinite(p).all())
-                     for p in tree_leaves(params))
-    counts, peak = lm_phase_end("lm-train-zamba2", counters, t0, peak)
-    log("lm-train-zamba2", arch=cfg.name, layers=cfg.num_layers,
+    return train_steps(
+        cfg, "lm-train-zamba2", layers=cfg.num_layers,
         groups=f"{cfg.num_layers // cfg.shared_attn_every}x"
-        f"{cfg.shared_attn_every}", d_model=cfg.d_model,
-        d_inner=cfg.ssm.expand * cfg.d_model,
+        f"{cfg.shared_attn_every}", d_inner=cfg.ssm.expand * cfg.d_model,
         ssd_heads=cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim,
-        d_state=cfg.ssm.d_state, chunk=cfg.ssm.chunk,
-        heads=f"{cfg.num_heads}/{cfg.num_kv_heads}", d_ff=cfg.d_ff,
-        vocab=cfg.vocab_size, params=n_params,
-        param_gb=round(p_bytes / 1e9, 3),
-        state_gb=round((p_bytes + tree_size(state["m"])[1]
-                        + tree_size(state["v"])[1]) / 1e9, 3),
-        init_s=round(init_s, 2), batch=ZA_TRAIN_BATCH, seq_len=ZA_TRAIN_SEQ,
-        losses=[round(v, 5) for v in losses],
-        step_ms=[round(t * 1e3, 1) for t in times],
-        tokens_per_s=round(ZA_TRAIN_BATCH * ZA_TRAIN_SEQ / times[-1], 1),
-        split_step_ms=split, nonfinite_params=bad_params,
-        peak_mem_gb=round(peak / 1e9, 3))
-    if not all(np.isfinite(losses + [split["loss"]])) or bad_params or \
-            split["nonfinite_grad_leaves"]:
-        raise AssertionError(f"lm-train-zamba2: losses {losses}, "
-                             f"{split['loss']}; {bad_params} non-finite "
-                             f"parameters, {split['nonfinite_grad_leaves']} "
-                             f"gradient leaves")
-    if peak >= CARD_BYTES:
-        raise AssertionError(f"lm-train-zamba2: peak memory {peak / 1e9} GB")
-    del params, state, batches, model, step
-    free_card()
-    return counts
+        d_state=cfg.ssm.d_state, chunk=cfg.ssm.chunk)["counts"]
 
 
 def rec_state_bytes(state: dict, pos: int) -> tuple[int, int]:
@@ -3302,17 +3346,7 @@ def phase_lm_serve_moe() -> dict:
         n_params, p_bytes = tree_size(params)
         engine = ServeEngine(cfg, params, max_batch=MOE_BATCH)
         dev = engine.device
-        finite = torch.ones((), dtype=torch.bool, device=dev)
-        last = {}
-        decode = engine.model.decode_step
-
-        def checked(p, tokens, state):
-            logits, state = decode(p, tokens, state)
-            finite.logical_and_(torch.isfinite(logits).all())
-            last.update(logits=logits, state=state)
-            return logits, state
-
-        engine.model = dataclasses.replace(engine.model, decode_step=checked)
+        finite, last, unwatch = watch_decode(engine)
         rng = np.random.default_rng(SEED)
         prompts = rng.integers(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT)
                                ).astype(np.int32)
@@ -3342,7 +3376,7 @@ def phase_lm_serve_moe() -> dict:
             MOE_PROMPT + MOE_NEW + CACHE_MARGIN))
         steps = comp[0].steps - 1
         bound_ms = (p_bytes + cache_bytes) / HBM_MS
-        engine.model = dataclasses.replace(engine.model, decode_step=decode)
+        unwatch()
         profile_decode(engine, torch.from_numpy(tokens[:, -1:]).to(dev),
                        state, f"lm-serve-moe-profile-{arch}")
         gen = make_generator(SEED + 1)
@@ -3395,6 +3429,192 @@ def phase_lm_serve_moe() -> dict:
     return counts
 
 
+def phase_lm_serve_dense(arch: str, name: str) -> dict:
+    """``arch`` at its published widths, bf16, every layer, through
+    ``ServeEngine(max_batch=4).generate_batch`` (``attn_impl="pallas"``):
+    4 requests of 512 prompt and 64 new tokens; tokens in the vocabulary,
+    every step's logits finite, and ``lm_forward`` over the 575 tokens fed
+    without a cache within 2^-5 of the largest logit of the last decode
+    step's (``lm-serve-dec``'s tolerance).  Logs prefill ms and ms a
+    token beside the step's bound (weights and cache over the HBM rate),
+    then profiles 3 decode steps (``{name}-profile``: launches a step).
+    A vision config serves its backbone on tokens, as the reference's
+    engine does (no patch path)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.models import transformer
+    from repro_torch.models.lm import get_model
+    from repro_torch.models.scan_util import tree_leaves
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
+    counters, t0 = lm_phase_start()
+    params = get_model(cfg).init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params, p_bytes = tree_size(params)
+    engine = ServeEngine(cfg, params, max_batch=DENSE_BATCH)
+    dev = engine.device
+    finite, last, unwatch = watch_decode(engine)
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (DENSE_BATCH, DENSE_PROMPT)
+                           ).astype(np.int32)
+    comp = engine.generate_batch([Request(p, max_new_tokens=DENSE_NEW)
+                                  for p in prompts])
+    tokens = np.stack([c.tokens for c in comp])
+    steps = comp[0].steps - 1
+    fed = np.concatenate([prompts, tokens[:, :steps]], axis=1)
+    with torch.inference_mode():
+        full = transformer.lm_forward(params, cfg,
+                                      torch.from_numpy(fed).to(dev))[:, -1]
+    got = last["logits"].float()
+    scale = float(got.abs().max())
+    err = float((full.float() - got).abs().max())
+    tol = 2.0 ** -5 * scale
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(last["state"]["caches"]))
+    bound_ms = (p_bytes + cache_bytes) / HBM_MS
+    unwatch()
+    profile_decode(engine, torch.from_numpy(tokens[:, -1:]).to(dev),
+                   last["state"], f"{name}-profile")
+    counts, peak = lm_phase_end(name, counters, t0)
+    c = comp[0]
+    ok_tokens = tokens.shape == (DENSE_BATCH, DENSE_NEW) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+    log(name, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        heads=f"{cfg.num_heads}/{cfg.num_kv_heads}",
+        head_dim=cfg.head_dim_eff, d_ff=cfg.d_ff, gated=cfg.gated_ffn,
+        act=cfg.ffn_act, bias=cfg.attn_bias, vocab=cfg.vocab_size,
+        tied=cfg.tie_embeddings, params=n_params,
+        param_gb=round(p_bytes / 1e9, 3), init_s=round(init_s, 2),
+        requests=len(comp), prompt=DENSE_PROMPT, new_tokens=DENSE_NEW,
+        decode_steps=steps, prefill_ms=round(c.prefill_s * 1e3, 2),
+        ms_per_token=round(c.decode_s * 1e3 / steps, 3),
+        step_bound_ms=round(bound_ms, 3),
+        step_bound_weights_ms=round(p_bytes / HBM_MS, 3),
+        cache_gb=round(cache_bytes / 1e9, 4),
+        decode_tokens_per_s=round(len(comp) * steps / c.decode_s, 1),
+        tokens_ok=ok_tokens, logits_finite=bool(finite),
+        full_forward_max_abs_err=err, logits_max_abs=scale, tol=tol,
+        k4=counts["flash_attention"], peak_mem_gb=round(peak / 1e9, 3))
+    if not (ok_tokens and bool(finite) and err <= tol):
+        raise AssertionError(
+            f"{name}: tokens ok {ok_tokens}, finite {bool(finite)}, "
+            f"full-forward err {err} > {tol}")
+    del engine, params, last, full, got
+    free_card()
+    return counts
+
+
+def train_steps(cfg, name: str, **fields) -> dict:
+    """``cfg`` (bf16, remat) through 3 ``make_train_step`` steps at 2 ×
+    1,024 (a vision config: its patch embeddings before the text), then
+    one more with its loss-and-gradients and AdamW timed apart
+    (``step_split``): losses finite, no gradient or parameter leaf
+    non-finite.  ``fields`` join the phase's line.  Returns the launch
+    counts and the phase's peak bytes."""
+    import math
+    import torch
+    from repro_torch.launch.steps import add_accum_dim, make_train_step
+    from repro_torch.models.common import make_generator
+    from repro_torch.models.lm import get_model, make_batch
+    from repro_torch.optim.adam import AdamConfig, AdamW
+    counters, t0 = lm_phase_start()
+    model = get_model(cfg)
+    params = model.init(SEED)
+    n_params, p_bytes = tree_size(params)
+    opt = AdamW(AdamConfig(lr=3e-4, clip_norm=1.0))
+    state = opt.init(params)
+    s_bytes = p_bytes + tree_size(state["m"])[1] + tree_size(state["v"])[1]
+    step = make_train_step(model, opt)
+    batches = [add_accum_dim(cfg, make_batch(
+        cfg, STEP_TRAIN_SEQ, STEP_TRAIN_BATCH, make_generator(SEED + i)))
+        for i in range(STEP_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses, times = [], []
+    for batch in batches:
+        t1 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t1)
+    split, peak = step_split(model, opt, params, state, batches[0])
+    bad_params = nonfinite_leaves(params)
+    counts, peak = lm_phase_end(name, counters, t0, peak)
+    shapes = {k: list(v.shape[1:]) for k, v in batches[0].items()}
+    step_s = float(np.mean(times[1:]))
+    log(name, arch=cfg.name, **fields, d_model=cfg.d_model,
+        heads=f"{cfg.num_heads}/{cfg.num_kv_heads}", d_ff=cfg.d_ff,
+        gated=cfg.gated_ffn, vocab=cfg.vocab_size, tied=cfg.tie_embeddings,
+        dtype=cfg.dtype, remat=cfg.remat, params=n_params,
+        param_gb=round(p_bytes / 1e9, 3), state_gb=round(s_bytes / 1e9, 3),
+        init_s=round(init_s, 2), steps=STEP_TRAIN_STEPS, batch=shapes,
+        losses=[round(x, 5) for x in losses],
+        ln_vocab=round(math.log(cfg.vocab_size), 4),
+        step_ms=[round(t * 1e3, 1) for t in times],
+        ms_per_step=round(step_s * 1e3, 2),
+        tokens_per_s=round(STEP_TRAIN_BATCH * STEP_TRAIN_SEQ / step_s, 1),
+        split_step_ms=split, nonfinite_param_leaves=bad_params,
+        k4=counts["flash_attention"], peak_mem_gb=round(peak / 1e9, 3))
+    if not all(math.isfinite(x) for x in losses + [split["loss"]]) \
+            or split["nonfinite_grad_leaves"] or bad_params:
+        raise AssertionError(f"{name}: losses {losses}, {split['loss']}; "
+                             f"{split['nonfinite_grad_leaves']} non-finite "
+                             f"gradient leaves, {bad_params} non-finite "
+                             f"parameter leaves")
+    if peak >= CARD_BYTES:
+        raise AssertionError(f"{name}: peak memory {peak / 1e9} GB")
+    del params, state, batches, model, step
+    free_card()
+    return {"counts": counts, "peak": peak}
+
+
+def phase_lm_train_vlm() -> dict:
+    """``internvl2-1b`` trained at all 24 layers (:func:`train_steps`):
+    the vision prefix's first run on the card."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(VLM_ARCH), attn_impl="pallas",
+                              remat=True)
+    return train_steps(cfg, "lm-train-vlm",
+                       layers=cfg.num_layers)["counts"]
+
+
+def phase_lm_train_sc() -> dict:
+    """``starcoder2-7b`` at its published widths, trained at
+    ``SC_TRAIN_LAYERS`` of its 32 layers (:func:`train_steps`): all 32
+    need 88.8 GB of bf16 parameters and gradients and f32 moments.  The
+    peak must stay under ``SC_TRAIN_PEAK``; logs it beside the peak that
+    one layer more would reach (this one's plus that layer's parameters,
+    gradients and moments)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import get_model
+    full = dataclasses.replace(get_config(SC_ARCH), attn_impl="pallas",
+                               remat=True)
+
+    def params_at(n: int) -> int:
+        return tree_size(get_model(dataclasses.replace(
+            full, num_layers=n)).init(SEED, device="meta"))[0]
+
+    layer = params_at(2) - params_at(1)            # 217.1 M
+    state = 12 * params_at(full.num_layers)
+    out = train_steps(dataclasses.replace(full, num_layers=SC_TRAIN_LAYERS),
+                      "lm-train-sc",
+                      layers=f"{SC_TRAIN_LAYERS} of {full.num_layers}")
+    peak = out["peak"]
+    log("lm-train-sc-depth", layers=SC_TRAIN_LAYERS, of=full.num_layers,
+        reason=f"the most layers whose peak stays under "
+               f"{SC_TRAIN_PEAK / 1e9:.0f} GB",
+        all_layers_state_gb=round(state / 1e9, 3), layer_params=layer,
+        layer_state_gb=round(12 * layer / 1e9, 3),
+        peak_gb=round(peak / 1e9, 3),
+        one_more_layer_peak_gb=round((peak + 12 * layer) / 1e9, 3),
+        limit_gb=SC_TRAIN_PEAK / 1e9)
+    if peak > SC_TRAIN_PEAK:
+        raise AssertionError(f"lm-train-sc: peak {peak / 1e9} GB at "
+                             f"{SC_TRAIN_LAYERS} layers, over "
+                             f"{SC_TRAIN_PEAK / 1e9} GB")
+    return out["counts"]
+
+
 def prefill_vs_parallel_f32(cfg, params, toks, fwd) -> tuple[float, float]:
     """The served weights cast to f32 (TF32 off): the last logits of
     ``decode_step`` over the prompt (the recurrences) against ``fwd``, the
@@ -3419,8 +3639,8 @@ def prefill_vs_parallel_f32(cfg, params, toks, fwd) -> tuple[float, float]:
 
 
 def phase_lm_train_parity() -> None:
-    """Reduced seamless, gemma, danube, xlstm, zamba2, deepseek and arctic
-    (f32) with the same parameters and batch on the card and on the CPU: the loss and
+    """Reduced seamless, gemma, danube, xlstm, zamba2, deepseek, arctic,
+    qwen2, starcoder2 and internvl2 (f32) with the same parameters and batch on the card and on the CPU: the loss and
     every gradient allclose (rtol 1e-4, atol 1e-5: cuBLAS and the CPU order
     the f32 sums differently; TF32 off; xlstm's atol 1e-4,
     ``TRAIN_PARITY_TOL_BY_ARCH``)."""
@@ -4621,6 +4841,7 @@ def phase_mesh_rpc(ds, tcp_p99_ms: float) -> dict:
 # ---------------------------------------------------------------------------
 
 MESH_LM_ARCH, MESH_LM_BATCH, MESH_LM_SEQ = "gemma-2b", 2, 1024
+MESH_LM_LAYERS = 9         # of 18
 MESH_LM_STEPS = 3
 MESH_DP_ARCH, MESH_DP_BATCH, MESH_DP_SEQ, MESH_DP_STEPS = (
     "seamless-m4t-medium", 8, 256, 2)
@@ -4628,8 +4849,8 @@ MESH_XL_ARCH, MESH_XL_BATCH, MESH_XL_SEQ, MESH_XL_STEPS = (
     "xlstm-125m", 4, 512, 2)
 MESH_ZA_ARCH, MESH_ZA_BATCH, MESH_ZA_SEQ, MESH_ZA_STEPS = (
     "zamba2-2.7b", 2, 1024, 3)
-MESH_ZA_LAYERS = 18        # of 54 (3 shared-block invocations): one rank at
-                           # 54 peaks at about 70 GB (lm-train-zamba2)
+MESH_ZA_LAYERS = 12        # of 54 (2 shared-block invocations): one rank at
+                           # 54 peaks at about 70 GB
 # the card worlds: (name, data, model, the full-width runs it makes):
 # (a) gemma, (e) seamless, (f) xlstm and (g) zamba2 tensor parallel on
 # (1, 2), (b) seamless data parallel on (2, 1), (f) again on (1, 4); (d)
@@ -4902,15 +5123,15 @@ def mesh_full_runs() -> dict:
     13): key -> (config, steps, batch, seq)."""
     from repro_torch.configs import get_config
     return {
-        "gemma": (dataclasses.replace(get_config(MESH_LM_ARCH),
+        "gemma": (dataclasses.replace(at_depth(get_config(MESH_LM_ARCH),
+                                               MESH_LM_LAYERS),
                                       chunked_ce=DEC_CHUNK),
                   MESH_LM_STEPS, MESH_LM_BATCH, MESH_LM_SEQ),
         "seamless": (get_config(MESH_DP_ARCH), MESH_DP_STEPS,
                      MESH_DP_BATCH, MESH_DP_SEQ),
-        "xlstm": (get_config(MESH_XL_ARCH), MESH_XL_STEPS, MESH_XL_BATCH,
-                  MESH_XL_SEQ),
-        "zamba2": (dataclasses.replace(get_config(MESH_ZA_ARCH),
-                                       num_layers=MESH_ZA_LAYERS),
+        "xlstm": (at_depth(get_config(MESH_XL_ARCH), XL_TRAIN_LAYERS),
+                  MESH_XL_STEPS, MESH_XL_BATCH, MESH_XL_SEQ),
+        "zamba2": (at_depth(get_config(MESH_ZA_ARCH), MESH_ZA_LAYERS),
                    MESH_ZA_STEPS, MESH_ZA_BATCH, MESH_ZA_SEQ)}
 
 
@@ -5227,13 +5448,14 @@ def phase_vocab_cache() -> dict:
 # model), batch, prompt, new tokens: the prompt's call gives the first,
 # each decode step one more)
 SERVE_MESH_RUNS = (
-    ("qwen2", "qwen2-7b", {}, (1, 2), 4, 512, 17),
+    ("qwen2", "qwen2-7b", {"num_layers": 14}, (1, 2), 4, 512, 17),
     ("deepseek", "deepseek-v2-236b", {"num_layers": 3}, (1, 2), 4, 512, 17),
-    ("zamba2", "zamba2-2.7b", {"num_layers": 18}, (1, 2), 4, 512, 17),
-    ("xlstm", "xlstm-125m", {}, (1, 2), 4, 512, 17),
-    ("xlstm-f32", "xlstm-125m", {"dtype": "float32"}, (1, 2), 4, 512, 17),
+    ("zamba2", "zamba2-2.7b", {"num_layers": 12}, (1, 2), 4, 512, 17),
+    ("xlstm", "xlstm-125m", {"num_layers": 6}, (1, 2), 4, 512, 17),
+    ("xlstm-f32", "xlstm-125m", {"num_layers": 6, "dtype": "float32"},
+     (1, 2), 4, 512, 17),
     # 4,032 + 72: the 4,096-slot ring wraps at decode step 64
-    ("danube", "h2o-danube-3-4b", {}, (2, 1), 1, 4032, 72),
+    ("danube", "h2o-danube-3-4b", {"num_layers": 12}, (2, 1), 1, 4032, 72),
     # 3 model ranks divide neither the 160 experts nor the 128 heads: the
     # MoE layer's single-device branch (experts split along f, 512 of
     # 1,536 columns a rank) and MLA over all heads on every rank
@@ -5261,8 +5483,14 @@ MULTIPOD_SHAPE = "train_4k"  # the one 2x16x16 cell an arch (phase 16)
 
 
 def serve_mesh_cfg(arch: str, overrides: dict):
+    """``arch``'s config with ``overrides``, ``num_layers`` through
+    :func:`at_depth`."""
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(arch), **overrides)
+    over = dict(overrides)
+    cfg = get_config(arch)
+    if "num_layers" in over:
+        cfg = at_depth(cfg, over.pop("num_layers"))
+    return dataclasses.replace(cfg, **over)
 
 
 def sync(device) -> None:
@@ -5936,6 +6164,14 @@ def run_phases(card: str, clock: PhaseClock, dryrun: tuple,
     clock("lm-serve-rec")
     counts["lm_serve_moe"] = phase_lm_serve_moe()
     clock("lm-serve-moe")
+    counts["lm_serve_sc"] = phase_lm_serve_dense(SC_ARCH, "lm-serve-sc")
+    clock("lm-serve-sc")
+    counts["lm_serve_vlm"] = phase_lm_serve_dense(VLM_ARCH, "lm-serve-vlm")
+    clock("lm-serve-vlm")
+    counts["lm_train_vlm"] = phase_lm_train_vlm()
+    clock("lm-train-vlm")
+    counts["lm_train_sc"] = phase_lm_train_sc()
+    clock("lm-train-sc")
     phase_lm_train_parity()
     clock("lm-train-parity")
     counts["mesh"] = phase_mesh(ds)

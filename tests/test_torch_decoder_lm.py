@@ -1,7 +1,9 @@
 """The port's decoder-only serving against the reference: the reduced
 ``h2o-danube-3-4b`` (f32, sliding window 16) through its ring cache, the
-dense cache of reduced ``gemma-2b`` and ``internvl2-1b``, ``ServeEngine``'s
-greedy tokens, and where the K4 op is (never) called on these paths.
+dense cache of reduced ``gemma-2b``, ``internvl2-1b`` and ``starcoder2-7b``
+(attention biases, the non-gated GELU FFN, an untied unembedding),
+``ServeEngine``'s greedy tokens, and where the K4 op is (never) called on
+these paths.
 
 Inputs come from numpy seeds, parameters are the reference's own
 (``params_from_numpy``).  Tolerances: logits rtol 1e-4, atol 1e-5 against
@@ -121,7 +123,8 @@ def test_ring_segments_cover_a_wrap():
     assert attention._ring_segments(16, 16, 16) == [(0, 0, 16)]
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "internvl2-1b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "internvl2-1b",
+                                  "starcoder2-7b"])
 def test_dense_cache_decode_matches_reference(arch):
     jcfg, jp, tcfg, tp = _pair(arch)
     toks = np.random.default_rng(2).integers(
@@ -130,7 +133,7 @@ def test_dense_cache_decode_matches_reference(arch):
     np.testing.assert_allclose(got, want, **TOL)
 
 
-@pytest.mark.parametrize("arch", [DANUBE, "qwen2-7b"])
+@pytest.mark.parametrize("arch", [DANUBE, "qwen2-7b", "starcoder2-7b"])
 def test_generate_batch_tokens_equal_reference_engine(arch):
     """Both engines serve the same 2 requests (6-token prompts, 14 new
     tokens: danube's 16-slot ring wraps): greedy tokens identical; the

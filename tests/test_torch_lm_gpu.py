@@ -13,8 +13,9 @@ against the CPU: loss rtol 1e-4, gradients rtol 1e-4 and atol 1e-5
 (xLSTM's atol 1e-4: on the CPU alone, f32 gradients of its tied embedding
 sit up to 4.7e-5 from an f64 evaluation), decode logits over a prompt and
 three tokens rtol 1e-4, atol 1e-5; the same for the reduced MoE configs
-(deepseek-v2-236b with MLA, arctic-480b), and a bf16 MoE layer served
-twice on the card bit for bit, its combine equal to the CPU's.
+(deepseek-v2-236b with MLA, arctic-480b) and the reduced dense configs
+that bring their own paths (starcoder2-7b, internvl2-1b), and a bf16 MoE
+layer served twice on the card bit for bit, its combine equal to the CPU's.
 """
 import dataclasses
 
@@ -129,6 +130,15 @@ def test_moe_loss_grads_and_decode_on_card_match_cpu(arch, no_tf32):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "internvl2-1b"])
+def test_dense_loss_grads_and_decode_on_card_match_cpu(arch, no_tf32):
+    """Reduced starcoder2 (attention biases, the non-gated GELU FFN, an
+    untied unembedding) and internvl2 (patch embeddings before the text,
+    the vision prefix, in the loss)."""
+    _loss_grads_and_decode_card_vs_cpu(arch, dict(rtol=1e-4, atol=1e-5))
+
+
+@pytest.mark.gpu
 def test_moe_forward_on_card_is_deterministic():
     """A bf16 MoE layer (reduced deepseek widened to 32 experts, top 6, so
     a token's sum has up to 6 terms) over 512 tokens, twice on the card:
@@ -163,20 +173,26 @@ def _loss_grads_and_decode_card_vs_cpu(arch: str, grad_tol: dict) -> None:
     """The reduced ``arch`` (remat) on the card against the CPU from the
     same parameters: loss rtol 1e-4, every gradient within ``grad_tol``,
     decode logits over a 16-token prompt and three tokens rtol 1e-4,
-    atol 1e-5."""
+    atol 1e-5.  A vision config's loss takes its ``frontend_tokens``
+    patch embeddings before the 16 tokens."""
     dev = requires_cuda()
     from repro_torch.launch.steps import value_and_grad
     from repro_torch.models.scan_util import tree_leaves, tree_map
     cfg = dataclasses.replace(configs.get_config(arch).reduced(), remat=True)
     model = get_model(cfg)
     params = model.init(0, device="cpu")
-    toks = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (2, 19)).astype(np.int32)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 19)).astype(np.int32)
+    prefix = ({"patch_embeds": rng.standard_normal(
+        (2, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)}
+        if cfg.frontend == "vision" else {})
     out = {}
     for device in ("cpu", dev):
         p = tree_map(lambda t: t.to(device), params)
         t = torch.from_numpy(toks).to(device)
-        loss, grads = value_and_grad(model.loss, p, {"tokens": t[:, :16]})
+        loss, grads = value_and_grad(model.loss, p, {
+            "tokens": t[:, :16], **{k: torch.from_numpy(v).to(device)
+                                    for k, v in prefix.items()}})
         state = (model.decode_init(2, device=device) if cfg.xlstm
                  else model.decode_init(2, 24, device=device))
         logits = []
