@@ -484,7 +484,17 @@ Phases, one line each on stdout:
                that world its MoE layer at full width (bf16) forward and
                backward over 4 x 64 tokens, the output and every gradient
                (each rank's blocks) within 2^-5 of one rank's largest
-               |value| (``lm-train-mesh-moe``'s rule); cut: depth.  Each
+               |value| (``lm-train-mesh-moe``'s rule); cut: depth.  Then a
+               (2, 3) world of 6 ranks (``SIX_MESH``: data > 1 beside a
+               model axis of 3) serves nothing: deepseek's MLA layer
+               (128 heads, ``q_up`` the one split leaf) and MoE layer
+               (experts split along f) at full width, bf16, each data
+               rank on its 2 x 64 rows of the 4 x 64 tokens, forward and
+               backward against one rank's run of the whole batch (the
+               global batch routing sees; the other rows' output weights
+               zeroed), the same rule; the split and local shapes
+               checked, peak GB a rank logged (``[lm-mesh-six-mla]``,
+               ``[lm-mesh-six-moe]``).  Each
                run is held to one rank's run from the same weights in
                rank 0's process: the mesh run is teacher-forced by its
                greedy tokens, so every
@@ -5475,6 +5485,14 @@ THREE_EXPERT_SHAPES = {"experts_w1": [160, 5120, 512],
 # on CPU ranks, 2.27e-3 at 12 x 512 on the card (logits up to 2.7)
 SERVE_MESH_TIE = {"bfloat16": 0.5, "float32": 1e-2}
 SERVE_MESH_DEADLINE_S = 900.0
+# data > 1 beside a model axis of 3: deepseek's MLA and MoE layers at full
+# width, each data rank on its rows of MESH_MOE_SHAPE; MLA's q_up is the
+# one leaf split (24,576 columns; 16,384 of k_up, v_up and wo's rows are not
+# divisible by 3)
+SIX_MESH = (2, 3)
+SIX_MLA_SPLIT = ["q_up"]
+SIX_MLA_SHAPES = {"q_up": [1536, 8192], "k_up": [512, 16384],
+                  "v_up": [512, 16384], "wo": [16384, 5120]}
 CALIB_ARCH, CALIB_BATCH, CALIB_SEQ = "gemma-2b", 2, 1024
 CALIB_PEAK_MARGIN = 0.05  # predicted peak bytes vs max_memory_allocated
 CALIB_ARG_MARGIN = 0.001  # predicted arg bytes vs memory_allocated, a rank
@@ -5543,16 +5561,20 @@ def leaf_layout(plans, names: tuple) -> dict:
     return out
 
 
-def three_moe_layer(mesh, device) -> dict:
-    """The (1, 3) world's check of deepseek's MoE layer at its published
-    width (bf16; 160 experts split along f, 2 shared) forward and
-    backward over ``MESH_MOE_SHAPE`` tokens, against one rank's.  Every
-    rank draws the full layer, input and output weights from seed
-    ``SEED + 9``; in turns, each rank runs it alone and keeps its own
-    blocks of the gradients (one rank's layer and gradients on the card at
-    a time); then every rank runs its blocks on the mesh.  Returns each
-    leaf's (largest error, largest one-rank |value|) and the local
-    shapes."""
+def moe_vs_one_rank(mesh, device) -> dict:
+    """deepseek's MoE layer at its published width (bf16; 160 experts
+    split along f, 2 shared) forward and backward on this mesh over
+    ``MESH_MOE_SHAPE`` tokens, data rank di on rows [di·B/D, (di+1)·B/D),
+    against one rank's run of the whole batch: the (1, 3) and the (2, 3)
+    worlds' check.  In turns, each rank draws the full layer, input and
+    output weights from seed ``SEED + 9``, runs it alone over the whole
+    batch (the global batch that routing sees) with the output weights of
+    the other data ranks' rows zeroed (the gradients of its own rows'
+    loss, which the mesh's training step sums over the data group) and
+    keeps its own rows and blocks: one rank's full layer and gradients on
+    the card at a time.  Then every rank runs its blocks on its rows on
+    the mesh.  Returns each leaf's (largest error, largest one-rank
+    |value|), the layout, the local shapes and the mesh run's peak."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -5561,14 +5583,10 @@ def three_moe_layer(mesh, device) -> dict:
     from repro_torch.models.common import make_generator, model_dtype
     from repro_torch.models.scan_util import tree_map
     cfg = get_config(MESH_MOE_ARCH)
-    gen = make_generator(SEED + 9, device)
-    mp = moe.init_moe(gen, cfg)
-    x = torch.randn((*MESH_MOE_SHAPE, cfg.d_model), generator=gen,
-                    device=gen.device).to(model_dtype(cfg))
-    w = torch.randn(x.shape, generator=gen, device=gen.device).to(x.dtype)
-    plans = tree_param_shardings(mesh, mp)
+    n = MESH_MOE_SHAPE[0] // mesh.shape["data"]
+    rows = slice(mesh.index("data") * n, (mesh.index("data") + 1) * n)
 
-    def fwd_bwd(p):
+    def fwd_bwd(p, x, w):
         leaves = tree_map(lambda t: t.detach().requires_grad_(True), p)
         xg = x.detach().requires_grad_(True)
         out = moe.moe_forward(leaves, cfg, xg)
@@ -5580,41 +5598,145 @@ def three_moe_layer(mesh, device) -> dict:
                                 list(flat.values()))
         return out.detach(), dict(zip(flat, g))
 
-    def plan_of(k):
-        return plans["shared"][k[7:]] if k.startswith("shared/") else \
-            plans.get(k)
-
-    mine = None
+    mine = local = plans = None
     for turn in range(mesh.size):
         if turn == mesh.rank:
-            out, g = fwd_bwd(mp)
-            mine = (out, {k: (plan_of(k).local(v) if plan_of(k) else v)
-                          for k, v in g.items()},
-                    {k: float(v.float().abs().max()) for k, v in g.items()})
-            del out, g
+            gen = make_generator(SEED + 9, device)
+            mp = moe.init_moe(gen, cfg)
+            x = torch.randn((*MESH_MOE_SHAPE, cfg.d_model), generator=gen,
+                            device=gen.device).to(model_dtype(cfg))
+            w = torch.randn(x.shape, generator=gen,
+                            device=gen.device).to(x.dtype)
+            plans = tree_param_shardings(mesh, mp)
+
+            def plan_of(k):
+                return plans["shared"][k[7:]] if k.startswith("shared/") \
+                    else plans.get(k)
+            own = torch.zeros_like(w)
+            own[rows] = w[rows]
+            out, g = fwd_bwd(mp, x, own)
+            g["x"] = g["x"][rows]
+            mine = (out[rows].clone(),
+                    {k: (plan_of(k).local(v) if plan_of(k) else v)
+                     for k, v in g.items()},
+                    {k: largest_abs(v) for k, v in g.items()})
+            local = {k: plans[k].local(v) for k, v in mp.items()
+                     if k != "shared"}
+            local["shared"] = {k: plans["shared"][k].local(v)
+                               for k, v in mp["shared"].items()}
+            x, w = x[rows].clone(), w[rows].clone()
+            del mp, out, g, own
             free_card()
         dist.barrier(group=mesh.host_group)
-    local = {k: plans[k].local(v) for k, v in mp.items() if k != "shared"}
-    local["shared"] = {k: plans["shared"][k].local(v)
-                       for k, v in mp["shared"].items()}
-    del mp
-    free_card()
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     with use_mesh(mesh):
-        out, g = fwd_bwd(local)
-    one_out, one_g, scale = mine
-    errs = {"out": (float((out.float() - one_out.float()).abs().max()),
-                    float(one_out.float().abs().max()))}
-    for k, v in g.items():
-        errs[k] = (float((v.float() - one_g[k].float()).abs().max()),
-                   scale[k])
-    with use_mesh(mesh):
+        out, g = fwd_bwd(local, x, w)
         split = moe.expert_layout(cfg)
-    return {"errs": errs, "peak_gb": torch.cuda.max_memory_allocated() / 1e9
-            if cuda else 0.0, "split": split,
+    # the mesh run's peak (the one-rank blocks kept for the check in it),
+    # read before the check's f32 temporaries
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    return {"errs": layer_errs(out, g, *mine), "split": split,
+            "peak_gb": peak,
             "layout": {k: list(local[k].shape) for k in THREE_EXPERT_SHAPES}}
+
+
+def largest_abs(t) -> float:
+    """max |t| without a temporary the size of ``t``."""
+    import torch
+    lo, hi = torch.aminmax(t)
+    return max(abs(float(lo)), abs(float(hi)))
+
+
+def largest_diff(a, b) -> float:
+    """max |a - b| in f32, over slices of the first dim of at most 2^24
+    elements: the six ranks of the (2, 3) world check at once, and f32
+    copies of whole expert blocks (1.68 GB each) ran the card out of
+    memory beside the script's own process."""
+    if a.dim() == 0:
+        return float((a.float() - b.float()).abs())
+    n = max(1, (1 << 24) // max(1, a[0].numel()))
+    return max(float((a[i:i + n].float() - b[i:i + n].float()).abs().max())
+               for i in range(0, a.shape[0], n))
+
+
+def layer_errs(out, g: dict, one_out, one_g: dict, scale: dict) -> dict:
+    """{name: (largest |mesh - one rank|, largest one-rank |value|)} of a
+    layer's output and gradients (this rank's rows and blocks)."""
+    errs = {"out": (largest_diff(out, one_out), largest_abs(one_out))}
+    for k, v in g.items():
+        errs[k] = (largest_diff(v, one_g[k]), scale[k])
+    return errs
+
+
+def mla_vs_one_rank(mesh, device) -> dict:
+    """deepseek's MLA layer at its published width (bf16, 128 heads) on
+    this mesh, forward and backward over ``MESH_MOE_SHAPE`` tokens, data
+    rank di on its rows, against one rank's run of the whole batch with
+    the other rows' output weights zeroed (as :func:`moe_vs_one_rank`).  A
+    model axis of 3 does not divide the 128 heads: every rank attends over
+    all of them, ``q_up`` a column block gathered whole, the rest as the
+    rule table lays it out.  Every rank draws the layer (0.3 GB) from seed
+    ``SEED + 10`` and runs the one-rank layer itself."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import tree_param_shardings, use_mesh
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import make_generator, model_dtype
+    from repro_torch.models.transformer import token_positions
+    cfg = get_config(MESH_MOE_ARCH)
+    n = MESH_MOE_SHAPE[0] // mesh.shape["data"]
+    rows = slice(mesh.index("data") * n, (mesh.index("data") + 1) * n)
+    gen = make_generator(SEED + 10, device)
+    p = attn.init_attn(gen, cfg)
+    x = torch.randn((*MESH_MOE_SHAPE, cfg.d_model), generator=gen,
+                    device=gen.device).to(model_dtype(cfg))
+    w = torch.randn(x.shape, generator=gen, device=gen.device).to(x.dtype)
+    pos = token_positions(*MESH_MOE_SHAPE, 0, gen.device)
+
+    def fwd_bwd(p, x, w, pos):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        xg = x.detach().requires_grad_(True)
+        out = attn.attn_forward(leaves, cfg, xg, pos)[0]
+        names = sorted(leaves)
+        g = torch.autograd.grad((out.float() * w.float()).sum(),
+                                [leaves[k] for k in names] + [xg])
+        return out.detach(), dict(zip(names + ["x"], g))
+
+    own = torch.zeros_like(w)
+    own[rows] = w[rows]
+    one_out, one_g = fwd_bwd(p, x, own, pos)
+    one_g["x"] = one_g["x"][rows]
+    scale = {k: largest_abs(v) for k, v in one_g.items()}
+    plans = tree_param_shardings(mesh, p)
+    local = {k: plans[k].local(v) for k, v in p.items()}
+    one_g = {k: plans[k].local(v) if k in plans else v
+             for k, v in one_g.items()}
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with use_mesh(mesh):
+        out, g = fwd_bwd(local, x[rows], w[rows], pos[rows])
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    return {"errs": layer_errs(out, g, one_out[rows], one_g, scale),
+            "split": sorted(k for k, pl in plans.items() if pl.axes),
+            "peak_gb": peak,
+            "layout": {k: list(local[k].shape) for k in SIX_MLA_SHAPES}}
+
+
+def six_layers_rank(mesh, device) -> dict:
+    """A card rank of the (2, 3) world (``lm-serve-mesh``): deepseek's
+    MLA layer and then its MoE layer at their published widths on the
+    mesh against one rank's (:func:`mla_vs_one_rank`,
+    :func:`moe_vs_one_rank`), and the rank's kernel launches."""
+    import torch
+    out = {"rank": mesh.rank, "mla_layer": mla_vs_one_rank(mesh, device)}
+    if torch.device(device).type == "cuda":
+        free_card()
+    out["moe_layer"] = moe_vs_one_rank(mesh, device)
+    out["launches"] = {k: c.value for k, c in lm_counters().items()}
+    return out
 
 
 def serve_mesh_rank(mesh, device, runs: tuple, moe_layer: bool) -> dict:
@@ -5622,7 +5744,7 @@ def serve_mesh_rank(mesh, device, runs: tuple, moe_layer: bool) -> dict:
     the same seeded weights on every rank, drawn and sharded one rank at a
     time; rank 0 decodes them alone first; then ``mesh_generate`` decodes the
     batch teacher-forced by rank 0's tokens, under the collectives
-    recorder; with ``moe_layer``, :func:`three_moe_layer` last."""
+    recorder; with ``moe_layer``, :func:`moe_vs_one_rank` last."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.collectives import recording
@@ -5681,7 +5803,7 @@ def serve_mesh_rank(mesh, device, runs: tuple, moe_layer: bool) -> dict:
         if cuda:
             free_card()
     if moe_layer:
-        out["moe_layer"] = three_moe_layer(mesh, device)
+        out["moe_layer"] = moe_vs_one_rank(mesh, device)
     out["launches"] = {k: c.value for k, c in lm_counters().items()}
     return out
 
@@ -5756,7 +5878,25 @@ def phase_lm_serve_mesh(only=None) -> dict:
                     **{k.replace("/", "."): v
                        for k, v in run["leaves"].items()})
     for r in ranks.get(SERVE_MESH_THREE, []):
-        failures += three_moe_check(r)
+        failures += mesh_layer_check("lm-serve-mesh-moe", SERVE_MESH_THREE,
+                                     r, "moe_layer", "hidden",
+                                     THREE_EXPERT_SHAPES)
+    if only is None or SIX_MESH in only:
+        t1 = time.perf_counter()
+        d, m = SIX_MESH
+        ranks[SIX_MESH] = run_ranks(
+            "chip_smoke:six_layers_rank", data=d, model=m,
+            devices=["cuda:0"] * (d * m), backend=MESH_BACKEND,
+            timeout_s=SERVE_MESH_DEADLINE_S)
+        log("lm-serve-mesh-world", mesh=SIX_MESH,
+            seconds=round(time.perf_counter() - t1, 1))
+        for r in ranks[SIX_MESH]:
+            failures += mesh_layer_check("lm-mesh-six-mla", SIX_MESH, r,
+                                         "mla_layer", SIX_MLA_SPLIT,
+                                         SIX_MLA_SHAPES)
+            failures += mesh_layer_check("lm-mesh-six-moe", SIX_MESH, r,
+                                         "moe_layer", "hidden",
+                                         THREE_EXPERT_SHAPES)
     launches = {k: sum(r["launches"][k] for rs in ranks.values()
                        for r in rs) for k in lm_counters()}
     counts, _ = lm_phase_end("lm-serve-mesh", counters, t0)
@@ -5768,24 +5908,26 @@ def phase_lm_serve_mesh(only=None) -> dict:
     return launches, ranks
 
 
-def three_moe_check(rank: dict) -> list:
-    """Log the (1, 3) rank's full-width MoE layer (forward and backward
+def mesh_layer_check(tag: str, mesh: tuple, rank: dict, key: str, split,
+                     layout: dict) -> list:
+    """Log one rank's full-width layer ``rank[key]`` (forward and backward
     against one rank's: each within ``MESH_MOE_TOL`` of its one-rank
-    largest |value|, the rule of ``lm-train-mesh-moe``) and its local
-    expert shapes; the failures."""
-    ml = rank["moe_layer"]
+    largest |value|, the rule of ``lm-train-mesh-moe``), its layout and
+    local shapes, which must be ``split`` and ``layout``; the failures."""
+    ml = rank[key]
     bad = [k for k, (err, scale) in ml["errs"].items()
            if not err <= MESH_MOE_TOL * scale]
-    log("lm-serve-mesh-moe", arch=MESH_MOE_ARCH, rank=rank["rank"],
-        mesh=SERVE_MESH_THREE, tokens=MESH_MOE_SHAPE[0] * MESH_MOE_SHAPE[1],
+    log(tag, arch=MESH_MOE_ARCH, rank=rank["rank"], mesh=mesh,
+        tokens=MESH_MOE_SHAPE[0] * MESH_MOE_SHAPE[1],
+        tokens_a_rank=MESH_MOE_SHAPE[0] * MESH_MOE_SHAPE[1] // mesh[0],
         split=ml["split"], local_shapes=ml["layout"],
         max_abs_err={k: e for k, (e, _) in ml["errs"].items()},
         max_abs={k: v for k, (_, v) in ml["errs"].items()},
         tol_of_max_abs=MESH_MOE_TOL, peak_gb=round(ml["peak_gb"], 3),
         ok=not bad)
-    out = [f"(1, 3) moe layer rank {rank['rank']}: {k}" for k in bad]
-    if ml["layout"] != THREE_EXPERT_SHAPES or ml["split"] != "hidden":
-        out.append(f"(1, 3) rank {rank['rank']}: expert layout "
+    out = [f"{mesh} {key} rank {rank['rank']}: {k}" for k in bad]
+    if ml["layout"] != layout or ml["split"] != split:
+        out.append(f"{mesh} {key} rank {rank['rank']}: layout "
                    f"{ml['split']} {ml['layout']}")
     return out
 

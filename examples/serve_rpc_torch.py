@@ -125,6 +125,8 @@ def main(argv=None):
         finally:
             for ep in eps:
                 ep.stop()
+            for ep in eps:          # no endpoint thread outlives main()
+                ep.join()
             for p in procs:
                 if p.poll() is None:
                     p.kill()

@@ -1069,6 +1069,15 @@ class FeatureStore:
                 return True
         raise err
 
+    def join_build(self, timeout: Optional[float] = None) -> bool:
+        """Wait for a generation build in flight to end, without publishing
+        it (a server shutting down); True when none is running."""
+        with self._lock:
+            t = self._thread
+        if t is not None:
+            t.join(timeout)
+        return t is None or not t.is_alive()
+
     def wait_refresh(self, timeout: Optional[float] = None) -> bool:
         """Block until an in-flight refresh finishes, then swap it in."""
         with self._lock:      # pairs with begin_refresh's publish-and-start

@@ -142,6 +142,7 @@ class WorkerEndpoint:
         self._stop_ev = threading.Event()
         self._lsock: Optional[socket.socket] = None
         self._threads: List[threading.Thread] = []
+        self._accept: Optional[threading.Thread] = None
         self.mesh = engine.mesh
         self.channel: Optional[Channel] = None
         if self.mesh is not None:
@@ -209,6 +210,7 @@ class WorkerEndpoint:
         t = threading.Thread(target=self.serve_forever, daemon=True,
                              name=f"gns-endpoint-{self.index}-accept")
         t.start()
+        self._accept = t
         return t
 
     def stop(self) -> None:
@@ -232,6 +234,20 @@ class WorkerEndpoint:
             except OSError:
                 pass
 
+    def join(self, timeout: Optional[float] = 30.0) -> bool:
+        """After :meth:`stop`: wait for the endpoint's threads (accept,
+        compute, heartbeat) and its store's generation build in flight to
+        end; True when all have.  Call it before the interpreter exits:
+        a daemon thread still inside a torch call while the process tears
+        down aborts it ("terminate called without an active exception")."""
+        threads = ([self._accept] if self._accept is not None else []) \
+            + list(self._threads)
+        for t in threads:
+            t.join(timeout)
+        store = self.engine.store
+        built = store is None or store.join_build(timeout)
+        return built and not any(t.is_alive() for t in threads)
+
     # ------------------------------------------------------------------
     # transport
     # ------------------------------------------------------------------
@@ -254,6 +270,14 @@ class WorkerEndpoint:
                 return False
             self.meter.traffic.bytes_rpc_tx += n
             return True
+
+    def wire_tx(self) -> int:
+        """``bytes_rpc_tx``, read under the send lock: ``_send`` books a
+        frame under that lock once its write has returned, so a frame the
+        coordinator has received is counted here (a read without the lock
+        can run between the write and the booking)."""
+        with self._esend:
+            return self.meter.traffic.bytes_rpc_tx
 
     def _handle(self, conn: socket.socket) -> None:
         with self._esend:

@@ -3,7 +3,9 @@ LM mesh tests: ``python tests/_lm_mesh_reference.py CELLS.json OUT.json``.
 
 ``CELLS.json`` holds a list of ``{"name", "arch", "kw", "mesh": [data,
 model] or null, "steps", "batch", "seq_len", "lr"}``; ``OUT.json`` gets
-``{name: losses}``.  The mesh is built as ``tests/test_dryrun_small.py``
+``{name: losses}``.  ``LM_MESH_REF_DEVICES`` in the environment sets the
+number of forced host devices (default 4; a (2, 3) mesh needs 6).  The
+mesh is built as ``tests/test_dryrun_small.py``
 builds its own (``jax.sharding.Mesh`` over the first data·model devices,
 the default Auto axes): the reference's ``make_host_mesh``
 (``jax.make_mesh``) gives Explicit axes on jax 0.9, which its LM trainer
@@ -13,9 +15,10 @@ thread-local).
 import os
 import sys
 
-# 4 host devices; the backend's cheapest codegen (half the compile time,
-# losses within 1e-6 of the default's)
-os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
+# 4 host devices unless the caller says; the backend's cheapest codegen
+# (half the compile time, losses within 1e-6 of the default's)
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count="
+                           f"{int(os.environ.get('LM_MESH_REF_DEVICES', 4))} "
                            "--xla_backend_optimization_level=0 "
                            "--xla_llvm_disable_expensive_passes=true")
 os.environ.setdefault("JAX_PLATFORMS", "cpu")

@@ -118,17 +118,38 @@ def tp_ranks(mesh, device, cells: list, params: dict, ckpt_dir=None,
     return out
 
 
+def kept_pairs(top_aff, top_idx, offset: int = 0) -> np.ndarray:
+    """The (token, expert) choices a routing kept, [n, 2] sorted: the
+    slots of ``route``'s (top_aff, top_idx) [E_loc, C] that carry weight,
+    experts numbered from ``offset``."""
+    aff, idx = np.asarray(top_aff), np.asarray(top_idx)
+    e, c = np.nonzero(aff != 0)
+    pairs = np.stack([idx[e, c], e + offset], axis=1).astype(np.int64)
+    return pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+
+
 def moe_ranks(mesh, device, cfg, np_params: dict, x: np.ndarray,
               w: np.ndarray) -> dict:
-    """One MoE layer on this mesh (expert parallel on model > 1, the
-    global batch on a data axis alone): data rank d takes rows
-    [d·B/D, (d+1)·B/D) of ``x`` [B, S, d]; returns its output rows and
-    the gradients of ``sum(out · w)`` (this rank's blocks of the expert
-    stacks, the router, and its rows of ``x``)."""
+    """One MoE layer on this mesh (expert parallel on model > 1 where the
+    experts divide it, else the global batch): data rank d takes rows
+    [d·B/D, (d+1)·B/D) of ``x`` [B, S, d]; returns its output rows, the
+    gradients of ``sum(out · w)`` (this rank's blocks of the expert
+    stacks, the router, and its rows of ``x``) and the (token, expert)
+    choices its routing kept (:func:`kept_pairs`; tokens numbered in the
+    rows it routed: its own, or the gathered global batch)."""
     from repro_torch.launch.sharding import use_mesh
     from repro_torch.models import moe
     from repro_torch.models.lm_params import shard_params
     torch.set_num_threads(1)
+    kept = []
+    route = moe.route
+
+    def recorded(xt, router, cfg_, num_local_experts, expert_offset):
+        top_aff, top_idx = route(xt, router, cfg_, num_local_experts,
+                                 expert_offset)
+        kept.append(kept_pairs(top_aff.detach().cpu(), top_idx.cpu(),
+                               expert_offset))
+        return top_aff, top_idx
     p, _ = shard_params(params_from_numpy(np_params, device=device), mesh,
                         cfg)
     n = x.shape[0] // mesh.shape["data"]
@@ -136,14 +157,20 @@ def moe_ranks(mesh, device, cfg, np_params: dict, x: np.ndarray,
     xt = torch.from_numpy(x[rows]).to(device).requires_grad_(True)
     leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()
               if isinstance(v, torch.Tensor)}
-    with use_mesh(mesh):
-        out = moe.moe_forward({**p, **leaves}, cfg, xt)
-        loss = (out * torch.from_numpy(w[rows]).to(device)).sum()
-        names = sorted(leaves)
-        grads = torch.autograd.grad(loss, [leaves[k] for k in names] + [xt])
+    moe.route = recorded
+    try:
+        with use_mesh(mesh):
+            out = moe.moe_forward({**p, **leaves}, cfg, xt)
+            loss = (out * torch.from_numpy(w[rows]).to(device)).sum()
+            names = sorted(leaves)
+            grads = torch.autograd.grad(loss,
+                                        [leaves[k] for k in names] + [xt])
+    finally:
+        moe.route = route
     return {"out": out.detach().cpu().numpy(),
             "grads": {k: g.cpu().numpy() for k, g in zip(names + ["x"],
-                                                         grads)}}
+                                                         grads)},
+            "kept": kept[0]}
 
 
 def moe_mesh_ranks(mesh, device, cells: list, params: dict,
@@ -156,8 +183,10 @@ def moe_mesh_ranks(mesh, device, cells: list, params: dict,
 
 def three_ranks(mesh, device, cells: list, params: dict, layer: tuple,
                 hidden: tuple, attn_cases: list) -> dict:
-    """The (1, 3) world of the MoE module's tests: :func:`moe_mesh_ranks`
-    of ``cells`` and ``layer``, ``moe_ranks(*hidden)``, then
+    """A world whose model axis of 3 divides neither the experts nor the
+    heads ((1, 3), ``tests/test_torch_lm_mesh_moe.py``; (2, 3),
+    ``tests/test_torch_lm_mesh_six.py``): :func:`moe_mesh_ranks` of
+    ``cells`` and ``layer``, ``moe_ranks(*hidden)``, then
     :func:`layer_ranks` of the MLA ``attn_cases``."""
     out = moe_mesh_ranks(mesh, device, cells, params, layer)
     out["hidden"] = moe_ranks(mesh, device, *hidden)

@@ -548,6 +548,11 @@ def stream_ranks(mesh, device, spec: dict) -> dict:
         mb0 = eng.infer_prepare(hot[:8], bucket=32,
                                 rng=np.random.default_rng(123),
                                 sampler=eng.sampler)
+        # the graph the batch is pinned to, held here: the second build
+        # after it recycles its generation's staging half, and retire()
+        # drops the generation's reference (how many builds the merges
+        # take is the watchdog's timing)
+        pinned = mb0.cache_gen.graph
         out0 = eng.infer_compute(mb0)
         if mesh.leader:
             futs = []
@@ -570,7 +575,7 @@ def stream_ranks(mesh, device, spec: dict) -> dict:
                                                   np.float32)), NotLeader)
         wait_until(lambda: eng.store.generation.graph.num_nodes == v1,
                    "every merge live on this rank")
-        smoke["pin_nodes"] = mb0.cache_gen.graph.num_nodes
+        smoke["pin_nodes"] = pinned.num_nodes
         smoke["replay_equal"] = bool(np.array_equal(
             out0, eng.infer_compute(mb0)))
         smoke["nodes"] = (v0, v1, eng.ds.graph.num_nodes)

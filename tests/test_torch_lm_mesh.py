@@ -77,13 +77,15 @@ def _np_params(archs):
 
 class Reference:
     """The reference's runs in a background subprocess (module
-    docstring); :meth:`losses` waits for it."""
+    docstring); :meth:`losses` waits for it.  ``devices``: the forced
+    host devices it runs on (a mesh takes the first data·model)."""
 
-    def __init__(self, tmp: Path, cells: list) -> None:
+    def __init__(self, tmp: Path, cells: list, devices: int = 4) -> None:
         self.out = tmp / "ref_out.json"
         spec = tmp / "ref_cells.json"
         spec.write_text(json.dumps(cells))
-        env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+        env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
+                   LM_MESH_REF_DEVICES=str(devices))
         self.proc = subprocess.Popen(
             [sys.executable, str(REPO / "tests" / "_lm_mesh_reference.py"),
              str(spec), str(self.out)], cwd=REPO, env=env,

@@ -131,6 +131,9 @@ def _tcp_fabric(eng, eps, **kw):
 def _stop(eps):
     for ep in eps:
         ep.stop()
+    for ep in eps:
+        if isinstance(ep, WorkerEndpoint):     # the reference's has no join
+            assert ep.join(), f"endpoint {ep.index}'s threads still run"
 
 
 def _request_stream(ds, n=14):
@@ -361,9 +364,9 @@ def test_remote_stats_aggregation_and_rpc_wait_split():
                 fab.submit(ids, tenant=tenant).result(timeout=WAIT_S)
             raw = fab.pull_remote_stats(timeout=30.0)
             snap = fab.snapshot()
-        # the endpoints' own tx, read after the coordinator has hung up
-        # and every frame it counted has been sent
-        ep_tx = sum(ep.meter.traffic.bytes_rpc_tx for ep in eps)
+        # the endpoints' own tx, read under their send locks: every frame
+        # the coordinator counted is booked there
+        ep_tx = sum(ep.wire_tx() for ep in eps)
     finally:
         _stop(eps)
     assert set(raw) == {0, 1}
