@@ -1,0 +1,9 @@
+"""Device: the share of the traced window in which no operation (kernel,
+copy or set) ran on the card."""
+UNIT = "%"
+
+
+def read(run):
+    if run.trace is None or run.trace.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
